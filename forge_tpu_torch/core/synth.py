@@ -1,0 +1,272 @@
+# Copied from forge_tpu/core/synth.py (the SD1.5 builders); numpy only, so the port imports no JAX.
+"""Synthetic checkpoint synthesis: reference-format state dicts with real key
+names/shapes but generated weights.
+
+Two uses: (1) tiny random checkpoints for pipeline tests (the analog of
+upstream A1111's empty.pt dummy checkpoint, SURVEY.md §4); (2) full-size
+zero-filled checkpoints for performance benchmarking on TPU without model
+downloads — matmul timing is data-independent, so zeros benchmark exactly
+like trained weights.
+
+The UNet builder mirrors the ldm UNetModel construction algorithm (level/block
+layout, skip-channel bookkeeping) so key sets match real checkpoints of the
+same hyperparameters.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+
+class _Fill:
+    def __init__(self, mode: str, seed: int = 0, scale: float = 0.02):
+        self.mode = mode
+        self.rng = np.random.default_rng(seed)
+        self.scale = scale
+
+    def w(self, *shape):
+        if self.mode == "zeros":
+            return np.zeros(shape, np.float32)
+        return (self.rng.standard_normal(shape) * self.scale).astype(np.float32)
+
+    def ones(self, *shape):
+        return np.ones(shape, np.float32)
+
+    def zeros(self, *shape):
+        return np.zeros(shape, np.float32)
+
+
+def synth_unet_sd(
+    model_channels: int = 320,
+    channel_mult: Sequence[int] = (1, 2, 4, 4),
+    num_res_blocks: int = 2,
+    transformer_depth: Sequence[int] = (1, 1, 1, 0),
+    context_dim: int = 768,
+    adm_in_channels: Optional[int] = None,
+    in_channels: int = 4,
+    out_channels: int = 4,
+    ff_mult: int = 4,
+    middle_depth: Optional[int] = None,
+    encoder_hid_dim: Optional[int] = None,  # Kolors 4096→context projection
+    fill: str = "zeros",
+    seed: int = 1,
+    prefix: str = "model.diffusion_model.",
+) -> Dict[str, np.ndarray]:
+    f = _Fill(fill, seed)
+    sd: Dict[str, np.ndarray] = {}
+    emb = model_channels * 4
+    if encoder_hid_dim:
+        sd[prefix + "encoder_hid_proj.weight"] = f.w(context_dim, encoder_hid_dim)
+        sd[prefix + "encoder_hid_proj.bias"] = f.zeros(context_dim)
+
+    def norm(key, ch):
+        sd[key + ".weight"] = f.ones(ch)
+        sd[key + ".bias"] = f.zeros(ch)
+
+    def lin(key, o, i, bias=True):
+        sd[key + ".weight"] = f.w(o, i)
+        if bias:
+            sd[key + ".bias"] = f.zeros(o)
+
+    def conv(key, o, i, k=3):
+        sd[key + ".weight"] = f.w(o, i, k, k)
+        sd[key + ".bias"] = f.zeros(o)
+
+    def resblock(key, cin, cout):
+        norm(key + ".in_layers.0", cin)
+        conv(key + ".in_layers.2", cout, cin)
+        lin(key + ".emb_layers.1", cout, emb)
+        norm(key + ".out_layers.0", cout)
+        conv(key + ".out_layers.3", cout, cout)
+        if cin != cout:
+            conv(key + ".skip_connection", cout, cin, 1)
+
+    def transformer(key, ch, depth):
+        norm(key + ".norm", ch)
+        linear_proj = context_dim >= 1024  # SD2/SDXL use linear projections
+        if linear_proj:
+            lin(key + ".proj_in", ch, ch)
+        else:
+            conv(key + ".proj_in", ch, ch, 1)
+        for d in range(depth):
+            tb = f"{key}.transformer_blocks.{d}"
+            for an, ctx in (("attn1", ch), ("attn2", context_dim)):
+                lin(f"{tb}.{an}.to_q", ch, ch, bias=False)
+                lin(f"{tb}.{an}.to_k", ch, ctx, bias=False)
+                lin(f"{tb}.{an}.to_v", ch, ctx, bias=False)
+                lin(f"{tb}.{an}.to_out.0", ch, ch)
+            norm(tb + ".norm1", ch)
+            norm(tb + ".norm2", ch)
+            norm(tb + ".norm3", ch)
+            lin(tb + ".ff.net.0.proj", ch * ff_mult * 2, ch)
+            lin(tb + ".ff.net.2", ch, ch * ff_mult)
+        if linear_proj:
+            lin(key + ".proj_out", ch, ch)
+        else:
+            conv(key + ".proj_out", ch, ch, 1)
+
+    lin(prefix + "time_embed.0", emb, model_channels)
+    lin(prefix + "time_embed.2", emb, emb)
+    if adm_in_channels:
+        lin(prefix + "label_emb.0.0", emb, adm_in_channels)
+        lin(prefix + "label_emb.0.2", emb, emb)
+
+    # -- input blocks -------------------------------------------------------
+    conv(prefix + "input_blocks.0.0", model_channels, in_channels)
+    skip_chans = [model_channels]
+    ch = model_channels
+    idx = 1
+    nlevels = len(channel_mult)
+    for level, mult in enumerate(channel_mult):
+        out_ch = model_channels * mult
+        for _ in range(num_res_blocks):
+            resblock(f"{prefix}input_blocks.{idx}.0", ch, out_ch)
+            ch = out_ch
+            if transformer_depth[level] > 0:
+                transformer(f"{prefix}input_blocks.{idx}.1", ch, transformer_depth[level])
+            skip_chans.append(ch)
+            idx += 1
+        if level != nlevels - 1:
+            conv(f"{prefix}input_blocks.{idx}.0.op", ch, ch)
+            skip_chans.append(ch)
+            idx += 1
+
+    # -- middle -------------------------------------------------------------
+    md = middle_depth if middle_depth is not None else (transformer_depth[-1] or transformer_depth[-2] or 1)
+    resblock(prefix + "middle_block.0", ch, ch)
+    transformer(prefix + "middle_block.1", ch, md)
+    resblock(prefix + "middle_block.2", ch, ch)
+
+    # -- output blocks ------------------------------------------------------
+    idx = 0
+    for level in reversed(range(nlevels)):
+        out_ch = model_channels * channel_mult[level]
+        for r in range(num_res_blocks + 1):
+            skip = skip_chans.pop()
+            resblock(f"{prefix}output_blocks.{idx}.0", ch + skip, out_ch)
+            ch = out_ch
+            j = 1
+            if transformer_depth[level] > 0:
+                transformer(f"{prefix}output_blocks.{idx}.{j}", ch, transformer_depth[level])
+                j += 1
+            if level != 0 and r == num_res_blocks:
+                conv(f"{prefix}output_blocks.{idx}.{j}.conv", ch, ch)
+            idx += 1
+
+    norm(prefix + "out.0", model_channels)
+    conv(prefix + "out.2", out_channels, model_channels)
+    return sd
+
+
+def synth_vae_sd(
+    ch: int = 128,
+    ch_mult: Sequence[int] = (1, 2, 4, 4),
+    num_res: int = 2,
+    z_channels: int = 4,
+    fill: str = "zeros",
+    seed: int = 2,
+    prefix: str = "first_stage_model.",
+) -> Dict[str, np.ndarray]:
+    f = _Fill(fill, seed)
+    sd: Dict[str, np.ndarray] = {}
+
+    def norm(key, c):
+        sd[key + ".weight"] = f.ones(c)
+        sd[key + ".bias"] = f.zeros(c)
+
+    def conv(key, o, i, k=3):
+        sd[key + ".weight"] = f.w(o, i, k, k)
+        sd[key + ".bias"] = f.zeros(o)
+
+    def res(key, cin, cout):
+        norm(key + ".norm1", cin)
+        conv(key + ".conv1", cout, cin)
+        norm(key + ".norm2", cout)
+        conv(key + ".conv2", cout, cout)
+        if cin != cout:
+            conv(key + ".nin_shortcut", cout, cin, 1)
+
+    def attn(key, c):
+        norm(key + ".norm", c)
+        for n in ("q", "k", "v", "proj_out"):
+            conv(key + "." + n, c, c, 1)
+
+    nlev = len(ch_mult)
+    e = prefix + "encoder."
+    conv(e + "conv_in", ch, 3)
+    cur = ch
+    for level, mult in enumerate(ch_mult):
+        out_c = ch * mult
+        for b in range(num_res):
+            res(f"{e}down.{level}.block.{b}", cur, out_c)
+            cur = out_c
+        if level != nlev - 1:
+            conv(f"{e}down.{level}.downsample.conv", cur, cur)
+    res(e + "mid.block_1", cur, cur)
+    attn(e + "mid.attn_1", cur)
+    res(e + "mid.block_2", cur, cur)
+    norm(e + "norm_out", cur)
+    conv(e + "conv_out", z_channels * 2, cur)
+
+    d = prefix + "decoder."
+    conv(d + "conv_in", cur, z_channels)
+    res(d + "mid.block_1", cur, cur)
+    attn(d + "mid.attn_1", cur)
+    res(d + "mid.block_2", cur, cur)
+    for level in reversed(range(nlev)):
+        out_c = ch * ch_mult[level]
+        for b in range(num_res + 1):
+            res(f"{d}up.{level}.block.{b}", cur, out_c)
+            cur = out_c
+        if level != 0:
+            conv(f"{d}up.{level}.upsample.conv", cur, cur)
+    norm(d + "norm_out", cur)
+    conv(d + "conv_out", 3, cur)
+
+    conv(prefix + "quant_conv", z_channels * 2, z_channels * 2, 1)
+    conv(prefix + "post_quant_conv", z_channels, z_channels, 1)
+    return sd
+
+
+def synth_clip_sd(
+    width: int = 768,
+    layers: int = 12,
+    vocab: int = 49408,
+    fill: str = "zeros",
+    seed: int = 3,
+    prefix: str = "cond_stage_model.transformer.",
+    text_projection: bool = False,
+) -> Dict[str, np.ndarray]:
+    f = _Fill(fill, seed)
+    sd: Dict[str, np.ndarray] = {}
+    tm = prefix + "text_model."
+    sd[tm + "embeddings.token_embedding.weight"] = f.w(vocab, width)
+    sd[tm + "embeddings.position_embedding.weight"] = f.w(77, width)
+    for i in range(layers):
+        base = f"{tm}encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[base + f"self_attn.{n}.weight"] = f.w(width, width)
+            sd[base + f"self_attn.{n}.bias"] = f.zeros(width)
+        for n in ("layer_norm1", "layer_norm2"):
+            sd[base + n + ".weight"] = f.ones(width)
+            sd[base + n + ".bias"] = f.zeros(width)
+        sd[base + "mlp.fc1.weight"] = f.w(width * 4, width)
+        sd[base + "mlp.fc1.bias"] = f.zeros(width * 4)
+        sd[base + "mlp.fc2.weight"] = f.w(width, width * 4)
+        sd[base + "mlp.fc2.bias"] = f.zeros(width)
+    sd[tm + "final_layer_norm.weight"] = f.ones(width)
+    sd[tm + "final_layer_norm.bias"] = f.zeros(width)
+    if text_projection:
+        sd[prefix + "text_projection.weight"] = f.w(width, width)
+    return sd
+
+
+def synth_sd15_checkpoint(fill: str = "zeros", seed: int = 0) -> Dict[str, np.ndarray]:
+    """Full-size SD1.5: 320ch UNet, 768-wide CLIP-L×12, 128ch VAE."""
+    sd = {}
+    sd.update(synth_unet_sd(fill=fill, seed=seed + 1))
+    sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
+    sd.update(synth_clip_sd(fill=fill, seed=seed + 3))
+    return sd

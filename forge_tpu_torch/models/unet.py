@@ -1,0 +1,122 @@
+"""Stable Diffusion UNet, SD1.5 configuration (port of forge_tpu/models/unet.py).
+
+A function over the checkpoint's `model.diffusion_model.*` keys, nested by
+`.`; activations NCHW. Block structure is discovered from the tree (key
+presence), as in the reference. Hooks, ControlNet residuals and the SDXL
+label embedding are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Mapping, Optional
+
+import torch
+
+from ..ops import nn
+from ..ops.attention import attention
+from ..ops.fused_gn_conv import group_norm_silu_conv3x3
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    context_dim: int = 768
+    num_heads: int = 8
+
+    @staticmethod
+    def for_family(family: str) -> "UNetConfig":
+        if family == "sd15":
+            return UNetConfig(context_dim=768, num_heads=8)
+        raise NotImplementedError(f"no ported UNet config for family {family!r}")
+
+
+def resblock(p: Mapping[str, Any], x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    h = group_norm_silu_conv3x3(x, p["in_layers"]["0"], p["in_layers"]["2"])
+    emb_out = nn.linear(nn.silu(emb), p["emb_layers"]["1"])
+    h = h + emb_out[:, :, None, None].to(h.dtype)
+    h = group_norm_silu_conv3x3(h, p["out_layers"]["0"], p["out_layers"]["3"])
+    if "skip_connection" in p:
+        x = nn.conv2d(x, p["skip_connection"])
+    return x + h
+
+
+def _attn_block(p: Mapping[str, Any], x: torch.Tensor, context: Optional[torch.Tensor],
+                heads: int) -> torch.Tensor:
+    ctx = x if context is None else context
+    q = nn.linear(x, {"weight": p["to_q"]["weight"]})
+    k = nn.linear(ctx, {"weight": p["to_k"]["weight"]})
+    v = nn.linear(ctx, {"weight": p["to_v"]["weight"]})
+    return nn.linear(attention(q, k, v, heads=heads), p["to_out"]["0"])
+
+
+def transformer_block(p: Mapping[str, Any], x: torch.Tensor, context: torch.Tensor,
+                      heads: int) -> torch.Tensor:
+    x = x + _attn_block(p["attn1"], nn.layer_norm(x, p["norm1"]), None, heads)
+    x = x + _attn_block(p["attn2"], nn.layer_norm(x, p["norm2"]), context, heads)
+    h = nn.geglu(nn.layer_norm(x, p["norm3"]), p["ff"]["net"]["0"]["proj"])
+    return x + nn.linear(h, p["ff"]["net"]["2"])
+
+
+def spatial_transformer(p: Mapping[str, Any], x: torch.Tensor, context: torch.Tensor,
+                        cfg: UNetConfig) -> torch.Tensor:
+    """SD1.5 spatial transformer: conv proj_in/proj_out around token blocks."""
+    b, c, h, w = x.shape
+    x_in = x
+    x = nn.group_norm(x, p["norm"])
+    if p["proj_in"]["weight"].dim() != 4:
+        raise NotImplementedError("linear proj_in (SD2/SDXL) is not ported yet")
+    x = nn.conv2d(x, p["proj_in"]).reshape(b, c, h * w).transpose(1, 2)
+    blocks = p["transformer_blocks"]
+    for i in range(len(blocks)):
+        x = transformer_block(blocks[str(i)], x, context, cfg.num_heads)
+    x = x.transpose(1, 2).reshape(b, c, h, w)
+    return nn.conv2d(x, p["proj_out"]) + x_in
+
+
+def unet_apply(params: Mapping[str, Any], x: torch.Tensor, timesteps: torch.Tensor,
+               context: torch.Tensor, cfg: UNetConfig = UNetConfig()) -> torch.Tensor:
+    """x [B,C_latent,H,W], timesteps [B], context [B,L,context_dim] → eps [B,C,H,W]."""
+    if "label_emb" in params:
+        raise NotImplementedError("class-label embedding (SDXL) is not ported yet")
+    model_channels = params["time_embed"]["0"]["weight"].shape[1]
+    t_emb = nn.timestep_embedding(timesteps, model_channels, dtype=x.dtype)
+    emb = nn.linear(t_emb, params["time_embed"]["0"])
+    emb = nn.linear(nn.silu(emb), params["time_embed"]["2"])
+
+    hs: List[torch.Tensor] = []
+    h = x
+    input_blocks = params["input_blocks"]
+    for i in range(len(input_blocks)):
+        block = input_blocks[str(i)]
+        for j in range(len(block)):
+            sub = block[str(j)]
+            if "in_layers" in sub:
+                h = resblock(sub, h, emb)
+            elif "transformer_blocks" in sub:
+                h = spatial_transformer(sub, h, context, cfg)
+            elif "op" in sub:
+                h = nn.conv2d(h, sub["op"], stride=2, padding=1)
+            elif "weight" in sub:  # input_blocks.0.0 stem conv
+                h = nn.conv2d(h, sub, padding=1)
+        hs.append(h)
+
+    mid = params["middle_block"]
+    h = resblock(mid["0"], h, emb)
+    h = spatial_transformer(mid["1"], h, context, cfg)
+    h = resblock(mid["2"], h, emb)
+
+    output_blocks = params["output_blocks"]
+    for i in range(len(output_blocks)):
+        block = output_blocks[str(i)]
+        h = torch.cat([h, hs.pop()], dim=1)
+        for j in range(len(block)):
+            sub = block[str(j)]
+            if "in_layers" in sub:
+                h = resblock(sub, h, emb)
+            elif "transformer_blocks" in sub:
+                h = spatial_transformer(sub, h, context, cfg)
+            elif "conv" in sub:  # upsample
+                h = nn.conv2d(nn.upsample_nearest_2x(h), sub["conv"], padding=1)
+
+    h = nn.group_norm(h, params["out"]["0"], act="silu")
+    return nn.conv2d(h, params["out"]["2"], padding=1)

@@ -1,0 +1,100 @@
+"""Diffusion engine: one loaded checkpoint bound into runnable functions
+(port of forge_tpu/pipeline/engine.py, SD1.5 only).
+
+Compute dtype is bf16 on CUDA and f32 on the CPU, as the reference picks
+bf16 on the TPU and f32 elsewhere.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from ..core import latent_formats
+from ..core.loader import LoadedCheckpoint, load_checkpoint_parts
+from ..models import unet as unet_mod
+from ..models import vae as vae_mod
+from ..sampling.prediction import DiscretePrediction
+from ..text.engine import ClassicTextEngine
+from ..text.tokenizer import default_tokenizer
+
+_NAN_MESSAGES = {
+    "unet": ("A tensor with NaNs was produced in the UNet. This could be caused by a "
+             "model trained in a different precision, a broken LoRA, or bad "
+             "conditioning. Try float32 compute dtype."),
+    "vae": ("A tensor with NaNs was produced in the VAE. Use a fixed fp16-safe VAE "
+            "or float32 VAE dtype."),
+}
+
+
+class NansException(RuntimeError):
+    pass
+
+
+def raise_nans(where: str):
+    raise NansException(_NAN_MESSAGES[where])
+
+
+def default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def default_dtype(device) -> torch.dtype:
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+
+
+class DiffusionEngine:
+    def __init__(self, loaded: LoadedCheckpoint, device, compute_dtype: torch.dtype):
+        if loaded.family != "sd15":
+            raise NotImplementedError(f"{loaded.family} is not ported yet (SD1.5 only)")
+        self.family = loaded.family
+        self.loaded = loaded
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.latent_format = latent_formats.BY_FAMILY[loaded.family]
+        self.unet_cfg = unet_mod.UNetConfig.for_family(loaded.family)
+        self.predictor = DiscretePrediction(prediction_type=loaded.prediction)
+        self.text_engines = {
+            "clip_l": ClassicTextEngine(loaded.text_encoders["clip_l"], default_tokenizer()),
+        }
+
+    def set_clip_skip(self, clip_skip: int):
+        for eng in self.text_engines.values():
+            eng.clip_skip = clip_skip
+
+    def get_learned_conditioning(self, prompts: List[str],
+                                 max_chunks: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """prompts → conditioning dict for the UNet ({context})."""
+        z, _ = self.text_engines["clip_l"](prompts, max_chunks=max_chunks)
+        return {"context": z.to(self.compute_dtype)}
+
+    def unet_apply_fn(self):
+        cfg = self.unet_cfg
+
+        def apply(params, x, t, context):
+            return unet_mod.unet_apply(params, x, t, context, cfg=cfg)
+
+        return apply
+
+    @torch.no_grad()
+    def decode_to_uint8_checked(self, latent: torch.Tensor):
+        """latent [B,C,h,w] (regulated space) → (uint8 images [B,8h,8w,3],
+        latent_finite, image_finite) with the NaN checks beside the decode."""
+        z = latent.float()
+        lat_ok = bool(torch.isfinite(z).all())
+        z = self.latent_format.process_out(z)
+        imgf = vae_mod.vae_decode(self.loaded.vae, z.to(self.compute_dtype)).float()
+        img_ok = bool(torch.isfinite(imgf).all())
+        img = torch.clamp((imgf + 1.0) * 127.5 + 0.5, 0, 255).to(torch.uint8)
+        return img.permute(0, 2, 3, 1).contiguous(), lat_ok, img_ok
+
+
+def load_engine(path_or_sd, device=None, dtype: Optional[torch.dtype] = None) -> DiffusionEngine:
+    """Checkpoint path or flat state dict → engine on `device` (CUDA when
+    available). `dtype` is the weights' and activations' dtype: bf16 on CUDA
+    and f32 on the CPU unless given."""
+    device = torch.device(device) if device is not None else default_device()
+    dtype = dtype or default_dtype(device)
+    return DiffusionEngine(load_checkpoint_parts(path_or_sd, dtype=dtype, device=device),
+                           device, dtype)

@@ -1,0 +1,73 @@
+"""Classic (CLIP) text engine: prompts → conditioning (port of forge_tpu/text/engine.py).
+
+Emphasis parse → 75-token chunks → per-chunk CLIP encode with clip-skip →
+emphasis application → chunk concat. Returns (cond [B, 77·n, D], pooled
+[B, D]). Textual-inversion embeddings are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..models.clip import ClipConfig, clip_text_apply
+from ..ops import nn
+from .chunking import CHUNK_LEN, tokenize_line
+from .emphasis import apply_emphasis
+
+
+class ClassicTextEngine:
+    """The reference's options keep their defaults here: emphasis mode
+    "Original", comma backtrack 20; only clip-skip is set per request."""
+
+    def __init__(self, params: Mapping[str, Any], tokenizer, clip_skip: int = 1,
+                 cfg: Optional[ClipConfig] = None):
+        self.params = params
+        self.tokenizer = tokenizer
+        self.clip_skip = clip_skip
+        self.cfg = cfg
+
+    def tokenize_batch(self, prompts: List[str]):
+        all_chunks = []
+        max_chunks = 1
+        for prompt in prompts:
+            chunks, _ = tokenize_line(prompt, self.tokenizer)
+            all_chunks.append(chunks)
+            max_chunks = max(max_chunks, len(chunks))
+        return all_chunks, max_chunks
+
+    def __call__(self, prompts: List[str], max_chunks: Optional[int] = None):
+        """Encode prompts → (cond [B, 77·n, D], pooled [B, D]); `max_chunks`
+        lets the caller give cond and uncond the same length."""
+        all_chunks, natural_max = self.tokenize_batch(prompts)
+        n_chunks = max(natural_max, max_chunks or 1)
+
+        bos, eos = self.tokenizer.bos, self.tokenizer.eos
+        tokens = np.full((len(prompts), n_chunks, CHUNK_LEN + 2), eos, dtype=np.int64)
+        mults = np.ones((len(prompts), n_chunks, CHUNK_LEN + 2), dtype=np.float32)
+        tokens[:, :, 0] = bos  # chunks past a prompt's end stay [bos, eos, eos, ...]
+        for b, chunks in enumerate(all_chunks):
+            for ci, ch in enumerate(chunks):
+                tokens[b, ci, 1:-1] = ch.tokens
+                mults[b, ci, 1:-1] = ch.multipliers
+
+        table = self.params["text_model"]["embeddings"]["token_embedding"]["weight"]
+        flat_tokens = torch.from_numpy(tokens.reshape(-1, CHUNK_LEN + 2)).to(table.device)
+        flat_mults = torch.from_numpy(mults.reshape(-1, CHUNK_LEN + 2)).to(table.device)
+        z, pooled = self._encode(flat_tokens, flat_mults)
+        b, n = tokens.shape[0], tokens.shape[1]
+        z = z.reshape(b, n * (CHUNK_LEN + 2), -1)
+        pooled = pooled.reshape(b, n, -1)[:, 0]  # pooled from the first chunk
+        return z, pooled
+
+    @torch.no_grad()
+    def _encode(self, flat_tokens: torch.Tensor, flat_mults: torch.Tensor):
+        params = self.params
+        final, hiddens, pooled = clip_text_apply(params, flat_tokens, cfg=self.cfg)
+        if self.clip_skip > 1:
+            z = nn.layer_norm(hiddens[-self.clip_skip], params["text_model"]["final_layer_norm"])
+        else:
+            z = final
+        return apply_emphasis(z, flat_mults), pooled

@@ -1,0 +1,104 @@
+"""forge_tpu_torch's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `gpu` and skips where there is no CUDA device. The
+file imports neither jax nor forge_tpu, so it also runs where they are not
+installed (tests/conftest.py imports jax, hence `--noconftest`):
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
+
+Bounds, relative to the output's scale max(|plain|, 1): f32 1e-4 (both sides
+f32 with TF32 off; only summation order differs), bf16 2e-2 (a few bf16 ulps
+of the output: the two round at different points).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from forge_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
+from forge_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+BOUNDS = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,lk", [
+    ((2, 8, 4096, 40), 4096),   # UNet level-0 self-attention
+    ((2, 8, 1024, 80), 1024),   # UNet level-1 self-attention
+    ((1, 2, 300, 160), 200),    # level-2 head dim, ragged
+    ((1, 1, 4096, 512), 4096),  # VAE single head
+    ((1, 2, 1000, 40), 700),    # ragged tails on both sides
+    ((3, 1, 17, 8), 5),         # shorter than one tile
+])
+def test_flash_attention(gen, shape, lk, dtype):
+    dt = getattr(torch, dtype)
+    b, h, lq, d = shape
+    q = torch.randn((b, h, lq, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, h, lk, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, h, lk, d), generator=gen, device="cuda").to(dt)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dt
+    assert _rel(got, flash_attention_plain(q, k, v)) <= BOUNDS[dtype]
+    assert torch.equal(got, flash_attention(q, k, v))  # no atomics: bit-identical reruns
+
+
+def test_flash_attention_non_contiguous(gen):
+    x = torch.randn((2, 600, 8 * 40), generator=gen, device="cuda").bfloat16()
+    q = x.reshape(2, 600, 8, 40).transpose(1, 2)
+    got = flash_attention(q, q, q)
+    assert _rel(got, flash_attention_plain(q, q, q)) <= BOUNDS["bfloat16"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,o", [
+    ((2, 320, 64, 64), 320),     # UNet level-0 resblock
+    ((2, 960, 32, 32), 640),     # UNet output block after a skip concat
+    ((2, 2560, 8, 8), 1280),     # UNet level-3 output block
+    ((1, 512, 128, 128), 512),   # VAE decoder level 2
+    ((1, 36, 13, 21), 40),       # ragged H, W, C and O
+])
+def test_gn_silu_conv3x3(gen, shape, o, dtype):
+    dt = getattr(torch, dtype)
+    b, c, h, w_ = shape
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    a = 1.0 + 0.1 * torch.randn((b, c), generator=gen, device="cuda")
+    s = 0.1 * torch.randn((b, c), generator=gen, device="cuda")
+    w = (torch.randn((o, c, 3, 3), generator=gen, device="cuda") / (9 * c) ** 0.5).to(dt)
+    bias = 0.1 * torch.randn(o, generator=gen, device="cuda")
+    before = gn_silu_conv3x3.launches
+    got = gn_silu_conv3x3(x, a, s, w, bias)
+    assert gn_silu_conv3x3.launches == before + 1
+    assert got.shape == (b, o, h, w_) and got.dtype == dt
+    assert _rel(got, gn_silu_conv3x3_plain(x, a, s, w, bias)) <= BOUNDS[dtype]
+    assert torch.equal(got, gn_silu_conv3x3(x, a, s, w, bias))
+
+
+def test_gn_silu_conv3x3_pad_is_zero(gen):
+    """Constant x with a large shift: border outputs see only in-image taps."""
+    c, o = 64, 32
+    x = torch.zeros((1, c, 6, 6), device="cuda")
+    a = torch.ones((1, c), device="cuda")
+    s = torch.full((1, c), 4.0, device="cuda")
+    w = torch.full((o, c, 3, 3), 0.01, device="cuda")
+    got = gn_silu_conv3x3(x, a, s, w, None)
+    inner = c * 0.01 * 4.0 / (1.0 + torch.exp(torch.tensor(-4.0))).item()
+    assert abs(got[0, 0, 0, 0].item() - 4 * inner) < 1e-4
+    assert abs(got[0, 0, 3, 3].item() - 9 * inner) < 1e-4

@@ -1,0 +1,77 @@
+"""The port's txt2img slice end to end against forge_tpu, and its import hygiene.
+
+The same tiny checkpoint (tests/fixtures.py `make_sd15_checkpoint(0)`) goes
+through forge_tpu's `make_tiny_engine` and the port's `load_engine` with the
+same UNet config override, then `process_images` at 64×64, 3 steps, Euler a,
+CFG 7, seed 1: the uint8 images must reach PSNR ≥ 40 dB against each other,
+the bar tests/test_golden_parity.py sets (both run f32 on the CPU).
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from fixtures import CLIP_HEADS, CLIP_WIDTH, make_sd15_checkpoint, make_tiny_engine  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REQUEST = dict(prompt="a photograph of an astronaut riding a horse", negative_prompt="blurry",
+               seed=1, steps=3, width=64, height=64, sampler_name="Euler a", cfg_scale=7.0)
+
+
+def _psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def test_txt2img_matches_forge_tpu():
+    from forge_tpu.pipeline import processing as jproc
+    from forge_tpu_torch.models.unet import UNetConfig
+    from forge_tpu_torch.pipeline.engine import load_engine
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    want = jproc.process_images(make_tiny_engine(0), jproc.Processing(**REQUEST)).images[0]
+
+    eng = load_engine(make_sd15_checkpoint(0), device="cpu")
+    eng.unet_cfg = UNetConfig(context_dim=CLIP_WIDTH, num_heads=CLIP_HEADS)
+    assert eng.compute_dtype == torch.float32
+    res = process_images(eng, Processing(**REQUEST))
+    got = res.images[0]
+    assert got.shape == want.shape == (64, 64, 3) and got.dtype == np.uint8
+    assert res.seeds == [1]
+    assert _psnr(got, want) >= 40.0, _psnr(got, want)
+    again = process_images(eng, Processing(**REQUEST)).images[0]
+    assert np.array_equal(got, again)
+
+
+def test_processing_refuses_unported_fields():
+    from forge_tpu_torch.pipeline.processing import Processing
+
+    with pytest.raises(NotImplementedError, match="enable_hr"):
+        Processing(prompt="x", enable_hr=True)
+    p = Processing()
+    with pytest.raises(NotImplementedError, match="init_images"):
+        p.init_images = []
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "import forge_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(forge_tpu_torch.__path__, "
+        "'forge_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert len(mods) >= 25, mods\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'forge_tpu.'))"
+        " or m == 'forge_tpu']\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
