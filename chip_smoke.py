@@ -1,20 +1,33 @@
-"""Drive forge_tpu_torch's SD1.5 txt2img path once on one NVIDIA GPU.
+"""Drive forge_tpu_torch's SD1.5 and quantized Flux txt2img paths on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
-     compiled from forge_tpu_torch/csrc/*.cu with nvcc (sm_90a);
+     compiled from forge_tpu_torch/csrc/*.cu, one nvcc (sm_90a) per file,
+     all started together;
   2. each kernel against its plain PyTorch version on the card, in f32 and
-     bf16, at the shapes the main path gives it, with both times;
-  3. the slice at full SD1.5 width on random weights made from a seed:
-     load_engine, then three process_images requests (512², Euler a,
+     bf16, at the shapes the main paths give it, with both times: flash
+     attention, GroupNorm+SiLU+conv3x3, and dequant-matmul for all five
+     kinds at the Flux-dev shapes;
+  3. the SD1.5 slice at full width on random weights made on the card from
+     a seed: load_engine, then three process_images requests (512², Euler a,
      20 steps, CFG 7, seeds 1, 2, 1) with the launch counts of each kernel;
-  4. one UNet forward through the kernels and through the plain versions.
+  4. one SD1.5 UNet forward through the kernels and through the plain versions;
+  5. the quantized Flux-dev slice at full width (19 + 38 blocks, T5-XXL,
+     CLIP-L, 16-channel VAE) on random weights made on the card from a seed:
+     load_engine(unet_quant="nf4"), three requests (1024², Euler, "simple",
+     4 steps, CFG 1, distilled CFG 3.5, seeds 1, 2, 1) with exact launch
+     counts, one request with the plain versions, one request under
+     torch.profiler (device time by kernel, busy share), then
+     load_engine(unet_quant="q4_0") and one request;
+  6. kernels vs plain versions on one Flux double block, one single block
+     (full width, 1024²-sized inputs) and one whole Flux forward, bf16.
 
-Any failed check raises, so the exit code is not 0 and no result line is
-printed. The last two lines are the per-kernel JSON summary and
+Each path's launch counts are set to 0 just before it is driven and read just
+after. Any failed check raises, so the exit code is not 0 and no result line
+is printed. The last two lines are the per-kernel JSON summary and
 {"ok": true, "device": {...}}.
 """
 
@@ -23,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -32,13 +46,15 @@ import torch
 
 F32_BOUND = 1e-4   # max |kernel − plain| / max(|plain|, 1) in f32
 BF16_BOUND = 2e-2  # the same in bf16: a few bf16 ulps of the output scale
-PSNR_BOUND = 40.0  # UNet kernels vs plain, bf16 (tests/test_golden_parity.py's bar)
+PSNR_BOUND = 40.0  # kernels vs plain, bf16 (tests/test_golden_parity.py's bar)
 
 FLASH_SHAPES = [  # (B, H, Lq, D), Lk
     ((2, 8, 4096, 40), 4096),   # UNet level-0 self-attention, CFG batch
     ((2, 8, 1024, 80), 1024),   # UNet level-1 self-attention
     ((1, 1, 4096, 512), 4096),  # VAE mid-block single head
     ((1, 2, 1000, 40), 700),    # ragged tails on both sides
+    ((1, 24, 4608, 128), 4608),  # Flux joint attention at 1024²: 512 text + 4096 image tokens
+    ((1, 1, 16384, 512), 16384),  # Flux VAE mid-block at 1024²
 ]
 GN_CONV_SHAPES = [  # (B, C, H, W), O
     ((2, 320, 64, 64), 320),     # UNet level-0 resblock
@@ -47,7 +63,22 @@ GN_CONV_SHAPES = [  # (B, C, H, W), O
     ((1, 512, 128, 128), 512),   # VAE decoder level 2
     ((1, 256, 512, 512), 128),   # VAE decoder level 0, first resnet
 ]
+DEQUANT_SHAPES = [  # (M, N, K) of the Flux-dev linears at 1024²
+    (4608, 21504, 3072),  # single block linear1
+    (4608, 3072, 15360),  # single block linear2
+    (1, 18432, 3072),     # double block adaLN modulation (M = 1)
+    (4096, 64, 3072),     # final_layer.linear (N = 64: the reference's KeyError leaf)
+    (4096, 3072, 64),     # img_in (K = 64)
+    (1000, 9216, 3072),   # ragged M at the qkv width
+]
+DEQUANT_CASES = (  # (kind, block, (M, N, K)): every kind at every shape, and block 16
+    [(kind, block, shape) for kind, block in (("q8_0", 32), ("nf4", 64), ("q4_0", 32),
+                                              ("gq4", 32), ("gq8", 32))
+     for shape in DEQUANT_SHAPES]
+    + [(kind, 16, DEQUANT_SHAPES[-1]) for kind in ("gq4", "gq8")])  # the K-quant groups
 EXPECTED_PER_REQUEST = {"flash_attention": 201, "gn_silu_conv3x3": 908}
+FLUX_STEPS = 4
+FLUX_PROMPT = "a photograph of an astronaut riding a horse on the moon, (detailed:1.2)"
 
 
 def log(*args):
@@ -82,6 +113,38 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     check(bool(torch.isfinite(got).all()), "kernel output is finite")
     err = (got - want).abs().max().item()
     return err, err / max(want.abs().max().item(), 1.0)
+
+
+def dequant_leaf(kind: str, block: int, n: int, k: int, gen: torch.Generator):
+    from forge_tpu_torch.ops import quant
+
+    w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+    if kind in ("gq4", "gq8"):
+        return getattr(quant, f"quantize_{kind}")(w, block=block)
+    return quant.quantize(w, kind)
+
+
+def phase_dequant(gen: torch.Generator, summary):
+    from forge_tpu_torch.ops.dequant_matmul import dequant_matmul, dequant_matmul_plain
+
+    for kind, block, (m, n, k) in DEQUANT_CASES:
+        leaf = dequant_leaf(kind, block, n, k, gen)
+        for dtype, bound in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            got = dequant_matmul(x, leaf)
+            err, rel = rel_err(got, dequant_matmul_plain(x, leaf))
+            check(torch.equal(got, dequant_matmul(x, leaf)), "dequant_matmul rerun is bit-identical")
+            ms = time_ms(lambda: dequant_matmul(x, leaf))
+            plain_ms = time_ms(lambda: dequant_matmul_plain(x, leaf))
+            log(f"dequant {kind}/{block} {str(dtype)[6:]} {m}x{n}x{k}: err {err:.3e} rel {rel:.3e} "
+                f"(bound {bound:g}) | kernel {ms:.4f} ms {2.0 * m * n * k / (ms * 1e9):.2f} "
+                f"TFLOP/s | plain {plain_ms:.4f} ms")
+            check(rel <= bound, f"dequant_matmul {kind} {dtype} {(m, n, k)} within {bound}")
+            if (kind, dtype, (m, n, k)) == ("nf4", torch.bfloat16, DEQUANT_SHAPES[0]):
+                summary["dequant_matmul"] = (err, ms, plain_ms)
+            del x, got
+        del leaf
+    torch.cuda.empty_cache()
 
 
 def phase_kernels(gen: torch.Generator):
@@ -123,29 +186,41 @@ def phase_kernels(gen: torch.Generator):
                 summary["gn_silu_conv3x3"] = (err, ms, plain_ms)
             del x, w
     torch.cuda.empty_cache()
+    phase_dequant(gen, summary)
     return summary
 
 
-def phase_slice():
-    from forge_tpu_torch.core.synth import synth_sd15_checkpoint
+def counters():
+    from forge_tpu_torch.ops.dequant_matmul import dequant_matmul
     from forge_tpu_torch.ops.flash_attention import flash_attention
     from forge_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3
+
+    return {"flash_attention": flash_attention, "gn_silu_conv3x3": gn_silu_conv3x3,
+            "dequant_matmul": dequant_matmul}
+
+
+def zero_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def phase_slice():
+    from forge_tpu_torch.core.synth import DeviceFill, synth_sd15_checkpoint
     from forge_tpu_torch.pipeline.engine import load_engine
     from forge_tpu_torch.pipeline.processing import Processing, process_images
 
-    t0 = time.perf_counter()
-    sd = synth_sd15_checkpoint(fill="random", seed=0)
     t1 = time.perf_counter()
-    engine = load_engine(sd, device="cuda")
-    del sd
+    engine = load_engine(synth_sd15_checkpoint(fill=DeviceFill("cuda", seed=0)), device="cuda")
     torch.cuda.synchronize()
-    log(f"slice: synthetic SD1.5 weights {t1 - t0:.2f} s, load_engine {time.perf_counter() - t1:.2f} s, "
+    log(f"slice: SD1.5 weights made on the card + load_engine {time.perf_counter() - t1:.2f} s, "
         f"dtype {engine.compute_dtype}")
     check(engine.compute_dtype == torch.bfloat16, "bf16 compute on CUDA")
 
-    counters = {"flash_attention": flash_attention, "gn_silu_conv3x3": gn_silu_conv3x3}
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts()
     images, latencies = [], []
     for seed in (1, 2, 1):
         p = Processing(prompt="a photograph of an astronaut riding a horse",
@@ -161,14 +236,14 @@ def phase_slice():
             f"{p.steps / latencies[-1]:.3f} steps/s, timings "
             + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
             + f", image mean {img.mean():.3f} std {img.std():.3f}")
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts()
     check(np.array_equal(images[0], images[2]), "seed 1 twice gives identical bytes")
     check(not np.array_equal(images[0], images[1]), "seeds 1 and 2 differ")
-    for name, n in launches.items():
-        expect = 3 * EXPECTED_PER_REQUEST[name]
-        log(f"launches during the 3 requests: {name} {n} (expected {expect}: "
-            f"{'matches' if n == expect else 'DIFFERS'})")
-        check(n > 0, f"{name} launched on the main path")
+    for name, expect in EXPECTED_PER_REQUEST.items():
+        n = launches[name]
+        log(f"launches during the 3 requests: {name} {n} (expected {3 * expect}: "
+            f"{'matches' if n == 3 * expect else 'DIFFERS'})")
+        check(n > 0, f"{name} launched on the SD1.5 path")
     log("slice: seed 1 repeat byte-identical, NaN checks passed")
     return engine, launches
 
@@ -182,15 +257,205 @@ def phase_unet(engine, gen: torch.Generator):
                                             "blurry"])["context"]
     apply = engine.unet_apply_fn()
     with torch.no_grad():
-        fused = apply(engine.loaded.unet, x, t, cond).float()
+        fused = apply(engine.loaded.unet, x, t, cond)
         with plain_versions():
-            plain = apply(engine.loaded.unet, x, t, cond).float()
-    check(bool(torch.isfinite(fused).all()), "UNet output finite")
-    mse = ((fused - plain) ** 2).mean().item()
-    peak = plain.abs().max().item()
-    psnr = float("inf") if mse == 0 else 10 * math.log10(peak ** 2 / mse)
-    log(f"unet 64x64 B=2 bf16: kernels vs plain PSNR {psnr:.2f} dB (bound {PSNR_BOUND})")
-    check(psnr >= PSNR_BOUND, f"UNet PSNR ≥ {PSNR_BOUND} dB")
+            plain = apply(engine.loaded.unet, x, t, cond)
+    value = psnr(fused, plain)
+    log(f"unet 64x64 B=2 bf16: kernels vs plain PSNR {value:.2f} dB (bound {PSNR_BOUND})")
+    check(value >= PSNR_BOUND, f"UNet PSNR ≥ {PSNR_BOUND} dB")
+
+
+def psnr(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Kernels' output `got` against the plain versions' `want`; `got` must be finite."""
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), "output finite")
+    mse = ((got - want) ** 2).mean().item()
+    return float("inf") if mse == 0 else 10 * math.log10(want.abs().max().item() ** 2 / mse)
+
+
+def quant_leaves(tree) -> int:
+    from forge_tpu_torch.ops.quant import QuantLeaf
+
+    if isinstance(tree, QuantLeaf):
+        return 1
+    return sum(quant_leaves(v) for v in tree.values()) if isinstance(tree, dict) else 0
+
+
+def load_flux(unet_quant: str):
+    from forge_tpu_torch.core.synth import DeviceFill, synth_flux_checkpoint
+    from forge_tpu_torch.pipeline.engine import load_engine
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    engine = load_engine(synth_flux_checkpoint(fill=DeviceFill("cuda", seed=0)), device="cuda",
+                         unet_quant=unet_quant)
+    torch.cuda.synchronize()
+    n_quant = quant_leaves(engine.loaded.unet)
+    log(f"flux {unet_quant}: Flux-dev + T5-XXL + CLIP-L + VAE made on the card and loaded in "
+        f"{time.perf_counter() - t:.2f} s; {n_quant} quantized leaves; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check(engine.compute_dtype == torch.bfloat16, "bf16 compute on CUDA")
+    check(engine.flux_cfg.num_heads == 24 and len(engine.loaded.unet["double_blocks"]) == 19
+          and len(engine.loaded.unet["single_blocks"]) == 38, "Flux-dev width and depth")
+    return engine, n_quant
+
+
+def flux_request(engine, seed: int, label: str, size: int = 1024):
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    p = Processing(prompt=FLUX_PROMPT, seed=seed, steps=FLUX_STEPS, cfg_scale=1.0,
+                   distilled_cfg_scale=3.5, width=size, height=size, sampler_name="Euler",
+                   scheduler="simple")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    img = res.images[0]
+    check(img.shape == (size, size, 3) and img.dtype == np.uint8, f"{size}²×3 uint8 image")
+    log(f"flux request {label} seed={seed}: latency {latency:.4f} s, "
+        f"{FLUX_STEPS / latency:.4f} steps/s, timings "
+        + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+        + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"image mean {img.mean():.3f} std {img.std():.3f}")
+    return img, latency
+
+
+def check_flux_counts(launches, n_quant: int, requests: int, what: str):
+    """Per request: every quantized leaf once a forward, the joint attention of
+    19 + 38 blocks a forward plus the VAE mid-block, and 28 VAE resnet convs."""
+    expect = {"dequant_matmul": requests * FLUX_STEPS * n_quant,
+              "flash_attention": requests * (FLUX_STEPS * (19 + 38) + 1),
+              "gn_silu_conv3x3": requests * 28}
+    for name, want in expect.items():
+        log(f"launches during {what}: {name} {launches[name]} (expected {want})")
+        check(launches[name] == want, f"{name} launched exactly {want} times on the Flux path")
+
+
+def phase_flux():
+    from forge_tpu_torch.ops import plain_versions
+
+    engine, n_quant = load_flux("nf4")
+    check(n_quant == 10 * 19 + 3 * 38 + 10, "314 quantized leaves in the Flux-dev tree")
+    zero_counts()
+    images = [flux_request(engine, seed, "nf4")[0] for seed in (1, 2, 1)]
+    launches = read_counts()
+    check_flux_counts(launches, n_quant, 3, "the 3 NF4 requests")
+    check(np.array_equal(images[0], images[2]), "Flux seed 1 twice gives identical bytes")
+    check(not np.array_equal(images[0], images[1]), "Flux seeds 1 and 2 differ")
+
+    with plain_versions():
+        plain_img, _ = flux_request(engine, 1, "nf4, plain versions")
+    diff = np.abs(plain_img.astype(np.int16) - images[0].astype(np.int16))
+    log(f"flux nf4 image, kernels vs plain versions: max |Δ| {diff.max()} of 255, "
+        f"mean |Δ| {diff.mean():.4f}")
+    profile_request(engine)
+    phase_flux_blocks(engine)
+    del engine
+    torch.cuda.empty_cache()
+
+    engine, n_quant = load_flux("q4_0")
+    zero_counts()
+    img, _ = flux_request(engine, 1, "q4_0")
+    q4_launches = read_counts()
+    check_flux_counts(q4_launches, n_quant, 1, "the Q4_0 request")
+    check(float(img.std()) > 0, "Q4_0 image is not constant")
+    del engine
+    torch.cuda.empty_cache()
+    return {name: launches[name] + q4_launches[name] for name in launches}
+
+
+def phase_flux_blocks(engine, size: int = 1024):
+    """Kernels vs plain versions on one double block, one single block and
+    one whole forward at the engine's width, on size²-sized inputs."""
+    from forge_tpu_torch.models import flux as flux_mod
+    from forge_tpu_torch.ops import plain_versions
+
+    dt, dev, cfg = engine.compute_dtype, engine.device, engine.flux_cfg
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = engine.loaded.unet
+    hidden = params["img_in"]["weight"].shape[0]
+    side = size // 16  # image tokens per side after the VAE's 8× and the 2×2 patches
+    cond = engine.get_learned_conditioning([FLUX_PROMPT])
+    l_txt = cond["context"].shape[1]
+    img = torch.randn((1, side * side, hidden), generator=gen, device=dev).to(dt)
+    txt = torch.randn((1, l_txt, hidden), generator=gen, device=dev).to(dt)
+    vec = torch.randn((1, hidden), generator=gen, device=dev).to(dt)
+    ids = flux_mod.position_ids(1, l_txt, side, side, dev)
+    pe = flux_mod.embed_nd(ids, cfg.axes_dim, cfg.theta)
+    x = torch.randn((1, 16, 2 * side, 2 * side), generator=gen, device=dev).to(dt)
+    t = torch.tensor([1000.0 * 0.7], device=dev)
+    g = torch.tensor([3.5], device=dev)
+    runs = {
+        "double block 0": lambda: flux_mod.double_block(params["double_blocks"]["0"], img, txt,
+                                                        vec, pe, cfg),
+        "single block 0": lambda: (flux_mod.single_block(params["single_blocks"]["0"],
+                                                         torch.cat([txt, img], dim=1), vec, pe,
+                                                         cfg),),
+        "whole forward": lambda: (flux_mod.flux_apply(params, x, t, cond["context"], cond["y"],
+                                                      guidance=g, cfg=cfg),),
+    }
+    with torch.no_grad():
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fused = fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with plain_versions():
+                plain = fn()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            worst = min(psnr(a, b) for a, b in zip(fused, plain))
+            log(f"flux {name}, {str(dt)[6:]}: kernels vs plain PSNR {worst:.2f} dB "
+                f"(bound {PSNR_BOUND}); kernels {t1 - t0:.4f} s, plain {t2 - t1:.4f} s")
+            check(worst >= PSNR_BOUND, f"Flux {name} PSNR ≥ {PSNR_BOUND} dB")
+
+
+def profile_request(engine):
+    """One NF4 request under torch.profiler: device time by kernel, and the
+    busy share (kernel time over the request's wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        flux_request(engine, 1, "nf4, profiled")
+        wall = time.perf_counter() - t
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"profile: wall {wall:.4f} s, kernel time {busy_us / 1e6:.4f} s "
+        f"({100 * busy_us / 1e6 / wall:.2f} % busy)")
+    for e in kernels[:8]:
+        log(f"  {e.count:6d} × {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
+            f"{100 * e.self_device_time_total / busy_us:6.2f} %")
+
+
+def ptxas_summary(build_log: str):
+    """`-Xptxas=-v` output → "kernel<args>: registers, shared memory, spills" lines."""
+    name, spills = None, "?"
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = mangled
+            for m in re.finditer(r"\d+", mangled):  # <length><identifier> of the kernel
+                for i in range(len(m.group())):  # the length may follow other digits
+                    ident = mangled[m.end():m.end() + int(m.group()[i:])]
+                    if ident.endswith("_kernel") and mangled[m.end() + len(ident):].startswith("I"):
+                        name = ident
+            args = ["bf16" if "bfloat16" in mangled else "f32"] + re.findall(r"Li(\d+)E", mangled)
+            name = f"{name}<{','.join(args)}>"
+        elif "spill" in line:
+            spills = "/".join(re.findall(r"(\d+) bytes spill", line))
+        elif "Used" in line and name:
+            regs = re.search(r"(\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            yield (f"{name}: {regs.group(1) if regs else '?'} registers, "
+                   f"{smem.group(1) if smem else 0} B smem, spill stores/loads {spills}")
+            name, spills = None, "?"
+        elif "error" in line.lower():
+            yield line.strip()
 
 
 def main():
@@ -204,15 +469,16 @@ def main():
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    t = time.perf_counter()
+    t_start = t = time.perf_counter()
     _build.build(verbose=True)
     _build.library()
-    log(f"build: {time.perf_counter() - t:.2f} s (nvcc {_build.build_seconds} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log("  ptxas:", line.strip())
+    log(f"build: {time.perf_counter() - t:.2f} s (nvcc, one process per source, "
+        f"{_build.build_seconds} s)")
+    for line in ptxas_summary(_build.build_log):
+        log("  ptxas:", line)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -221,19 +487,34 @@ def main():
     if args.kernels:
         log("kernels only: phases 1-2 passed")
         return
+    t = time.perf_counter()
     engine, launches = phase_slice()
     phase_unet(engine, gen)
+    del engine
+    torch.cuda.empty_cache()
+    log(f"SD1.5 phases: {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    flux_launches = phase_flux()
+    log(f"Flux phases: {time.perf_counter() - t:.2f} s; script so far {time.perf_counter() - t_start:.2f} s")
+    paths = {"sd15": launches, "flux": flux_launches}
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",
                             "forge_tpu/ops/flash_attention.py:33"),
         "gn_silu_conv3x3": ("forge_tpu_torch/csrc/gn_silu_conv3x3.cu",
                             "forge_tpu/ops/fused_gn_conv.py:42"),
+        "dequant_matmul": ("forge_tpu_torch/csrc/dequant_matmul.cu",
+                           "forge_tpu/ops/dequant_matmul.py:109,131,167,190"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], "max_abs_err": summary[name][0],
-                "ms": summary[name][1], "plain_ms": summary[name][2]}
+                "launches": sum(p[name] for p in paths.values()),
+                "launches_by_path": {path: p[name] for path, p in paths.items()},
+                "max_abs_err": summary[name][0], "ms": summary[name][1],
+                "plain_ms": summary[name][2]}
                for name, (src, rep) in sources.items()]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} launched on a main path")
+    log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

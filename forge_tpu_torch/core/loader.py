@@ -1,20 +1,37 @@
-"""Checkpoint → device parameter trees (port of forge_tpu/core/loader.py, SD1.5).
+"""Checkpoint → device parameter trees (port of forge_tpu/core/loader.py: SD1.5 and Flux).
 
 Load the file (or take a flat state dict), guess the architecture, split it
-into components, key-normalize the text encoder into the HF `text_model.*`
-space, cast floating leaves to the compute dtype and move them to the device.
-Conv kernels stay OIHW: the port computes in the checkpoints' own layout.
+into components, key-normalize CLIP into the HF `text_model.*` space, cast
+floating leaves to the compute dtype and move them to the device. Conv
+kernels stay OIHW: the port computes in the checkpoints' own layout.
+
+Quantized weights: `unet_quant` ("nf4" | "q8_0" | "q4_0") quantizes the
+diffusion model's large matmul weights as each tensor arrives, on its device,
+with the reference's selection rule (2-D, ≥ QUANT_MIN_SIZE elements, no
+"norm", "emb" or "bias" in the key). Prequantized leaves (GGUF files, or
+forge_tpu leaf dicts) pass through as `QuantLeaf`s whatever `unet_quant` is.
+Lazy weights (`core/synth.py` `LazyTensor`) are made one at a time, so a
+full-width checkpoint is never resident at full precision.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import math
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
+from ..ops import quant as quant_mod
 from . import guess as guess_mod
-from .convert import nest, to_tensor
+from .convert import nest, quant_leaf, to_tensor
 from .state_dict import load_state_dict
+from .synth import LazyTensor
+
+FAMILIES = ("sd15", "flux")
+TEXT_ENCODERS = ("clip_l", "t5xxl")
+UNET_QUANT = ("nf4", "q8_0", "q4_0")
+QUANT_MIN_SIZE = 1 << 16  # leave small tensors in full precision
+QUANT_SKIP = ("norm", "emb", "bias")
 
 
 class LoadedCheckpoint:
@@ -29,14 +46,25 @@ class LoadedCheckpoint:
         self.text_encoders = text_encoders  # name -> nested params
 
 
-def to_device_tree(sd: Mapping[str, Any], dtype: torch.dtype,
-                   device) -> Dict[str, Any]:
-    """Flat {key: array} → nested {..: tensor} on `device`; floating leaves
-    cast to `dtype`, integer leaves keep theirs."""
+def _quantizes(key: str, shape) -> bool:
+    return (len(shape) == 2 and math.prod(shape) >= QUANT_MIN_SIZE
+            and not any(t in key for t in QUANT_SKIP))
+
+
+def to_device_tree(sd: Mapping[str, Any], dtype: torch.dtype, device,
+                   quant: Optional[str] = None) -> Dict[str, Any]:
+    """Flat {key: array} → nested {..: tensor | QuantLeaf} on `device`;
+    floating leaves cast to `dtype`, integer leaves keep theirs, and with
+    `quant` the weights `_quantizes` picks become `QuantLeaf`s."""
     out = {}
     for key, value in sd.items():
-        t = to_tensor(value)
-        if t.is_floating_point():
+        if isinstance(value, (Mapping, quant_mod.QuantLeaf)):  # prequantized
+            out[key] = quant_leaf(value).to(device)
+            continue
+        t = value.materialize() if isinstance(value, LazyTensor) else to_tensor(value)
+        if quant is not None and t.is_floating_point() and _quantizes(key, t.shape):
+            t = quant_mod.quantize(t.to(device), quant)
+        elif t.is_floating_point():
             t = t.to(device=device, dtype=dtype)
         else:
             t = t.to(device=device)
@@ -44,23 +72,28 @@ def to_device_tree(sd: Mapping[str, Any], dtype: torch.dtype,
     return nest(out)
 
 
-def load_checkpoint_parts(path_or_sd, dtype: torch.dtype = torch.float32,
-                          device="cpu") -> LoadedCheckpoint:
+def load_checkpoint_parts(path_or_sd, dtype: torch.dtype = torch.float32, device="cpu",
+                          unet_quant: Optional[str] = None) -> LoadedCheckpoint:
     """Checkpoint path (or flat state dict) → components on `device`."""
+    if unet_quant is not None and unet_quant not in UNET_QUANT:
+        raise NotImplementedError(
+            f"unet_quant={unet_quant!r} is not ported (ported: {', '.join(UNET_QUANT)})")
     sd = load_state_dict(path_or_sd) if isinstance(path_or_sd, str) else dict(path_or_sd)
     g = guess_mod.guess(sd)
-    if g.family != "sd15":
+    del sd
+    if g.family not in FAMILIES:
         raise NotImplementedError(
-            f"{g.family} checkpoints are not ported to forge_tpu_torch yet (SD1.5 only)")
+            f"{g.family} checkpoints are not ported to forge_tpu_torch yet "
+            f"(ported: {', '.join(FAMILIES)})")
     text_encoders: Dict[str, Any] = {}
     for name, tsd in g.text_encoders.items():
-        if name != "clip_l":
+        if name not in TEXT_ENCODERS:
             raise NotImplementedError(f"text encoder {name} is not ported yet")
-        if not any(k.startswith("text_model.") for k in tsd):
+        if name == "clip_l" and not any(k.startswith("text_model.") for k in tsd):
             # bare CLIP dumps → HF text_model namespace
             tsd = {f"text_model.{k}" if not k.startswith("text_projection") else k: v
                    for k, v in tsd.items()}
         text_encoders[name] = to_device_tree(tsd, dtype, device)
-    unet = to_device_tree(g.unet, dtype, device)
+    unet = to_device_tree(g.unet, dtype, device, quant=unet_quant)
     vae = to_device_tree(g.vae, dtype, device)
     return LoadedCheckpoint(g.family, g.prediction, g.context_dim, unet, vae, text_encoders)

@@ -1,8 +1,9 @@
-# Copied from forge_tpu/core/state_dict.py (the safetensors reader); numpy/stdlib only.
+# Copied from forge_tpu/core/state_dict.py (the safetensors reader and the .gguf route); numpy/stdlib only.
 """Checkpoint files → {key: numpy array}.
 
-Only the safetensors reader is ported; torch `.ckpt` pickles and GGUF files
-come with the loaders that need them.
+The safetensors reader and the GGUF route (core/gguf.py) are ported; torch
+`.ckpt` pickles and bitsandbytes-prequantized NF4 come with the loaders that
+need them.
 """
 
 from __future__ import annotations
@@ -65,7 +66,14 @@ def load_safetensors(path: str, keep_bf16_raw: bool = False) -> Dict[str, np.nda
 
 
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """→ {key: array}; a `.gguf` file's quantized tensors come as leaf dicts."""
     if path.endswith(".safetensors") or path.endswith(".sft"):
         return load_safetensors(path)
+    if path.endswith(".gguf"):
+        from .gguf import load_gguf
+
+        sd = load_gguf(path)
+        sd.pop("__metadata__", None)
+        return sd
     raise NotImplementedError(
-        f"{path}: only .safetensors checkpoints are read by forge_tpu_torch so far")
+        f"{path}: only .safetensors and .gguf checkpoints are read by forge_tpu_torch so far")

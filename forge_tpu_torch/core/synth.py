@@ -1,4 +1,5 @@
-# Copied from forge_tpu/core/synth.py (the SD1.5 builders); numpy only, so the port imports no JAX.
+# Copied from forge_tpu/core/synth.py (the SD1.5, Flux and T5 state dicts); numpy only, so the port imports no JAX.
+# `DeviceFill` and `LazyTensor` are the port's own: full-width weights made on the card.
 """Synthetic checkpoint synthesis: reference-format state dicts with real key
 names/shapes but generated weights.
 
@@ -6,7 +7,10 @@ Two uses: (1) tiny random checkpoints for pipeline tests (the analog of
 upstream A1111's empty.pt dummy checkpoint, SURVEY.md §4); (2) full-size
 zero-filled checkpoints for performance benchmarking on TPU without model
 downloads — matmul timing is data-independent, so zeros benchmark exactly
-like trained weights.
+like trained weights. The port adds (3): `fill=DeviceFill(device, seed)`
+makes every weight a `LazyTensor` that the loader materializes on the card
+one at a time (and quantizes there), so a full-width Flux-dev never sits on
+the host: ~16.7 B parameters would be ~67 GB of f32 and minutes of numpy.
 
 The UNet builder mirrors the ldm UNetModel construction algorithm (level/block
 layout, skip-channel bookkeeping) so key sets match real checkpoints of the
@@ -15,9 +19,10 @@ same hyperparameters.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 
 class _Fill:
@@ -38,6 +43,60 @@ class _Fill:
         return np.zeros(shape, np.float32)
 
 
+class LazyTensor:
+    """A weight whose shape is known before it exists; `materialize()` makes it."""
+
+    def __init__(self, shape: Tuple[int, ...], make: Callable[[], torch.Tensor]):
+        self.shape = tuple(shape)
+        self._make = make
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+    def materialize(self) -> torch.Tensor:
+        return self._make()
+
+
+class DeviceFill:
+    """`fill=` for the synth functions: N(0, 0.02²) weights, ones and zeros
+    made as f32 `LazyTensor`s on `device`. Weight i of the function seeded `seed`
+    comes from its own `torch.Generator(device)` seeded (seed, i), so every
+    tensor is the same whatever order the loader makes them in."""
+
+    def __init__(self, device, seed: int = 0, scale: float = 0.02):
+        self.device = torch.device(device)
+        self.seed = seed
+        self.scale = scale
+        self._count = 0
+
+    def seeded(self, seed: int) -> "DeviceFill":
+        return DeviceFill(self.device, self.seed * 1_000_003 + seed, self.scale)
+
+    def w(self, *shape):
+        index, self._count = self._count, self._count + 1
+        dev, scale, seed = self.device, self.scale, self.seed * 100_003 + index
+
+        def make():
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
+
+        return LazyTensor(shape, make)
+
+    def ones(self, *shape):
+        return LazyTensor(shape, lambda: torch.ones(shape, device=self.device))
+
+    def zeros(self, *shape):
+        return LazyTensor(shape, lambda: torch.zeros(shape, device=self.device))
+
+
+FillSpec = Union[str, DeviceFill]
+
+
+def _fill(fill: FillSpec, seed: int):
+    return fill.seeded(seed) if isinstance(fill, DeviceFill) else _Fill(fill, seed)
+
+
 def synth_unet_sd(
     model_channels: int = 320,
     channel_mult: Sequence[int] = (1, 2, 4, 4),
@@ -50,11 +109,11 @@ def synth_unet_sd(
     ff_mult: int = 4,
     middle_depth: Optional[int] = None,
     encoder_hid_dim: Optional[int] = None,  # Kolors 4096→context projection
-    fill: str = "zeros",
+    fill: FillSpec = "zeros",
     seed: int = 1,
     prefix: str = "model.diffusion_model.",
 ) -> Dict[str, np.ndarray]:
-    f = _Fill(fill, seed)
+    f = _fill(fill, seed)
     sd: Dict[str, np.ndarray] = {}
     emb = model_channels * 4
     if encoder_hid_dim:
@@ -165,11 +224,11 @@ def synth_vae_sd(
     ch_mult: Sequence[int] = (1, 2, 4, 4),
     num_res: int = 2,
     z_channels: int = 4,
-    fill: str = "zeros",
+    fill: FillSpec = "zeros",
     seed: int = 2,
     prefix: str = "first_stage_model.",
 ) -> Dict[str, np.ndarray]:
-    f = _Fill(fill, seed)
+    f = _fill(fill, seed)
     sd: Dict[str, np.ndarray] = {}
 
     def norm(key, c):
@@ -234,12 +293,12 @@ def synth_clip_sd(
     width: int = 768,
     layers: int = 12,
     vocab: int = 49408,
-    fill: str = "zeros",
+    fill: FillSpec = "zeros",
     seed: int = 3,
     prefix: str = "cond_stage_model.transformer.",
     text_projection: bool = False,
 ) -> Dict[str, np.ndarray]:
-    f = _Fill(fill, seed)
+    f = _fill(fill, seed)
     sd: Dict[str, np.ndarray] = {}
     tm = prefix + "text_model."
     sd[tm + "embeddings.token_embedding.weight"] = f.w(vocab, width)
@@ -263,10 +322,113 @@ def synth_clip_sd(
     return sd
 
 
-def synth_sd15_checkpoint(fill: str = "zeros", seed: int = 0) -> Dict[str, np.ndarray]:
+def synth_sd15_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, np.ndarray]:
     """Full-size SD1.5: 320ch UNet, 768-wide CLIP-L×12, 128ch VAE."""
     sd = {}
     sd.update(synth_unet_sd(fill=fill, seed=seed + 1))
     sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
     sd.update(synth_clip_sd(fill=fill, seed=seed + 3))
+    return sd
+
+
+def synth_flux_sd(
+    hidden: int = 3072,
+    num_heads: int = 24,
+    depth: int = 19,
+    depth_single: int = 38,
+    context_dim: int = 4096,
+    pooled_dim: int = 768,
+    in_channels: int = 64,
+    guidance: bool = True,
+    mlp_ratio: float = 4.0,
+    fill: FillSpec = "zeros",
+    seed: int = 5,
+    prefix: str = "model.diffusion_model.",
+):
+    """Flux-format state dict (flux-dev defaults; pass smaller dims for tests)."""
+    f = _fill(fill, seed)
+    sd = {}
+    mlp = int(hidden * mlp_ratio)
+    head_dim = hidden // num_heads
+
+    def lin(key, o, i):
+        sd[key + ".weight"] = f.w(o, i)
+        sd[key + ".bias"] = f.zeros(o)
+
+    lin(prefix + "img_in", hidden, in_channels)
+    lin(prefix + "txt_in", hidden, context_dim)
+    lin(prefix + "time_in.in_layer", hidden, 256)
+    lin(prefix + "time_in.out_layer", hidden, hidden)
+    lin(prefix + "vector_in.in_layer", hidden, pooled_dim)
+    lin(prefix + "vector_in.out_layer", hidden, hidden)
+    if guidance:
+        lin(prefix + "guidance_in.in_layer", hidden, 256)
+        lin(prefix + "guidance_in.out_layer", hidden, hidden)
+
+    for i in range(depth):
+        b = f"{prefix}double_blocks.{i}."
+        for s in ("img", "txt"):
+            lin(b + f"{s}_mod.lin", hidden * 6, hidden)
+            lin(b + f"{s}_attn.qkv", hidden * 3, hidden)
+            sd[b + f"{s}_attn.norm.query_norm.scale"] = f.ones(head_dim)
+            sd[b + f"{s}_attn.norm.key_norm.scale"] = f.ones(head_dim)
+            lin(b + f"{s}_attn.proj", hidden, hidden)
+            lin(b + f"{s}_mlp.0", mlp, hidden)
+            lin(b + f"{s}_mlp.2", hidden, mlp)
+
+    for i in range(depth_single):
+        b = f"{prefix}single_blocks.{i}."
+        lin(b + "linear1", hidden * 3 + mlp, hidden)
+        lin(b + "linear2", hidden, hidden + mlp)
+        sd[b + "norm.query_norm.scale"] = f.ones(head_dim)
+        sd[b + "norm.key_norm.scale"] = f.ones(head_dim)
+        lin(b + "modulation.lin", hidden * 3, hidden)
+
+    lin(prefix + "final_layer.linear", in_channels, hidden)
+    lin(prefix + "final_layer.adaLN_modulation.1", hidden * 2, hidden)
+    return sd
+
+
+def synth_t5_sd(
+    width: int = 4096,
+    layers: int = 24,
+    heads: int = 64,
+    ff: int = 10240,
+    vocab: int = 32128,
+    fill: FillSpec = "zeros",
+    seed: int = 7,
+    prefix: str = "text_encoders.t5xxl.transformer.",
+):
+    f = _fill(fill, seed)
+    sd = {}
+    kv = 64 * heads
+
+    def w(key, o, i):
+        sd[key + ".weight"] = f.w(o, i)
+
+    sd[prefix + "shared.weight"] = f.w(vocab, width)
+    for i in range(layers):
+        b = f"{prefix}encoder.block.{i}.layer."
+        for n in ("q", "k", "v"):
+            w(b + f"0.SelfAttention.{n}", kv, width)
+        w(b + "0.SelfAttention.o", width, kv)
+        if i == 0:
+            sd[b + "0.SelfAttention.relative_attention_bias.weight"] = f.w(32, heads)
+        sd[b + "0.layer_norm.weight"] = f.ones(width)
+        w(b + "1.DenseReluDense.wi_0", ff, width)
+        w(b + "1.DenseReluDense.wi_1", ff, width)
+        w(b + "1.DenseReluDense.wo", width, ff)
+        sd[b + "1.layer_norm.weight"] = f.ones(width)
+    sd[prefix + "encoder.final_layer_norm.weight"] = f.ones(width)
+    return sd
+
+
+def synth_flux_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, object]:
+    """Full-width Flux-dev merged checkpoint: the 19 + 38 block transformer
+    (hidden 3072, 24 heads), the 16-channel VAE, CLIP-L and T5-XXL."""
+    sd: Dict[str, object] = {}
+    sd.update(synth_flux_sd(fill=fill, seed=seed + 5))
+    sd.update(synth_vae_sd(z_channels=16, fill=fill, seed=seed + 2))
+    sd.update(synth_clip_sd(fill=fill, seed=seed + 3, prefix="text_encoders.clip_l.transformer."))
+    sd.update(synth_t5_sd(fill=fill, seed=seed + 7))
     return sd

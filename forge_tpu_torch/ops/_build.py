@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface. The library lands in
-`forge_tpu_torch/_build/` (ignored by git), named by a hash of the sources,
-so a changed kernel is rebuilt and an unchanged one is loaded as it is. Each
-C entry point returns a `cudaError_t` value; `check` raises on anything but 0.
+Each `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (`sm_90a`)
+into a shared library with a plain C interface; the compilers run side by
+side, so the build takes as long as the slowest file. The libraries land in
+`forge_tpu_torch/_build/` (ignored by git), each named by a hash of its
+source, so a changed kernel is rebuilt and an unchanged one is loaded as it
+is. Each C entry point returns a `cudaError_t` value; `check` raises on
+anything but 0.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 from typing import List, Optional
 
 import torch
@@ -35,10 +38,12 @@ SIGNATURES = {
     "forge_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, a, s, w, bias, y, B, C, H, W, O, dtype, stream
     "forge_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, codes, scales, mins, y, M, N, K, kind, block, dtype, stream
+    "forge_dequant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[types.SimpleNamespace] = None
 build_seconds: Optional[float] = None  # wall time of this process's compile, if it compiled
 build_log: str = ""
 
@@ -71,37 +76,50 @@ def library_path(srcs: Optional[List[str]] = None) -> str:
     return os.path.join(BUILD_DIR, f"libforge_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels unless a library for these exact sources exists."""
+def build(verbose: bool = False) -> List[str]:
+    """Compile every kernel source that has no library for its exact content,
+    one nvcc process per source, all started together → library paths."""
     global build_seconds, build_log
-    srcs = sources()
-    out = library_path(srcs)
-    if os.path.exists(out):
-        return out
+    outs = [library_path([src]) for src in sources()]
+    todo = [(src, out) for src, out in zip(sources(), outs) if not os.path.exists(out)]
+    if not todo:
+        return outs
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(srcs, tmp, nvcc_path(), verbose),
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    procs = []
+    for src, out in todo:
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs.append((src, out, tmp, subprocess.Popen(
+            nvcc_command([src], tmp, nvcc_path(), verbose),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, out, tmp, proc in procs:
+        log = proc.communicate()[0]
+        logs.append(f"== {os.path.basename(src)}\n{log}")
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode})")
+        else:
+            os.replace(tmp, out)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
     build_seconds = time.perf_counter() - t0
-    return out
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def library() -> types.SimpleNamespace:
+    """The kernels' C entry points (`SIGNATURES`), built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            libs = [ctypes.CDLL(path) for path in build()]
+            fns = {}
             for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
+                fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
+                fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib
 
 

@@ -16,11 +16,17 @@ from typing import Any, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from .dequant_matmul import linear_quantized
+from .quant import QuantLeaf
+
 
 def linear(x: torch.Tensor, p: Mapping[str, Any]) -> torch.Tensor:
-    """x [..., in] @ weight[out, in]ᵀ + bias."""
+    """x [..., in] @ weight[out, in]ᵀ + bias. A quantized weight (NF4/GGUF
+    `QuantLeaf`, ops/quant.py) goes to the dequant-matmul kernel."""
     w = p["weight"]
     bias = p.get("bias")
+    if isinstance(w, QuantLeaf):
+        return linear_quantized(x, w, bias)
     return F.linear(x, w.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
@@ -74,6 +80,16 @@ def layer_norm(x: torch.Tensor, p: Optional[Mapping[str, Any]] = None,
         xf = xf * p["weight"].float()
         if p.get("bias") is not None:
             xf = xf + p["bias"].float()
+    return xf.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis with f32 statistics."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        xf = xf * weight.float()
     return xf.to(x.dtype)
 
 

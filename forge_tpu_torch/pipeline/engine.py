@@ -1,5 +1,9 @@
 """Diffusion engine: one loaded checkpoint bound into runnable functions
-(port of forge_tpu/pipeline/engine.py, SD1.5 only).
+(port of forge_tpu/pipeline/engine.py: SD1.5 and Flux).
+
+Flux: T5-XXL features are the context, CLIP-L's pooled output the `y`
+vector, and the distilled-CFG guidance scale is added to the conditioning
+at sampling time (pipeline/processing.py).
 
 Compute dtype is bf16 on CUDA and f32 on the CPU, as the reference picks
 bf16 on the TPU and f32 elsewhere.
@@ -12,11 +16,13 @@ from typing import Dict, List, Optional
 import torch
 
 from ..core import latent_formats
-from ..core.loader import LoadedCheckpoint, load_checkpoint_parts
+from ..core.loader import FAMILIES, LoadedCheckpoint, load_checkpoint_parts
+from ..models import flux as flux_mod
 from ..models import unet as unet_mod
 from ..models import vae as vae_mod
-from ..sampling.prediction import DiscretePrediction
+from ..sampling.prediction import DiscretePrediction, PredictionFlux
 from ..text.engine import ClassicTextEngine
+from ..text.t5_engine import T5TextEngine
 from ..text.tokenizer import default_tokenizer
 
 _NAN_MESSAGES = {
@@ -46,30 +52,57 @@ def default_dtype(device) -> torch.dtype:
 
 class DiffusionEngine:
     def __init__(self, loaded: LoadedCheckpoint, device, compute_dtype: torch.dtype):
-        if loaded.family != "sd15":
-            raise NotImplementedError(f"{loaded.family} is not ported yet (SD1.5 only)")
+        if loaded.family not in FAMILIES:
+            raise NotImplementedError(f"{loaded.family} is not ported yet (ported: {FAMILIES})")
         self.family = loaded.family
         self.loaded = loaded
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.latent_format = latent_formats.BY_FAMILY[loaded.family]
-        self.unet_cfg = unet_mod.UNetConfig.for_family(loaded.family)
-        self.predictor = DiscretePrediction(prediction_type=loaded.prediction)
-        self.text_engines = {
-            "clip_l": ClassicTextEngine(loaded.text_encoders["clip_l"], default_tokenizer()),
-        }
+        self.unet_cfg = None
+        self.flux_cfg = None
+        tes = loaded.text_encoders
+        self.text_engines = {}
+        if "clip_l" in tes:
+            self.text_engines["clip_l"] = ClassicTextEngine(tes["clip_l"], default_tokenizer())
+        if loaded.family == "flux":
+            hidden = loaded.unet["img_in"]["weight"].shape[0]
+            self.flux_cfg = flux_mod.FluxConfig(num_heads=max(hidden // 128, 1),
+                                                guidance_embed="guidance_in" in loaded.unet)
+            self.predictor = PredictionFlux()
+            if "t5xxl" in tes:
+                self.text_engines["t5xxl"] = T5TextEngine(tes["t5xxl"])
+        else:
+            self.unet_cfg = unet_mod.UNetConfig.for_family(loaded.family)
+            self.predictor = DiscretePrediction(prediction_type=loaded.prediction)
 
     def set_clip_skip(self, clip_skip: int):
         for eng in self.text_engines.values():
-            eng.clip_skip = clip_skip
+            if isinstance(eng, ClassicTextEngine):
+                eng.clip_skip = clip_skip
 
     def get_learned_conditioning(self, prompts: List[str],
                                  max_chunks: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """prompts → conditioning dict for the UNet ({context})."""
+        """prompts → conditioning dict for the net: {context} (SD1.5) or
+        {context: T5 features, y: CLIP-L pooled} (Flux)."""
+        if self.family == "flux":
+            z = self.text_engines["t5xxl"](prompts)
+            if "clip_l" in self.text_engines:
+                _, pooled = self.text_engines["clip_l"](prompts, max_chunks=1)
+            else:
+                pooled = torch.zeros((len(prompts), 768), device=self.device)
+            return {"context": z.to(self.compute_dtype), "y": pooled.to(self.compute_dtype)}
         z, _ = self.text_engines["clip_l"](prompts, max_chunks=max_chunks)
         return {"context": z.to(self.compute_dtype)}
 
     def unet_apply_fn(self):
+        if self.family == "flux":
+            fcfg = self.flux_cfg
+
+            def apply_flux(params, x, t, context, y=None, guidance=None):
+                return flux_mod.flux_apply(params, x, t, context, y, guidance=guidance, cfg=fcfg)
+
+            return apply_flux
         cfg = self.unet_cfg
 
         def apply(params, x, t, context):
@@ -90,11 +123,15 @@ class DiffusionEngine:
         return img.permute(0, 2, 3, 1).contiguous(), lat_ok, img_ok
 
 
-def load_engine(path_or_sd, device=None, dtype: Optional[torch.dtype] = None) -> DiffusionEngine:
-    """Checkpoint path or flat state dict → engine on `device` (CUDA when
-    available). `dtype` is the weights' and activations' dtype: bf16 on CUDA
-    and f32 on the CPU unless given."""
+def load_engine(path_or_sd, device=None, dtype: Optional[torch.dtype] = None,
+                unet_quant: Optional[str] = None) -> DiffusionEngine:
+    """Checkpoint path (.safetensors or .gguf) or flat state dict → engine on
+    `device` (CUDA when available). `dtype` is the weights' and activations'
+    dtype: bf16 on CUDA and f32 on the CPU unless given. `unet_quant`
+    ("nf4" | "q8_0" | "q4_0") quantizes the diffusion model's large matmul
+    weights at load (core/loader.py)."""
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
-    return DiffusionEngine(load_checkpoint_parts(path_or_sd, dtype=dtype, device=device),
+    return DiffusionEngine(load_checkpoint_parts(path_or_sd, dtype=dtype, device=device,
+                                                 unet_quant=unet_quant),
                            device, dtype)

@@ -2,7 +2,9 @@
 
 resolve seeds → encode cond and uncond with a shared chunk count → host
 Philox noise → the sampler's step loop on the CFG-batched latent → VAE
-decode with the NaN checks → uint8 images.
+decode with the NaN checks → uint8 images. Flux adds the distilled-CFG
+guidance scale to both conditionings and samples 16-channel latents; at
+CFG 1 the uncond branch is skipped, as for every family.
 
 `Processing` takes only the fields this slice reads. Any other field of the
 reference's request (img2img, hires fix, scripts, styles, ...) raises
@@ -46,6 +48,7 @@ class Processing:
     scheduler: str = "automatic"
     steps: int = 20
     cfg_scale: float = 7.0
+    distilled_cfg_scale: float = 3.5  # Flux guidance embedding
     width: int = 512
     height: int = 512
     batch_size: int = 1
@@ -177,7 +180,7 @@ def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
     engine.set_clip_skip(p.clip_skip)
     timings: Dict[str, float] = {}
     images: List[np.ndarray] = []
-    te = engine.text_engines["clip_l"]
+    te = engine.text_engines.get("clip_l")
     for it in range(p.n_iter):
         seeds = p.all_seeds[it * p.batch_size:(it + 1) * p.batch_size]
         subseeds = p.all_subseeds[it * p.batch_size:(it + 1) * p.batch_size]
@@ -185,9 +188,15 @@ def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
         negs = [p.negative_prompt] * p.batch_size
 
         tc = time.perf_counter()
-        max_chunks = max(te.tokenize_batch(prompts)[1], te.tokenize_batch(negs)[1])
+        max_chunks = (1 if te is None else
+                      max(te.tokenize_batch(prompts)[1], te.tokenize_batch(negs)[1]))
         cond = engine.get_learned_conditioning(prompts, max_chunks=max_chunks)
         uncond = engine.get_learned_conditioning(negs, max_chunks=max_chunks)
+        if engine.family == "flux":
+            g = torch.full((p.batch_size,), float(p.distilled_cfg_scale),
+                           dtype=torch.float32, device=engine.device)
+            cond = dict(cond, guidance=g)
+            uncond = dict(uncond, guidance=g)
         timings["cond"] = timings.get("cond", 0.0) + time.perf_counter() - tc
 
         batch = _sample_txt2img(engine, p, seeds, subseeds, cond, uncond, timings)

@@ -1,4 +1,5 @@
-"""σ-space prediction wrapper for eps/v models (port of forge_tpu/sampling/prediction.py).
+"""σ-space prediction wrappers (port of forge_tpu/sampling/prediction.py):
+discrete eps/v (SD1.5) and rectified flow with Flux's resolution shift.
 
 How a diffusion net's raw output becomes an x0 ("denoised") estimate:
 
@@ -13,6 +14,7 @@ in numpy; the x-side formulas work on tensors or arrays alike.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -70,3 +72,50 @@ class DiscretePrediction:
             return noisy * sd**2 / (sigma**2 + sd**2) - (
                 model_output * sigma * sd / (sigma**2 + sd**2) ** 0.5)
         return noisy - model_output * sigma
+
+
+class PredictionFlow:
+    """Rectified flow: σ ∈ (0, 1], the model predicts velocity. The time
+    shift is baked into the σ table; the model's timestep is σ·1000."""
+
+    sigma_data = 1.0
+
+    def __init__(self, shift: float = 3.0, timesteps: int = 1000):
+        self.shift = shift
+        t = np.arange(1, timesteps + 1, dtype=np.float64) / timesteps
+        self.sigmas = self._shift_sigma(t).astype(np.float32)  # ascending
+        self.sigma_min = float(self.sigmas[0])
+        self.sigma_max = float(self.sigmas[-1])
+
+    def _shift_sigma(self, x):
+        return self.shift * x / (1 + (self.shift - 1) * x)
+
+    def calculate_input(self, sigma, noisy):
+        return noisy
+
+    def timestep(self, sigma):
+        return sigma * 1000.0
+
+    def sigma(self, timestep):
+        return self._shift_sigma(timestep / 1000.0)
+
+    def calculate_denoised(self, sigma, model_output, noisy):
+        return noisy - model_output * sigma
+
+    def noise_scaling(self, sigma, noise, latent):
+        return sigma * noise + (1.0 - sigma) * latent
+
+
+class PredictionFlux(PredictionFlow):
+    """Flux flow: shift factor exp(μ), μ linear in the image token count
+    (4096 at 1024², the reference's fixed value; 256 floor)."""
+
+    def __init__(self, seq_len: int = 4096, base_shift: float = 0.5, max_shift: float = 1.15):
+        m = (max_shift - base_shift) / (4096 - 256)
+        b = base_shift - m * 256
+        self.mu = seq_len * m + b
+        super().__init__(shift=math.exp(self.mu))
+
+    def _shift_sigma(self, x):
+        emu = math.exp(self.mu)
+        return emu / (emu + (1.0 / np.maximum(x, 1e-9) - 1.0))

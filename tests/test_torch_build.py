@@ -10,8 +10,17 @@ from forge_tpu_torch.ops import _build  # noqa: E402
 
 
 def test_sources_are_the_two_kernels():
+    """The SD1.5 slice's two kernels, and the Flux slice's dequant-matmul."""
     names = sorted(os.path.basename(p) for p in _build.sources())
-    assert names == ["flash_attention.cu", "gn_silu_conv3x3.cu"]
+    assert names == ["dequant_matmul.cu", "flash_attention.cu", "gn_silu_conv3x3.cu"]
+
+
+def test_every_source_has_its_own_library_and_entry_point():
+    srcs = _build.sources()
+    paths = [_build.library_path([src]) for src in srcs]
+    assert len(set(paths)) == len(srcs)
+    for name in _build.SIGNATURES:
+        assert sum(name in open(src).read() for src in srcs) == 1, name
 
 
 def test_nvcc_command_targets_sm_90a():

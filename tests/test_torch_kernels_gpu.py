@@ -102,3 +102,43 @@ def test_gn_silu_conv3x3_pad_is_zero(gen):
     inner = c * 0.01 * 4.0 / (1.0 + torch.exp(torch.tensor(-4.0))).item()
     assert abs(got[0, 0, 0, 0].item() - 4 * inner) < 1e-4
     assert abs(got[0, 0, 3, 3].item() - 9 * inner) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,block", [("q8_0", 32), ("nf4", 64), ("q4_0", 32), ("gq4", 32),
+                                        ("gq8", 32), ("gq4", 16), ("gq8", 16)])
+@pytest.mark.parametrize("m,n,k", [
+    (300, 256, 512),    # ragged M
+    (4, 64, 3072),      # N = 64: Flux final_layer, the reference's KeyError leaf
+    (130, 3072, 64),    # K = 64: Flux img_in
+    (1, 1000, 256),     # M = 1 (adaLN modulation), ragged N
+    (77, 200, 96),      # K that is a multiple of the block only
+])
+def test_dequant_matmul(gen, kind, block, m, n, k, dtype):
+    from forge_tpu_torch.ops import quant
+    from forge_tpu_torch.ops.dequant_matmul import dequant_matmul, dequant_matmul_plain
+
+    if k % block:
+        pytest.skip(f"K = {k} is not a multiple of the {kind} block {block}")
+    dt = getattr(torch, dtype)
+    w = torch.randn((n, k), generator=gen, device="cuda") * 0.05
+    leaf = (getattr(quant, f"quantize_{kind}")(w, block=block) if kind in ("gq4", "gq8")
+            else quant.quantize(w, kind))
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+    before = dequant_matmul.launches
+    got = dequant_matmul(x, leaf)
+    assert dequant_matmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == dt
+    assert _rel(got, dequant_matmul_plain(x, leaf)) <= BOUNDS[dtype]
+    assert torch.equal(got, dequant_matmul(x, leaf))  # no atomics: bit-identical reruns
+
+
+def test_dequant_matmul_refuses_an_unsupported_leaf(gen):
+    from forge_tpu_torch.ops import quant
+    from forge_tpu_torch.ops.dequant_matmul import dequant_matmul
+
+    leaf = quant.quantize(torch.randn((64, 96), generator=gen, device="cuda"), "q8_0")
+    with pytest.raises(ValueError, match="columns"):
+        dequant_matmul(torch.randn((2, 128), device="cuda"), leaf)
+    with pytest.raises(TypeError, match="dtype"):
+        dequant_matmul(torch.randn((2, 96), device="cuda").half(), leaf)
