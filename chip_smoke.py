@@ -10,7 +10,9 @@ Phases:
   2. each kernel against its plain PyTorch version on the card, in f32 and
      bf16, at the shapes the main paths give it, with both times: flash
      attention, GroupNorm+SiLU+conv3x3, and dequant-matmul for all five
-     kinds at the Flux-dev shapes;
+     kinds at the Flux-dev shapes, each row with the body it took (the
+     tensor-core body for bf16, the SIMT body for f32); at linear1 and
+     linear2 the bf16 SIMT body is timed beside it and must be slower;
   3. the SD1.5 slice at full width on random weights made on the card from
      a seed: load_engine, then three process_images requests (512², Euler a,
      20 steps, CFG 7, seeds 1, 2, 1) with the launch counts of each kernel;
@@ -19,7 +21,8 @@ Phases:
      CLIP-L, 16-channel VAE) on random weights made on the card from a seed:
      load_engine(unet_quant="nf4"), three requests (1024², Euler, "simple",
      4 steps, CFG 1, distilled CFG 3.5, seeds 1, 2, 1) with exact launch
-     counts, one request with the plain versions, one request under
+     counts (dequant-matmul's by body too), one request with the plain
+     versions, one request under
      torch.profiler (device time by kernel, busy share), then
      load_engine(unet_quant="q4_0") and one request;
   6. kernels vs plain versions on one Flux double block, one single block
@@ -125,23 +128,39 @@ def dequant_leaf(kind: str, block: int, n: int, k: int, gen: torch.Generator):
 
 
 def phase_dequant(gen: torch.Generator, summary):
-    from forge_tpu_torch.ops.dequant_matmul import dequant_matmul, dequant_matmul_plain
+    from forge_tpu_torch.ops.dequant_matmul import (dequant_body, dequant_matmul,
+                                                    dequant_matmul_plain)
 
     for kind, block, (m, n, k) in DEQUANT_CASES:
         leaf = dequant_leaf(kind, block, n, k, gen)
         for dtype, bound in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            body = dequant_body(m, dtype)
+            before = dequant_matmul.launches_by_body[body]
             got = dequant_matmul(x, leaf)
+            check(dequant_matmul.launches_by_body[body] == before + 1,
+                  f"dequant_matmul {kind} {dtype} {(m, n, k)} ran the {body} body")
             err, rel = rel_err(got, dequant_matmul_plain(x, leaf))
             check(torch.equal(got, dequant_matmul(x, leaf)), "dequant_matmul rerun is bit-identical")
             ms = time_ms(lambda: dequant_matmul(x, leaf))
             plain_ms = time_ms(lambda: dequant_matmul_plain(x, leaf))
-            log(f"dequant {kind}/{block} {str(dtype)[6:]} {m}x{n}x{k}: err {err:.3e} rel {rel:.3e} "
-                f"(bound {bound:g}) | kernel {ms:.4f} ms {2.0 * m * n * k / (ms * 1e9):.2f} "
-                f"TFLOP/s | plain {plain_ms:.4f} ms")
+            log(f"dequant {kind}/{block} {str(dtype)[6:]} {m}x{n}x{k} [{body}]: err {err:.3e} "
+                f"rel {rel:.3e} (bound {bound:g}) | kernel {ms:.4f} ms "
+                f"{2.0 * m * n * k / (ms * 1e9):.2f} TFLOP/s | plain {plain_ms:.4f} ms")
             check(rel <= bound, f"dequant_matmul {kind} {dtype} {(m, n, k)} within {bound}")
-            if (kind, dtype, (m, n, k)) == ("nf4", torch.bfloat16, DEQUANT_SHAPES[0]):
-                summary["dequant_matmul"] = (err, ms, plain_ms)
+            if dtype == torch.bfloat16 and (m, n, k) in DEQUANT_SHAPES[:2]:
+                # the earlier body at the largest products, in the same run
+                simt = dequant_matmul(x, leaf, body="simt")
+                simt_err, simt_rel = rel_err(simt, dequant_matmul_plain(x, leaf))
+                simt_ms = time_ms(lambda: dequant_matmul(x, leaf, body="simt"))
+                log(f"  same, simt body: err {simt_err:.3e} rel {simt_rel:.3e} | "
+                    f"{simt_ms:.4f} ms {2.0 * m * n * k / (simt_ms * 1e9):.2f} TFLOP/s "
+                    f"| {body} body {simt_ms / ms:.2f}x faster")
+                check(simt_rel <= bound, f"dequant_matmul simt body {kind} {(m, n, k)} within {bound}")
+                check(ms < simt_ms, f"{body} body faster than the simt body at {kind} {(m, n, k)}")
+                if (kind, (m, n, k)) == ("nf4", DEQUANT_SHAPES[0]):
+                    summary["dequant_matmul"] = (err, ms, plain_ms, {body: ms, "simt": simt_ms})
+                del simt
             del x, got
         del leaf
     torch.cuda.empty_cache()
@@ -202,10 +221,17 @@ def counters():
 def zero_counts():
     for fn in counters().values():
         fn.launches = 0
+    by_body = counters()["dequant_matmul"].launches_by_body
+    for body in by_body:
+        by_body[body] = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    """Launches by kernel, and dequant_matmul's by body as "dequant_matmul[body]"."""
+    counts = {name: fn.launches for name, fn in counters().items()}
+    for body, n in counters()["dequant_matmul"].launches_by_body.items():
+        counts[f"dequant_matmul[{body}]"] = n
+    return counts
 
 
 def phase_slice():
@@ -322,8 +348,20 @@ def flux_request(engine, seed: int, label: str, size: int = 1024):
 
 def check_flux_counts(launches, n_quant: int, requests: int, what: str):
     """Per request: every quantized leaf once a forward, the joint attention of
-    19 + 38 blocks a forward plus the VAE mid-block, and 28 VAE resnet convs."""
+    19 + 38 blocks a forward plus the VAE mid-block, and 28 VAE resnet convs.
+    Of the leaves, the modulations (2 a double block, 1 a single block, the
+    final layer's) and the time, vector and guidance embedders (6) have
+    M = 1; every other leaf sees all 512 text, 4096 image or 4608 joint
+    tokens. Each group counts on the body `dequant_body` gives its M."""
+    from forge_tpu_torch.ops.dequant_matmul import BODY_CODES, dequant_body
+
+    m1 = 2 * 19 + 38 + 1 + 6
+    per_forward = dict.fromkeys(BODY_CODES, 0)
+    per_forward[dequant_body(1, torch.bfloat16)] += m1
+    per_forward[dequant_body(512, torch.bfloat16)] += n_quant - m1
     expect = {"dequant_matmul": requests * FLUX_STEPS * n_quant,
+              **{f"dequant_matmul[{body}]": requests * FLUX_STEPS * n
+                 for body, n in per_forward.items()},
               "flash_attention": requests * (FLUX_STEPS * (19 + 38) + 1),
               "gn_silu_conv3x3": requests * 28}
     for name, want in expect.items():
@@ -427,7 +465,7 @@ def profile_request(engine):
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(f"profile: wall {wall:.4f} s, kernel time {busy_us / 1e6:.4f} s "
         f"({100 * busy_us / 1e6 / wall:.2f} % busy)")
-    for e in kernels[:8]:
+    for e in kernels[:10]:
         log(f"  {e.count:6d} × {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:6.2f} %")
 
@@ -479,6 +517,9 @@ def main():
         f"{_build.build_seconds} s)")
     for line in ptxas_summary(_build.build_log):
         log("  ptxas:", line)
+    smem = _build.library().forge_dequant_matmul_wgmma_smem
+    log(f"  dequant_matmul_wgmma_kernel dynamic shared memory: {smem(128)} B at a 128-token "
+        f"tile, {smem(256)} B at a 256-token tile")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -510,7 +551,8 @@ def main():
                 "launches": sum(p[name] for p in paths.values()),
                 "launches_by_path": {path: p[name] for path, p in paths.items()},
                 "max_abs_err": summary[name][0], "ms": summary[name][1],
-                "plain_ms": summary[name][2]}
+                "plain_ms": summary[name][2], **({"ms_by_body": summary[name][3]}
+                                                 if len(summary[name]) > 3 else {})}
                for name, (src, rep) in sources.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on a main path")

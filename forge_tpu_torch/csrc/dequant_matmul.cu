@@ -14,14 +14,19 @@
 //   q8_0 int8 × f16 scale;   nf4 hi nibble = even element, NF4 table × f32 absmax;
 //   q4_0 lo nibble = j, hi = j+16 of each 32-block, (c−8) × f16 scale;
 //   gq4  hi nibble = even element, c·s − m;   gq8 int8, c·s − m (f16 s and m).
-// The decoder is a template parameter; the GEMM skeleton is shared. The NF4
-// table lives in __constant__ memory and is copied to shared memory per block:
-// a warp's lookups hit different entries, which constant memory serializes.
+// The NF4 table lives in __constant__ memory and is copied to shared memory
+// per block: a warp's lookups hit different entries, which constant memory
+// serializes.
 //
-// What bounds it on the H100: this first version runs on the f32 CUDA cores
-// (67 TFLOP/s peak), not the tensor cores, so the large Flux products are
-// bound by the FMA rate. Its design: one block of 256 threads per 128×128
-// output tile walks K in steps of 32. Per step it stages the x tile
+// Two bodies, each with its own decoders; the entry point's `body` picks one
+// (the wrapper's `dequant_body` decides: the tensor-core body for bf16, the
+// SIMT body for f32).
+//
+// The SIMT body runs on the f32 CUDA cores (67 TFLOP/s peak), so the large
+// products are bound by the FMA rate (~32 TFLOP/s at Flux's linear1); it
+// keeps f32, where TF32 tensor cores would break the 1e-4 bound. Its decoder
+// is a template parameter of one GEMM skeleton: one block of 256 threads per
+// 128×128 output tile walks K in steps of 32. Per step it stages the x tile
 // (transposed, f32) and the decoded weight tile (f32; rounded to bf16 first
 // when x is bf16, as the reference casts the expanded tile to x's dtype) in
 // shared memory; each thread then accumulates an 8×8 register tile, reading
@@ -30,11 +35,14 @@
 // computes. Each thread decodes one 16-value run of one weight row per step:
 // a run never straddles a scale block (blocks are 16, 32 or 64), so it needs
 // one scale and one min. M and N tails are masked; K is any multiple of the
-// block (so of 16). M = 1 (adaLN modulation) runs the same tiles, mostly
-// masked: right, not fast; a skinny-M path and `wgmma` tensor-core tiles fed
-// by TMA are later work. No atomics and no split-K: reruns are bit-identical.
+// block (so of 16).
+//
+// The tensor-core body (below, `dequant_matmul_wgmma_kernel`) has its own
+// note. Neither body uses atomics or split-K: reruns are bit-identical.
 // Blocks allocate nothing and run on the caller's stream.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -248,17 +256,531 @@ cudaError_t launch_kind(const void* x, const void* codes, const void* scales, co
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* codes, const void* scales, const void* mins,
-                   void* y, int M, int N, int K, int kind, int block, cudaStream_t stream) {
-  switch (kind) {
-    case kQ8_0: return launch_kind<T, kQ8_0>(x, codes, scales, mins, y, M, N, K, block, stream);
-    case kNF4: return launch_kind<T, kNF4>(x, codes, scales, mins, y, M, N, K, block, stream);
-    case kQ4_0: return launch_kind<T, kQ4_0>(x, codes, scales, mins, y, M, N, K, block, stream);
-    case kGQ4: return launch_kind<T, kGQ4>(x, codes, scales, mins, y, M, N, K, block, stream);
-    case kGQ8: return launch_kind<T, kGQ8>(x, codes, scales, mins, y, M, N, K, block, stream);
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16 only), `dequant_matmul_wgmma_kernel`.
+//
+// It computes y in transposed tiles, yᵀ[128 weight rows × NT tokens] per
+// block (NT = 256, or 128 when 256-token tiles would leave SMs idle), so the
+// weight is wgmma's A operand and goes from the decoder straight into
+// registers in A's fragment layout, and x is the B operand, read from shared
+// memory. Both are K-major, so nothing is transposed. Two warpgroups own 64
+// weight rows each and walk K in steps of 64 (one 128-byte row of bf16).
+// Two steps ahead, one thread loads the step's x tile by TMA (128-byte
+// swizzle, rows past M and columns past K arrive as zeros) into a ring of
+// TC_STAGES slots, and every thread copies its share of the packed codes
+// with cp.async. Per step, each thread decodes its two weight rows' fragment
+// values from the codes in shared memory (16 bytes a lane, swizzled so a
+// warp's 8 rows hit distinct banks), and each warpgroup issues 4 wgmma
+// m64nNTk16 with A from registers; the products of step i run while the
+// threads decode step i+1. Each value is decoded in f32 (c·s, (c−8)·s,
+// table[c]·s or c·s − m, never contracted into an FMA; integer codes become
+// floats by the exponent trick, not the quarter-rate I2F) and rounded once
+// to bf16, as `quant.dequantize(leaf, bf16)` does. The epilogue swaps one
+// value between lane pairs so each lane stores two neighbouring columns of
+// one row of y.
+//
+// Design history and what bounds it (NVIDIA H100 80GB HBM3, 700 W, NF4,
+// 4608×21504×3072; plain dequantize + cuBLAS 1.85–1.89 ms):
+//  - the decoded weight tile in shared memory as wgmma's B operand (decode
+//    stores, fence.proxy.async and a barrier before every step's products):
+//    2.12 ms;
+//  - the weight as a register A operand: 1.66 ms, but ptxas serialized
+//    each step's wgmma behind the next step's decode (C7513), because the
+//    two fragment sets shared physical registers;
+//  - a use of the previous fragments after their wgmma retires (below)
+//    keeps the sets apart and the overlap in: 1.52 ms;
+//  - the x tile by TMA instead of 8 cp.async a thread a step: 1.33 ms,
+//    458 TFLOP/s (this body).
+// A producer warpgroup decoding into shared memory for the two consumers
+// was slower (2.62 ms): one warpgroup's decode rate is below the products'.
+// The decode still bounds it: each weight value is decoded M/NT times (18 at
+// M = 4608), 32 values a thread a step against 2×64×256×64 MACs a block.
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 256;  // two warpgroups
+constexpr int TC_BW = 128;       // weight rows (columns of y) a block: 64 a warpgroup
+constexpr int TC_BK = 64;
+constexpr int TC_STAGES = 4;     // ring slots of the x tile and the codes
+constexpr int TC_AHEAD = 2;      // steps whose copies are in flight
+constexpr int TC_C_BYTES = TC_BW * TC_BK;  // codes of a step: at most a byte a value
+
+template <int NT>
+struct TcShape {
+  static constexpr int X_BYTES = NT * TC_BK * 2;
+  // alignment slack for the swizzled x tiles, the ring, the NF4 table, the
+  // x tiles' barriers: 99,424 bytes at NT = 128, 164,960 at NT = 256
+  static constexpr int SMEM = 1024 + TC_STAGES * (X_BYTES + TC_C_BYTES) + 64 + TC_STAGES * 8;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory matrix descriptor of a K-major bf16 tile with the
+// 128-byte swizzle (row r's 16-byte chunk c at r·128 + ((c ^ r%8)·16), as
+// TMA writes it): 8-row groups 1024 bytes apart (SBO), LBO unused (1).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 8 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator accesses across a wgmma window
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64×N] (+)= a[64×16] · b[N×16]ᵀ, N = 128 or 256: A from registers (per
+// warp the A fragment of mma.m16n8k16, warp w holding rows 16w..16w+15), B
+// K-major in shared memory; accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int NT>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NT / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  if constexpr (NT == 256) wgmma_rs_m64n256k16(d, a, db, accumulate);
+  else wgmma_rs_m64n128k16(d, a, db, accumulate);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// float(c) − bias for integers 0 <= c < 2^23 and bias, exactly: the exponent
+// trick (one logic op and one add) instead of a quarter-rate I2F.
+__device__ __forceinline__ float u2f(uint32_t c, float bias) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | c), bias);
+}
+
+// The bf16 pairs (elements 2t, 2t+1) of the eight 8-value chunks of one
+// weight row's 64 values at this step → p[c]: what lane t of a quad holds of
+// the row in wgmma's A fragment. `row` is the row's codes in the stage, in
+// 16-byte units swizzled by `sw`; s[b] and m[b] are the scale and min of the
+// step's BLOCK-value block b.
+template <int KIND, int BLOCK>
+__device__ __forceinline__ void decode_row(const uint8_t* row, int sw, int t,
+                                           const float (&s)[64 / BLOCK],
+                                           const float (&m)[64 / BLOCK], const float* nf4,
+                                           uint32_t (&p)[8]) {
+  if (KIND == kQ8_0 || KIND == kGQ8) {  // chunk c: bytes 8c..8c+7, unit c/2
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint4 q = *reinterpret_cast<const uint4*>(row + ((u ^ sw) << 4));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 2 * u + h;
+        const uint32_t w = (t >> 1) ? (h ? q.w : q.y) : (h ? q.z : q.x);
+        const uint32_t b = (w >> ((t & 1) * 16)) ^ 0x8080u;  // int8 + 128, two bytes
+        float v0 = __fmul_rn(u2f(b & 0xFFu, 8388736.f), s[8 * c / BLOCK]);
+        float v1 = __fmul_rn(u2f((b >> 8) & 0xFFu, 8388736.f), s[8 * c / BLOCK]);
+        if (KIND == kGQ8) {
+          v0 = __fsub_rn(v0, m[8 * c / BLOCK]);
+          v1 = __fsub_rn(v1, m[8 * c / BLOCK]);
+        }
+        p[c] = pack_bf16(v0, v1);
+      }
+    }
+  } else if (KIND == kQ4_0) {  // unit u = 32-block u: lo nibbles j, hi nibbles j+16
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const uint4 q = *reinterpret_cast<const uint4*>(row + ((u ^ sw) << 4));
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int h = cc & 1;
+        const uint32_t w = (t >> 1) ? (h ? q.w : q.y) : (h ? q.z : q.x);
+        const uint32_t b = w >> ((t & 1) * 16 + (cc >> 1) * 4);
+        p[4 * u + cc] = pack_bf16(__fmul_rn(u2f(b & 0xFu, 8388616.f), s[u]),
+                                  __fmul_rn(u2f((b >> 8) & 0xFu, 8388616.f), s[u]));
+      }
+    }
+  } else {  // nf4, gq4: chunk c = word c of the row, byte t = elements 2t (hi), 2t+1 (lo)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const uint4 q = *reinterpret_cast<const uint4*>(row + ((u ^ sw) << 4));
+      const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * u + i;
+        const uint32_t b = words[i] >> (8 * t);
+        const float sc = s[8 * c / BLOCK];
+        if (KIND == kNF4) {
+          p[c] = pack_bf16(__fmul_rn(nf4[(b >> 4) & 0xFu], sc), __fmul_rn(nf4[b & 0xFu], sc));
+        } else {
+          const float mn = m[8 * c / BLOCK];
+          p[c] = pack_bf16(__fsub_rn(__fmul_rn(u2f((b >> 4) & 0xFu, 8388608.f), sc), mn),
+                           __fsub_rn(__fmul_rn(u2f(b & 0xFu, 8388608.f), sc), mn));
+        }
+      }
+    }
   }
-  return cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+// TMA: the [64 K × rows] box of x at (k0, m0) into `dst`, 128-byte swizzled;
+// rows past M and columns past K arrive as zeros.
+__device__ __forceinline__ void tma_load_x(void* dst, const CUtensorMap* map, int k0, int m0,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(m0), "r"(smem_u32(bar)) : "memory");
+}
+
+template <int KIND, int BLOCK, int NT>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+dequant_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const uint8_t* __restrict__ codes, const void* __restrict__ scales,
+                            const void* __restrict__ mins, __nv_bfloat16* __restrict__ y,
+                            int M, int N, int K) {
+  using S = TcShape<NT>;
+  constexpr int STAGES = TC_STAGES, AHEAD = TC_AHEAD;
+  constexpr bool kByte = KIND == kQ8_0 || KIND == kGQ8;  // one byte a code, else a nibble
+  constexpr int RB = kByte ? TC_BK : TC_BK / 2;          // code bytes of a row per step
+  constexpr int UPR = RB / 16;                           // 16-byte units of a row per step
+  constexpr int NB = TC_BK / BLOCK;                      // scale blocks of a row per step
+  constexpr bool kAsym = KIND == kGQ4 || KIND == kGQ8;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* xs = base;                          // [STAGES][NT rows × 128 B], written by TMA
+  uint8_t* cs = xs + STAGES * S::X_BYTES;      // [STAGES][TC_BW rows × RB], units swizzled
+  float* nf4 = reinterpret_cast<float*>(cs + STAGES * TC_C_BYTES);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(nf4 + 16);  // [STAGES] x tile has landed
+
+  const int tid = threadIdx.x;
+  if (KIND == kNF4 && tid < 16) nf4[tid] = kNF4Table[tid];
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&xfull[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * TC_BW;
+  const int m0 = blockIdx.y * NT;
+  const int steps = (K + TC_BK - 1) / TC_BK;
+  // this thread's weight rows in the tile: r0 and r0 + 8 (A fragment rows g, g+8)
+  const int r0 = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + g;
+  // unit swizzle: the 8 rows a warp reads at once hit 8 distinct 16-byte bank groups
+  auto swz = [](int r) { return (r / (8 / UPR)) & (UPR - 1); };
+
+  // Step j's x tile (TMA) and codes (cp.async) into ring slot j % STAGES;
+  // out-of-range code pieces are zero-filled (src-size 0) from a valid address.
+  auto issue = [&](int j) {
+    const int k0 = j * TC_BK;
+    uint8_t* cslot = cs + (j % STAGES) * TC_C_BYTES;
+    if (tid == 0) {
+      mbar_expect_tx(&xfull[j % STAGES], S::X_BYTES);
+      tma_load_x(xs + (j % STAGES) * S::X_BYTES, &xmap, k0, m0, &xfull[j % STAGES]);
+    }
+#pragma unroll
+    for (int i = 0; i < TC_BW * 4 / TC_THREADS; ++i) {  // 16-value pieces
+      const int c = tid + i * TC_THREADS;
+      const int r = c >> 2, p = c & 3;
+      const bool ok = n0 + r < N && k0 + p * 16 < K;
+      const long long e = static_cast<long long>(n0 + r) * K + k0 + p * 16;
+      if (kByte) {
+        cp_async16(cslot + r * RB + ((p ^ swz(r)) << 4), ok ? codes + e : codes, ok);
+      } else {
+        cp_async8(cslot + r * RB + (((p >> 1) ^ swz(r)) << 4) + (p & 1) * 8,
+                  ok ? codes + e / 2 : codes, ok);
+      }
+    }
+  };
+
+  // The scales (and mins) of this thread's two rows at step j; 0 outside
+  // the matrix, so the zero-filled codes there decode to ±0.
+  auto load_scales = [&](int j, float (&s)[2][NB], float (&m)[2][NB]) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int n = n0 + r0 + 8 * rr, k = j * TC_BK + b * BLOCK;
+        s[rr][b] = 0.f;
+        m[rr][b] = 0.f;
+        if (n < N && k < K) {
+          const long long idx = static_cast<long long>(n) * (K / BLOCK) + k / BLOCK;
+          s[rr][b] = KIND == kNF4 ? static_cast<const float*>(scales)[idx]
+                                  : __half2float(static_cast<const __half*>(scales)[idx]);
+          if (kAsym) m[rr][b] = __half2float(static_cast<const __half*>(mins)[idx]);
+        }
+      }
+  };
+
+  float acc[NT / 2];  // written first by wgmma with accumulate = 0
+  float sc[2][NB], mn[2][NB];
+  load_scales(0, sc, mn);
+#pragma unroll
+  for (int j = 0; j < AHEAD; ++j) {
+    if (j < steps) issue(j);
+    cp_async_commit();
+  }
+
+  // One K step into the A fragments `a`; `a_prev` holds step i−1's, which
+  // its wgmma may still be reading.
+  auto step = [&](int i, uint32_t (&a)[4][4], uint32_t (&a_prev)[4][4]) {
+    cp_async_wait<AHEAD - 1>();  // this thread's codes of step i have landed
+    // Everyone's codes of step i are visible, and every warpgroup has
+    // passed wgmma_wait<1> of step i−1, so step i−2's wgmma (the last reader
+    // of the slot refilled below) is done.
+    __syncthreads();
+    if (i + AHEAD < steps) issue(i + AHEAD);
+    cp_async_commit();
+    float sn[2][NB], mnn[2][NB];
+    load_scales(i + 1 < steps ? i + 1 : i, sn, mnn);
+
+    const uint8_t* cslot = cs + (i % STAGES) * TC_C_BYTES;
+    uint32_t pa[8], pb[8];
+    decode_row<KIND, BLOCK>(cslot + r0 * RB, swz(r0), t, sc[0], mn[0], nf4, pa);
+    decode_row<KIND, BLOCK>(cslot + (r0 + 8) * RB, swz(r0), t, sc[1], mn[1], nf4, pb);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {  // k16 slice s: chunks 2s, 2s+1 of rows g, g+8
+      a[s][0] = pa[2 * s];
+      a[s][1] = pb[2 * s];
+      a[s][2] = pa[2 * s + 1];
+      a[s][3] = pb[2 * s + 1];
+    }
+    const uint32_t xa = smem_u32(xs + (i % STAGES) * S::X_BYTES);
+    mbar_wait(&xfull[i % STAGES], (i / STAGES) & 1);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < TC_BK / 16; ++s)  // a k16 slice moves 32 bytes inside the swizzled row
+      wgmma_rs<NT>(acc, a[s], smem_desc(xa + s * 32), i > 0 || s > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // step i−1's products are done; step i's run on
+    fence_acc(acc);
+    {  // A use of step i−1's fragments after their wgmma retired (M < 0 never
+       // holds): it keeps them live through this step's decode, so the two
+       // sets get distinct registers and ptxas need not serialize (C7513).
+      uint32_t z = 0;
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) z ^= a_prev[s][j];
+      if (M < 0) y[z & 7] = __ushort_as_bfloat16(static_cast<unsigned short>(z));
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        sc[rr][b] = sn[rr][b];
+        mn[rr][b] = mnn[rr][b];
+      }
+  };
+
+  uint32_t a0[4][4], a1[4][4];
+  for (int i = 0; i < steps; i += 2) {
+    step(i, a0, a1);
+    if (i + 1 < steps) step(i + 1, a1, a0);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // acc[4q + e] holds yᵀ at weight row g + 8·(e/2) of the warp's 16, token
+  // 8q + 2t + (e & 1). Lanes g and g^1 swap one value so each stores two
+  // neighbouring columns of one row of y: even g token 2t, odd g token 2t+1.
+  const bool odd = g & 1;
+  const int n_pair = n0 + r0 - (g & 1);
+  const bool pairs = (N & 1) == 0;
+#pragma unroll
+  for (int q = 0; q < NT / 8; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = acc[4 * q + 2 * h], v1 = acc[4 * q + 2 * h + 1];
+      const float other = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+      const int tok = m0 + 8 * q + 2 * t + (odd ? 1 : 0);
+      const int n = n_pair + 8 * h;
+      const float lo = odd ? other : v0, hi = odd ? v1 : other;
+      if (tok >= M) continue;
+      __nv_bfloat16* p = y + static_cast<size_t>(tok) * N + n;
+      if (pairs && n + 1 < N) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+      } else {
+        if (n < N) p[0] = __float2bfloat16(lo);
+        if (n + 1 < N) p[1] = __float2bfloat16(hi);
+      }
+    }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no libcuda link).
+cudaError_t encode_x_map(CUtensorMap* map, const void* x, int M, int K, int rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(TC_BK), static_cast<cuuint32_t>(rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int KIND, int BLOCK, int NT>
+cudaError_t launch_wgmma(const void* x, const void* codes, const void* scales, const void* mins,
+                         void* y, int M, int N, int K, cudaStream_t stream) {
+  using S = TcShape<NT>;
+  auto kernel = dequant_matmul_wgmma_kernel<KIND, BLOCK, NT>;
+  // Above 48 KB, dynamic shared memory must be granted before the first
+  // launch: once per instance, and a refusal is returned on every call.
+  static const cudaError_t granted =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (granted != cudaSuccess) return granted;
+  CUtensorMap xmap;
+  const cudaError_t err = encode_x_map(&xmap, x, M, K, NT);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + TC_BW - 1) / TC_BW, (M + NT - 1) / NT);
+  kernel<<<grid, TC_THREADS, S::SMEM, stream>>>(xmap, static_cast<const uint8_t*>(codes), scales,
+                                                mins, static_cast<__nv_bfloat16*>(y), M, N, K);
+  return cudaGetLastError();
+}
+
+// The token tile: 256 (each decode shared by twice the products) when that
+// still gives every SM two tiles, else 128.
+template <int KIND, int BLOCK>
+cudaError_t launch_wgmma_block(const void* x, const void* codes, const void* scales,
+                               const void* mins, void* y, int M, int N, int K,
+                               cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>((M + 255) / 256) * ((N + TC_BW - 1) / TC_BW);
+  if (tiles >= 2LL * sms) return launch_wgmma<KIND, BLOCK, 256>(x, codes, scales, mins, y, M, N, K, stream);
+  return launch_wgmma<KIND, BLOCK, 128>(x, codes, scales, mins, y, M, N, K, stream);
+}
+
+template <int KIND>
+cudaError_t launch_body(const void* x, const void* codes, const void* scales, const void* mins,
+                        void* y, int M, int N, int K, int block, int dtype, int body,
+                        cudaStream_t stream) {
+  if (body == 0) {
+    if (dtype == 0) return launch_kind<float, KIND>(x, codes, scales, mins, y, M, N, K, block, stream);
+    return launch_kind<__nv_bfloat16, KIND>(x, codes, scales, mins, y, M, N, K, block, stream);
+  }
+  if constexpr (KIND == kQ4_0) {  // always 32-blocks
+    return launch_wgmma_block<KIND, 32>(x, codes, scales, mins, y, M, N, K, stream);
+  } else {
+    if (block == 16) return launch_wgmma_block<KIND, 16>(x, codes, scales, mins, y, M, N, K, stream);
+    if (block == 32) return launch_wgmma_block<KIND, 32>(x, codes, scales, mins, y, M, N, K, stream);
+    return launch_wgmma_block<KIND, 64>(x, codes, scales, mins, y, M, N, K, stream);
+  }
 }
 
 }  // namespace
@@ -267,17 +789,31 @@ cudaError_t launch(const void* x, const void* codes, const void* scales, const v
 // above → y [M,N] (dtype). kind: 0 q8_0, 1 nf4, 2 q4_0, 3 gq4, 4 gq8;
 // block 16, 32 or 64 (32 for q4_0) dividing K; mins only for gq4/gq8.
 // Every pointer 16-byte aligned. dtype: 0 = float32, 1 = bfloat16.
+// body: 0 = the SIMT body, 1 = the tensor-core body (bfloat16 only).
 // Returns a cudaError_t value (0 on success).
 extern "C" int forge_dequant_matmul(const void* x, const void* codes, const void* scales,
                                     const void* mins, void* y, int M, int N, int K, int kind,
-                                    int block, int dtype, void* stream) {
+                                    int block, int dtype, int body, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || (M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   if ((block != 16 && block != 32 && block != 64) || K % block != 0) return (int)cudaErrorInvalidValue;
   if (kind == kQ4_0 && block != 32) return (int)cudaErrorInvalidValue;
   if ((kind == kGQ4 || kind == kGQ8) && mins == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if ((body != 0 && body != 1) || (body == 1 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, codes, scales, mins, y, M, N, K, kind, block, st);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, codes, scales, mins, y, M, N, K, kind, block, st);
+  switch (kind) {
+    case kQ8_0: return (int)launch_body<kQ8_0>(x, codes, scales, mins, y, M, N, K, block, dtype, body, st);
+    case kNF4: return (int)launch_body<kNF4>(x, codes, scales, mins, y, M, N, K, block, dtype, body, st);
+    case kQ4_0: return (int)launch_body<kQ4_0>(x, codes, scales, mins, y, M, N, K, block, dtype, body, st);
+    case kGQ4: return (int)launch_body<kGQ4>(x, codes, scales, mins, y, M, N, K, block, dtype, body, st);
+    case kGQ8: return (int)launch_body<kGQ8>(x, codes, scales, mins, y, M, N, K, block, dtype, body, st);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the tensor-core body at a token tile of `rows`
+// (128 or 256), in bytes; -1 for any other tile. ptxas reports only static
+// shared memory.
+extern "C" int forge_dequant_matmul_wgmma_smem(int rows) {
+  return rows == 128 ? TcShape<128>::SMEM : rows == 256 ? TcShape<256>::SMEM : -1;
 }

@@ -38,8 +38,10 @@ SIGNATURES = {
     "forge_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, a, s, w, bias, y, B, C, H, W, O, dtype, stream
     "forge_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, codes, scales, mins, y, M, N, K, kind, block, dtype, stream
-    "forge_dequant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, codes, scales, mins, y, M, N, K, kind, block, dtype, body, stream
+    "forge_dequant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # tile rows (128 or 256) → dynamic shared bytes of the tensor-core body
+    "forge_dequant_matmul_wgmma_smem": [_I],
 }
 
 _lock = threading.Lock()

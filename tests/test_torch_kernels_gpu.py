@@ -133,6 +133,70 @@ def test_dequant_matmul(gen, kind, block, m, n, k, dtype):
     assert torch.equal(got, dequant_matmul(x, leaf))  # no atomics: bit-identical reruns
 
 
+KINDS = [("q8_0", 32), ("nf4", 64), ("q4_0", 32), ("gq4", 32), ("gq8", 32), ("gq4", 16),
+         ("gq8", 16)]
+
+
+def _leaf(gen, kind, block, n, k):
+    from forge_tpu_torch.ops import quant
+
+    w = torch.randn((n, k), generator=gen, device="cuda") * 0.05
+    return (getattr(quant, f"quantize_{kind}")(w, block=block) if kind in ("gq4", "gq8")
+            else quant.quantize(w, kind))
+
+
+@pytest.mark.parametrize("kind,block", KINDS)
+@pytest.mark.parametrize("m,n,k,body", [
+    (1, 18432, 512, "wgmma"),   # M = 1 (adaLN modulation): one token of a 128-token tile
+    (63, 256, 512, "wgmma"),
+    (64, 256, 512, "wgmma"),
+    (65, 256, 512, "wgmma"),
+    (129, 256, 512, "wgmma"),   # a masked second 128-token tile
+    (256, 200, 512, "wgmma"),   # N not a multiple of the 128-column tile
+    (300, 1000, 256, "wgmma"),  # ragged M and N
+    (128, 256, 96, "wgmma"),    # K not a multiple of 64: a zero-filled last K step
+    (192, 384, 3072, "wgmma"),  # K = 3072: the ring of stages wraps 48 times
+    (1000, 17000, 128, "wgmma"),  # 256-token tiles, with M and N tails
+])
+def test_dequant_matmul_bf16_bodies(gen, kind, block, m, n, k, body):
+    from forge_tpu_torch.ops.dequant_matmul import (dequant_body, dequant_matmul,
+                                                    dequant_matmul_plain)
+
+    if k % block:
+        pytest.skip(f"K = {k} is not a multiple of the {kind} block {block}")
+    assert dequant_body(m, torch.bfloat16) == body
+    leaf = _leaf(gen, kind, block, n, k)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    before = dict(dequant_matmul.launches_by_body)
+    got = dequant_matmul(x, leaf)
+    assert dequant_matmul.launches_by_body == {b: c + (b == body) for b, c in before.items()}
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert _rel(got, dequant_matmul_plain(x, leaf)) <= BOUNDS["bfloat16"]
+    assert torch.equal(got, dequant_matmul(x, leaf))  # no atomics: bit-identical reruns
+
+
+def test_dequant_matmul_zero_rows_launch_nothing(gen):
+    from forge_tpu_torch.ops.dequant_matmul import dequant_matmul
+
+    leaf = _leaf(gen, "nf4", 64, 384, 512)
+    before = dict(dequant_matmul.launches_by_body)
+    got = dequant_matmul(torch.empty((0, 512), device="cuda", dtype=torch.bfloat16), leaf)
+    assert got.shape == (0, 384) and dequant_matmul.launches_by_body == before
+
+
+def test_dequant_matmul_body_override(gen):
+    from forge_tpu_torch.ops.dequant_matmul import dequant_matmul, dequant_matmul_plain
+
+    leaf = _leaf(gen, "nf4", 64, 384, 512)
+    x = torch.randn((300, 512), generator=gen, device="cuda").bfloat16()
+    before = dequant_matmul.launches_by_body["simt"]
+    simt = dequant_matmul(x, leaf, body="simt")
+    assert dequant_matmul.launches_by_body["simt"] == before + 1
+    assert _rel(simt, dequant_matmul_plain(x, leaf)) <= BOUNDS["bfloat16"]
+    with pytest.raises(TypeError, match="bfloat16"):
+        dequant_matmul(x.float(), leaf, body="wgmma")
+
+
 def test_dequant_matmul_refuses_an_unsupported_leaf(gen):
     from forge_tpu_torch.ops import quant
     from forge_tpu_torch.ops.dequant_matmul import dequant_matmul
