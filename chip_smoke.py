@@ -8,20 +8,27 @@ Phases:
      compiled from forge_tpu_torch/csrc/*.cu, one nvcc (sm_90a) per file,
      all started together;
   2. each kernel against its plain PyTorch version on the card, in f32 and
-     bf16, at the shapes the main paths give it, with both times: flash
-     attention, GroupNorm+SiLU+conv3x3, and dequant-matmul for all five
-     kinds at the Flux-dev shapes, each row with the body it took (the
-     tensor-core body for bf16, the SIMT body for f32); at linear1 and
-     linear2 the bf16 SIMT body is timed beside it and must be slower;
+     bf16, at the shapes the main paths give it, with both times and the
+     bound (the least time the card could take): flash attention,
+     GroupNorm+SiLU+conv3x3, and dequant-matmul for all five kinds at the
+     Flux-dev shapes, each flash and dequant-matmul row with the body it
+     took (the tensor-core body for bf16, the SIMT body for f32); at each
+     bf16 flash shape of the main paths the SIMT body and
+     torch.nn.functional.scaled_dot_product_attention (a yardstick only:
+     the port never calls it) are timed beside it, and at linear1 and
+     linear2 the bf16 SIMT body of dequant-matmul; the SIMT body must be
+     slower;
   3. the SD1.5 slice at full width on random weights made on the card from
      a seed: load_engine, then three process_images requests (512², Euler a,
-     20 steps, CFG 7, seeds 1, 2, 1) with the launch counts of each kernel;
+     20 steps, CFG 7, seeds 1, 2, 1) with the launch counts of each kernel
+     (flash's exact, all on the tensor-core body), then one request under
+     torch.profiler (device time by kernel, busy share);
   4. one SD1.5 UNet forward through the kernels and through the plain versions;
   5. the quantized Flux-dev slice at full width (19 + 38 blocks, T5-XXL,
      CLIP-L, 16-channel VAE) on random weights made on the card from a seed:
      load_engine(unet_quant="nf4"), three requests (1024², Euler, "simple",
      4 steps, CFG 1, distilled CFG 3.5, seeds 1, 2, 1) with exact launch
-     counts (dequant-matmul's by body too), one request with the plain
+     counts (flash's and dequant-matmul's by body too), one request with the plain
      versions, one request under
      torch.profiler (device time by kernel, busy share), then
      load_engine(unet_quant="q4_0") and one request;
@@ -47,18 +54,22 @@ import time
 import numpy as np
 import torch
 
-F32_BOUND = 1e-4   # max |kernel − plain| / max(|plain|, 1) in f32
-BF16_BOUND = 2e-2  # the same in bf16: a few bf16 ulps of the output scale
+F32_BOUND = 1e-4   # max |kernel − plain| / max |plain| in f32
+BF16_BOUND = 2e-2  # the same in bf16: a bf16 ulp of max |plain| is 2^-8 to 2^-7 of it
 PSNR_BOUND = 40.0  # kernels vs plain, bf16 (tests/test_golden_parity.py's bar)
+# NVIDIA's data sheet, H100 SXM, dense: peak rate by operand type, and HBM bytes/s
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
-FLASH_SHAPES = [  # (B, H, Lq, D), Lk
-    ((2, 8, 4096, 40), 4096),   # UNet level-0 self-attention, CFG batch
-    ((2, 8, 1024, 80), 1024),   # UNet level-1 self-attention
-    ((1, 1, 4096, 512), 4096),  # VAE mid-block single head
-    ((1, 2, 1000, 40), 700),    # ragged tails on both sides
-    ((1, 24, 4608, 128), 4608),  # Flux joint attention at 1024²: 512 text + 4096 image tokens
-    ((1, 1, 16384, 512), 16384),  # Flux VAE mid-block at 1024²
+FLASH_SHAPES = [  # (B, H, Lq, D), Lk, a shape of a main path
+    ((2, 8, 4096, 40), 4096, True),     # UNet level-0 self-attention, CFG batch
+    ((2, 8, 1024, 80), 1024, True),     # UNet level-1 self-attention
+    ((1, 1, 4096, 512), 4096, True),    # VAE mid-block single head
+    ((1, 2, 1000, 40), 700, False),     # ragged tails on both sides
+    ((1, 24, 4608, 128), 4608, True),   # Flux joint attention at 1024²: 512 text + 4096 image tokens
+    ((1, 1, 16384, 512), 16384, True),  # Flux VAE mid-block at 1024²
 ]
+FLASH_SUMMARY_SHAPE = FLASH_SHAPES[0][0]  # the JSON line's flash row (the same shape since the first)
 GN_CONV_SHAPES = [  # (B, C, H, W), O
     ((2, 320, 64, 64), 320),     # UNet level-0 resblock
     ((2, 960, 32, 32), 640),     # UNet output block after a skip concat
@@ -111,11 +122,33 @@ def time_ms(fn, budget_ms: float = 300.0) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: float, dtype: torch.dtype):
+    """The least time the card could take for the work, in ms, and what sets
+    it: the operations at the peak rate of `dtype`, or the bytes (each input
+    read once, each output written once) at the HBM rate."""
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FLOPS[dtype], 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sdpa_ms(q, k, v):
+    """torch's scaled_dot_product_attention on the same tensors, or None where
+    it refuses them; timed as a yardstick, never called by the port."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        sdpa(q, k, v)
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    return time_ms(lambda: sdpa(q, k, v))
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor):
+    """max |got − want|, and the same over max |want|: attention outputs of
+    unit-normal inputs are averages far below 1, so no floor of 1."""
     got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), "kernel output is finite")
     err = (got - want).abs().max().item()
-    return err, err / max(want.abs().max().item(), 1.0)
+    return err, err / want.abs().max().item()
 
 
 def dequant_leaf(kind: str, block: int, n: int, k: int, gen: torch.Generator):
@@ -127,13 +160,18 @@ def dequant_leaf(kind: str, block: int, n: int, k: int, gen: torch.Generator):
     return quant.quantize(w, kind)
 
 
+def leaf_bytes(leaf) -> int:
+    return sum(t.numel() * t.element_size() for t in (leaf.codes, leaf.scales, leaf.mins)
+               if t is not None)
+
+
 def phase_dequant(gen: torch.Generator, summary):
     from forge_tpu_torch.ops.dequant_matmul import (dequant_body, dequant_matmul,
                                                     dequant_matmul_plain)
 
     for kind, block, (m, n, k) in DEQUANT_CASES:
         leaf = dequant_leaf(kind, block, n, k, gen)
-        for dtype, bound in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
+        for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             body = dequant_body(m, dtype)
             before = dequant_matmul.launches_by_body[body]
@@ -145,9 +183,9 @@ def phase_dequant(gen: torch.Generator, summary):
             ms = time_ms(lambda: dequant_matmul(x, leaf))
             plain_ms = time_ms(lambda: dequant_matmul_plain(x, leaf))
             log(f"dequant {kind}/{block} {str(dtype)[6:]} {m}x{n}x{k} [{body}]: err {err:.3e} "
-                f"rel {rel:.3e} (bound {bound:g}) | kernel {ms:.4f} ms "
+                f"rel {rel:.3e} (bound {tol:g}) | kernel {ms:.4f} ms "
                 f"{2.0 * m * n * k / (ms * 1e9):.2f} TFLOP/s | plain {plain_ms:.4f} ms")
-            check(rel <= bound, f"dequant_matmul {kind} {dtype} {(m, n, k)} within {bound}")
+            check(rel <= tol, f"dequant_matmul {kind} {dtype} {(m, n, k)} within {tol}")
             if dtype == torch.bfloat16 and (m, n, k) in DEQUANT_SHAPES[:2]:
                 # the earlier body at the largest products, in the same run
                 simt = dequant_matmul(x, leaf, body="simt")
@@ -156,36 +194,72 @@ def phase_dequant(gen: torch.Generator, summary):
                 log(f"  same, simt body: err {simt_err:.3e} rel {simt_rel:.3e} | "
                     f"{simt_ms:.4f} ms {2.0 * m * n * k / (simt_ms * 1e9):.2f} TFLOP/s "
                     f"| {body} body {simt_ms / ms:.2f}x faster")
-                check(simt_rel <= bound, f"dequant_matmul simt body {kind} {(m, n, k)} within {bound}")
+                check(simt_rel <= tol, f"dequant_matmul simt body {kind} {(m, n, k)} within {tol}")
                 check(ms < simt_ms, f"{body} body faster than the simt body at {kind} {(m, n, k)}")
                 if (kind, (m, n, k)) == ("nf4", DEQUANT_SHAPES[0]):
-                    summary["dequant_matmul"] = (err, ms, plain_ms, {body: ms, "simt": simt_ms})
+                    bms, by = bound(2.0 * m * n * k, 2 * (m * k + m * n) + leaf_bytes(leaf),
+                                    torch.bfloat16)
+                    summary["dequant_matmul"] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": by, "library_ms": None, "ms_by_body": {body: ms, "simt": simt_ms}}
                 del simt
             del x, got
         del leaf
     torch.cuda.empty_cache()
 
 
-def phase_kernels(gen: torch.Generator):
-    from forge_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-    from forge_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
+def phase_flash(gen: torch.Generator, summary):
+    from forge_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_plain,
+                                                     flash_body)
 
-    summary = {}
-    for dtype, bound in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
-        for (b, h, lq, d), lk in FLASH_SHAPES:
+    for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
+        for (b, h, lq, d), lk, main_path in FLASH_SHAPES:
             q = torch.randn((b, h, lq, d), generator=gen, device="cuda").to(dtype)
             k = torch.randn((b, h, lk, d), generator=gen, device="cuda").to(dtype)
             v = torch.randn((b, h, lk, d), generator=gen, device="cuda").to(dtype)
-            err, rel = rel_err(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+            body = flash_body(d, dtype)
+            before = flash_attention.launches_by_body[body]
+            got = flash_attention(q, k, v)
+            check(flash_attention.launches_by_body[body] == before + 1,
+                  f"flash_attention {dtype} {(b, h, lq, d)} ran the {body} body")
+            want = flash_attention_plain(q, k, v)
+            err, rel = rel_err(got, want)
+            check(torch.equal(got, flash_attention(q, k, v)), "flash_attention rerun is bit-identical")
             ms = time_ms(lambda: flash_attention(q, k, v))
             plain_ms = time_ms(lambda: flash_attention_plain(q, k, v))
-            log(f"flash_attention {str(dtype)[6:]:8s} q{(b, h, lq, d)} lk={lk}: "
-                f"max_abs_err={err:.3e} rel={rel:.3e} (bound {bound:g}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            check(rel <= bound, f"flash_attention {dtype} {(b, h, lq, d)} within {bound}")
-            if dtype == torch.bfloat16 and (b, h, lq, d) == FLASH_SHAPES[0][0]:
-                summary["flash_attention"] = (err, ms, plain_ms)
-            del q, k, v
+            bms, by = bound(4.0 * b * h * lq * lk * d,  # q, k, v read once, the output written once
+                            2 * (q.numel() + k.numel()) * q.element_size(), dtype)
+            log(f"flash_attention {str(dtype)[6:]:8s} q{(b, h, lq, d)} lk={lk} [{body}]: "
+                f"max_abs_err={err:.3e} rel={rel:.3e} (bound {tol:g}) "
+                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms | card bound {bms:.4f} ms ({by}), "
+                f"{100 * bms / ms:.1f} % of it")
+            check(rel <= tol, f"flash_attention {dtype} {(b, h, lq, d)} within {tol}")
+            if dtype == torch.bfloat16 and main_path:
+                simt = flash_attention(q, k, v, body="simt")
+                simt_err, simt_rel = rel_err(simt, want)
+                simt_ms = time_ms(lambda: flash_attention(q, k, v, body="simt"))
+                lib_ms = sdpa_ms(q, k, v)
+                log(f"  same, simt body: err {simt_err:.3e} rel {simt_rel:.3e} | {simt_ms:.4f} ms "
+                    f"| {body} body {simt_ms / ms:.2f}x faster | SDPA "
+                    + (f"{lib_ms:.4f} ms" if lib_ms is not None else "not measured"))
+                check(simt_rel <= tol, f"flash_attention simt body {(b, h, lq, d)} within {tol}")
+                check(ms < simt_ms, f"{body} body faster than the simt body at {(b, h, lq, d)}")
+                if (b, h, lq, d) == FLASH_SUMMARY_SHAPE:
+                    summary["flash_attention"] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": by, "library_ms": lib_ms,
+                        "ms_by_body": {body: ms, "simt": simt_ms}}
+                del simt
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_kernels(gen: torch.Generator):
+    from forge_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
+
+    summary = {}
+    phase_flash(gen, summary)
+    for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for (b, c, hh, ww), o in GN_CONV_SHAPES:
             x = torch.randn((b, c, hh, ww), generator=gen, device="cuda").to(dtype)
             a = 1.0 + 0.1 * torch.randn((b, c), generator=gen, device="cuda")
@@ -197,12 +271,16 @@ def phase_kernels(gen: torch.Generator):
                                gn_silu_conv3x3_plain(x, a, s, w, bias))
             ms = time_ms(lambda: gn_silu_conv3x3(x, a, s, w, bias))
             plain_ms = time_ms(lambda: gn_silu_conv3x3_plain(x, a, s, w, bias))
+            bms, by = bound(2.0 * b * o * hh * ww * c * 9,
+                            x.element_size() * (x.numel() + b * o * hh * ww + w.numel())
+                            + 4 * (a.numel() + s.numel() + bias.numel()), dtype)
             log(f"gn_silu_conv3x3 {str(dtype)[6:]:8s} x{(b, c, hh, ww)}->{o}: "
-                f"max_abs_err={err:.3e} rel={rel:.3e} (bound {bound:g}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            check(rel <= bound, f"gn_silu_conv3x3 {dtype} {(b, c, hh, ww)} within {bound}")
+                f"max_abs_err={err:.3e} rel={rel:.3e} (bound {tol:g}) "
+                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms | card bound {bms:.4f} ms ({by})")
+            check(rel <= tol, f"gn_silu_conv3x3 {dtype} {(b, c, hh, ww)} within {tol}")
             if dtype == torch.bfloat16 and (b, c, hh, ww) == GN_CONV_SHAPES[0][0]:
-                summary["gn_silu_conv3x3"] = (err, ms, plain_ms)
+                summary["gn_silu_conv3x3"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                              "bound_ms": bms, "bound_by": by, "library_ms": None}
             del x, w
     torch.cuda.empty_cache()
     phase_dequant(gen, summary)
@@ -218,19 +296,22 @@ def counters():
             "dequant_matmul": dequant_matmul}
 
 
+BY_BODY = ("flash_attention", "dequant_matmul")  # kernels with two bodies
+
+
 def zero_counts():
-    for fn in counters().values():
+    for name, fn in counters().items():
         fn.launches = 0
-    by_body = counters()["dequant_matmul"].launches_by_body
-    for body in by_body:
-        by_body[body] = 0
+        if name in BY_BODY:
+            fn.launches_by_body.update(dict.fromkeys(fn.launches_by_body, 0))
 
 
 def read_counts():
-    """Launches by kernel, and dequant_matmul's by body as "dequant_matmul[body]"."""
+    """Launches by kernel, and each two-bodied kernel's by body as "name[body]"."""
     counts = {name: fn.launches for name, fn in counters().items()}
-    for body, n in counters()["dequant_matmul"].launches_by_body.items():
-        counts[f"dequant_matmul[{body}]"] = n
+    for name in BY_BODY:
+        for body, n in counters()[name].launches_by_body.items():
+            counts[f"{name}[{body}]"] = n
     return counts
 
 
@@ -248,10 +329,14 @@ def phase_slice():
 
     zero_counts()
     images, latencies = [], []
+
+    def request(seed):
+        return Processing(prompt="a photograph of an astronaut riding a horse",
+                          negative_prompt="blurry", seed=seed, steps=20, cfg_scale=7.0,
+                          width=512, height=512, sampler_name="Euler a")
+
     for seed in (1, 2, 1):
-        p = Processing(prompt="a photograph of an astronaut riding a horse",
-                       negative_prompt="blurry", seed=seed, steps=20, cfg_scale=7.0,
-                       width=512, height=512, sampler_name="Euler a")
+        p = request(seed)
         t = time.perf_counter()
         res = process_images(engine, p)
         latencies.append(time.perf_counter() - t)
@@ -270,7 +355,13 @@ def phase_slice():
         log(f"launches during the 3 requests: {name} {n} (expected {3 * expect}: "
             f"{'matches' if n == 3 * expect else 'DIFFERS'})")
         check(n > 0, f"{name} launched on the SD1.5 path")
+    n_flash = 3 * EXPECTED_PER_REQUEST["flash_attention"]
+    log(f"launches during the 3 requests: flash_attention[wgmma] "
+        f"{launches['flash_attention[wgmma]']}, [simt] {launches['flash_attention[simt]']}")
+    check(launches["flash_attention"] == launches["flash_attention[wgmma]"] == n_flash,
+          f"all {n_flash} flash launches of the SD1.5 requests on the tensor-core body")
     log("slice: seed 1 repeat byte-identical, NaN checks passed")
+    profile_request("sd15 512²", lambda: process_images(engine, request(1)))
     return engine, launches
 
 
@@ -354,15 +445,20 @@ def check_flux_counts(launches, n_quant: int, requests: int, what: str):
     M = 1; every other leaf sees all 512 text, 4096 image or 4608 joint
     tokens. Each group counts on the body `dequant_body` gives its M."""
     from forge_tpu_torch.ops.dequant_matmul import BODY_CODES, dequant_body
+    from forge_tpu_torch.ops.flash_attention import flash_body
 
     m1 = 2 * 19 + 38 + 1 + 6
+    flash = requests * (FLUX_STEPS * (19 + 38) + 1)  # the joint attention (d 128), the VAE's (d 512)
+    check(flash_body(128, torch.bfloat16) == flash_body(512, torch.bfloat16) == "wgmma",
+          "Flux's flash calls take the tensor-core body")
     per_forward = dict.fromkeys(BODY_CODES, 0)
     per_forward[dequant_body(1, torch.bfloat16)] += m1
     per_forward[dequant_body(512, torch.bfloat16)] += n_quant - m1
     expect = {"dequant_matmul": requests * FLUX_STEPS * n_quant,
               **{f"dequant_matmul[{body}]": requests * FLUX_STEPS * n
                  for body, n in per_forward.items()},
-              "flash_attention": requests * (FLUX_STEPS * (19 + 38) + 1),
+              "flash_attention": flash, "flash_attention[wgmma]": flash,
+              "flash_attention[simt]": 0,
               "gn_silu_conv3x3": requests * 28}
     for name, want in expect.items():
         log(f"launches during {what}: {name} {launches[name]} (expected {want})")
@@ -386,7 +482,7 @@ def phase_flux():
     diff = np.abs(plain_img.astype(np.int16) - images[0].astype(np.int16))
     log(f"flux nf4 image, kernels vs plain versions: max |Δ| {diff.max()} of 255, "
         f"mean |Δ| {diff.mean():.4f}")
-    profile_request(engine)
+    profile_request("flux nf4 1024²", lambda: flux_request(engine, 1, "nf4, profiled"))
     phase_flux_blocks(engine)
     del engine
     torch.cuda.empty_cache()
@@ -449,21 +545,21 @@ def phase_flux_blocks(engine, size: int = 1024):
             check(worst >= PSNR_BOUND, f"Flux {name} PSNR ≥ {PSNR_BOUND} dB")
 
 
-def profile_request(engine):
-    """One NF4 request under torch.profiler: device time by kernel, and the
-    busy share (kernel time over the request's wall time)."""
+def profile_request(label: str, run):
+    """One request, run(), under torch.profiler: device time by kernel, and
+    the busy share (kernel time over the request's wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        flux_request(engine, 1, "nf4, profiled")
+        run()
         wall = time.perf_counter() - t
     events = prof.key_averages()
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"profile: wall {wall:.4f} s, kernel time {busy_us / 1e6:.4f} s "
+    log(f"profile {label}: wall {wall:.4f} s, kernel time {busy_us / 1e6:.4f} s "
         f"({100 * busy_us / 1e6 / wall:.2f} % busy)")
     for e in kernels[:10]:
         log(f"  {e.count:6d} × {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
@@ -472,7 +568,7 @@ def profile_request(engine):
 
 def ptxas_summary(build_log: str):
     """`-Xptxas=-v` output → "kernel<args>: registers, shared memory, spills" lines."""
-    name, spills = None, "?"
+    name, spills, notes = None, "?", {}
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
@@ -492,8 +588,17 @@ def ptxas_summary(build_log: str):
             yield (f"{name}: {regs.group(1) if regs else '?'} registers, "
                    f"{smem.group(1) if smem else 0} B smem, spill stores/loads {spills}")
             name, spills = None, "?"
-        elif "error" in line.lower():
-            yield line.strip()
+        elif "(C75" in line:  # wgmma notes (C7513: serialized; C7519: a fence injected)
+            code = re.search(r"\(C75\d\d\)", line).group()
+            func = line.split("function")[-1].strip(" '")
+            text = line.split(code)[-1].split(" in function")[0].strip()
+            notes.setdefault((code, func), [0, text])[0] += 1
+        elif "error" in line.lower() or "warning" in line.lower():
+            yield line.strip()[:200]
+    for (code, func), (n, text) in notes.items():
+        kernel = re.search(r"([a-z][a-z_]*_kernel)I", func)
+        args = ",".join(re.findall(r"Li(\d+)E", func))
+        yield f"{code} ×{n} in {kernel.group(1) if kernel else func[:80]}<{args}>: {text[:150]}"
 
 
 def main():
@@ -520,6 +625,9 @@ def main():
     smem = _build.library().forge_dequant_matmul_wgmma_smem
     log(f"  dequant_matmul_wgmma_kernel dynamic shared memory: {smem(128)} B at a 128-token "
         f"tile, {smem(256)} B at a 256-token tile")
+    smem = _build.library().forge_flash_attention_wgmma_smem
+    log("  flash_fwd_wgmma_kernel dynamic shared memory: "
+        + ", ".join(f"{smem(d)} B at d = {d}" for d in (40, 128, 160, 512)))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -550,9 +658,7 @@ def main():
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(p[name] for p in paths.values()),
                 "launches_by_path": {path: p[name] for path, p in paths.items()},
-                "max_abs_err": summary[name][0], "ms": summary[name][1],
-                "plain_ms": summary[name][2], **({"ms_by_body": summary[name][3]}
-                                                 if len(summary[name]) > 3 else {})}
+                **summary[name]}
                for name, (src, rep) in sources.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on a main path")

@@ -4,8 +4,8 @@ Each `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (`sm_90a`)
 into a shared library with a plain C interface; the compilers run side by
 side, so the build takes as long as the slowest file. The libraries land in
 `forge_tpu_torch/_build/` (ignored by git), each named by a hash of its
-source, so a changed kernel is rebuilt and an unchanged one is loaded as it
-is. Each C entry point returns a `cudaError_t` value; `check` raises on
+source and of the shared headers (`csrc/*.cuh`), so a changed kernel or
+header is rebuilt and an unchanged one is loaded as it is. Each C entry point returns a `cudaError_t` value; `check` raises on
 anything but 0.
 """
 
@@ -34,8 +34,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point → argument types (pointers and the stream as void*)
 SIGNATURES = {
-    # q, k, v, out, bh, lq, lk, d, scale, dtype, stream
-    "forge_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, bh, lq, lk, d, scale, dtype, body, stream
+    "forge_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    # head dim → dynamic shared bytes of the tensor-core body (-1: no instance)
+    "forge_flash_attention_wgmma_smem": [_I],
     # x, a, s, w, bias, y, B, C, H, W, O, dtype, stream
     "forge_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, codes, scales, mins, y, M, N, K, kind, block, dtype, body, stream
@@ -52,6 +54,11 @@ build_log: str = ""
 
 def sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers() -> List[str]:
+    """The headers every source may include; each library's name hashes them."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def nvcc_path() -> str:
@@ -71,7 +78,7 @@ def nvcc_command(srcs: List[str], out: str, nvcc: str = "nvcc",
 
 def library_path(srcs: Optional[List[str]] = None) -> str:
     h = hashlib.sha256()
-    for path in srcs if srcs is not None else sources():
+    for path in (srcs if srcs is not None else sources()) + headers():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -123,6 +130,13 @@ def library() -> types.SimpleNamespace:
                 fns[name] = fn
             _lib = types.SimpleNamespace(**fns)
         return _lib
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, 16-byte aligned storage: the kernels load 16-byte vectors
+    and TMA boxes from it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(err: int, name: str) -> None:

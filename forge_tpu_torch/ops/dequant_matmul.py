@@ -46,12 +46,6 @@ def dequant_matmul_plain(x2: torch.Tensor, leaf: QuantLeaf) -> torch.Tensor:
     return x2 @ dequantize(leaf, x2.dtype).T
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, 16-byte aligned storage (the kernel loads 16-byte vectors)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _check_leaf(leaf: QuantLeaf, k: int, device: torch.device) -> None:
     kind, block = leaf.kind, leaf.block
     n_out, n_in = leaf.shape
@@ -97,9 +91,9 @@ def dequant_matmul(x2: torch.Tensor, leaf: QuantLeaf, body: Optional[str] = None
     y = torch.empty((m, n), device=x2.device, dtype=x2.dtype)
     if m == 0:
         return y
-    x2 = _aligned(x2)
-    codes, scales = _aligned(leaf.codes), _aligned(leaf.scales)
-    mins: Optional[torch.Tensor] = _aligned(leaf.mins) if leaf.mins is not None else None
+    x2 = _build.aligned(x2)
+    codes, scales = _build.aligned(leaf.codes), _build.aligned(leaf.scales)
+    mins: Optional[torch.Tensor] = _build.aligned(leaf.mins) if leaf.mins is not None else None
     fn = _build.library().forge_dequant_matmul
     err = fn(x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
              None if mins is None else mins.data_ptr(), y.data_ptr(), m, n, k,

@@ -43,7 +43,12 @@ def raise_nans(where: str):
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device an engine runs on unless the caller names one: the CUDA
+    card. Where there is none this raises; the CPU is taken only on request."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("forge_tpu_torch: no CUDA device found; pass device=\"cpu\" "
+                           "to run on the CPU")
+    return torch.device("cuda")
 
 
 def default_dtype(device) -> torch.dtype:
@@ -126,7 +131,7 @@ class DiffusionEngine:
 def load_engine(path_or_sd, device=None, dtype: Optional[torch.dtype] = None,
                 unet_quant: Optional[str] = None) -> DiffusionEngine:
     """Checkpoint path (.safetensors or .gguf) or flat state dict → engine on
-    `device` (CUDA when available). `dtype` is the weights' and activations'
+    `device` (the CUDA card unless given; without one this raises). `dtype` is the weights' and activations'
     dtype: bf16 on CUDA and f32 on the CPU unless given. `unet_quant`
     ("nf4" | "q8_0" | "q4_0") quantizes the diffusion model's large matmul
     weights at load (core/loader.py)."""

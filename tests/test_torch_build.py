@@ -45,6 +45,19 @@ def test_library_name_follows_source_content(tmp_path):
     assert os.path.dirname(first) == _build.BUILD_DIR
 
 
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel includes csrc/*.cuh: a changed header must not load a stale library."""
+    src = tmp_path / "k.cu"
+    src.write_text('#include "hopper.cuh"')
+    header = tmp_path / "hopper.cuh"
+    header.write_text("// one")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    assert _build.headers() == [str(header)]
+    first = _build.library_path([str(src)])
+    header.write_text("// two")
+    assert _build.library_path([str(src)]) != first
+
+
 def test_build_dir_is_ignored_by_git():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, ".gitignore")) as f:

@@ -46,6 +46,22 @@ def test_plain_matches_pallas_kernel(b, h, lq, lk, d):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (1, 2, 128, 128, 40),    # SD1.5 level-0 head dim
+    (1, 2, 130, 100, 128),   # Flux head dim, ragged
+    (1, 1, 128, 96, 512),    # VAE single head
+])
+def test_plain_matches_pallas_kernel_in_bf16(b, h, lq, lk, d):
+    """In bf16 both round the probabilities to bf16 before p·v (the
+    tensor-core body does too). Bound: 2e-2 of max |want|, a few bf16 ulps
+    (the two round the f32 logits and the output at other points)."""
+    q, k, v = _qkv(b, h, lq, lk, d, seed=d + 1)
+    want = np.asarray(_flash_attention_own(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                           interpret=True).astype(jnp.float32))
+    got = flash_attention(*(torch.from_numpy(x).bfloat16() for x in (q, k, v))).float().numpy()
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("lq,lk,masked,expect_flash", [
     (512, 512, False, True),
     (512, 77, False, False),   # cross-attention: Lk below the cut

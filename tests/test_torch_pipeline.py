@@ -48,6 +48,21 @@ def test_txt2img_matches_forge_tpu():
     assert np.array_equal(got, again)
 
 
+def test_load_engine_without_a_device_does_not_fall_back_to_the_cpu():
+    """No device named and no CUDA device: a clear error, not a quiet CPU
+    engine; device="cpu" still loads."""
+    from forge_tpu_torch.pipeline.engine import default_device, load_engine
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: load_engine() takes it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_engine(make_sd15_checkpoint(0))
+    eng = load_engine(make_sd15_checkpoint(0), device="cpu")
+    assert eng.device.type == "cpu" and eng.compute_dtype == torch.float32
+
+
 def test_processing_refuses_unported_fields():
     from forge_tpu_torch.pipeline.processing import Processing
 
