@@ -11,24 +11,25 @@ Phases:
      bf16, at the shapes the main paths give it, with both times and the
      bound (the least time the card could take): flash attention,
      GroupNorm+SiLU+conv3x3, and dequant-matmul for all five kinds at the
-     Flux-dev shapes, each flash and dequant-matmul row with the body it
-     took (the tensor-core body for bf16, the SIMT body for f32); at each
-     bf16 flash shape of the main paths the SIMT body and
+     Flux-dev shapes, each row with the body it took (the tensor-core body
+     for bf16, the SIMT body for f32); at each bf16 flash shape of the main
+     paths the SIMT body and
      torch.nn.functional.scaled_dot_product_attention (a yardstick only:
-     the port never calls it) are timed beside it, and at linear1 and
-     linear2 the bf16 SIMT body of dequant-matmul; the SIMT body must be
-     slower;
+     the port never calls it) are timed beside it, at every bf16 conv shape
+     the SIMT body and cuDNN's conv alone on the activated tensor (a
+     yardstick, not the same function), and at linear1 and linear2 the bf16
+     SIMT body of dequant-matmul; the SIMT body must be slower;
   3. the SD1.5 slice at full width on random weights made on the card from
      a seed: load_engine, then three process_images requests (512², Euler a,
      20 steps, CFG 7, seeds 1, 2, 1) with the launch counts of each kernel
-     (flash's exact, all on the tensor-core body), then one request under
-     torch.profiler (device time by kernel, busy share);
+     (flash's and the conv's exact, all on the tensor-core body), then one
+     request under torch.profiler (device time by kernel, busy share);
   4. one SD1.5 UNet forward through the kernels and through the plain versions;
   5. the quantized Flux-dev slice at full width (19 + 38 blocks, T5-XXL,
      CLIP-L, 16-channel VAE) on random weights made on the card from a seed:
      load_engine(unet_quant="nf4"), three requests (1024², Euler, "simple",
      4 steps, CFG 1, distilled CFG 3.5, seeds 1, 2, 1) with exact launch
-     counts (flash's and dequant-matmul's by body too), one request with the plain
+     counts (every kernel's by body too), one request with the plain
      versions, one request under
      torch.profiler (device time by kernel, busy share), then
      load_engine(unet_quant="q4_0") and one request;
@@ -76,6 +77,8 @@ GN_CONV_SHAPES = [  # (B, C, H, W), O
     ((2, 2560, 8, 8), 1280),     # UNet level-3 output block
     ((1, 512, 128, 128), 512),   # VAE decoder level 2
     ((1, 256, 512, 512), 128),   # VAE decoder level 0, first resnet
+    ((2, 1280, 16, 16), 1280),   # UNet level 2
+    ((1, 128, 1024, 1024), 128),  # Flux VAE decoder level 0 at 1024²
 ]
 DEQUANT_SHAPES = [  # (M, N, K) of the Flux-dev linears at 1024²
     (4608, 21504, 3072),  # single block linear1
@@ -254,11 +257,11 @@ def phase_flash(gen: torch.Generator, summary):
     torch.cuda.empty_cache()
 
 
-def phase_kernels(gen: torch.Generator):
-    from forge_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain
+def phase_conv(gen: torch.Generator, summary):
+    import torch.nn.functional as F
 
-    summary = {}
-    phase_flash(gen, summary)
+    from forge_tpu_torch.ops.fused_gn_conv import conv_body, gn_silu_conv3x3, gn_silu_conv3x3_plain
+
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for (b, c, hh, ww), o in GN_CONV_SHAPES:
             x = torch.randn((b, c, hh, ww), generator=gen, device="cuda").to(dtype)
@@ -267,22 +270,54 @@ def phase_kernels(gen: torch.Generator):
             w = (torch.randn((o, c, 3, 3), generator=gen, device="cuda")
                  / math.sqrt(9 * c)).to(dtype)
             bias = 0.1 * torch.randn(o, generator=gen, device="cuda")
-            err, rel = rel_err(gn_silu_conv3x3(x, a, s, w, bias),
-                               gn_silu_conv3x3_plain(x, a, s, w, bias))
-            ms = time_ms(lambda: gn_silu_conv3x3(x, a, s, w, bias))
+            body = conv_body(c, o, dtype)
+            # each body's weight in the layout it reads, as the loader stores it
+            wk = w.contiguous(memory_format=torch.channels_last) if body == "wgmma" else w
+            before = gn_silu_conv3x3.launches_by_body[body]
+            got = gn_silu_conv3x3(x, a, s, wk, bias)
+            check(gn_silu_conv3x3.launches_by_body[body] == before + 1,
+                  f"gn_silu_conv3x3 {dtype} {(b, c, hh, ww)} ran the {body} body")
+            want = gn_silu_conv3x3_plain(x, a, s, w, bias)
+            err, rel = rel_err(got, want)
+            check(torch.equal(got, gn_silu_conv3x3(x, a, s, wk, bias)),
+                  "gn_silu_conv3x3 rerun is bit-identical")
+            ms = time_ms(lambda: gn_silu_conv3x3(x, a, s, wk, bias))
             plain_ms = time_ms(lambda: gn_silu_conv3x3_plain(x, a, s, w, bias))
             bms, by = bound(2.0 * b * o * hh * ww * c * 9,
                             x.element_size() * (x.numel() + b * o * hh * ww + w.numel())
                             + 4 * (a.numel() + s.numel() + bias.numel()), dtype)
-            log(f"gn_silu_conv3x3 {str(dtype)[6:]:8s} x{(b, c, hh, ww)}->{o}: "
+            log(f"gn_silu_conv3x3 {str(dtype)[6:]:8s} x{(b, c, hh, ww)}->{o} [{body}]: "
                 f"max_abs_err={err:.3e} rel={rel:.3e} (bound {tol:g}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms | card bound {bms:.4f} ms ({by})")
+                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms | card bound {bms:.4f} ms ({by}), "
+                f"{100 * bms / ms:.1f} % of it")
             check(rel <= tol, f"gn_silu_conv3x3 {dtype} {(b, c, hh, ww)} within {tol}")
-            if dtype == torch.bfloat16 and (b, c, hh, ww) == GN_CONV_SHAPES[0][0]:
-                summary["gn_silu_conv3x3"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                              "bound_ms": bms, "bound_by": by, "library_ms": None}
-            del x, w
+            if dtype == torch.bfloat16:
+                simt = gn_silu_conv3x3(x, a, s, w, bias, body="simt")
+                simt_err, simt_rel = rel_err(simt, want)
+                simt_ms = time_ms(lambda: gn_silu_conv3x3(x, a, s, w, bias, body="simt"))
+                h = (x.float() * a[:, :, None, None] + s[:, :, None, None])
+                h = (h * torch.sigmoid(h)).to(dtype)
+                bias_t = bias.to(dtype)
+                cudnn_ms = time_ms(lambda: F.conv2d(h, w, bias_t, padding=1))
+                log(f"  same, simt body: err {simt_err:.3e} rel {simt_rel:.3e} | {simt_ms:.4f} ms "
+                    f"| {body} body {simt_ms / ms:.2f}x faster | cudnn conv alone "
+                    f"{cudnn_ms:.4f} ms")
+                check(simt_rel <= tol, f"gn_silu_conv3x3 simt body {(b, c, hh, ww)} within {tol}")
+                check(ms < simt_ms, f"{body} body faster than the simt body at {(b, c, hh, ww)}")
+                if (b, c, hh, ww) == GN_CONV_SHAPES[0][0]:
+                    summary["gn_silu_conv3x3"] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": by, "library_ms": None,
+                        "ms_by_body": {body: ms, "simt": simt_ms}}
+                del simt, h
+            del x, w, wk, got, want
     torch.cuda.empty_cache()
+
+
+def phase_kernels(gen: torch.Generator):
+    summary = {}
+    phase_flash(gen, summary)
+    phase_conv(gen, summary)
     phase_dequant(gen, summary)
     return summary
 
@@ -296,7 +331,7 @@ def counters():
             "dequant_matmul": dequant_matmul}
 
 
-BY_BODY = ("flash_attention", "dequant_matmul")  # kernels with two bodies
+BY_BODY = ("flash_attention", "gn_silu_conv3x3", "dequant_matmul")  # kernels with two bodies
 
 
 def zero_counts():
@@ -355,11 +390,12 @@ def phase_slice():
         log(f"launches during the 3 requests: {name} {n} (expected {3 * expect}: "
             f"{'matches' if n == 3 * expect else 'DIFFERS'})")
         check(n > 0, f"{name} launched on the SD1.5 path")
-    n_flash = 3 * EXPECTED_PER_REQUEST["flash_attention"]
-    log(f"launches during the 3 requests: flash_attention[wgmma] "
-        f"{launches['flash_attention[wgmma]']}, [simt] {launches['flash_attention[simt]']}")
-    check(launches["flash_attention"] == launches["flash_attention[wgmma]"] == n_flash,
-          f"all {n_flash} flash launches of the SD1.5 requests on the tensor-core body")
+    for name in ("flash_attention", "gn_silu_conv3x3"):
+        n = 3 * EXPECTED_PER_REQUEST[name]
+        log(f"launches during the 3 requests: {name}[wgmma] "
+            f"{launches[name + '[wgmma]']}, [simt] {launches[name + '[simt]']}")
+        check(launches[name] == launches[name + "[wgmma]"] == n and launches[name + "[simt]"] == 0,
+              f"all {n} {name} launches of the SD1.5 requests on the tensor-core body")
     log("slice: seed 1 repeat byte-identical, NaN checks passed")
     profile_request("sd15 512²", lambda: process_images(engine, request(1)))
     return engine, launches
@@ -459,7 +495,8 @@ def check_flux_counts(launches, n_quant: int, requests: int, what: str):
                  for body, n in per_forward.items()},
               "flash_attention": flash, "flash_attention[wgmma]": flash,
               "flash_attention[simt]": 0,
-              "gn_silu_conv3x3": requests * 28}
+              "gn_silu_conv3x3": requests * 28, "gn_silu_conv3x3[wgmma]": requests * 28,
+              "gn_silu_conv3x3[simt]": 0}
     for name, want in expect.items():
         log(f"launches during {what}: {name} {launches[name]} (expected {want})")
         check(launches[name] == want, f"{name} launched exactly {want} times on the Flux path")
@@ -564,6 +601,11 @@ def profile_request(label: str, run):
     for e in kernels[:10]:
         log(f"  {e.count:6d} × {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:6.2f} %")
+    for family in ("gn_silu_conv3x3", "flash_fwd", "dequant_matmul"):  # every instance of a kernel
+        rows = [e for e in kernels if family in e.key]
+        us = sum(e.self_device_time_total for e in rows)
+        log(f"  {family}* (all instances): {sum(e.count for e in rows)} launches, "
+            f"{us / 1e3:.3f} ms, {100 * us / busy_us:.2f} %")
 
 
 def ptxas_summary(build_log: str):
@@ -628,6 +670,9 @@ def main():
     smem = _build.library().forge_flash_attention_wgmma_smem
     log("  flash_fwd_wgmma_kernel dynamic shared memory: "
         + ", ".join(f"{smem(d)} B at d = {d}" for d in (40, 128, 160, 512)))
+    smem = _build.library().forge_gn_silu_conv3x3_wgmma_smem
+    log("  gn_silu_conv3x3_wgmma_kernel dynamic shared memory: "
+        + ", ".join(f"{smem(bn)} B at BN = {bn}" for bn in (64, 128, 160, 256)))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -3,7 +3,12 @@
 Load the file (or take a flat state dict), guess the architecture, split it
 into components, key-normalize CLIP into the HF `text_model.*` space, cast
 floating leaves to the compute dtype and move them to the device. Conv
-kernels stay OIHW: the port computes in the checkpoints' own layout.
+kernels stay OIHW: the port computes in the checkpoints' own layout. On the
+card the weights of the convs that `ops/fused_gn_conv.py` fuses (UNet
+resblocks' `in_layers.2` and `out_layers.3`, VAE resnets' `conv1` and
+`conv2`) are stored channels_last, [O, 3, 3, C] in memory under the same
+OIHW shape, the layout the kernel's tensor-core body reads: no copy beside
+them, and none on each call.
 
 Quantized weights: `unet_quant` ("nf4" | "q8_0" | "q4_0") quantizes the
 diffusion model's large matmul weights as each tensor arrives, on its device,
@@ -32,6 +37,8 @@ TEXT_ENCODERS = ("clip_l", "t5xxl")
 UNET_QUANT = ("nf4", "q8_0", "q4_0")
 QUANT_MIN_SIZE = 1 << 16  # leave small tensors in full precision
 QUANT_SKIP = ("norm", "emb", "bias")
+FUSED_CONV_WEIGHTS = ("in_layers.2.weight", "out_layers.3.weight", "conv1.weight",
+                      "conv2.weight")
 
 
 class LoadedCheckpoint:
@@ -66,6 +73,8 @@ def to_device_tree(sd: Mapping[str, Any], dtype: torch.dtype, device,
             t = quant_mod.quantize(t.to(device), quant)
         elif t.is_floating_point():
             t = t.to(device=device, dtype=dtype)
+            if t.device.type == "cuda" and t.dim() == 4 and key.endswith(FUSED_CONV_WEIGHTS):
+                t = t.contiguous(memory_format=torch.channels_last)
         else:
             t = t.to(device=device)
         out[key] = t

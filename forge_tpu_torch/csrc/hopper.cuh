@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (dequant_matmul.cu, flash_attention.cu): shared-memory addresses and wgmma
-// matrix descriptors, mbarriers, TMA tensor maps and loads, and
-// wgmma.mma_async with its fences. Everything is in an unnamed namespace:
-// each kernel source is its own library (ops/_build.py hashes this header
-// into every library's name, so a change here rebuilds them all).
+// (dequant_matmul.cu, flash_attention.cu, gn_silu_conv3x3.cu): shared-memory
+// addresses and wgmma matrix descriptors, mbarriers, ldmatrix, TMA tensor
+// maps and loads, and wgmma.mma_async with its fences.
+// Everything is in an unnamed namespace: each kernel source is its own
+// library (ops/_build.py hashes this header into every library's name, so a
+// change here rebuilds them all).
 #pragma once
 
 #include <cuda.h>
@@ -73,6 +74,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   }
+}
+
+// One arrival of this thread on `bar` (no transaction bytes).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Four 8×8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses (16 bytes each, any order) of matrix i, which lands in r[i],
+// each lane holding row lane/4, columns 2·(lane%4) and +1: for rows 0-7,
+// 8-15 of k 0-7 and then k 8-15, the A fragment of mma.m16n8k16 and wgmma.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
 }
 
 // TMA: the box of a 2-D map at (c0, c1) into `dst`; its bytes complete `bar`.
@@ -165,6 +180,37 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(accumulate));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n160k16(float (&d)[80], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %86, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, %85;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(accumulate));
 }
 
@@ -307,9 +353,10 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
 template <int N, int TB = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma_rs: N");
+  static_assert(N == 64 || N == 128 || N == 160 || N == 192 || N == 256, "wgmma_rs: N");
   if constexpr (N == 64) wgmma_rs_m64n64k16<TB>(d, a, db, accumulate);
   else if constexpr (N == 128) wgmma_rs_m64n128k16<TB>(d, a, db, accumulate);
+  else if constexpr (N == 160) wgmma_rs_m64n160k16<TB>(d, a, db, accumulate);
   else if constexpr (N == 192) wgmma_rs_m64n192k16<TB>(d, a, db, accumulate);
   else wgmma_rs_m64n256k16<TB>(d, a, db, accumulate);
 }

@@ -38,8 +38,14 @@ SIGNATURES = {
     "forge_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # head dim → dynamic shared bytes of the tensor-core body (-1: no instance)
     "forge_flash_attention_wgmma_smem": [_I],
-    # x, a, s, w, bias, y, B, C, H, W, O, dtype, stream
-    "forge_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, a, s, w, bias, y, work, B, C, H, W, O, dtype, body, stream
+    "forge_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # B, C, H, W, O → parts of the tensor-core body's channel walk (its f32
+    # scratch holds that many outputs; 1: none), -1 without a card
+    "forge_gn_silu_conv3x3_wgmma_splits": [_I, _I, _I, _I, _I],
+    # output channels a block (64, 128, 160, 256) → dynamic shared bytes of
+    # the tensor-core body (-1: no instance)
+    "forge_gn_silu_conv3x3_wgmma_smem": [_I],
     # x, codes, scales, mins, y, M, N, K, kind, block, dtype, body, stream
     "forge_dequant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # tile rows (128 or 256) → dynamic shared bytes of the tensor-core body

@@ -50,6 +50,26 @@ def test_matches_pallas_kernel(shape):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+def test_plain_matches_pallas_kernel_in_bf16():
+    """In bf16 both round the activation to bf16 before the product (the
+    tensor-core body does too) and accumulate in f32. Bound: 2e-2 of
+    max |want|, a few bf16 ulps: the two round the output, and the group
+    statistics' f32 sums, at other points."""
+    shape = (1, 8, 8, 128)
+    x = (np.random.default_rng(7).standard_normal(shape) * 2.0).astype(np.float32)
+    gamma, beta, w, bias = _params(128, 128, seed=7)
+    x16 = jnp.asarray(x, jnp.bfloat16)
+    jgn = {"weight": jnp.asarray(gamma), "bias": jnp.asarray(beta)}
+    jconv = {"weight": jnp.asarray(w.transpose(2, 3, 1, 0), jnp.bfloat16),
+             "bias": jnp.asarray(bias)}
+    want = np.asarray(jgc.gn_silu_conv3x3(x16, jgn, jconv, interpret=True).astype(jnp.float32))
+    tgn = {"weight": torch.from_numpy(gamma), "bias": torch.from_numpy(beta)}
+    tconv = {"weight": torch.from_numpy(w).bfloat16(), "bias": torch.from_numpy(bias)}
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))).bfloat16()
+    got = tgc.group_norm_silu_conv3x3(xt, tgn, tconv).float().numpy().transpose(0, 2, 3, 1)
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("c,o,eps", [(64, 64, 1e-5), (96, 32, 1e-5), (320, 320, 1e-5),
                                      (128, 64, 1e-6)])
 def test_matches_plain_path(c, o, eps):

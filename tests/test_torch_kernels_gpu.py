@@ -18,7 +18,8 @@ torch = pytest.importorskip("torch")
 
 from forge_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_plain,  # noqa: E402
                                                  flash_body)
-from forge_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_plain  # noqa: E402
+from forge_tpu_torch.ops.fused_gn_conv import (conv_body, gn_silu_conv3x3,  # noqa: E402
+                                               gn_silu_conv3x3_plain)
 
 pytestmark = pytest.mark.gpu
 BOUNDS = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -149,9 +150,11 @@ def test_gn_silu_conv3x3(gen, shape, o, dtype):
     s = 0.1 * torch.randn((b, c), generator=gen, device="cuda")
     w = (torch.randn((o, c, 3, 3), generator=gen, device="cuda") / (9 * c) ** 0.5).to(dt)
     bias = 0.1 * torch.randn(o, generator=gen, device="cuda")
-    before = gn_silu_conv3x3.launches
+    before, body = gn_silu_conv3x3.launches, conv_body(c, o, dt)
+    before_body = gn_silu_conv3x3.launches_by_body[body]
     got = gn_silu_conv3x3(x, a, s, w, bias)
     assert gn_silu_conv3x3.launches == before + 1
+    assert gn_silu_conv3x3.launches_by_body[body] == before_body + 1
     assert got.shape == (b, o, h, w_) and got.dtype == dt
     assert _rel(got, gn_silu_conv3x3_plain(x, a, s, w, bias)) <= BOUNDS[dtype]
     assert torch.equal(got, gn_silu_conv3x3(x, a, s, w, bias))
@@ -168,6 +171,102 @@ def test_gn_silu_conv3x3_pad_is_zero(gen):
     inner = c * 0.01 * 4.0 / (1.0 + torch.exp(torch.tensor(-4.0))).item()
     assert abs(got[0, 0, 0, 0].item() - 4 * inner) < 1e-4
     assert abs(got[0, 0, 3, 3].item() - 9 * inner) < 1e-4
+
+
+def _conv_inputs(gen, b, c, h, w_, o, dt=torch.bfloat16):
+    x = torch.randn((b, c, h, w_), generator=gen, device="cuda").to(dt)
+    a = 1.0 + 0.1 * torch.randn((b, c), generator=gen, device="cuda")
+    s = 0.1 * torch.randn((b, c), generator=gen, device="cuda")
+    w = (torch.randn((o, c, 3, 3), generator=gen, device="cuda") / (9 * c) ** 0.5).to(dt)
+    bias = 0.1 * torch.randn(o, generator=gen, device="cuda")
+    return x, a, s, w, bias
+
+
+def _check_wgmma_conv(gen, b, c, h, w_, o):
+    x, a, s, w, bias = _conv_inputs(gen, b, c, h, w_, o)
+    assert conv_body(c, o, torch.bfloat16) == "wgmma"
+    before = dict(gn_silu_conv3x3.launches_by_body)
+    got = gn_silu_conv3x3(x, a, s, w.contiguous(memory_format=torch.channels_last), bias)
+    assert gn_silu_conv3x3.launches_by_body == {n: k + (n == "wgmma") for n, k in before.items()}
+    assert got.shape == (b, o, h, w_) and got.dtype == torch.bfloat16
+    assert _rel(got, gn_silu_conv3x3_plain(x, a, s, w, bias)) <= BOUNDS["bfloat16"]
+    assert torch.equal(got, gn_silu_conv3x3(x, a, s, w, bias))  # OIHW too; bit-identical reruns
+
+
+@pytest.mark.parametrize("c", [64, 128, 320, 960, 2560])
+@pytest.mark.parametrize("o", [64, 128, 320, 1280])
+def test_gn_silu_conv3x3_wgmma_body(gen, c, o):
+    """Every channel-block width (BN 64, 128, 160, 256) and chunk count."""
+    _check_wgmma_conv(gen, 2, c, 12, 20, o)
+
+
+@pytest.mark.parametrize("shape,o", [
+    ((2, 128, 13, 100), 64),   # ragged pixel tiles in both directions
+    ((1, 64, 8, 8), 64),       # half of one 128-pixel tile
+    ((1, 64, 3, 1024), 128),   # a W = 1024 strip: 32 tiles along a row
+    ((1, 64, 5, 1), 24),       # W = 1: the largest halo, O past one 8-column group
+    ((1, 72, 9, 7), 40),       # C not a multiple of 64: a zero-filled chunk tail
+    ((3, 256, 32, 32), 256),   # several waves of blocks
+    ((2, 2560, 8, 8), 1280),   # UNet level 3: both images in one tile, the channel walk split
+    ((3, 64, 4, 4), 40),       # three whole images in one tile
+    ((2, 1280, 16, 16), 320),  # UNet level 2 widths: a split channel walk
+])
+def test_gn_silu_conv3x3_wgmma_ragged(gen, shape, o):
+    _check_wgmma_conv(gen, *shape, o)
+
+
+def test_gn_silu_conv3x3_wgmma_per_image_affine(gen):
+    """Batch 2 with very different a and s per image: each image's halo uses its own."""
+    x, a, s, w, bias = _conv_inputs(gen, 2, 128, 16, 16, 128)
+    a[1] *= -3.0
+    s[1] += 2.0
+    got = gn_silu_conv3x3(x, a, s, w, bias)
+    want = gn_silu_conv3x3_plain(x, a, s, w, bias)
+    assert _rel(got[0], want[0]) <= BOUNDS["bfloat16"]
+    assert _rel(got[1], want[1]) <= BOUNDS["bfloat16"]
+
+
+def test_gn_silu_conv3x3_body_override(gen):
+    x, a, s, w, bias = _conv_inputs(gen, 1, 128, 20, 24, 64)
+    before = dict(gn_silu_conv3x3.launches_by_body)
+    simt = gn_silu_conv3x3(x, a, s, w, bias, body="simt")
+    tc = gn_silu_conv3x3(x, a, s, w, bias, body="wgmma")
+    assert gn_silu_conv3x3.launches_by_body == {n: k + 1 for n, k in before.items()}
+    want = gn_silu_conv3x3_plain(x, a, s, w, bias)
+    assert _rel(simt, want) <= BOUNDS["bfloat16"] and _rel(tc, want) <= BOUNDS["bfloat16"]
+    with pytest.raises(TypeError, match="bfloat16"):
+        gn_silu_conv3x3(x.float(), a, s, w.float(), bias, body="wgmma")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gn_silu_conv3x3(x[:, :36], a[:, :36], s[:, :36], w[:, :36], bias, body="wgmma")
+
+
+def test_gn_silu_conv3x3_f32_and_odd_channels_stay_on_simt(gen):
+    for dt, c in ((torch.float32, 64), (torch.bfloat16, 36)):
+        x, a, s, w, bias = _conv_inputs(gen, 1, c, 13, 21, 40, dt)
+        before = gn_silu_conv3x3.launches_by_body["simt"]
+        got = gn_silu_conv3x3(x, a, s, w, bias)
+        assert gn_silu_conv3x3.launches_by_body["simt"] == before + 1
+        assert _rel(got, gn_silu_conv3x3_plain(x, a, s, w, bias)) <= BOUNDS[str(dt)[6:]]
+
+
+def test_gn_silu_conv3x3_pad_is_zero_bf16(gen):
+    """The tensor-core body's halo: constant x with a large shift, so border
+    outputs see only in-image taps (a pad of silu(s) ≈ 3.93 would add 5 taps'
+    worth at a corner)."""
+    c, o = 64, 64
+    assert conv_body(c, o, torch.bfloat16) == "wgmma"
+    x = torch.zeros((1, c, 6, 6), device="cuda", dtype=torch.bfloat16)
+    a = torch.ones((1, c), device="cuda")
+    s = torch.full((1, c), 4.0, device="cuda")
+    w = torch.full((o, c, 3, 3), 0.01, device="cuda", dtype=torch.bfloat16)
+    before = gn_silu_conv3x3.launches_by_body["wgmma"]
+    got = gn_silu_conv3x3(x, a, s, w, None).float()
+    assert gn_silu_conv3x3.launches_by_body["wgmma"] == before + 1
+    act = torch.tensor(4.0 / (1.0 + torch.exp(torch.tensor(-4.0)).item())).bfloat16().item()
+    inner = c * torch.tensor(0.01).bfloat16().item() * act
+    for (i, j), taps in (((0, 0), 4), ((0, 3), 6), ((3, 3), 9), ((5, 5), 4)):
+        # bf16 output: within half an ulp of the exact sum
+        assert abs(got[0, 0, i, j].item() - taps * inner) <= taps * inner * 2 ** -8
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
