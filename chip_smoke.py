@@ -1,4 +1,4 @@
-"""Drive forge_tpu_torch's SD1.5 and quantized Flux txt2img paths on one NVIDIA GPU.
+"""Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -34,7 +34,14 @@ Phases:
      torch.profiler (device time by kernel, busy share), then
      load_engine(unet_quant="q4_0") and one request;
   6. kernels vs plain versions on one Flux double block, one single block
-     (full width, 1024²-sized inputs) and one whole Flux forward, bf16.
+     (full width, 1024²-sized inputs) and one whole Flux forward, bf16;
+  7. the SDXL base slice at full width (UNet 320ch, mult (1,2,4), depths
+     (0,2,10), CLIP-L + OpenCLIP-bigG, 4-channel VAE) on random weights made
+     on the card from a seed: load_engine, three requests (1024², DPM++ 2M,
+     "karras", 30 steps, CFG 7, seeds 1, 2, 1) with latency, timings, peak
+     memory and exact launch counts by body, one request under
+     torch.profiler, then one UNet forward at (2,4,128,128) through the
+     kernels and through the plain versions.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -68,7 +75,9 @@ FLASH_SHAPES = [  # (B, H, Lq, D), Lk, a shape of a main path
     ((1, 1, 4096, 512), 4096, True),    # VAE mid-block single head
     ((1, 2, 1000, 40), 700, False),     # ragged tails on both sides
     ((1, 24, 4608, 128), 4608, True),   # Flux joint attention at 1024²: 512 text + 4096 image tokens
-    ((1, 1, 16384, 512), 16384, True),  # Flux VAE mid-block at 1024²
+    ((1, 1, 16384, 512), 16384, True),  # Flux and SDXL VAE mid-block at 1024²
+    ((2, 10, 4096, 64), 4096, True),    # SDXL level-1 self-attention at 1024², CFG batch
+    ((2, 20, 1024, 64), 1024, True),    # SDXL level-2 and middle-block self-attention
 ]
 FLASH_SUMMARY_SHAPE = FLASH_SHAPES[0][0]  # the JSON line's flash row (the same shape since the first)
 GN_CONV_SHAPES = [  # (B, C, H, W), O
@@ -78,7 +87,20 @@ GN_CONV_SHAPES = [  # (B, C, H, W), O
     ((1, 512, 128, 128), 512),   # VAE decoder level 2
     ((1, 256, 512, 512), 128),   # VAE decoder level 0, first resnet
     ((2, 1280, 16, 16), 1280),   # UNet level 2
-    ((1, 128, 1024, 1024), 128),  # Flux VAE decoder level 0 at 1024²
+    ((1, 128, 1024, 1024), 128),  # Flux and SDXL VAE decoder level 0 at 1024²
+    # SDXL's UNet at 1024² (128² latents), CFG batch: every (C, O, size) of its 34 ResBlock convs
+    ((2, 320, 128, 128), 320),   # level 0
+    ((2, 960, 128, 128), 320),   # level-0 output blocks after skip concats
+    ((2, 640, 128, 128), 320),
+    ((2, 320, 64, 64), 640),     # level 1, first input resblock
+    ((2, 640, 64, 64), 640),
+    ((2, 1920, 64, 64), 640),    # level-1 output blocks after skip concats
+    ((2, 1280, 64, 64), 640),
+    ((2, 960, 64, 64), 640),
+    ((2, 640, 32, 32), 1280),    # level 2, first input resblock
+    ((2, 1280, 32, 32), 1280),   # level 2 and the middle block
+    ((2, 2560, 32, 32), 1280),   # level-2 output blocks after skip concats
+    ((2, 1920, 32, 32), 1280),
 ]
 DEQUANT_SHAPES = [  # (M, N, K) of the Flux-dev linears at 1024²
     (4608, 21504, 3072),  # single block linear1
@@ -96,6 +118,12 @@ DEQUANT_CASES = (  # (kind, block, (M, N, K)): every kind at every shape, and bl
 EXPECTED_PER_REQUEST = {"flash_attention": 201, "gn_silu_conv3x3": 908}
 FLUX_STEPS = 4
 FLUX_PROMPT = "a photograph of an astronaut riding a horse on the moon, (detailed:1.2)"
+SDXL_STEPS = 30
+# a request: 70 self-attentions of L ≥ 512 a forward (level 1: 5 transformers × depth 2;
+# level 2 and the middle: 6 × depth 10) and the VAE mid-block; 17 ResBlocks × 2 convs a
+# forward and the VAE decoder's 14 resnets × 2; one forward a step (cond and uncond batched)
+SDXL_PER_REQUEST = {"flash_attention": SDXL_STEPS * 70 + 1, "gn_silu_conv3x3": SDXL_STEPS * 34 + 28,
+                    "dequant_matmul": 0}
 
 
 def log(*args):
@@ -304,7 +332,7 @@ def phase_conv(gen: torch.Generator, summary):
                     f"{cudnn_ms:.4f} ms")
                 check(simt_rel <= tol, f"gn_silu_conv3x3 simt body {(b, c, hh, ww)} within {tol}")
                 check(ms < simt_ms, f"{body} body faster than the simt body at {(b, c, hh, ww)}")
-                if (b, c, hh, ww) == GN_CONV_SHAPES[0][0]:
+                if ((b, c, hh, ww), o) == GN_CONV_SHAPES[0]:
                     summary["gn_silu_conv3x3"] = {
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                         "bound_by": by, "library_ms": None,
@@ -582,6 +610,88 @@ def phase_flux_blocks(engine, size: int = 1024):
             check(worst >= PSNR_BOUND, f"Flux {name} PSNR ≥ {PSNR_BOUND} dB")
 
 
+def sdxl_request(engine, seed: int, label: str):
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    p = Processing(prompt="a photograph of an astronaut riding a horse, (detailed:1.2)",
+                   negative_prompt="blurry", seed=seed, steps=SDXL_STEPS, cfg_scale=7.0,
+                   width=1024, height=1024, sampler_name="DPM++ 2M", scheduler="karras")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    img = res.images[0]
+    check(img.shape == (1024, 1024, 3) and img.dtype == np.uint8, "1024²×3 uint8 image")
+    log(f"sdxl request {label} seed={seed}: latency {latency:.4f} s, "
+        f"{SDXL_STEPS / latency:.4f} steps/s, timings "
+        + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+        + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"image mean {img.mean():.3f} std {img.std():.3f}")
+    return img
+
+
+def phase_sdxl(gen: torch.Generator):
+    from forge_tpu_torch.core.convert import flatten
+    from forge_tpu_torch.core.synth import DeviceFill, synth_sdxl_checkpoint
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline.engine import load_engine
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    engine = load_engine(synth_sdxl_checkpoint(fill=DeviceFill("cuda", seed=0)), device="cuda")
+    torch.cuda.synchronize()
+    unet, tes = engine.loaded.unet, engine.loaded.text_encoders
+    blocks = sum(k.endswith("attn1.to_q.weight") for k in flatten(unet))
+    ctx = unet["middle_block"]["1"]["transformer_blocks"]["0"]["attn2"]["to_k"]["weight"].shape[1]
+    adm = unet["label_emb"]["0"]["0"]["weight"].shape[1]
+    g_width = tes["clip_g"]["text_model"]["embeddings"]["token_embedding"]["weight"].shape[1]
+    log(f"sdxl: SDXL base + CLIP-L + CLIP-G + VAE made on the card and loaded in "
+        f"{time.perf_counter() - t:.2f} s; family {engine.family}, {blocks} transformer blocks, "
+        f"context {ctx}, adm {adm}, CLIP-G width {g_width} × {len(tes['clip_g']['text_model']['encoder']['layers'])} "
+        f"layers; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check(engine.family == "sdxl" and engine.compute_dtype == torch.bfloat16, "SDXL engine, bf16")
+    check(blocks == 70 and ctx == 2048 and adm == 2816 and g_width == 1280
+          and set(engine.text_engines) == {"clip_l", "clip_g"}, "SDXL base at full width")
+
+    zero_counts()
+    images = [sdxl_request(engine, seed, "") for seed in (1, 2, 1)]
+    launches = read_counts()
+    check(np.array_equal(images[0], images[2]), "SDXL seed 1 twice gives identical bytes")
+    check(not np.array_equal(images[0], images[1]), "SDXL seeds 1 and 2 differ")
+    for name, per in SDXL_PER_REQUEST.items():
+        want = 3 * per
+        log(f"launches during the 3 SDXL requests: {name} {launches[name]} (expected {want})")
+        check(launches[name] == want, f"{name} launched exactly {want} times on the SDXL path")
+        if name in ("flash_attention", "gn_silu_conv3x3"):
+            log(f"  {name}[wgmma] {launches[name + '[wgmma]']}, [simt] {launches[name + '[simt]']}")
+            check(launches[name + "[wgmma]"] == want and launches[name + "[simt]"] == 0,
+                  f"all {want} {name} launches of the SDXL requests on the tensor-core body")
+    profile_request("sdxl 1024²", lambda: sdxl_request(engine, 1, "profiled"))
+
+    x = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(engine.compute_dtype)
+    ts = torch.tensor([999.0, 400.0], device="cuda")
+    cond = engine.get_learned_conditioning(["a photograph of an astronaut riding a horse",
+                                            "blurry"], 1024, 1024)
+    apply = engine.unet_apply_fn()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused = apply(unet, x, ts, cond["context"], y=cond["y"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with plain_versions():
+            plain = apply(unet, x, ts, cond["context"], y=cond["y"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    value = psnr(fused, plain)
+    log(f"sdxl unet 128x128 B=2 bf16: kernels vs plain PSNR {value:.2f} dB (bound {PSNR_BOUND}); "
+        f"kernels {t1 - t0:.4f} s, plain {t2 - t1:.4f} s")
+    check(value >= PSNR_BOUND, f"SDXL UNet PSNR ≥ {PSNR_BOUND} dB")
+    del engine, x, fused, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time)."""
@@ -597,14 +707,22 @@ def profile_request(label: str, run):
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(f"profile {label}: wall {wall:.4f} s, kernel time {busy_us / 1e6:.4f} s "
-        f"({100 * busy_us / 1e6 / wall:.2f} % busy)")
+        f"({100 * busy_us / 1e6 / wall:.2f} % busy), {sum(e.count for e in kernels)} kernel launches")
     for e in kernels[:10]:
         log(f"  {e.count:6d} × {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:6.2f} %")
-    for family in ("gn_silu_conv3x3", "flash_fwd", "dequant_matmul"):  # every instance of a kernel
-        rows = [e for e in kernels if family in e.key]
+    groups = {  # every instance of a port kernel, then the library's kernels by kind
+        "gn_silu_conv3x3*": ("gn_silu_conv3x3",), "flash_fwd*": ("flash_fwd",),
+        "dequant_matmul*": ("dequant_matmul",),
+        "matmuls (cuBLAS, cuDNN)": ("nvjet", "gemm", "cutlass", "cudnn", "xmma"),
+        "layout and dtype copies": ("direct_copy",), "reductions": ("reduce_kernel",),
+        "elementwise": ("elementwise",)}
+    seen = set()
+    for name, marks in groups.items():
+        rows = [e for e in kernels if e.key not in seen and any(m in e.key for m in marks)]
+        seen.update(e.key for e in rows)
         us = sum(e.self_device_time_total for e in rows)
-        log(f"  {family}* (all instances): {sum(e.count for e in rows)} launches, "
+        log(f"  {name}: {sum(e.count for e in rows)} launches, "
             f"{us / 1e3:.3f} ms, {100 * us / busy_us:.2f} %")
 
 
@@ -690,7 +808,10 @@ def main():
     t = time.perf_counter()
     flux_launches = phase_flux()
     log(f"Flux phases: {time.perf_counter() - t:.2f} s; script so far {time.perf_counter() - t_start:.2f} s")
-    paths = {"sd15": launches, "flux": flux_launches}
+    t = time.perf_counter()
+    sdxl_launches = phase_sdxl(gen)
+    log(f"SDXL phase: {time.perf_counter() - t:.2f} s; script so far {time.perf_counter() - t_start:.2f} s")
+    paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches}
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",

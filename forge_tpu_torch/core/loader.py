@@ -1,7 +1,8 @@
-"""Checkpoint → device parameter trees (port of forge_tpu/core/loader.py: SD1.5 and Flux).
+"""Checkpoint → device parameter trees (port of forge_tpu/core/loader.py: SD1.5, SDXL and Flux).
 
 Load the file (or take a flat state dict), guess the architecture, split it
-into components, key-normalize CLIP into the HF `text_model.*` space, cast
+into components, key-normalize CLIP into the HF `text_model.*` space (open_clip
+towers, SDXL's CLIP-G, through `convert_open_clip`), cast
 floating leaves to the compute dtype and move them to the device. Conv
 kernels stay OIHW: the port computes in the checkpoints' own layout. On the
 card the weights of the convs that `ops/fused_gn_conv.py` fuses (UNet
@@ -24,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from ..ops import quant as quant_mod
@@ -32,13 +34,63 @@ from .convert import nest, quant_leaf, to_tensor
 from .state_dict import load_state_dict
 from .synth import LazyTensor
 
-FAMILIES = ("sd15", "flux")
-TEXT_ENCODERS = ("clip_l", "t5xxl")
+FAMILIES = ("sd15", "sdxl", "flux")
+TEXT_ENCODERS = ("clip_l", "clip_g", "t5xxl")
 UNET_QUANT = ("nf4", "q8_0", "q4_0")
 QUANT_MIN_SIZE = 1 << 16  # leave small tensors in full precision
 QUANT_SKIP = ("norm", "emb", "bias")
 FUSED_CONV_WEIGHTS = ("in_layers.2.weight", "out_layers.3.weight", "conv1.weight",
                       "conv2.weight")
+
+
+def _rows(value, part: int, parts: int):
+    """Row block `part` of `parts` of a 2-D or 1-D weight; a `LazyTensor`
+    stays lazy and is cut when it is made, on its own device."""
+    if isinstance(value, LazyTensor):
+        n = value.shape[0] // parts
+        return LazyTensor((n,) + value.shape[1:],
+                          lambda: value.materialize()[part * n:(part + 1) * n].clone())
+    return np.split(np.asarray(value), parts, axis=0)[part]
+
+
+def _transposed(value):
+    if isinstance(value, LazyTensor):
+        return LazyTensor(value.shape[::-1], lambda: value.materialize().t().contiguous())
+    return np.ascontiguousarray(np.asarray(value).T)
+
+
+def convert_open_clip(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """open_clip text-tower keys → HF CLIPTextModel `text_model.*` keys:
+    `in_proj_*` split into q/k/v, `text_projection` transposed to [out, in]."""
+    out: Dict[str, Any] = {}
+    for k, v in sd.items():
+        if k == "positional_embedding":
+            out["text_model.embeddings.position_embedding.weight"] = v
+        elif k == "token_embedding.weight":
+            out["text_model.embeddings.token_embedding.weight"] = v
+        elif k.startswith("ln_final."):
+            out["text_model.final_layer_norm." + k[len("ln_final."):]] = v
+        elif k == "text_projection":
+            out["text_projection.weight"] = _transposed(v)
+        elif k.startswith("transformer.resblocks."):
+            idx, sub = k[len("transformer.resblocks."):].split(".", 1)
+            base = f"text_model.encoder.layers.{idx}."
+            if sub.startswith("ln_1."):
+                out[base + "layer_norm1." + sub[5:]] = v
+            elif sub.startswith("ln_2."):
+                out[base + "layer_norm2." + sub[5:]] = v
+            elif sub.startswith("mlp.c_fc."):
+                out[base + "mlp.fc1." + sub[9:]] = v
+            elif sub.startswith("mlp.c_proj."):
+                out[base + "mlp.fc2." + sub[11:]] = v
+            elif sub.startswith("attn.out_proj."):
+                out[base + "self_attn.out_proj." + sub[14:]] = v
+            elif sub.startswith("attn.in_proj_"):
+                kind = sub[len("attn.in_proj_"):]  # 'weight' or 'bias'
+                for part, name in enumerate(("q_proj", "k_proj", "v_proj")):
+                    out[base + f"self_attn.{name}.{kind}"] = _rows(v, part, 3)
+        # attn_mask / logit_scale dropped, as the reference does
+    return out
 
 
 class LoadedCheckpoint:
@@ -96,6 +148,8 @@ def load_checkpoint_parts(path_or_sd, dtype: torch.dtype = torch.float32, device
             f"(ported: {', '.join(FAMILIES)})")
     text_encoders: Dict[str, Any] = {}
     for name, tsd in g.text_encoders.items():
+        if name == "open_clip_g":
+            tsd, name = convert_open_clip(tsd), "clip_g"
         if name not in TEXT_ENCODERS:
             raise NotImplementedError(f"text encoder {name} is not ported yet")
         if name == "clip_l" and not any(k.startswith("text_model.") for k in tsd):

@@ -1,4 +1,4 @@
-# Copied from forge_tpu/core/synth.py (the SD1.5, Flux and T5 state dicts); numpy only, so the port imports no JAX.
+# Copied from forge_tpu/core/synth.py (the SD1.5, SDXL, Flux and T5 state dicts); numpy only, so the port imports no JAX.
 # `DeviceFill` and `LazyTensor` are the port's own: full-width weights made on the card.
 """Synthetic checkpoint synthesis: reference-format state dicts with real key
 names/shapes but generated weights.
@@ -328,6 +328,48 @@ def synth_sd15_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, 
     sd.update(synth_unet_sd(fill=fill, seed=seed + 1))
     sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
     sd.update(synth_clip_sd(fill=fill, seed=seed + 3))
+    return sd
+
+
+def synth_sdxl_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, object]:
+    """Full-size SDXL base: 320ch UNet mult(1,2,4) depths(0,2,10), dual TEs."""
+    sd: Dict[str, object] = {}
+    sd.update(
+        synth_unet_sd(
+            channel_mult=(1, 2, 4),
+            transformer_depth=(0, 2, 10),
+            context_dim=2048,
+            adm_in_channels=2816,
+            middle_depth=10,
+            fill=fill,
+            seed=seed + 1,
+        )
+    )
+    sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
+    sd.update(synth_clip_sd(fill=fill, seed=seed + 3, prefix="conditioner.embedders.0.transformer."))
+    # CLIP-G in open_clip layout
+    f = _fill(fill, seed + 4)
+    g = "conditioner.embedders.1.model."
+    width, layers = 1280, 32
+    sd[g + "positional_embedding"] = f.w(77, width)
+    sd[g + "token_embedding.weight"] = f.w(49408, width)
+    sd[g + "ln_final.weight"] = f.ones(width)
+    sd[g + "ln_final.bias"] = f.zeros(width)
+    sd[g + "text_projection"] = f.w(width, width)
+    for i in range(layers):
+        base = f"{g}transformer.resblocks.{i}."
+        sd[base + "attn.in_proj_weight"] = f.w(width * 3, width)
+        sd[base + "attn.in_proj_bias"] = f.zeros(width * 3)
+        sd[base + "attn.out_proj.weight"] = f.w(width, width)
+        sd[base + "attn.out_proj.bias"] = f.zeros(width)
+        sd[base + "ln_1.weight"] = f.ones(width)
+        sd[base + "ln_1.bias"] = f.zeros(width)
+        sd[base + "ln_2.weight"] = f.ones(width)
+        sd[base + "ln_2.bias"] = f.zeros(width)
+        sd[base + "mlp.c_fc.weight"] = f.w(width * 4, width)
+        sd[base + "mlp.c_fc.bias"] = f.zeros(width * 4)
+        sd[base + "mlp.c_proj.weight"] = f.w(width, width * 4)
+        sd[base + "mlp.c_proj.bias"] = f.zeros(width)
     return sd
 
 

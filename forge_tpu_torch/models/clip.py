@@ -1,9 +1,10 @@
 """CLIP text encoder over HF `text_model.*` keys (port of forge_tpu/models/clip.py).
 
-Causal transformer with quick-gelu MLPs (CLIP-L; the gelu towers of CLIP-H
-and bigG come with SD2/SDXL); returns the final hidden
-states, every layer's hidden states (for clip-skip) and the pooled output at
-the EOT token.
+Causal transformer with quick-gelu (CLIP-L) or gelu (open_clip bigG, SDXL's
+CLIP-G, converted to this key space at load) MLPs; returns the final hidden
+states, every layer's hidden states (for clip-skip and SDXL's penultimate
+layer) and the pooled output at the EOT token; `clip_pooled_projection`
+applies CLIP-G's text projection to it.
 """
 
 from __future__ import annotations
@@ -21,17 +22,24 @@ from ..ops.attention import attention
 @dataclasses.dataclass(frozen=True)
 class ClipConfig:
     num_heads: int = 12
+    act: str = "quick_gelu"  # clip-l/h: quick_gelu; open_clip bigG: gelu
 
     @staticmethod
     def for_width(width: int) -> "ClipConfig":
         if width == 768:  # CLIP-L
-            return ClipConfig(num_heads=12)
+            return ClipConfig(num_heads=12, act="quick_gelu")
+        if width == 1024:  # CLIP-H (SD2)
+            return ClipConfig(num_heads=16, act="gelu")
+        if width == 1280:  # CLIP-bigG (SDXL)
+            return ClipConfig(num_heads=20, act="gelu")
         # non-standard width (tiny test models): assume 64-dim heads
-        return ClipConfig(num_heads=max(width // 64, 1))
+        return ClipConfig(num_heads=max(width // 64, 1), act="quick_gelu")
 
 
-def _mlp(p: Mapping[str, Any], x: torch.Tensor) -> torch.Tensor:
-    return nn.linear(nn.quick_gelu(nn.linear(x, p["fc1"])), p["fc2"])
+def _mlp(p: Mapping[str, Any], x: torch.Tensor, act: str) -> torch.Tensor:
+    h = nn.linear(x, p["fc1"])
+    h = nn.quick_gelu(h) if act == "quick_gelu" else nn.gelu(h)
+    return nn.linear(h, p["fc2"])
 
 
 def _self_attn(p: Mapping[str, Any], x: torch.Tensor, heads: int,
@@ -65,7 +73,7 @@ def clip_text_apply(
         lp = layers[str(i)]
         x = x + _self_attn(lp["self_attn"], nn.layer_norm(x, lp["layer_norm1"]),
                            cfg.num_heads, causal)
-        x = x + _mlp(lp["mlp"], nn.layer_norm(x, lp["layer_norm2"]))
+        x = x + _mlp(lp["mlp"], nn.layer_norm(x, lp["layer_norm2"]), cfg.act)
         hiddens.append(x)
 
     final = nn.layer_norm(x, tm["final_layer_norm"])
@@ -73,3 +81,10 @@ def clip_text_apply(
     eot = tokens.argmax(dim=-1)
     pooled = final[torch.arange(final.shape[0], device=final.device), eot]
     return final, hiddens, pooled
+
+
+def clip_pooled_projection(params: Mapping[str, Any], pooled: torch.Tensor) -> torch.Tensor:
+    """Apply text_projection (CLIP-G pooled path); a tree without one raises."""
+    if "text_projection" not in params:
+        raise KeyError("this CLIP tower has no text_projection to apply")
+    return nn.linear(pooled, {"weight": params["text_projection"]["weight"]})

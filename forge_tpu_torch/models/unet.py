@@ -1,9 +1,11 @@
-"""Stable Diffusion UNet, SD1.5 configuration (port of forge_tpu/models/unet.py).
+"""Stable Diffusion UNet, SD1.5 and SDXL base (port of forge_tpu/models/unet.py).
 
 A function over the checkpoint's `model.diffusion_model.*` keys, nested by
 `.`; activations NCHW. Block structure is discovered from the tree (key
-presence), as in the reference. Hooks, ControlNet residuals and the SDXL
-label embedding are not ported yet.
+presence), as in the reference: SD1.5's conv `proj_in`/`proj_out` or SDXL's
+linear ones on [B, HW, C], and SDXL's label embedding of the size vector `y`
+added to the timestep embedding. Hooks and ControlNet residuals are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,13 +22,18 @@ from ..ops.fused_gn_conv import group_norm_silu_conv3x3
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
+    """The family's geometry. `unet_apply` reads the heads from it; the
+    projections' kind and the label embedding it finds in the tree."""
     context_dim: int = 768
-    num_heads: int = 8
+    num_heads: int = 8          # used when head_dim is None (SD1.5)
+    head_dim: Optional[int] = None  # 64 for SDXL
 
     @staticmethod
     def for_family(family: str) -> "UNetConfig":
         if family == "sd15":
             return UNetConfig(context_dim=768, num_heads=8)
+        if family == "sdxl":
+            return UNetConfig(context_dim=2048, head_dim=64)
         raise NotImplementedError(f"no ported UNet config for family {family!r}")
 
 
@@ -59,29 +66,42 @@ def transformer_block(p: Mapping[str, Any], x: torch.Tensor, context: torch.Tens
 
 def spatial_transformer(p: Mapping[str, Any], x: torch.Tensor, context: torch.Tensor,
                         cfg: UNetConfig) -> torch.Tensor:
-    """SD1.5 spatial transformer: conv proj_in/proj_out around token blocks."""
+    """Token blocks between proj_in and proj_out: 1×1 convs (SD1.5) or
+    linears on [B, HW, C] (SDXL), told apart by the weight's rank."""
     b, c, h, w = x.shape
+    heads = cfg.num_heads if cfg.head_dim is None else max(c // cfg.head_dim, 1)
     x_in = x
     x = nn.group_norm(x, p["norm"])
-    if p["proj_in"]["weight"].dim() != 4:
-        raise NotImplementedError("linear proj_in (SD2/SDXL) is not ported yet")
-    x = nn.conv2d(x, p["proj_in"]).reshape(b, c, h * w).transpose(1, 2)
+    linear_proj = p["proj_in"]["weight"].dim() == 2
+    if linear_proj:
+        x = nn.linear(x.reshape(b, c, h * w).transpose(1, 2), p["proj_in"])
+    else:
+        x = nn.conv2d(x, p["proj_in"]).reshape(b, c, h * w).transpose(1, 2)
     blocks = p["transformer_blocks"]
     for i in range(len(blocks)):
-        x = transformer_block(blocks[str(i)], x, context, cfg.num_heads)
+        x = transformer_block(blocks[str(i)], x, context, heads)
+    if linear_proj:
+        return nn.linear(x, p["proj_out"]).transpose(1, 2).reshape(b, c, h, w) + x_in
     x = x.transpose(1, 2).reshape(b, c, h, w)
     return nn.conv2d(x, p["proj_out"]) + x_in
 
 
 def unet_apply(params: Mapping[str, Any], x: torch.Tensor, timesteps: torch.Tensor,
-               context: torch.Tensor, cfg: UNetConfig = UNetConfig()) -> torch.Tensor:
-    """x [B,C_latent,H,W], timesteps [B], context [B,L,context_dim] → eps [B,C,H,W]."""
-    if "label_emb" in params:
-        raise NotImplementedError("class-label embedding (SDXL) is not ported yet")
+               context: torch.Tensor, y: Optional[torch.Tensor] = None,
+               cfg: UNetConfig = UNetConfig()) -> torch.Tensor:
+    """x [B,C_latent,H,W], timesteps [B], context [B,L,context_dim],
+    y [B, 2816] (SDXL's size conditioning, required when the tree has a
+    label embedding) → eps [B,C,H,W]."""
     model_channels = params["time_embed"]["0"]["weight"].shape[1]
     t_emb = nn.timestep_embedding(timesteps, model_channels, dtype=x.dtype)
     emb = nn.linear(t_emb, params["time_embed"]["0"])
     emb = nn.linear(nn.silu(emb), params["time_embed"]["2"])
+    if "label_emb" in params:
+        if y is None:
+            raise ValueError("this UNet has a label embedding: pass its conditioning y")
+        le = params["label_emb"]["0"]
+        v = nn.linear(y.to(emb.dtype), le["0"])
+        emb = emb + nn.linear(nn.silu(v), le["2"])
 
     hs: List[torch.Tensor] = []
     h = x

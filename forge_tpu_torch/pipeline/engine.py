@@ -1,9 +1,12 @@
 """Diffusion engine: one loaded checkpoint bound into runnable functions
-(port of forge_tpu/pipeline/engine.py: SD1.5 and Flux).
+(port of forge_tpu/pipeline/engine.py: SD1.5, SDXL base and Flux).
 
-Flux: T5-XXL features are the context, CLIP-L's pooled output the `y`
-vector, and the distilled-CFG guidance scale is added to the conditioning
-at sampling time (pipeline/processing.py).
+SDXL: CLIP-L's and CLIP-G's penultimate hidden states, concatenated, are the
+context; `y` is CLIP-G's projected pooled output and the sinusoidal
+embeddings of the original size, crop and target size. Flux: T5-XXL features
+are the context, CLIP-L's pooled output the `y` vector, and the distilled-CFG
+guidance scale is added to the conditioning at sampling time
+(pipeline/processing.py).
 
 Compute dtype is bf16 on CUDA and f32 on the CPU, as the reference picks
 bf16 on the TPU and f32 elsewhere.
@@ -11,7 +14,7 @@ bf16 on the TPU and f32 elsewhere.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -20,8 +23,9 @@ from ..core.loader import FAMILIES, LoadedCheckpoint, load_checkpoint_parts
 from ..models import flux as flux_mod
 from ..models import unet as unet_mod
 from ..models import vae as vae_mod
+from ..ops import nn
 from ..sampling.prediction import DiscretePrediction, PredictionFlux
-from ..text.engine import ClassicTextEngine
+from ..text.engine import ClassicTextEngine, TextEncoderOptions
 from ..text.t5_engine import T5TextEngine
 from ..text.tokenizer import default_tokenizer
 
@@ -68,8 +72,14 @@ class DiffusionEngine:
         self.flux_cfg = None
         tes = loaded.text_encoders
         self.text_engines = {}
-        if "clip_l" in tes:
-            self.text_engines["clip_l"] = ClassicTextEngine(tes["clip_l"], default_tokenizer())
+        tokenizer = default_tokenizer()
+        if loaded.family == "sdxl":  # each tower's heads and activation follow its width
+            for name, pooled in (("clip_l", False), ("clip_g", True)):
+                self.text_engines[name] = ClassicTextEngine(
+                    tes[name], tokenizer,
+                    TextEncoderOptions(layer="hidden", pooled_projection=pooled))
+        elif "clip_l" in tes:
+            self.text_engines["clip_l"] = ClassicTextEngine(tes["clip_l"], tokenizer)
         if loaded.family == "flux":
             hidden = loaded.unet["img_in"]["weight"].shape[0]
             self.flux_cfg = flux_mod.FluxConfig(num_heads=max(hidden // 128, 1),
@@ -82,14 +92,33 @@ class DiffusionEngine:
             self.predictor = DiscretePrediction(prediction_type=loaded.prediction)
 
     def set_clip_skip(self, clip_skip: int):
+        """Clip-skip moves only the engines that read the last layer; SDXL's
+        read a fixed hidden layer."""
         for eng in self.text_engines.values():
-            if isinstance(eng, ClassicTextEngine):
-                eng.clip_skip = clip_skip
+            if isinstance(eng, ClassicTextEngine) and eng.opts.layer == "last":
+                eng.opts.clip_skip = clip_skip
 
-    def get_learned_conditioning(self, prompts: List[str],
-                                 max_chunks: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """prompts → conditioning dict for the net: {context} (SD1.5) or
-        {context: T5 features, y: CLIP-L pooled} (Flux)."""
+    def get_learned_conditioning(self, prompts: List[str], width: int = 512, height: int = 512,
+                                 max_chunks: Optional[int] = None,
+                                 crop: Tuple[int, int] = (0, 0),
+                                 original_size: Optional[Tuple[int, int]] = None,
+                                 target_size: Optional[Tuple[int, int]] = None,
+                                 ) -> Dict[str, torch.Tensor]:
+        """prompts → conditioning dict for the net: {context} (SD1.5),
+        {context: CLIP-L ‖ CLIP-G hidden states, y: pooled CLIP-G ‖ size
+        embeddings} (SDXL) or {context: T5 features, y: CLIP-L pooled} (Flux).
+        The sizes are (height, width) pairs; both default to the image's."""
+        if self.family == "sdxl":
+            zl, _ = self.text_engines["clip_l"](prompts, max_chunks=max_chunks)
+            zg, pooled_g = self.text_engines["clip_g"](prompts, max_chunks=max_chunks)
+            osize = original_size or (height, width)
+            tsize = target_size or (height, width)
+            sizes = [osize[0], osize[1], crop[0], crop[1], tsize[0], tsize[1]]
+            embs = [nn.timestep_embedding(torch.full((len(prompts),), float(s), device=self.device),
+                                          256) for s in sizes]
+            y = torch.cat([pooled_g.float()] + embs, dim=-1)
+            return {"context": torch.cat([zl, zg], dim=-1).to(self.compute_dtype),
+                    "y": y.to(self.compute_dtype)}
         if self.family == "flux":
             z = self.text_engines["t5xxl"](prompts)
             if "clip_l" in self.text_engines:
@@ -110,8 +139,8 @@ class DiffusionEngine:
             return apply_flux
         cfg = self.unet_cfg
 
-        def apply(params, x, t, context):
-            return unet_mod.unet_apply(params, x, t, context, cfg=cfg)
+        def apply(params, x, t, context, y=None):
+            return unet_mod.unet_apply(params, x, t, context, y=y, cfg=cfg)
 
         return apply
 

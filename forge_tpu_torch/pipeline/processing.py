@@ -2,7 +2,8 @@
 
 resolve seeds → encode cond and uncond with a shared chunk count → host
 Philox noise → the sampler's step loop on the CFG-batched latent → VAE
-decode with the NaN checks → uint8 images. Flux adds the distilled-CFG
+decode with the NaN checks → uint8 images. SDXL's conditioning embeds the
+image's width and height in `y`. Flux adds the distilled-CFG
 guidance scale to both conditionings and samples 16-channel latents; at
 CFG 1 the uncond branch is skipped, as for every family.
 
@@ -190,8 +191,8 @@ def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
         tc = time.perf_counter()
         max_chunks = (1 if te is None else
                       max(te.tokenize_batch(prompts)[1], te.tokenize_batch(negs)[1]))
-        cond = engine.get_learned_conditioning(prompts, max_chunks=max_chunks)
-        uncond = engine.get_learned_conditioning(negs, max_chunks=max_chunks)
+        cond = engine.get_learned_conditioning(prompts, p.width, p.height, max_chunks=max_chunks)
+        uncond = engine.get_learned_conditioning(negs, p.width, p.height, max_chunks=max_chunks)
         if engine.family == "flux":
             g = torch.full((p.batch_size,), float(p.distilled_cfg_scale),
                            dtype=torch.float32, device=engine.device)

@@ -1,4 +1,4 @@
-"""Euler-family samplers as Python step loops (port of forge_tpu/sampling/samplers.py).
+"""Euler-family and DPM++ 2M samplers as Python step loops (port of forge_tpu/sampling/samplers.py).
 
 `model_fn(x, σ) -> denoised` is the CFG-combined x0 prediction (sampling/cfg.py).
 σ values are host float32 scalars; per-step gaussian noise is precomputed on
@@ -65,22 +65,51 @@ def sample_euler_ancestral(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarr
     return x
 
 
+@torch.no_grad()
+def sample_dpmpp_2m(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DPM++ 2M: a second-order multistep update in t = −log σ. The first step
+    (no previous step) and the last (σ_next = 0) take `denoised` as it is;
+    the others extrapolate it from the previous step's."""
+    old_denoised, h_last = None, np.float32(0.0)
+    for i in range(len(sigmas) - 1):
+        sigma, sigma_next = np.float32(sigmas[i]), np.float32(sigmas[i + 1])
+        denoised = model_fn(x, sigma)
+        t = -np.log(np.maximum(sigma, np.float32(1e-10)))
+        t_next = -np.log(np.maximum(sigma_next, np.float32(1e-10)))
+        h = t_next - t
+        if h_last == 0 or sigma_next == 0:
+            denoised_d = denoised
+        else:
+            c = np.float32(1.0) / (np.float32(2.0) * (h_last / h))
+            denoised_d = denoised * float(np.float32(1.0) + c) - old_denoised * float(c)
+        x = x * float(sigma_next / sigma) - denoised_d * float(np.expm1(-h))
+        old_denoised, h_last = denoised, h
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplerInfo:
     fn: Callable
     noise_draws: int = 0          # gaussian draws per step
     uses_ensd: bool = False       # eta-noise-seed-delta reseeds the step noise
+    aliases: tuple = ()
 
 
 SAMPLERS: Dict[str, SamplerInfo] = {
-    "Euler a": SamplerInfo(sample_euler_ancestral, 1, uses_ensd=True),
-    "Euler": SamplerInfo(sample_euler, 0),
+    "Euler a": SamplerInfo(sample_euler_ancestral, 1, uses_ensd=True,
+                           aliases=("k_euler_a", "euler_ancestral")),
+    "Euler": SamplerInfo(sample_euler, 0, aliases=("k_euler", "euler")),
+    "DPM++ 2M": SamplerInfo(sample_dpmpp_2m, 0, aliases=("k_dpmpp_2m", "dpmpp_2m")),
 }
 
 
 def get_sampler(name: str) -> SamplerInfo:
     if name in SAMPLERS:
         return SAMPLERS[name]
+    for canonical, info in SAMPLERS.items():
+        if name in info.aliases or name.lower() == canonical.lower():
+            return info
     raise NotImplementedError(
         f"sampler {name!r} is not ported to forge_tpu_torch yet "
         f"(ported: {', '.join(SAMPLERS)})")

@@ -1,32 +1,43 @@
 """Classic (CLIP) text engine: prompts → conditioning (port of forge_tpu/text/engine.py).
 
-Emphasis parse → 75-token chunks → per-chunk CLIP encode with clip-skip →
-emphasis application → chunk concat. Returns (cond [B, 77·n, D], pooled
-[B, D]). Textual-inversion embeddings are not ported yet.
+Emphasis parse → 75-token chunks → per-chunk CLIP encode with clip-skip (or,
+for SDXL's towers, a fixed hidden layer) → emphasis application → chunk
+concat. Returns (cond [B, 77·n, D], pooled [B, Dp]); the pooled output is
+always the true final layer's at EOT, projected for CLIP-G. Textual-inversion
+embeddings are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, List, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ..models.clip import ClipConfig, clip_text_apply
+from ..models.clip import ClipConfig, clip_pooled_projection, clip_text_apply
 from ..ops import nn
 from .chunking import CHUNK_LEN, tokenize_line
 from .emphasis import apply_emphasis
 
 
-class ClassicTextEngine:
-    """The reference's options keep their defaults here: emphasis mode
-    "Original", comma backtrack 20; only clip-skip is set per request."""
+@dataclasses.dataclass
+class TextEncoderOptions:
+    """The reference's options this slice sets; emphasis mode ("Original")
+    and comma backtrack (20) keep their defaults."""
+    clip_skip: int = 1
+    # "last" (clip-skip aware) | "hidden" (SDXL: the penultimate layer, no final LayerNorm)
+    layer: str = "last"
+    pooled_projection: bool = False  # CLIP-G text_projection
 
-    def __init__(self, params: Mapping[str, Any], tokenizer, clip_skip: int = 1,
+
+class ClassicTextEngine:
+    def __init__(self, params: Mapping[str, Any], tokenizer,
+                 options: Optional[TextEncoderOptions] = None,
                  cfg: Optional[ClipConfig] = None):
         self.params = params
         self.tokenizer = tokenizer
-        self.clip_skip = clip_skip
+        self.opts = options or TextEncoderOptions()
         self.cfg = cfg
 
     def tokenize_batch(self, prompts: List[str]):
@@ -64,10 +75,14 @@ class ClassicTextEngine:
 
     @torch.no_grad()
     def _encode(self, flat_tokens: torch.Tensor, flat_mults: torch.Tensor):
-        params = self.params
+        params, o = self.params, self.opts
         final, hiddens, pooled = clip_text_apply(params, flat_tokens, cfg=self.cfg)
-        if self.clip_skip > 1:
-            z = nn.layer_norm(hiddens[-self.clip_skip], params["text_model"]["final_layer_norm"])
+        if o.layer == "hidden":
+            z = hiddens[-2]
+        elif o.clip_skip > 1:
+            z = nn.layer_norm(hiddens[-o.clip_skip], params["text_model"]["final_layer_norm"])
         else:
             z = final
+        if o.pooled_projection:  # pooled: the true final layer at EOT
+            pooled = clip_pooled_projection(params, pooled)
         return apply_emphasis(z, flat_mults), pooled

@@ -9,6 +9,7 @@ torch = pytest.importorskip("torch")
 
 from forge_tpu_torch.ops.fused_gn_conv import (BODY_CODES, conv_body,  # noqa: E402
                                                gn_silu_conv3x3, gn_silu_conv3x3_plain)
+from test_torch_flash_dispatch import sdxl_1024_calls  # noqa: E402
 
 # (C, O) of every fused conv on the two main paths: the SD1.5 UNet's resblocks
 # (input, middle and output blocks, the skip concats included) and both VAE
@@ -84,3 +85,18 @@ def test_channels_last_weight_gives_the_same_plain_result():
     want = gn_silu_conv3x3_plain(x, a, s, w, bias)
     got = gn_silu_conv3x3_plain(x, a, s, w.contiguous(memory_format=torch.channels_last), bias)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_every_sdxl_resblock_and_vae_conv_takes_the_tensor_core_body():
+    """34 a forward (17 ResBlocks × 2) at the twelve (C, O, latent size) of
+    SDXL at 1024², C 320 on 128² latents among them, and the VAE decoder's
+    28 (14 resnets × 2); all on the tensor-core body in bf16."""
+    unet, vae = sdxl_1024_calls()["conv"]
+    assert len(unet) == 34 and len(vae) == 28
+    assert all(body == "wgmma" for _, _, body in unet + vae)
+    assert {(x, o) for x, o, _ in unet} == {
+        ((2, 320, 128, 128), 320), ((2, 960, 128, 128), 320), ((2, 640, 128, 128), 320),
+        ((2, 320, 64, 64), 640), ((2, 640, 64, 64), 640), ((2, 1920, 64, 64), 640),
+        ((2, 1280, 64, 64), 640), ((2, 960, 64, 64), 640), ((2, 640, 32, 32), 1280),
+        ((2, 1280, 32, 32), 1280), ((2, 2560, 32, 32), 1280), ((2, 1920, 32, 32), 1280)}
+    assert {x[1] for x, _, _ in vae} == {512, 256, 128}

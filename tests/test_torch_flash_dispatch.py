@@ -1,6 +1,8 @@
 """Which body of the flash-attention kernel a call takes, and the wrapper's
 argument checks that hold on any device (nothing here needs a card)."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -59,3 +61,62 @@ def test_unknown_body_is_refused(body):
     q, k, v = _qkv(torch.bfloat16)
     with pytest.raises(ValueError, match="body"):
         flash_attention(q, k, v, body=body)
+
+
+@functools.lru_cache(maxsize=None)
+def sdxl_1024_calls():
+    """Every flash and fused-conv call of one full-width SDXL UNet forward at
+    1024² (cond and uncond batched) and of one VAE decode, traced on the meta
+    device: shapes flow through the port's own code, no weight or activation
+    is made. Returns {kernel: (unet calls, vae calls)}, a flash call as
+    (q shape, Lk, body) and a conv call as (x shape, O, body); the conv
+    dispatch tests read the same trace."""
+    from forge_tpu_torch.core import guess
+    from forge_tpu_torch.core.convert import nest
+    from forge_tpu_torch.core.synth import DeviceFill, synth_sdxl_checkpoint
+    from forge_tpu_torch.models import unet as unet_mod
+    from forge_tpu_torch.models import vae as vae_mod
+    from forge_tpu_torch.ops import attention as attention_mod
+    from forge_tpu_torch.ops import fused_gn_conv
+
+    g = guess.guess(synth_sdxl_checkpoint(fill=DeviceFill("cpu")))
+
+    def meta(shape):
+        return torch.empty(shape, device="meta", dtype=torch.bfloat16)
+
+    def tree(sd):
+        return nest({k: meta(v.shape) for k, v in sd.items()})
+
+    calls = {"flash": [], "conv": []}
+
+    def flash(q, k, v, scale=None, body=None):
+        calls["flash"].append((tuple(q.shape), k.shape[2], flash_body(q.shape[-1], q.dtype)))
+        return torch.empty_like(q)
+
+    def conv(x, a, s, w, bias, body=None):
+        body = fused_gn_conv.conv_body(x.shape[1], w.shape[0], x.dtype)
+        calls["conv"].append((tuple(x.shape), w.shape[0], body))
+        return meta((x.shape[0], w.shape[0]) + tuple(x.shape[2:]))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(attention_mod, "flash_attention", flash)
+        mp.setattr(fused_gn_conv, "gn_silu_conv3x3", conv)
+        unet_mod.unet_apply(tree(g.unet), meta((2, 4, 128, 128)), torch.empty(2, device="meta"),
+                            meta((2, 77, 2048)), y=meta((2, 2816)),
+                            cfg=unet_mod.UNetConfig.for_family("sdxl"))
+        in_unet = {name: len(c) for name, c in calls.items()}
+        vae_mod.vae_decode(tree(g.vae), meta((1, 4, 128, 128)))
+    return {name: (c[:in_unet[name]], c[in_unet[name]:]) for name, c in calls.items()}
+
+
+def test_every_sdxl_self_attention_takes_the_tensor_core_body():
+    """70 self-attentions a forward at L ≥ 512, head dim 64 (10 heads at 4096
+    tokens, 20 at 1024), and the VAE mid-block's one head of 512 over 16384
+    tokens; cross-attention (Lk = 77) stays plain, as in the reference."""
+    unet, vae = sdxl_1024_calls()["flash"]
+    shapes = {}
+    for q, lk, body in unet:
+        assert body == "wgmma" and q[2] >= 512 and lk == q[2]
+        shapes[q] = shapes.get(q, 0) + 1
+    assert shapes == {(2, 10, 4096, 64): 10, (2, 20, 1024, 64): 60}
+    assert vae == [((1, 1, 16384, 512), 16384, "wgmma")]

@@ -81,6 +81,9 @@ def _qkv(gen, b, h, lq, lk, d, dt=torch.bfloat16):
     ((2, 2, 200, 128), 5),       # Lk below one K tile
     ((1, 2, 130, 512), 17),
     ((1, 4, 4608, 128), 4608),   # the K ring wraps 18 times (Flux's L)
+    ((2, 10, 4096, 64), 4096),   # SDXL level 1 at 1024²: head dim 64, 10 heads
+    ((2, 20, 1024, 64), 1024),   # SDXL level 2 and the middle block: 20 heads
+    ((1, 2, 1000, 64), 700),     # ragged Lq and Lk at head dim 64
 ])
 def test_flash_attention_wgmma_body(gen, shape, lk):
     b, h, lq, d = shape
@@ -210,6 +213,9 @@ def test_gn_silu_conv3x3_wgmma_body(gen, c, o):
     ((2, 2560, 8, 8), 1280),   # UNet level 3: both images in one tile, the channel walk split
     ((3, 64, 4, 4), 40),       # three whole images in one tile
     ((2, 1280, 16, 16), 320),  # UNet level 2 widths: a split channel walk
+    ((2, 320, 128, 128), 320),  # SDXL level 0 at 1024²: C 320 on 128² latents
+    ((2, 1920, 64, 64), 640),   # SDXL level-1 output block after a skip concat
+    ((2, 2560, 32, 32), 1280),  # SDXL level-2 output block after a skip concat
 ])
 def test_gn_silu_conv3x3_wgmma_ragged(gen, shape, o):
     _check_wgmma_conv(gen, *shape, o)

@@ -65,4 +65,4 @@ def test_ancestral_step_matches():
 
 def test_unported_sampler_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        tsamp.get_sampler("DPM++ 2M")
+        tsamp.get_sampler("DPM++ SDE")

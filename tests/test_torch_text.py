@@ -68,7 +68,7 @@ def test_text_engine_cond_matches(clip_skip):
     from forge_tpu.text.engine import ClassicTextEngine as JEngine, TextEncoderOptions as JOpts
     from forge_tpu.text.tokenizer import ClipTokenizer as HFTok
     from forge_tpu_torch.core.convert import nest
-    from forge_tpu_torch.text.engine import ClassicTextEngine
+    from forge_tpu_torch.text.engine import ClassicTextEngine, TextEncoderOptions
     from forge_tpu_torch.text.tokenizer import ClipTokenizer
 
     sd = make_clip_sd(prefix="", seed=3)
@@ -78,7 +78,7 @@ def test_text_engine_cond_matches(clip_skip):
     jeng = JEngine(jax_nest({k: jnp.asarray(v) for k, v in sd.items()}), HFTok(),
                    JOpts(clip_skip=clip_skip))
     teng = ClassicTextEngine(nest({k: torch.from_numpy(v) for k, v in sd.items()}),
-                             ClipTokenizer(), clip_skip=clip_skip)
+                             ClipTokenizer(), TextEncoderOptions(clip_skip=clip_skip))
     _, n = teng.tokenize_batch(prompts)
     assert n == 2
     for batch in (prompts, ["blurry", ""]):
