@@ -1,4 +1,5 @@
-"""Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths on one NVIDIA GPU.
+"""Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths and its SDXL
+img2img-inpaint path with a LoRA and a ControlNet on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -41,7 +42,18 @@ Phases:
      "karras", 30 steps, CFG 7, seeds 1, 2, 1) with latency, timings, peak
      memory and exact launch counts by body, one request under
      torch.profiler, then one UNet forward at (2,4,128,128) through the
-     kernels and through the plain versions.
+     kernels and through the plain versions;
+  8. config 3 on the same engine (bench.py's `config3`): a full-width SDXL
+     ControlNet made on the card, a rank-16 LoRA over three blocks' attn1
+     q/k/v written to logs/ by the port's safetensors writer, then three
+     img2img-inpaint requests (1024² uniform-noise init image, the centre
+     512² masked, "original" fill, blur 4, strength 0.6 of 20 DPM++ 2M
+     Karras steps, CFG 7, "a castle <lora:bench:0.8>", ControlNet-canny at
+     strength 1, seeds 1, 2, 1) with exact launch counts by body, the
+     unmasked ring checked against the init image, one profiled request,
+     the LoRA merge checked against base + 0.8·(α/r)·up·down, and the VAE
+     encode at 1024² and a UNet + ControlNet forward at (2,4,128,128)
+     through the kernels and the plain versions.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -54,6 +66,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -101,6 +114,9 @@ GN_CONV_SHAPES = [  # (B, C, H, W), O
     ((2, 1280, 32, 32), 1280),   # level 2 and the middle block
     ((2, 2560, 32, 32), 1280),   # level-2 output blocks after skip concats
     ((2, 1920, 32, 32), 1280),
+    # the VAE encoder at 1024²: the two (C, O) pairs the decoder does not have
+    ((1, 128, 512, 512), 256),   # level 1, first resnet
+    ((1, 256, 256, 256), 512),   # level 2, first resnet
 ]
 DEQUANT_SHAPES = [  # (M, N, K) of the Flux-dev linears at 1024²
     (4608, 21504, 3072),  # single block linear1
@@ -124,6 +140,15 @@ SDXL_STEPS = 30
 # forward and the VAE decoder's 14 resnets × 2; one forward a step (cond and uncond batched)
 SDXL_PER_REQUEST = {"flash_attention": SDXL_STEPS * 70 + 1, "gn_silu_conv3x3": SDXL_STEPS * 34 + 28,
                     "dequant_matmul": 0}
+# config 3: strength 0.6 of 20 steps keeps the last 14 σ, 13 model calls; each is the UNet
+# (70 flash, 34 conv) and the ControlNet (34 flash: 2 × depth 2 + 3 × depth 10; 16 conv: 8
+# ResBlocks), then one VAE encode (1 flash, 20 conv) and one decode (1, 28)
+CONFIG3_STEPS, CONFIG3_STRENGTH = 20, 0.6
+CONFIG3_CALLS = min(int(CONFIG3_STRENGTH * CONFIG3_STEPS), CONFIG3_STEPS - 1) + 1  # t_enc + 1
+CONFIG3_PER_REQUEST = {"flash_attention": CONFIG3_CALLS * (70 + 34) + 1 + 1,
+                       "gn_silu_conv3x3": CONFIG3_CALLS * (34 + 16) + 20 + 28, "dequant_matmul": 0}
+CONFIG3_PROMPT = "a castle <lora:bench:0.8>"
+LORA_BLOCKS = ("input_blocks_4_1", "input_blocks_5_1", "output_blocks_3_1")
 
 
 def log(*args):
@@ -687,9 +712,170 @@ def phase_sdxl(gen: torch.Generator):
     log(f"sdxl unet 128x128 B=2 bf16: kernels vs plain PSNR {value:.2f} dB (bound {PSNR_BOUND}); "
         f"kernels {t1 - t0:.4f} s, plain {t2 - t1:.4f} s")
     check(value >= PSNR_BOUND, f"SDXL UNet PSNR ≥ {PSNR_BOUND} dB")
-    del engine, x, fused, plain
+    del x, fused, plain
+    torch.cuda.empty_cache()
+    return engine, launches
+
+
+def bench_lora(lora_dir: str):
+    """bench.py's config-3 LoRA: rank 16, alpha 16, over attn1 q/k/v of three
+    640-wide transformer blocks, written by the port's safetensors writer.
+    → {(block, proj): (up, down)}."""
+    from forge_tpu_torch.core.save import save_safetensors
+
+    rank, rng = 16, np.random.default_rng(0)
+    sd, factors = {}, {}
+    for blk in LORA_BLOCKS:
+        for proj in ("to_q", "to_k", "to_v"):
+            base = f"lora_unet_{blk}_transformer_blocks_0_attn1_{proj}"
+            up = (rng.standard_normal((640, rank)) * 0.01).astype(np.float32)
+            down = (rng.standard_normal((rank, 640)) * 0.01).astype(np.float32)
+            sd.update({base + ".lora_up.weight": up, base + ".lora_down.weight": down,
+                       base + ".alpha": np.asarray(rank, np.float32)})
+            factors[(blk, proj)] = (up, down)
+    os.makedirs(lora_dir, exist_ok=True)
+    save_safetensors(sd, os.path.join(lora_dir, "bench.safetensors"))
+    return factors, rng
+
+
+def config3_request(engine, seed: int, label: str, init, mask, control):
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    p = Processing(prompt=CONFIG3_PROMPT, seed=seed, steps=CONFIG3_STEPS, width=1024,
+                   height=1024, cfg_scale=7.0, sampler_name="DPM++ 2M", scheduler="karras",
+                   init_images=[init], denoising_strength=CONFIG3_STRENGTH, inpaint_mask=mask,
+                   controlnets=[control])
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    img = res.images[0]
+    check(img.shape == (1024, 1024, 3) and img.dtype == np.uint8, "1024²×3 uint8 image")
+    log(f"config3 request {label} seed={seed}: latency {latency:.4f} s, "
+        f"{CONFIG3_CALLS / latency:.4f} model calls/s, timings "
+        + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+        + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"image mean {img.mean():.3f} std {img.std():.3f}")
+    return img
+
+
+def phase_config3(engine, gen: torch.Generator):
+    """bench.py config 3 on the SDXL engine: img2img + inpaint mask + LoRA +
+    ControlNet-canny at 1024²."""
+    from forge_tpu_torch.core.loader import load_controlnet
+    from forge_tpu_torch.core.synth import DeviceFill, synth_controlnet_sd
+    from forge_tpu_torch.models.controlnet import ControlNetState
+    from forge_tpu_torch.models.unet import UNetConfig
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline.extra_networks import LoraRegistry, activate
+    from forge_tpu_torch.preprocessors.cv import canny
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cn = load_controlnet(synth_controlnet_sd(fill=DeviceFill("cuda", seed=0)),
+                         engine.compute_dtype, "cuda")
+    torch.cuda.synchronize()
+    conv = cn["input_blocks"]["1"]["0"]["in_layers"]["2"]["weight"]
+    check(conv.is_contiguous(memory_format=torch.channels_last),
+          "the ControlNet's fused conv weights are channels_last")
+    log(f"config3: SDXL ControlNet made on the card and loaded in {time.perf_counter() - t:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    lora_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logs", "chip_smoke_lora")
+    factors, rng = bench_lora(lora_dir)
+    engine.lora_registry = LoraRegistry([lora_dir])
+    init = rng.uniform(0, 255, size=(1024, 1024, 3)).astype(np.uint8)
+    t = time.perf_counter()
+    edges = canny(init)
+    hint = torch.from_numpy(np.repeat(edges[None, None], 3, axis=1)).cuda()
+    log(f"config3: canny of the init image {time.perf_counter() - t:.2f} s on the host, "
+        f"{edges.mean():.5f} of pixels on an edge")
+    mask = np.zeros((1024, 1024), np.float32)
+    mask[256:768, 256:768] = 1.0
+    control = ControlNetState(params=cn, hint=hint, strength=1.0,
+                              cfg=UNetConfig.for_family("sdxl"))
+
+    unet = engine.loaded.unet
+    base = {(blk, proj): lora_target(unet, blk, proj).clone() for blk, proj in factors}
+    zero_counts()
+    images = [config3_request(engine, seed, "", init, mask, control) for seed in (1, 2, 1)]
+    launches = read_counts()
+    check(np.array_equal(images[0], images[2]), "config3 seed 1 twice gives identical bytes")
+    check(not np.array_equal(images[0], images[1]), "config3 seeds 1 and 2 differ")
+    for name, per in CONFIG3_PER_REQUEST.items():
+        want = 3 * per
+        log(f"launches during the 3 config3 requests: {name} {launches[name]} (expected {want})")
+        check(launches[name] == want, f"{name} launched exactly {want} times on the config-3 path")
+        if name in ("flash_attention", "gn_silu_conv3x3"):
+            log(f"  {name}[wgmma] {launches[name + '[wgmma]']}, [simt] {launches[name + '[simt]']}")
+            check(launches[name + "[wgmma]"] == want and launches[name + "[simt]"] == 0,
+                  f"all {want} {name} launches of the config-3 requests on the tensor-core body")
+    far = np.ones((1024, 1024), bool)  # the blur's support ends 4σ = 16 px past the square
+    far[256 - 17:768 + 17, 256 - 17:768 + 17] = False
+    for img in images:
+        check(np.array_equal(img[far], init[far]), "every pixel 17 px past the mask is the init's")
+        check(not np.array_equal(img[~far], init[~far]), "the masked square was repainted")
+    log(f"config3: seed 1 repeat byte-identical; {int(far.sum())} unmasked ring pixels equal the "
+        "init image's in all 3 images")
+    profile_request("config3 1024²", lambda: config3_request(engine, 1, "profiled", init, mask,
+                                                             control))
+
+    # the LoRA: merged weights against base + 0.8·(α/r)·up·down, the engine's own unchanged
+    _, patched, _ = activate(engine, [CONFIG3_PROMPT], registry=engine.lora_registry)
+    worst = 0.0
+    for (blk, proj), (up, down) in factors.items():
+        w0 = base[(blk, proj)]
+        check(torch.equal(lora_target(unet, blk, proj), w0), f"engine's {blk} {proj} unchanged")
+        want = w0.float() + 0.8 * (16 / 16) * torch.from_numpy(up @ down).cuda()
+        got = lora_target(patched, blk, proj)
+        check(got.dtype == w0.dtype and not torch.equal(got, w0), f"{blk} {proj} merged")
+        worst = max(worst, ((got.float() - want).abs().max() / want.abs().max()).item())
+    log(f"config3 LoRA: 9 merged attn1 weights within {worst:.3e} of base + 0.8·up·down "
+        f"(bound {2 ** -8:.3e}, bf16 rounding); the engine's weights unchanged")
+    check(worst <= 2 ** -8, "merged LoRA weights within bf16 rounding")
+
+    # kernels vs plain versions: the VAE encode at 1024², a UNet + ControlNet forward
+    x = torch.from_numpy(init.astype(np.float32)[None].transpose(0, 3, 1, 2) / 127.5 - 1.0)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused = engine.encode_first_stage(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with plain_versions():
+            plain = engine.encode_first_stage(x)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    value = psnr(fused, plain)
+    log(f"vae encode 1024² bf16: kernels vs plain PSNR {value:.2f} dB (bound {PSNR_BOUND}); "
+        f"kernels {t1 - t0:.4f} s, plain {t2 - t1:.4f} s")
+    check(value >= PSNR_BOUND, f"VAE encode PSNR ≥ {PSNR_BOUND} dB")
+    xl = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(engine.compute_dtype)
+    ts = torch.tensor([999.0, 400.0], device="cuda")
+    cond = engine.get_learned_conditioning(["a castle", ""], 1024, 1024)
+    apply = engine.unet_apply_fn(controlnets=[control])
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused = apply(unet, xl, ts, cond["context"], y=cond["y"], t_host=999.0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with plain_versions():
+            plain = apply(unet, xl, ts, cond["context"], y=cond["y"], t_host=999.0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    value = psnr(fused, plain)
+    log(f"sdxl unet + controlnet 128x128 B=2 bf16: kernels vs plain PSNR {value:.2f} dB "
+        f"(bound {PSNR_BOUND}); kernels {t1 - t0:.4f} s, plain {t2 - t1:.4f} s")
+    check(value >= PSNR_BOUND, f"SDXL UNet + ControlNet PSNR ≥ {PSNR_BOUND} dB")
+    del cn, control, fused, plain, patched
     torch.cuda.empty_cache()
     return launches
+
+
+def lora_target(unet, blk: str, proj: str) -> torch.Tensor:
+    """The weight `lora_unet_{blk}_transformer_blocks_0_attn1_{proj}` patches."""
+    kind, _, i, j = blk.split("_")
+    return unet[f"{kind}_blocks"][i][j]["transformer_blocks"]["0"]["attn1"][proj]["weight"]
 
 
 def profile_request(label: str, run):
@@ -809,9 +995,16 @@ def main():
     flux_launches = phase_flux()
     log(f"Flux phases: {time.perf_counter() - t:.2f} s; script so far {time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
-    sdxl_launches = phase_sdxl(gen)
+    engine, sdxl_launches = phase_sdxl(gen)
     log(f"SDXL phase: {time.perf_counter() - t:.2f} s; script so far {time.perf_counter() - t_start:.2f} s")
-    paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches}
+    t = time.perf_counter()
+    config3_launches = phase_config3(engine, gen)
+    del engine
+    torch.cuda.empty_cache()
+    log(f"config3 phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
+    paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
+             "config3": config3_launches}
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",

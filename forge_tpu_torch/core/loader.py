@@ -18,6 +18,10 @@ with the reference's selection rule (2-D, ≥ QUANT_MIN_SIZE elements, no
 forge_tpu leaf dicts) pass through as `QuantLeaf`s whatever `unet_quant` is.
 Lazy weights (`core/synth.py` `LazyTensor`) are made one at a time, so a
 full-width checkpoint is never resident at full precision.
+
+`load_controlnet` takes a cldm ControlNet's state dict (or file) to its tree
+on the device the same way; its ResBlocks' fused convs are stored
+channels_last on the card as the UNet's are.
 """
 
 from __future__ import annotations
@@ -160,3 +164,15 @@ def load_checkpoint_parts(path_or_sd, dtype: torch.dtype = torch.float32, device
     unet = to_device_tree(g.unet, dtype, device, quant=unet_quant)
     vae = to_device_tree(g.vae, dtype, device)
     return LoadedCheckpoint(g.family, g.prediction, g.context_dim, unet, vae, text_encoders)
+
+
+def load_controlnet(path_or_sd, dtype: torch.dtype, device) -> Dict[str, Any]:
+    """cldm ControlNet (file or flat state dict, optionally under a
+    `control_model.` prefix) → its nested tree on `device` in `dtype`."""
+    sd = load_state_dict(path_or_sd) if isinstance(path_or_sd, str) else dict(path_or_sd)
+    if any(k.startswith("control_model.") for k in sd):
+        sd = {k[len("control_model."):]: v for k, v in sd.items()
+              if k.startswith("control_model.")}
+    if not any(k.startswith("input_hint_block.") for k in sd):
+        raise ValueError("not a cldm ControlNet: no input_hint_block.* keys")
+    return to_device_tree(sd, dtype, device)

@@ -1,4 +1,4 @@
-# Copied from forge_tpu/core/synth.py (the SD1.5, SDXL, Flux and T5 state dicts); numpy only, so the port imports no JAX.
+# Copied from forge_tpu/core/synth.py (the SD1.5, SDXL, Flux, T5 and ControlNet state dicts); numpy only, so the port imports no JAX.
 # `DeviceFill` and `LazyTensor` are the port's own: full-width weights made on the card.
 """Synthetic checkpoint synthesis: reference-format state dicts with real key
 names/shapes but generated weights.
@@ -473,4 +473,51 @@ def synth_flux_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, 
     sd.update(synth_vae_sd(z_channels=16, fill=fill, seed=seed + 2))
     sd.update(synth_clip_sd(fill=fill, seed=seed + 3, prefix="text_encoders.clip_l.transformer."))
     sd.update(synth_t5_sd(fill=fill, seed=seed + 7))
+    return sd
+
+
+def synth_controlnet_sd(
+    model_channels: int = 320,
+    channel_mult: Sequence[int] = (1, 2, 4),
+    num_res_blocks: int = 2,
+    transformer_depth: Sequence[int] = (0, 2, 10),
+    context_dim: int = 2048,
+    adm_in_channels: Optional[int] = 2816,
+    fill: FillSpec = "zeros",
+    seed: int = 7,
+) -> Dict[str, object]:
+    """Full-size cldm ControlNet state dict (SDXL geometry by default):
+    the UNet encoder copy + zero convs + canonical 8-conv hint ladder
+    (reference backend/nn/cnets/cldm.py:7 ControlNet.__init__)."""
+    f = _fill(fill, seed)
+    sd = {
+        k: v for k, v in synth_unet_sd(
+            model_channels=model_channels, channel_mult=channel_mult,
+            num_res_blocks=num_res_blocks, transformer_depth=transformer_depth,
+            context_dim=context_dim, adm_in_channels=adm_in_channels,
+            fill=fill, seed=seed, prefix="",
+        ).items()
+        if k.startswith(("time_embed", "label_emb", "input_blocks", "middle_block"))
+    }
+
+    def conv(key, o, i, k=3):
+        sd[key + ".weight"] = f.w(o, i, k, k)
+        sd[key + ".bias"] = f.zeros(o)
+
+    # per-input-block output channels: conv_in, then res blocks + downsamples
+    chans = [model_channels]
+    ch = model_channels
+    for li, mult in enumerate(channel_mult):
+        for _ in range(num_res_blocks):
+            ch = model_channels * mult
+            chans.append(ch)
+        if li != len(channel_mult) - 1:
+            chans.append(ch)  # downsample block keeps channels
+    for i, c in enumerate(chans):
+        conv(f"zero_convs.{i}.0", c, c, 1)
+    conv("middle_block_out.0", ch, ch, 1)
+    ladder = [(16, 3, 1), (16, 16, 1), (32, 16, 2), (32, 32, 1),
+              (96, 32, 2), (96, 96, 1), (256, 96, 2), (model_channels, 256, 1)]
+    for pos, (o, i, _s) in enumerate(ladder):
+        conv(f"input_hint_block.{pos * 2}", o, i)
     return sd

@@ -4,14 +4,14 @@ A function over the checkpoint's `model.diffusion_model.*` keys, nested by
 `.`; activations NCHW. Block structure is discovered from the tree (key
 presence), as in the reference: SD1.5's conv `proj_in`/`proj_out` or SDXL's
 linear ones on [B, HW, C], and SDXL's label embedding of the size vector `y`
-added to the timestep embedding. Hooks and ControlNet residuals are not
-ported yet.
+added to the timestep embedding. ControlNet residuals come in through
+`control`; hooks are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Mapping, Optional
+from typing import Any, List, Mapping, Optional, Sequence
 
 import torch
 
@@ -86,12 +86,26 @@ def spatial_transformer(p: Mapping[str, Any], x: torch.Tensor, context: torch.Te
     return nn.conv2d(x, p["proj_out"]) + x_in
 
 
+def _apply_control(h: torch.Tensor, control, kind: str, index: int) -> torch.Tensor:
+    """Add a ControlNet residual: control['input'][i] after input block i,
+    control['output'][j] on the skip that output step j consumes,
+    control['middle'][0] after the middle block."""
+    if control is None:
+        return h
+    residuals = control.get(kind)
+    if residuals is None or index >= len(residuals) or residuals[index] is None:
+        return h
+    return h + residuals[index].to(h.dtype)
+
+
 def unet_apply(params: Mapping[str, Any], x: torch.Tensor, timesteps: torch.Tensor,
                context: torch.Tensor, y: Optional[torch.Tensor] = None,
-               cfg: UNetConfig = UNetConfig()) -> torch.Tensor:
+               cfg: UNetConfig = UNetConfig(),
+               control: Optional[Mapping[str, Sequence[torch.Tensor]]] = None) -> torch.Tensor:
     """x [B,C_latent,H,W], timesteps [B], context [B,L,context_dim],
     y [B, 2816] (SDXL's size conditioning, required when the tree has a
-    label embedding) → eps [B,C,H,W]."""
+    label embedding), control (models/controlnet.py `run_controlnets`'
+    residuals) → eps [B,C,H,W]."""
     model_channels = params["time_embed"]["0"]["weight"].shape[1]
     t_emb = nn.timestep_embedding(timesteps, model_channels, dtype=x.dtype)
     emb = nn.linear(t_emb, params["time_embed"]["0"])
@@ -118,17 +132,19 @@ def unet_apply(params: Mapping[str, Any], x: torch.Tensor, timesteps: torch.Tens
                 h = nn.conv2d(h, sub["op"], stride=2, padding=1)
             elif "weight" in sub:  # input_blocks.0.0 stem conv
                 h = nn.conv2d(h, sub, padding=1)
+        h = _apply_control(h, control, "input", i)
         hs.append(h)
 
     mid = params["middle_block"]
     h = resblock(mid["0"], h, emb)
     h = spatial_transformer(mid["1"], h, context, cfg)
     h = resblock(mid["2"], h, emb)
+    h = _apply_control(h, control, "middle", 0)
 
     output_blocks = params["output_blocks"]
     for i in range(len(output_blocks)):
         block = output_blocks[str(i)]
-        h = torch.cat([h, hs.pop()], dim=1)
+        h = torch.cat([h, _apply_control(hs.pop(), control, "output", i)], dim=1)
         for j in range(len(block)):
             sub = block[str(j)]
             if "in_layers" in sub:

@@ -1,12 +1,14 @@
 """Diffusion engine: one loaded checkpoint bound into runnable functions
-(port of forge_tpu/pipeline/engine.py: SD1.5, SDXL base and Flux).
+(port of forge_tpu/pipeline/engine.py: SD1.5, SDXL base and Flux; the VAE
+encode for img2img; ControlNets beside the UNet).
 
 SDXL: CLIP-L's and CLIP-G's penultimate hidden states, concatenated, are the
 context; `y` is CLIP-G's projected pooled output and the sinusoidal
 embeddings of the original size, crop and target size. Flux: T5-XXL features
 are the context, CLIP-L's pooled output the `y` vector, and the distilled-CFG
 guidance scale is added to the conditioning at sampling time
-(pipeline/processing.py).
+(pipeline/processing.py). `lora_registry` (pipeline/extra_networks.py), when
+set, resolves the prompt's `<lora:name:weight>` tags.
 
 Compute dtype is bf16 on CUDA and f32 on the CPU, as the reference picks
 bf16 on the TPU and f32 elsewhere.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core import latent_formats
@@ -23,6 +26,7 @@ from ..core.loader import FAMILIES, LoadedCheckpoint, load_checkpoint_parts
 from ..models import flux as flux_mod
 from ..models import unet as unet_mod
 from ..models import vae as vae_mod
+from ..models.controlnet import run_controlnets
 from ..ops import nn
 from ..sampling.prediction import DiscretePrediction, PredictionFlux
 from ..text.engine import ClassicTextEngine, TextEncoderOptions
@@ -70,6 +74,7 @@ class DiffusionEngine:
         self.latent_format = latent_formats.BY_FAMILY[loaded.family]
         self.unet_cfg = None
         self.flux_cfg = None
+        self.lora_registry = None
         tes = loaded.text_encoders
         self.text_engines = {}
         tokenizer = default_tokenizer()
@@ -129,8 +134,15 @@ class DiffusionEngine:
         z, _ = self.text_engines["clip_l"](prompts, max_chunks=max_chunks)
         return {"context": z.to(self.compute_dtype)}
 
-    def unet_apply_fn(self):
+    def unet_apply_fn(self, controlnets=None):
+        """The raw network `apply(params, x, t, **cond)`. With `controlnets`
+        (models/controlnet.py `ControlNetState`s) the UNet's apply also takes
+        `t_host`, the timestep as a host float that `sampling/cfg.py`
+        already holds: the ControlNets' schedule gate 1 − t/999 is computed
+        from it, so no step waits on the card to read t."""
         if self.family == "flux":
+            if controlnets:
+                raise NotImplementedError("ControlNets for Flux are not ported yet")
             fcfg = self.flux_cfg
 
             def apply_flux(params, x, t, context, y=None, guidance=None):
@@ -138,11 +150,20 @@ class DiffusionEngine:
 
             return apply_flux
         cfg = self.unet_cfg
+        if not controlnets:
+            def apply(params, x, t, context, y=None):
+                return unet_mod.unet_apply(params, x, t, context, y=y, cfg=cfg)
 
-        def apply(params, x, t, context, y=None):
-            return unet_mod.unet_apply(params, x, t, context, y=y, cfg=cfg)
+            return apply
 
-        return apply
+        def apply_controlled(params, x, t, context, y=None, t_host=None):
+            t0 = float(t[0]) if t_host is None else t_host
+            frac = np.float32(1.0) - np.float32(t0) / np.float32(999.0)
+            ctrl = run_controlnets(controlnets, x, t, frac, context, y=y)
+            return unet_mod.unet_apply(params, x, t, context, y=y, cfg=cfg, control=ctrl)
+
+        apply_controlled.takes_host_timestep = True
+        return apply_controlled
 
     @torch.no_grad()
     def decode_to_uint8_checked(self, latent: torch.Tensor):
@@ -155,6 +176,13 @@ class DiffusionEngine:
         img_ok = bool(torch.isfinite(imgf).all())
         img = torch.clamp((imgf + 1.0) * 127.5 + 0.5, 0, 255).to(torch.uint8)
         return img.permute(0, 2, 3, 1).contiguous(), lat_ok, img_ok
+
+    @torch.no_grad()
+    def encode_first_stage(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B,3,H,W] in [-1, 1] → the posterior mean as a regulated f32
+        latent [B,C,H/8,W/8], encoded in the compute dtype."""
+        z = vae_mod.vae_encode(self.loaded.vae, images.to(self.device, self.compute_dtype))
+        return self.latent_format.process_in(z.float())
 
 
 def load_engine(path_or_sd, device=None, dtype: Optional[torch.dtype] = None,

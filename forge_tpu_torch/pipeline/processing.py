@@ -1,17 +1,29 @@
-"""txt2img processing (port of forge_tpu/pipeline/processing.py, txt2img slice).
+"""txt2img and img2img processing (port of forge_tpu/pipeline/processing.py:
+the txt2img slice, img2img, inpainting and "only masked" inpainting).
 
-resolve seeds → encode cond and uncond with a shared chunk count → host
-Philox noise → the sampler's step loop on the CFG-batched latent → VAE
-decode with the NaN checks → uint8 images. SDXL's conditioning embeds the
-image's width and height in `y`. Flux adds the distilled-CFG
-guidance scale to both conditionings and samples 16-channel latents; at
-CFG 1 the uncond branch is skipped, as for every family.
+resolve seeds → `<lora:...>` tags patch the UNet and text encoders for the
+request (pipeline/extra_networks.py, from `engine.lora_registry`) → encode
+cond and uncond with a shared chunk count → host Philox noise → the
+sampler's step loop on the CFG-batched latent → VAE decode with the NaN
+checks → uint8 images. SDXL's conditioning embeds the image's width and
+height in `y`. Flux adds the distilled-CFG guidance scale to both
+conditionings and samples 16-channel latents; at CFG 1 the uncond branch is
+skipped, as for every family.
 
-`Processing` takes only the fields this slice reads. Any other field of the
-reference's request (img2img, hires fix, scripts, styles, ...) raises
-NotImplementedError rather than being ignored, as do prompt features the
-slice does not run yet: `[from:to:when]` editing, `AND` composition and
-`<lora:...>` extra networks.
+img2img encodes the init images (resized by `resize_mode`) with the VAE and
+samples the tail of the schedule that `denoising_strength` keeps from noise
+scaled over that latent; with an `inpaint_mask` the sampler's x0 is blended
+with the init latent under the mask taken to latent size, and the decoded
+image is pasted into the init image under the blurred mask. `controlnets`
+(models/controlnet.py `ControlNetState`s) run beside the UNet at each step.
+The reference's options `initial_noise_multiplier`, `img2img_extra_noise`
+and color correction take their defaults (1.0, 0, off).
+
+`Processing` takes only the fields this port reads. Any other field of the
+reference's request (hires fix, scripts, styles, tiled diffusion, soft
+inpainting, ...) raises NotImplementedError rather than being ignored, as do
+prompt features not ported yet: `[from:to:when]` editing and `AND`
+composition.
 """
 
 from __future__ import annotations
@@ -19,21 +31,22 @@ from __future__ import annotations
 import dataclasses
 import inspect
 import random
-import re
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..ops.image_rng import ImageRNG
+from ..ops.resize import resize_bilinear
 from ..sampling import cfg as cfg_mod
 from ..sampling.samplers import get_sampler
 from ..sampling.schedules import get_sigmas
 from ..text.schedule import get_schedule, split_composable
 from .engine import DiffusionEngine, raise_nans
-
-_EXTRA_NETWORK_RE = re.compile(r"<(\w+):([^>]+)>")
+from .extra_networks import activate, parse_prompt
+from .images import resize_init_image
+from .masking import expand_crop_region, get_crop_region, resize_image
 
 
 @dataclasses.dataclass
@@ -61,11 +74,23 @@ class Processing:
     eta_noise_seed_delta: int = 0
     all_seeds: Optional[List[int]] = None
     all_subseeds: Optional[List[int]] = None
+    initial_noise_multiplier: float = 1.0
+    # img2img
+    init_images: Optional[List[np.ndarray]] = None  # [H,W,3] uint8 or float in [0, 1]
+    resize_mode: int = 0  # 0 just resize, 1 crop and resize, 2 resize and fill, 3 latent
+    denoising_strength: float = 0.75
+    inpaint_mask: Optional[np.ndarray] = None  # [H,W] float 0..1 (or 0..255), 1 = repaint
+    mask_blur: float = 4.0
+    inpainting_fill: str = "original"  # fill | original | latent_noise | latent_nothing
+    inpaint_full_res: bool = False
+    inpaint_full_res_padding: int = 32
+    inpainting_mask_invert: bool = False
+    controlnets: Optional[List[Any]] = None  # models.controlnet.ControlNetState
 
     def __setattr__(self, name, value):
         if name not in _FIELDS:
             raise NotImplementedError(
-                f"Processing.{name} is not ported to forge_tpu_torch yet (txt2img slice)")
+                f"Processing.{name} is not ported to forge_tpu_torch yet")
         object.__setattr__(self, name, value)
 
     def __init__(self, **kwargs):
@@ -103,8 +128,7 @@ def _resolve_seeds(p: Processing) -> None:
 
 
 def _check_prompt(p: Processing, text: str) -> None:
-    if _EXTRA_NETWORK_RE.search(text):
-        raise NotImplementedError(f"extra networks in {text!r} are not ported yet")
+    """`text` with its extra-network tags stripped."""
     if len(split_composable(text)) > 1 or len(get_schedule(text, p.steps)) > 1:
         raise NotImplementedError(
             f"prompt editing / AND composition in {text!r} is not ported yet")
@@ -128,30 +152,19 @@ def _prepare_noise(p: Processing, rng: ImageRNG, info, n_steps: int, device):
     return torch.from_numpy(np.stack(steps)).to(device)
 
 
-def _sample_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
-                    timings: Dict[str, float]) -> np.ndarray:
-    t_noise = time.perf_counter()
+def _sample(engine: DiffusionEngine, p: Processing, x: torch.Tensor, sigmas: np.ndarray,
+            step_noise, cond, uncond, unet_params, timings: Dict[str, float],
+            mask: Optional[torch.Tensor] = None,
+            init_latent: Optional[torch.Tensor] = None) -> np.ndarray:
+    """The sampler's step loop from x over `sigmas`, then the decode → uint8 [B,H,W,3]."""
     info = get_sampler(p.sampler_name)
-    lc = engine.latent_format.latent_channels
-    rng = ImageRNG(
-        (lc, p.height // 8, p.width // 8), seeds, subseeds=subseeds,
-        subseed_strength=p.subseed_strength,
-        seed_resize_from_h=p.seed_resize_from_h, seed_resize_from_w=p.seed_resize_from_w,
-        eta_noise_seed_delta=p.eta_noise_seed_delta if info.uses_ensd else 0,
-    )
-    noise0 = rng.next()  # NCHW, the layout the seeds encode
-    sigmas = get_sigmas(_auto_schedule(p.sampler_name, p.scheduler), p.steps, engine.predictor)
-    n_steps = len(sigmas) - 1
-    step_noise = _prepare_noise(p, rng, info, n_steps, engine.device)
-    x = torch.from_numpy(engine.predictor.noise_scaling(
-        np.float32(sigmas[0]), noise0, np.zeros_like(noise0))).to(engine.device)
-    timings["noise"] = timings.get("noise", 0.0) + time.perf_counter() - t_noise
-
     t1 = time.perf_counter()
-    apply_model = cfg_mod.make_apply_model(engine.unet_apply_fn(), engine.loaded.unet,
-                                           engine.predictor, engine.compute_dtype)
+    apply_model = cfg_mod.make_apply_model(engine.unet_apply_fn(controlnets=p.controlnets),
+                                           unet_params, engine.predictor, engine.compute_dtype)
     model_fn = cfg_mod.make_cfg_model_fn(apply_model, cond,
                                          None if p.cfg_scale == 1.0 else uncond, p.cfg_scale)
+    if mask is not None:
+        model_fn = cfg_mod.make_masked_model_fn(model_fn, mask, init_latent)
     params = inspect.signature(info.fn).parameters
     kwargs = {name: value for name, value in
               (("eta", p.eta), ("s_noise", p.s_noise), ("s_churn", p.s_churn))
@@ -172,27 +185,180 @@ def _sample_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, con
     return out
 
 
+def _image_rng(p: Processing, info, shape, seeds, subseeds) -> ImageRNG:
+    return ImageRNG(
+        shape, seeds, subseeds=subseeds, subseed_strength=p.subseed_strength,
+        seed_resize_from_h=p.seed_resize_from_h, seed_resize_from_w=p.seed_resize_from_w,
+        eta_noise_seed_delta=p.eta_noise_seed_delta if info.uses_ensd else 0)
+
+
+def _sample_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
+                    unet_params, timings: Dict[str, float]) -> np.ndarray:
+    t_noise = time.perf_counter()
+    info = get_sampler(p.sampler_name)
+    lc = engine.latent_format.latent_channels
+    rng = _image_rng(p, info, (lc, p.height // 8, p.width // 8), seeds, subseeds)
+    noise0 = rng.next()  # NCHW, the layout the seeds encode
+    sigmas = get_sigmas(_auto_schedule(p.sampler_name, p.scheduler), p.steps, engine.predictor)
+    step_noise = _prepare_noise(p, rng, info, len(sigmas) - 1, engine.device)
+    x = torch.from_numpy(engine.predictor.noise_scaling(
+        np.float32(sigmas[0]), noise0, np.zeros_like(noise0))).to(engine.device)
+    timings["noise"] = timings.get("noise", 0.0) + time.perf_counter() - t_noise
+    return _sample(engine, p, x, sigmas, step_noise, cond, uncond, unet_params, timings)
+
+
+def _gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
+    """scipy's gaussian_filter over every axis, as the reference blurs."""
+    if radius <= 0:
+        return img
+    from scipy.ndimage import gaussian_filter
+
+    return gaussian_filter(img, sigma=radius)
+
+
+def _unit_mask(p: Processing) -> np.ndarray:
+    """The inpaint mask as float32 in [0, 1], inverted if asked."""
+    m = np.asarray(p.inpaint_mask, np.float32)
+    if m.max() > 1.5:
+        m = m / 255.0
+    return 1.0 - m if p.inpainting_mask_invert else m
+
+
+def _encode(engine: DiffusionEngine, images: np.ndarray) -> torch.Tensor:
+    """[B,H,W,3] float in [-1, 1] → regulated f32 latent [B,C,H/8,W/8] on the device."""
+    x = torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2)))
+    return engine.encode_first_stage(x)
+
+
+def _sample_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
+                    unet_params, timings: Dict[str, float]) -> np.ndarray:
+    t_encode = time.perf_counter()
+    info = get_sampler(p.sampler_name)
+    lc = engine.latent_format.latent_channels
+    h8, w8 = p.height // 8, p.width // 8
+    imgs = []
+    for im in p.init_images:
+        arr = np.asarray(im)
+        if arr.shape[:2] != (p.height, p.width) and p.resize_mode != 3:
+            arr = resize_init_image(arr, p.width, p.height, mode=p.resize_mode)
+        arr = arr.astype(np.float32)
+        if arr.max() > 1.5:
+            arr = arr / 255.0
+        imgs.append(arr * 2.0 - 1.0)
+    batch = np.stack([imgs[min(i, len(imgs) - 1)] for i in range(p.batch_size)])
+    init_latent = _encode(engine, batch)
+    if p.resize_mode == 3 and tuple(init_latent.shape[2:]) != (h8, w8):
+        # 'Just resize (latent upscale)': bilinear in latent space, no antialias
+        init_latent = resize_bilinear(init_latent, (h8, w8), antialias=False)
+
+    mask_latent = None
+    if p.inpaint_mask is not None:
+        m8 = resize_bilinear(_gaussian_blur(_unit_mask(p), p.mask_blur), (h8, w8))
+        mask_latent = torch.from_numpy(np.clip(m8, 0, 1)[None, None]).to(engine.device)
+        if p.inpainting_fill == "fill":
+            fill_latent = _encode(engine, _gaussian_blur(batch, 10.0))
+            init_latent = init_latent * (1 - mask_latent) + fill_latent * mask_latent
+        elif p.inpainting_fill == "latent_nothing":
+            init_latent = init_latent * (1 - mask_latent)
+    timings["encode"] = timings.get("encode", 0.0) + time.perf_counter() - t_encode
+
+    t_noise = time.perf_counter()
+    rng = _image_rng(p, info, (lc, h8, w8), seeds, subseeds)
+    noise0 = torch.from_numpy(rng.next()).to(engine.device)
+    # the schedule's tail (reference setup_img2img_steps, sd_samplers_common.py:24)
+    steps = p.steps
+    t_enc = min(int(p.denoising_strength * steps), steps - 1)
+    full_sigmas = get_sigmas(_auto_schedule(p.sampler_name, p.scheduler), steps,
+                             engine.predictor)
+    sigmas = full_sigmas[steps - t_enc - 1:]
+    step_noise = _prepare_noise(p, rng, info, len(sigmas) - 1, engine.device)
+    if p.inpainting_fill == "latent_noise" and mask_latent is not None:
+        init_latent = init_latent + noise0 * mask_latent * float(sigmas[0])
+    if p.initial_noise_multiplier != 1.0:
+        noise0 = noise0 * p.initial_noise_multiplier
+    x = engine.predictor.noise_scaling(float(np.float32(sigmas[0])), noise0, init_latent)
+    timings["noise"] = timings.get("noise", 0.0) + time.perf_counter() - t_noise
+    return _sample(engine, p, x, sigmas, step_noise, cond, uncond, unet_params, timings,
+                   mask=mask_latent, init_latent=init_latent)
+
+
+def _sample_inpaint_full_res(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
+                             uncond, unet_params, timings: Dict[str, float]):
+    """'Only masked' inpainting (reference processing.py:1684-1842 and
+    masking.py): crop around the mask, inpaint the crop at the processing
+    size, paste it back scaled under the blurred mask. → (images, pasted);
+    an empty mask falls back to whole-image inpainting, not pasted yet."""
+    mask = _unit_mask(p)
+    orig = np.asarray(p.init_images[0])
+    ih, iw = orig.shape[:2]
+    region = get_crop_region((mask > 0.5).astype(np.float32), p.inpaint_full_res_padding)
+    if region is None:
+        q = dataclasses.replace(p, inpaint_full_res=False)
+        return _sample_img2img(engine, q, seeds, subseeds, cond, uncond, unet_params, timings), False
+    x1, y1, x2, y2 = expand_crop_region(region, p.width, p.height, iw, ih)
+    crop_mask = mask[y1:y2, x1:x2]
+    crop_rs = resize_image(orig[y1:y2, x1:x2], p.width, p.height)
+    mask_rs = resize_image((crop_mask * 255).astype(np.uint8), p.width,
+                           p.height).astype(np.float32) / 255.0
+    # the crop's mask is already inverted where asked: the reference's inner
+    # call inverts it a second time (processing.py:1619), which is not kept
+    q = dataclasses.replace(p, inpaint_full_res=False, inpainting_mask_invert=False,
+                            init_images=[crop_rs], inpaint_mask=mask_rs)
+    out = _sample_img2img(engine, q, seeds, subseeds, cond, uncond, unet_params, timings)
+    m = np.clip(_gaussian_blur(crop_mask, p.mask_blur), 0, 1)[..., None]
+    results = []
+    for b in range(out.shape[0]):
+        gen = resize_image(out[b], x2 - x1, y2 - y1)
+        full = orig.astype(np.float32).copy()
+        full[y1:y2, x1:x2] = full[y1:y2, x1:x2] * (1 - m) + gen.astype(np.float32) * m
+        results.append(np.clip(full, 0, 255).astype(np.uint8))
+    return np.stack(results), True
+
+
+def _composite_inpaint(p: Processing, generated: np.ndarray, original) -> np.ndarray:
+    """Paste generated pixels into the original under the blurred mask."""
+    orig = np.asarray(original).astype(np.float32)
+    if orig.max() <= 1.5:
+        orig = orig * 255.0
+    m = np.clip(_gaussian_blur(_unit_mask(p), p.mask_blur), 0, 1)[..., None]
+    out = orig * (1 - m) + generated.astype(np.float32) * m
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
 @torch.no_grad()
 def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
     t0 = time.perf_counter()
     _resolve_seeds(p)
-    _check_prompt(p, p.prompt)
-    _check_prompt(p, p.negative_prompt)
     engine.set_clip_skip(p.clip_skip)
+    is_img2img = p.init_images is not None
     timings: Dict[str, float] = {}
     images: List[np.ndarray] = []
     te = engine.text_engines.get("clip_l")
     for it in range(p.n_iter):
         seeds = p.all_seeds[it * p.batch_size:(it + 1) * p.batch_size]
         subseeds = p.all_subseeds[it * p.batch_size:(it + 1) * p.batch_size]
-        prompts = [p.prompt] * p.batch_size
-        negs = [p.negative_prompt] * p.batch_size
+        tl = time.perf_counter()
+        prompts, unet_params, patched_tes = activate(engine, [p.prompt] * p.batch_size,
+                                                     registry=engine.lora_registry)
+        negs = [parse_prompt(p.negative_prompt)[0]] * p.batch_size
+        _check_prompt(p, prompts[0])
+        _check_prompt(p, negs[0])
+        timings["lora"] = timings.get("lora", 0.0) + time.perf_counter() - tl
 
         tc = time.perf_counter()
-        max_chunks = (1 if te is None else
-                      max(te.tokenize_batch(prompts)[1], te.tokenize_batch(negs)[1]))
-        cond = engine.get_learned_conditioning(prompts, p.width, p.height, max_chunks=max_chunks)
-        uncond = engine.get_learned_conditioning(negs, p.width, p.height, max_chunks=max_chunks)
+        orig_te = {name: engine.text_engines[name].params for name in patched_tes}
+        try:
+            for name, params in patched_tes.items():
+                engine.text_engines[name].params = params
+            max_chunks = (1 if te is None else
+                          max(te.tokenize_batch(prompts)[1], te.tokenize_batch(negs)[1]))
+            cond = engine.get_learned_conditioning(prompts, p.width, p.height,
+                                                   max_chunks=max_chunks)
+            uncond = engine.get_learned_conditioning(negs, p.width, p.height,
+                                                     max_chunks=max_chunks)
+        finally:
+            for name, params in orig_te.items():
+                engine.text_engines[name].params = params
         if engine.family == "flux":
             g = torch.full((p.batch_size,), float(p.distilled_cfg_scale),
                            dtype=torch.float32, device=engine.device)
@@ -200,8 +366,19 @@ def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
             uncond = dict(uncond, guidance=g)
         timings["cond"] = timings.get("cond", 0.0) + time.perf_counter() - tc
 
-        batch = _sample_txt2img(engine, p, seeds, subseeds, cond, uncond, timings)
-        images.extend(batch[b] for b in range(len(batch)))
+        pasted = False
+        args = (engine, p, seeds, subseeds, cond, uncond, unet_params, timings)
+        if not is_img2img:
+            batch = _sample_txt2img(*args)
+        elif p.inpaint_full_res and p.inpaint_mask is not None:
+            batch, pasted = _sample_inpaint_full_res(*args)
+        else:
+            batch = _sample_img2img(*args)
+        for b in range(len(batch)):
+            img = batch[b]
+            if is_img2img and p.inpaint_mask is not None and not pasted:
+                img = _composite_inpaint(p, img, p.init_images[min(b, len(p.init_images) - 1)])
+            images.append(img)
     timings["total"] = time.perf_counter() - t0
     return Processed(images=images, seeds=list(p.all_seeds), subseeds=list(p.all_subseeds),
                      timings=timings)

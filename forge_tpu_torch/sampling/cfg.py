@@ -1,9 +1,11 @@
 """CFG executor: builds the `model_fn(x, σ) → denoised` the samplers integrate
-(port of forge_tpu/sampling/cfg.py, single cond branch).
+(port of forge_tpu/sampling/cfg.py, single cond branch, and the inpainting
+latent composite).
 
 cond and uncond are fused into ONE model call by batch concatenation, and
 the uncond branch is skipped entirely when it is None (cfg == 1). Hooks,
-AND-composed branches and CFG rescale are not ported yet.
+AND-composed branches, CFG rescale and the CFG++ pair composite are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ def make_apply_model(net_apply: Callable, params: Any, predictor,
     """KModel equivalent: σ-space wrapper around a raw network.
 
     net_apply(params, x, timesteps, **cond) returns the raw prediction;
-    the result is apply(x, σ, cond) → x0 in f32. σ is a host scalar."""
+    the result is apply(x, σ, cond) → x0 in f32. σ is a host scalar. A
+    net_apply marked `takes_host_timestep` also gets the timestep as a host
+    float, `t_host` (the ControlNets' schedule gate reads it)."""
+    host_t = getattr(net_apply, "takes_host_timestep", False)
 
     def apply(x: torch.Tensor, sigma, cond: Mapping[str, torch.Tensor]) -> torch.Tensor:
         sigma = float(np.float32(sigma))
@@ -27,7 +32,8 @@ def make_apply_model(net_apply: Callable, params: Any, predictor,
         xi = predictor.calculate_input(sigma, xf)
         t = float(predictor.timestep(np.float32(sigma)))
         ts = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
-        out = net_apply(params, xi.to(compute_dtype), ts, **cond)
+        extra = {"t_host": t} if host_t else {}
+        out = net_apply(params, xi.to(compute_dtype), ts, **cond, **extra)
         return predictor.calculate_denoised(sigma, out.float(), xf)
 
     return apply
@@ -47,3 +53,16 @@ def make_cfg_model_fn(apply_model: Callable, cond: Mapping[str, torch.Tensor],
         return eps_uncond + cfg_scale * (eps_cond - eps_uncond)
 
     return model_fn
+
+
+def make_masked_model_fn(model_fn: Callable, mask: torch.Tensor,
+                         init_latent: torch.Tensor) -> Callable:
+    """Inpainting latent composite (reference sd_samplers_cfg_denoiser.py:
+    178-181, 204-213): after each denoise the model's x0 is blended with the
+    original latent under the latent mask, 1 → regenerate, 0 → keep."""
+
+    def wrapped(x: torch.Tensor, sigma) -> torch.Tensor:
+        x0 = model_fn(x, sigma)
+        return init_latent * (1.0 - mask) + x0 * mask
+
+    return wrapped

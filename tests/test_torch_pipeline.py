@@ -69,8 +69,10 @@ def test_processing_refuses_unported_fields():
     with pytest.raises(NotImplementedError, match="enable_hr"):
         Processing(prompt="x", enable_hr=True)
     p = Processing()
-    with pytest.raises(NotImplementedError, match="init_images"):
-        p.init_images = []
+    with pytest.raises(NotImplementedError, match="tiled_diffusion"):
+        p.tiled_diffusion = {"tile": 96}
+    with pytest.raises(NotImplementedError, match="styles"):
+        Processing(prompt="x", styles=["cinematic"])
 
 
 def test_port_imports_no_jax():
@@ -81,8 +83,8 @@ def test_port_imports_no_jax():
         "'forge_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 25, mods\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'forge_tpu.'))"
-        " or m == 'forge_tpu']\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors')"
+        " or m.startswith(('jax.', 'forge_tpu.', 'PIL.', 'safetensors.'))]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
