@@ -1,5 +1,6 @@
-"""Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths and its SDXL
-img2img-inpaint path with a LoRA and a ControlNet on one NVIDIA GPU.
+"""Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths, its SDXL
+img2img-inpaint path with a LoRA and a ControlNet, and its batched SDXL serving with an
+IP-Adapter and a MultiDiffusion upscale, on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -19,7 +20,10 @@ Phases:
      the port never calls it) are timed beside it, at every bf16 conv shape
      the SIMT body and cuDNN's conv alone on the activated tensor (a
      yardstick, not the same function), and at linear1 and linear2 the bf16
-     SIMT body of dequant-matmul; the SIMT body must be slower;
+     SIMT body of dequant-matmul; the SIMT body must be slower; where the
+     plain flash would hold more than 2^30 f32 logits (the 2048² VAE's
+     65536 tokens) it is held on the first and last 1024 query rows, in
+     bf16 only;
   3. the SD1.5 slice at full width on random weights made on the card from
      a seed: load_engine, then three process_images requests (512², Euler a,
      20 steps, CFG 7, seeds 1, 2, 1) with the launch counts of each kernel
@@ -53,7 +57,21 @@ Phases:
      unmasked ring checked against the init image, one profiled request,
      the LoRA merge checked against base + 0.8·(α/r)·up·down, and the VAE
      encode at 1024² and a UNet + ControlNet forward at (2,4,128,128)
-     through the kernels and the plain versions.
+     through the kernels and the plain versions;
+  9. config 5 on the same engine (bench.py's `config5`): CLIP-ViT-H/14 and
+     an SDXL IP-Adapter made on the card, a seeded 1024² reference image
+     encoded to IP tokens (weight 0.6), one warm request, then three
+     requests (1024², batch 2, DPM++ 2M Karras, 20 steps, CFG 7, seeds 2,
+     3, 4) through `serve_throughput` and the same three through
+     `process_images`: exact launch counts by body, served images
+     byte-identical to the sequential ones, images/s both ways and
+     serve_speedup; weight 0 equal to no hooks and unequal to 0.6; one
+     profiled request; then the MultiDiffusion 2× upscale of the first
+     served image to 2048² (Euler, 8 steps at strength 0.35, 9 tiles of 96
+     latent pixels, overlap 16; seeds 9, 10, 10) with exact launch counts,
+     seed 10 twice byte-identical, one profiled upscale; then the UNet with
+     the IP hooks at (4,4,128,128) and one 96² tile forward through the
+     kernels and the plain versions.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -91,6 +109,13 @@ FLASH_SHAPES = [  # (B, H, Lq, D), Lk, a shape of a main path
     ((1, 1, 16384, 512), 16384, True),  # Flux and SDXL VAE mid-block at 1024²
     ((2, 10, 4096, 64), 4096, True),    # SDXL level-1 self-attention at 1024², CFG batch
     ((2, 20, 1024, 64), 1024, True),    # SDXL level-2 and middle-block self-attention
+    # config 5: serving at batch 2 (CFG batch 4), and MultiDiffusion's 96² tiles (CFG batch 2)
+    ((4, 10, 4096, 64), 4096, True),
+    ((4, 20, 1024, 64), 1024, True),
+    ((2, 10, 2304, 64), 2304, True),    # a tile's level 1: 48² tokens
+    ((2, 20, 576, 64), 576, True),      # a tile's level 2: 24² tokens, 4.5 query tiles of 128
+    ((2, 1, 16384, 512), 16384, True),  # the VAE mid-block decoding a served batch of 2 at 1024²
+    ((1, 1, 65536, 512), 65536, True),  # the VAE mid-block at 2048² (encode and decode)
 ]
 FLASH_SUMMARY_SHAPE = FLASH_SHAPES[0][0]  # the JSON line's flash row (the same shape since the first)
 GN_CONV_SHAPES = [  # (B, C, H, W), O
@@ -118,6 +143,16 @@ GN_CONV_SHAPES = [  # (B, C, H, W), O
     ((1, 128, 512, 512), 256),   # level 1, first resnet
     ((1, 256, 256, 256), 512),   # level 2, first resnet
 ]
+# config 5: the same twelve (C, O) pairs at serving's CFG batch 4 on 128², 64² and 32² latents,
+# and on a MultiDiffusion 96² tile's 96², 48² and 24² at CFG batch 2
+SDXL_CONV_PAIRS = [(320, 320, 0), (960, 320, 0), (640, 320, 0), (320, 640, 1), (640, 640, 1),
+                   (1920, 640, 1), (1280, 640, 1), (960, 640, 1), (640, 1280, 2),
+                   (1280, 1280, 2), (2560, 1280, 2), (1920, 1280, 2)]
+GN_CONV_SHAPES += [((b, c, side >> level, side >> level), o) for b, side in ((4, 128), (2, 96))
+                   for c, o, level in SDXL_CONV_PAIRS]
+GN_CONV_SHAPES += [((1, 128, 2048, 2048), 128),  # the VAE at 2048²: encoder and decoder level 0
+                   ((1, 256, 2048, 2048), 128)]  # decoder up.0's first resnet (2^30 elements in)
+PLAIN_MAX_LOGITS = 1 << 30  # above this many logits a head, plain flash is checked on row slices
 DEQUANT_SHAPES = [  # (M, N, K) of the Flux-dev linears at 1024²
     (4608, 21504, 3072),  # single block linear1
     (4608, 3072, 15360),  # single block linear2
@@ -148,6 +183,21 @@ CONFIG3_CALLS = min(int(CONFIG3_STRENGTH * CONFIG3_STEPS), CONFIG3_STEPS - 1) + 
 CONFIG3_PER_REQUEST = {"flash_attention": CONFIG3_CALLS * (70 + 34) + 1 + 1,
                        "gn_silu_conv3x3": CONFIG3_CALLS * (34 + 16) + 20 + 28, "dequant_matmul": 0}
 CONFIG3_PROMPT = "a castle <lora:bench:0.8>"
+# config 5 (bench.py's `config5`): served requests at batch 2 (CFG batch 4), 20 steps, each
+# forward the UNet's 70 flash calls and 34 convs (the IP hooks' attentions have 4 keys: no
+# kernel), then the decode of both images (1 flash, 28 conv)
+CONFIG5_STEPS, CONFIG5_BATCH, CONFIG5_IP_WEIGHT = 20, 2, 0.6
+CONFIG5_SEEDS = (2, 3, 4)
+CONFIG5_PER_REQUEST = {"flash_attention": CONFIG5_STEPS * 70 + 1,
+                       "gn_silu_conv3x3": CONFIG5_STEPS * 34 + 28, "dequant_matmul": 0}
+# the MultiDiffusion upscale: strength 0.35 of 8 Euler steps keeps 3 model calls, each 9 tiles
+# (a 256² latent in 96² tiles at overlap 16), then the 2048² encode (1 flash, 20 conv) and decode
+UPSCALE_STEPS, UPSCALE_STRENGTH, UPSCALE_TILES = 8, 0.35, 9
+UPSCALE_SEEDS = (9, 10, 10)
+UPSCALE_CALLS = min(int(UPSCALE_STRENGTH * UPSCALE_STEPS), UPSCALE_STEPS - 1) + 1
+UPSCALE_PER_REQUEST = {"flash_attention": UPSCALE_CALLS * UPSCALE_TILES * 70 + 2,
+                       "gn_silu_conv3x3": UPSCALE_CALLS * UPSCALE_TILES * 34 + 20 + 28,
+                       "dequant_matmul": 0}
 LORA_BLOCKS = ("input_blocks_4_1", "input_blocks_5_1", "output_blocks_3_1")
 
 
@@ -270,29 +320,39 @@ def phase_flash(gen: torch.Generator, summary):
 
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for (b, h, lq, d), lk, main_path in FLASH_SHAPES:
+            # plain holds every logit in f32: past PLAIN_MAX_LOGITS it is held on the first and
+            # the last 1024 query rows against all of K and V (rows are independent, so that is
+            # exact), and the shape is run in bf16 only
+            rows = (None if b * h * lq * lk <= PLAIN_MAX_LOGITS
+                    else torch.cat([torch.arange(1024), torch.arange(lq - 1024, lq)]).cuda())
+            if rows is not None and dtype == torch.float32:
+                continue
             q = torch.randn((b, h, lq, d), generator=gen, device="cuda").to(dtype)
             k = torch.randn((b, h, lk, d), generator=gen, device="cuda").to(dtype)
             v = torch.randn((b, h, lk, d), generator=gen, device="cuda").to(dtype)
+            q_plain = q if rows is None else q[:, :, rows]
             body = flash_body(d, dtype)
             before = flash_attention.launches_by_body[body]
             got = flash_attention(q, k, v)
             check(flash_attention.launches_by_body[body] == before + 1,
                   f"flash_attention {dtype} {(b, h, lq, d)} ran the {body} body")
-            want = flash_attention_plain(q, k, v)
-            err, rel = rel_err(got, want)
+            want = flash_attention_plain(q_plain, k, v)
+            err, rel = rel_err(got if rows is None else got[:, :, rows], want)
             check(torch.equal(got, flash_attention(q, k, v)), "flash_attention rerun is bit-identical")
             ms = time_ms(lambda: flash_attention(q, k, v))
-            plain_ms = time_ms(lambda: flash_attention_plain(q, k, v))
+            plain_ms = time_ms(lambda: flash_attention_plain(q_plain, k, v))
             bms, by = bound(4.0 * b * h * lq * lk * d,  # q, k, v read once, the output written once
                             2 * (q.numel() + k.numel()) * q.element_size(), dtype)
             log(f"flash_attention {str(dtype)[6:]:8s} q{(b, h, lq, d)} lk={lk} [{body}]: "
-                f"max_abs_err={err:.3e} rel={rel:.3e} (bound {tol:g}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms | card bound {bms:.4f} ms ({by}), "
-                f"{100 * bms / ms:.1f} % of it")
+                f"max_abs_err={err:.3e} rel={rel:.3e} (bound {tol:g}"
+                + ("" if rows is None else f"; plain on {len(rows)} of the {lq} query rows")
+                + f") kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+                + ("" if rows is None else f" ({len(rows)} rows)")
+                + f" | card bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f} % of it")
             check(rel <= tol, f"flash_attention {dtype} {(b, h, lq, d)} within {tol}")
             if dtype == torch.bfloat16 and main_path:
                 simt = flash_attention(q, k, v, body="simt")
-                simt_err, simt_rel = rel_err(simt, want)
+                simt_err, simt_rel = rel_err(simt if rows is None else simt[:, :, rows], want)
                 simt_ms = time_ms(lambda: flash_attention(q, k, v, body="simt"))
                 lib_ms = sdpa_ms(q, k, v)
                 log(f"  same, simt body: err {simt_err:.3e} rel {simt_rel:.3e} | {simt_ms:.4f} ms "
@@ -306,7 +366,7 @@ def phase_flash(gen: torch.Generator, summary):
                         "bound_by": by, "library_ms": lib_ms,
                         "ms_by_body": {body: ms, "simt": simt_ms}}
                 del simt
-            del q, k, v, got, want
+            del q, k, v, q_plain, got, want
     torch.cuda.empty_cache()
 
 
@@ -635,6 +695,18 @@ def phase_flux_blocks(engine, size: int = 1024):
             check(worst >= PSNR_BOUND, f"Flux {name} PSNR ≥ {PSNR_BOUND} dB")
 
 
+def check_counts(launches, per_request, requests: int, what: str):
+    """Each kernel's launches exactly `requests` × its count a request, all on the tensor-core body."""
+    for name, per in per_request.items():
+        want = requests * per
+        log(f"launches during {what}: {name} {launches[name]} (expected {want})")
+        check(launches[name] == want, f"{name} launched exactly {want} times during {what}")
+        if name in ("flash_attention", "gn_silu_conv3x3"):
+            log(f"  {name}[wgmma] {launches[name + '[wgmma]']}, [simt] {launches[name + '[simt]']}")
+            check(launches[name + "[wgmma]"] == want and launches[name + "[simt]"] == 0,
+                  f"all {want} {name} launches during {what} on the tensor-core body")
+
+
 def sdxl_request(engine, seed: int, label: str):
     from forge_tpu_torch.pipeline.processing import Processing, process_images
 
@@ -683,14 +755,7 @@ def phase_sdxl(gen: torch.Generator):
     launches = read_counts()
     check(np.array_equal(images[0], images[2]), "SDXL seed 1 twice gives identical bytes")
     check(not np.array_equal(images[0], images[1]), "SDXL seeds 1 and 2 differ")
-    for name, per in SDXL_PER_REQUEST.items():
-        want = 3 * per
-        log(f"launches during the 3 SDXL requests: {name} {launches[name]} (expected {want})")
-        check(launches[name] == want, f"{name} launched exactly {want} times on the SDXL path")
-        if name in ("flash_attention", "gn_silu_conv3x3"):
-            log(f"  {name}[wgmma] {launches[name + '[wgmma]']}, [simt] {launches[name + '[simt]']}")
-            check(launches[name + "[wgmma]"] == want and launches[name + "[simt]"] == 0,
-                  f"all {want} {name} launches of the SDXL requests on the tensor-core body")
+    check_counts(launches, SDXL_PER_REQUEST, 3, "the 3 SDXL requests")
     profile_request("sdxl 1024²", lambda: sdxl_request(engine, 1, "profiled"))
 
     x = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(engine.compute_dtype)
@@ -801,14 +866,7 @@ def phase_config3(engine, gen: torch.Generator):
     launches = read_counts()
     check(np.array_equal(images[0], images[2]), "config3 seed 1 twice gives identical bytes")
     check(not np.array_equal(images[0], images[1]), "config3 seeds 1 and 2 differ")
-    for name, per in CONFIG3_PER_REQUEST.items():
-        want = 3 * per
-        log(f"launches during the 3 config3 requests: {name} {launches[name]} (expected {want})")
-        check(launches[name] == want, f"{name} launched exactly {want} times on the config-3 path")
-        if name in ("flash_attention", "gn_silu_conv3x3"):
-            log(f"  {name}[wgmma] {launches[name + '[wgmma]']}, [simt] {launches[name + '[simt]']}")
-            check(launches[name + "[wgmma]"] == want and launches[name + "[simt]"] == 0,
-                  f"all {want} {name} launches of the config-3 requests on the tensor-core body")
+    check_counts(launches, CONFIG3_PER_REQUEST, 3, "the 3 config3 requests")
     far = np.ones((1024, 1024), bool)  # the blur's support ends 4σ = 16 px past the square
     far[256 - 17:768 + 17, 256 - 17:768 + 17] = False
     for img in images:
@@ -878,13 +936,173 @@ def lora_target(unet, blk: str, proj: str) -> torch.Tensor:
     return unet[f"{kind}_blocks"][i][j]["transformer_blocks"]["0"]["attn1"][proj]["weight"]
 
 
+def config5_request(seed: int, prompt: str, hooks):
+    from forge_tpu_torch.pipeline.processing import Processing
+
+    return Processing(prompt=prompt, seed=seed, steps=CONFIG5_STEPS, width=1024, height=1024,
+                      cfg_scale=7.0, sampler_name="DPM++ 2M", scheduler="karras",
+                      batch_size=CONFIG5_BATCH, unet_hooks=hooks)
+
+
+def upscale_request(image: np.ndarray, seed: int):
+    """bench.py's MultiDiffusion 2× upscale: the image ×2 by pixel repeat, img2img
+    over the 2048² canvas denoised in 96-pixel latent tiles."""
+    from forge_tpu_torch.pipeline.processing import Processing
+
+    return Processing(prompt="detailed", seed=seed, steps=UPSCALE_STEPS, width=2048, height=2048,
+                      cfg_scale=7.0, sampler_name="Euler",
+                      init_images=[np.kron(image, np.ones((2, 2, 1))).astype(np.uint8)],
+                      denoising_strength=UPSCALE_STRENGTH,
+                      tiled_diffusion={"tile": 96, "overlap": 16})
+
+
+def timed(label: str, run):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    log(f"{label}: {seconds:.4f} s")
+    return out, seconds
+
+
+def phase_config5(engine, gen: torch.Generator):
+    """bench.py config 5 on the SDXL engine: batched serving with an SDXL
+    IP-Adapter (CLIP-ViT-H/14 image encoder), then a MultiDiffusion 2×
+    upscale to 2048²."""
+    from forge_tpu_torch.core.loader import load_clip_vision, load_ip_adapter
+    from forge_tpu_torch.core.synth import DeviceFill, synth_clip_vision_sd, synth_ip_adapter_sd
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline.ipadapter import build_ip_adapter_hooks, encode_image
+    from forge_tpu_torch.pipeline.processing import process_images
+    from forge_tpu_torch.runtime.serving import serve_throughput
+
+    dt = engine.compute_dtype
+    (cv, ip), _ = timed(
+        "config5: CLIP-ViT-H/14 and the SDXL IP-Adapter made on the card and loaded",
+        lambda: (load_clip_vision(synth_clip_vision_sd(fill=DeviceFill("cuda", seed=0)), dt, "cuda"),
+                 load_ip_adapter(synth_ip_adapter_sd(fill=DeviceFill("cuda", seed=0)), dt, "cuda")))
+    vm = cv["vision_model"]
+    check(vm["embeddings"]["patch_embedding"]["weight"].shape == (1280, 3, 14, 14)
+          and len(vm["encoder"]["layers"]) == 32 and len(ip["ip_adapter"]) == 70
+          and cv["visual_projection"]["weight"].shape == (1024, 1280),
+          "CLIP-ViT-H/14 (1280 × 32, projection 1024) and 70 IP layers")
+    log(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    reference = np.random.default_rng(5).integers(0, 256, size=(1024, 1024, 3), dtype=np.uint8)
+    (tokens, uncond), _ = timed("config5: the 1024² reference image through ViT-H/14 and image_proj",
+                                lambda: encode_image(ip, cv, reference))
+    check(tuple(tokens.shape) == (1, 4, 2048) and bool(torch.isfinite(tokens).all())
+          and bool(torch.isfinite(uncond).all()), "4 finite IP tokens of 2048")
+    hooks = build_ip_adapter_hooks(ip, cv, reference, weight=CONFIG5_IP_WEIGHT,
+                                   batch_size=CONFIG5_BATCH)
+
+    def run_sequential(seeds, label, hooks=hooks):
+        images = []
+        for seed in seeds:
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = process_images(engine, config5_request(seed, f"prompt {seed}", hooks))
+            log(f"config5 {label} seed={seed}: latency {time.perf_counter() - t:.4f} s, timings "
+                + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+                + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            images.append(res.images)
+        return images
+
+    run_sequential([1], "warm request")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    served = serve_throughput(engine, [config5_request(s, f"prompt {s}", hooks)
+                                       for s in CONFIG5_SEEDS])
+    served_launches = read_counts()
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_counts(served_launches, CONFIG5_PER_REQUEST, len(CONFIG5_SEEDS), "the served requests")
+    for out in served["outputs"]:
+        log("  served request timings " + json.dumps({k: round(v, 4) for k, v in
+                                                     out["timings"].items()}))
+    zero_counts()
+    t = time.perf_counter()
+    sequential = run_sequential(CONFIG5_SEEDS, "sequential")
+    seq_wall = time.perf_counter() - t
+    seq_launches = read_counts()
+    check_counts(seq_launches, CONFIG5_PER_REQUEST, len(CONFIG5_SEEDS), "the sequential requests")
+    for out, images in zip(served["outputs"], sequential):
+        check(len(out["images"]) == len(images) == CONFIG5_BATCH, "2 images a request")
+        for a, b in zip(out["images"], images):
+            check(a.shape == (1024, 1024, 3) and a.dtype == np.uint8, "1024²×3 uint8 images")
+            check(np.array_equal(a, b), "a served image is byte-identical to its sequential twin")
+    check(not np.array_equal(sequential[0][0], sequential[1][0]), "config5 seeds 2 and 3 differ")
+    n = served["n_images"]
+    log(f"config5 serving: {n} images in {served['wall_s']:.4f} s, {served['images_per_s']:.4f} "
+        f"images/s; sequential {n / seq_wall:.4f} images/s ({seq_wall:.4f} s); serve_speedup "
+        f"{served['images_per_s'] * seq_wall / n:.4f}; peak {serve_peak:.2f} GiB; served images "
+        "byte-identical to sequential")
+
+    zero_hooks = build_ip_adapter_hooks(ip, cv, reference, weight=0.0, batch_size=CONFIG5_BATCH)
+    (at_zero,), (no_hooks,) = (run_sequential(CONFIG5_SEEDS[:1], "IP weight 0", zero_hooks),
+                               run_sequential(CONFIG5_SEEDS[:1], "no IP-Adapter", None))
+    check(all(np.array_equal(a, b) for a, b in zip(at_zero, no_hooks)),
+          "IP weight 0 gives the bytes of a request without hooks")
+    check(not np.array_equal(at_zero[0], sequential[0][0]), "IP weight 0.6 changes the image")
+    diff = np.abs(at_zero[0].astype(np.int16) - sequential[0][0].astype(np.int16))
+    log(f"config5 IP-Adapter 0.6 vs 0: mean |Δ| {diff.mean():.3f} of 255; weight 0 equals no hooks")
+    profile_request("config5 served 1024² ×2", lambda: process_images(
+        engine, config5_request(CONFIG5_SEEDS[0], f"prompt {CONFIG5_SEEDS[0]}", hooks)))
+
+    first = served["outputs"][0]["images"][0]
+    zero_counts()
+    upscaled = []
+    for seed in UPSCALE_SEEDS:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = process_images(engine, upscale_request(first, seed))
+        img = res.images[0]
+        log(f"config5 upscale seed={seed}: latency {time.perf_counter() - t:.4f} s, timings "
+            + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+            + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"image mean {img.mean():.3f} std {img.std():.3f}")
+        check(img.shape == (2048, 2048, 3) and img.dtype == np.uint8, "2048²×3 uint8 image")
+        upscaled.append(img)
+    md_launches = read_counts()
+    check_counts(md_launches, UPSCALE_PER_REQUEST, len(UPSCALE_SEEDS), "the upscales")
+    check(np.array_equal(upscaled[1], upscaled[2]), "upscale seed 10 twice gives identical bytes")
+    check(not np.array_equal(upscaled[0], upscaled[1]), "upscale seeds 9 and 10 differ")
+    profile_request("config5 upscale 2048²", lambda: process_images(
+        engine, upscale_request(first, UPSCALE_SEEDS[-1])))
+
+    # kernels vs plain versions: the UNet with the IP hooks at the served CFG batch, a tile
+    cond = engine.get_learned_conditioning(["prompt 2"] * 2 + [""] * 2, 1024, 1024)
+    tile_cond = engine.get_learned_conditioning(["detailed", ""], 2048, 2048)
+    for label, x, c, apply in (
+            ("sdxl unet + IP hooks 128x128 B=4", (4, 4, 128, 128), cond,
+             engine.unet_apply_fn(hooks=hooks)),
+            ("sdxl unet, one 96x96 tile B=2", (2, 4, 96, 96), tile_cond, engine.unet_apply_fn())):
+        xl = torch.randn(x, generator=gen, device="cuda").to(dt)
+        ts = torch.tensor([999.0, 400.0] * (x[0] // 2), device="cuda")
+        with torch.no_grad():
+            fused, t1 = timed(f"{label}: kernels", lambda: apply(engine.loaded.unet, xl, ts,
+                                                                  c["context"], y=c["y"]))
+            with plain_versions():
+                plain, t2 = timed(f"{label}: plain versions",
+                                  lambda: apply(engine.loaded.unet, xl, ts, c["context"], y=c["y"]))
+        value = psnr(fused, plain)
+        log(f"{label} bf16: kernels vs plain PSNR {value:.2f} dB (bound {PSNR_BOUND})")
+        check(value >= PSNR_BOUND, f"{label} PSNR ≥ {PSNR_BOUND} dB")
+        del xl, fused, plain
+    del cv, ip, hooks, zero_hooks
+    torch.cuda.empty_cache()
+    return {name: served_launches[name] + seq_launches[name] + md_launches[name]
+            for name in served_launches}
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
-    the busy share (kernel time over the request's wall time)."""
+    the busy share (kernel time over the request's wall time). Only the
+    card's activity is traced: with the host's operators too, summing
+    ~200,000 launches' events took minutes of the script's time limit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         run()
         wall = time.perf_counter() - t
@@ -893,7 +1111,8 @@ def profile_request(label: str, run):
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(f"profile {label}: wall {wall:.4f} s, kernel time {busy_us / 1e6:.4f} s "
-        f"({100 * busy_us / 1e6 / wall:.2f} % busy), {sum(e.count for e in kernels)} kernel launches")
+        f"({100 * busy_us / 1e6 / wall:.2f} % busy), {sum(e.count for e in kernels)} kernel launches "
+        f"(the trace summed in {time.perf_counter() - t - wall:.1f} s)")
     for e in kernels[:10]:
         log(f"  {e.count:6d} × {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:6.2f} %")
@@ -999,12 +1218,16 @@ def main():
     log(f"SDXL phase: {time.perf_counter() - t:.2f} s; script so far {time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     config3_launches = phase_config3(engine, gen)
-    del engine
-    torch.cuda.empty_cache()
     log(f"config3 phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    config5_launches = phase_config5(engine, gen)
+    del engine
+    torch.cuda.empty_cache()
+    log(f"config5 phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
     paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
-             "config3": config3_launches}
+             "config3": config3_launches, "config5": config5_launches}
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",

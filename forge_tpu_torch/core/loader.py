@@ -21,7 +21,10 @@ full-width checkpoint is never resident at full precision.
 
 `load_controlnet` takes a cldm ControlNet's state dict (or file) to its tree
 on the device the same way; its ResBlocks' fused convs are stored
-channels_last on the card as the UNet's are.
+channels_last on the card as the UNet's are. `load_clip_vision` (HF
+`vision_model.*` keys) and `load_ip_adapter` (`image_proj.*` and
+`ip_adapter.{1,3,…}.to_{k,v}_ip.weight`) do the same for an IP-Adapter's
+image encoder and adapter. Each takes the engine's dtype and device.
 """
 
 from __future__ import annotations
@@ -166,6 +169,15 @@ def load_checkpoint_parts(path_or_sd, dtype: torch.dtype = torch.float32, device
     return LoadedCheckpoint(g.family, g.prediction, g.context_dim, unet, vae, text_encoders)
 
 
+def _load_with(path_or_sd, prefixes, what: str, dtype: torch.dtype, device) -> Dict[str, Any]:
+    """File or flat state dict → nested tree on `device`, if it has keys under every prefix."""
+    sd = load_state_dict(path_or_sd) if isinstance(path_or_sd, str) else dict(path_or_sd)
+    missing = [p for p in prefixes if not any(k.startswith(p) for k in sd)]
+    if missing:
+        raise ValueError(f"not {what}: no {', '.join(p + '*' for p in missing)} keys")
+    return to_device_tree(sd, dtype, device)
+
+
 def load_controlnet(path_or_sd, dtype: torch.dtype, device) -> Dict[str, Any]:
     """cldm ControlNet (file or flat state dict, optionally under a
     `control_model.` prefix) → its nested tree on `device` in `dtype`."""
@@ -173,6 +185,17 @@ def load_controlnet(path_or_sd, dtype: torch.dtype, device) -> Dict[str, Any]:
     if any(k.startswith("control_model.") for k in sd):
         sd = {k[len("control_model."):]: v for k, v in sd.items()
               if k.startswith("control_model.")}
-    if not any(k.startswith("input_hint_block.") for k in sd):
-        raise ValueError("not a cldm ControlNet: no input_hint_block.* keys")
-    return to_device_tree(sd, dtype, device)
+    return _load_with(sd, ("input_hint_block.",), "a cldm ControlNet", dtype, device)
+
+
+def load_clip_vision(path_or_sd, dtype: torch.dtype, device) -> Dict[str, Any]:
+    """CLIP vision tower (HF CLIPVisionModelWithProjection keys; file or flat
+    state dict) → its nested tree on `device` in `dtype`."""
+    return _load_with(path_or_sd, ("vision_model.",), "a CLIP vision model", dtype, device)
+
+
+def load_ip_adapter(path_or_sd, dtype: torch.dtype, device) -> Dict[str, Any]:
+    """IP-Adapter (file or flat state dict with `image_proj.*` and
+    `ip_adapter.*` keys) → its nested tree on `device` in `dtype`."""
+    return _load_with(path_or_sd, ("image_proj.", "ip_adapter."), "an IP-Adapter", dtype,
+                      device)

@@ -1,5 +1,5 @@
 # Copied from forge_tpu/core/synth.py (the SD1.5, SDXL, Flux, T5 and ControlNet state dicts); numpy only, so the port imports no JAX.
-# `DeviceFill` and `LazyTensor` are the port's own: full-width weights made on the card.
+# `DeviceFill`, `LazyTensor` and the CLIP-vision and IP-Adapter state dicts are the port's own.
 """Synthetic checkpoint synthesis: reference-format state dicts with real key
 names/shapes but generated weights.
 
@@ -520,4 +520,81 @@ def synth_controlnet_sd(
               (96, 32, 2), (96, 96, 1), (256, 96, 2), (model_channels, 256, 1)]
     for pos, (o, i, _s) in enumerate(ladder):
         conv(f"input_hint_block.{pos * 2}", o, i)
+    return sd
+
+
+# The image encoder and adapter of an SDXL IP-Adapter (the port's own: the
+# reference's bench.py makes random IP layers and skips the encoder).
+
+# SDXL's cross-attention widths in forward order: input level 1 (2 blocks ×
+# depth 2) at 640, input level 2 (2 × 10), the middle (10) and output level 2
+# (3 × 10) at 1280, output level 1 (3 × 2) at 640
+SDXL_ATTN2_WIDTHS = (640,) * 4 + (1280,) * 60 + (640,) * 6
+
+
+def synth_clip_vision_sd(
+    width: int = 1280,
+    layers: int = 32,
+    mlp: int = 5120,
+    patch: int = 14,
+    image: int = 224,
+    projection: int = 1024,
+    fill: FillSpec = "zeros",
+    seed: int = 11,
+) -> Dict[str, object]:
+    """HF CLIPVisionModelWithProjection state dict; the defaults are laion
+    CLIP-ViT-H-14-laion2B-s32B-b79K's vision tower (16 heads, gelu: the
+    heads and activation are not stored)."""
+    f = _fill(fill, seed)
+    sd: Dict[str, object] = {}
+    v = "vision_model."
+
+    def lin(key, o, i, bias=True):
+        sd[key + ".weight"] = f.w(o, i)
+        if bias:
+            sd[key + ".bias"] = f.zeros(o)
+
+    def norm(key):
+        sd[key + ".weight"] = f.ones(width)
+        sd[key + ".bias"] = f.zeros(width)
+
+    sd[v + "embeddings.patch_embedding.weight"] = f.w(width, 3, patch, patch)
+    sd[v + "embeddings.class_embedding"] = f.w(width)
+    sd[v + "embeddings.position_embedding.weight"] = f.w((image // patch) ** 2 + 1, width)
+    norm(v + "pre_layrnorm")
+    for i in range(layers):
+        base = f"{v}encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(base + "self_attn." + n, width, width)
+        norm(base + "layer_norm1")
+        norm(base + "layer_norm2")
+        lin(base + "mlp.fc1", mlp, width)
+        lin(base + "mlp.fc2", width, mlp)
+    norm(v + "post_layernorm")
+    lin("visual_projection", projection, width, bias=False)
+    return sd
+
+
+def synth_ip_adapter_sd(
+    clip_dim: int = 1024,
+    context_dim: int = 2048,
+    n_tokens: int = 4,
+    widths: Sequence[int] = SDXL_ATTN2_WIDTHS,
+    fill: FillSpec = "zeros",
+    seed: int = 12,
+) -> Dict[str, object]:
+    """A simple (non-plus) IP-Adapter state dict; the defaults are h94's
+    ip-adapter_sdxl_vit-h: image_proj 1024 → 4 tokens × 2048 and a LayerNorm,
+    then to_k_ip/to_v_ip (context → the layer's width) for each
+    cross-attention in forward order, numbered 1, 3, 5, …"""
+    f = _fill(fill, seed)
+    sd: Dict[str, object] = {
+        "image_proj.proj.weight": f.w(n_tokens * context_dim, clip_dim),
+        "image_proj.proj.bias": f.zeros(n_tokens * context_dim),
+        "image_proj.norm.weight": f.ones(context_dim),
+        "image_proj.norm.bias": f.zeros(context_dim),
+    }
+    for i, width in enumerate(widths):
+        for name in ("to_k_ip", "to_v_ip"):
+            sd[f"ip_adapter.{2 * i + 1}.{name}.weight"] = f.w(width, context_dim)
     return sd

@@ -8,7 +8,10 @@ embeddings of the original size, crop and target size. Flux: T5-XXL features
 are the context, CLIP-L's pooled output the `y` vector, and the distilled-CFG
 guidance scale is added to the conditioning at sampling time
 (pipeline/processing.py). `lora_registry` (pipeline/extra_networks.py), when
-set, resolves the prompt's `<lora:name:weight>` tags.
+set, resolves the prompt's `<lora:name:weight>` tags. The decode is split in
+two, `decode_dispatch` (enqueue, no wait) and `decode_finish` (wait, NaN
+checks), so the serving pipeline can overlap one request's copy to the host
+with the next request's denoise.
 
 Compute dtype is bf16 on CUDA and f32 on the CPU, as the reference picks
 bf16 on the TPU and f32 elsewhere.
@@ -16,6 +19,7 @@ bf16 on the TPU and f32 elsewhere.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +52,15 @@ class NansException(RuntimeError):
 
 def raise_nans(where: str):
     raise NansException(_NAN_MESSAGES[where])
+
+
+@dataclasses.dataclass
+class DecodeHandle:
+    """A decode in flight: uint8 images and [latent finite, image finite]
+    flags (host tensors on CUDA, filled once `done` has passed)."""
+    images: torch.Tensor
+    flags: torch.Tensor
+    done: Optional["torch.cuda.Event"]
 
 
 def default_device() -> torch.device:
@@ -134,15 +147,17 @@ class DiffusionEngine:
         z, _ = self.text_engines["clip_l"](prompts, max_chunks=max_chunks)
         return {"context": z.to(self.compute_dtype)}
 
-    def unet_apply_fn(self, controlnets=None):
-        """The raw network `apply(params, x, t, **cond)`. With `controlnets`
-        (models/controlnet.py `ControlNetState`s) the UNet's apply also takes
-        `t_host`, the timestep as a host float that `sampling/cfg.py`
-        already holds: the ControlNets' schedule gate 1 − t/999 is computed
-        from it, so no step waits on the card to read t."""
+    def unet_apply_fn(self, hooks=None, controlnets=None):
+        """The raw network `apply(params, x, t, **cond)` (the reference's
+        `build_apply`). `hooks` is the UNet's attention hook manifest
+        (models/unet.py). With `controlnets` (models/controlnet.py
+        `ControlNetState`s) the UNet's apply also takes `t_host`, the
+        timestep as a host float that `sampling/cfg.py` already holds: the
+        ControlNets' schedule gate 1 − t/999 is computed from it, so no step
+        waits on the card to read t. Hooks and ControlNets compose."""
         if self.family == "flux":
-            if controlnets:
-                raise NotImplementedError("ControlNets for Flux are not ported yet")
+            if controlnets or hooks:
+                raise NotImplementedError("ControlNets and UNet hooks for Flux are not ported yet")
             fcfg = self.flux_cfg
 
             def apply_flux(params, x, t, context, y=None, guidance=None):
@@ -150,9 +165,11 @@ class DiffusionEngine:
 
             return apply_flux
         cfg = self.unet_cfg
+        if hooks:
+            unet_mod.check_hooks(hooks)
         if not controlnets:
             def apply(params, x, t, context, y=None):
-                return unet_mod.unet_apply(params, x, t, context, y=y, cfg=cfg)
+                return unet_mod.unet_apply(params, x, t, context, y=y, cfg=cfg, hooks=hooks)
 
             return apply
 
@@ -160,22 +177,48 @@ class DiffusionEngine:
             t0 = float(t[0]) if t_host is None else t_host
             frac = np.float32(1.0) - np.float32(t0) / np.float32(999.0)
             ctrl = run_controlnets(controlnets, x, t, frac, context, y=y)
-            return unet_mod.unet_apply(params, x, t, context, y=y, cfg=cfg, control=ctrl)
+            return unet_mod.unet_apply(params, x, t, context, y=y, cfg=cfg, control=ctrl,
+                                       hooks=hooks)
 
         apply_controlled.takes_host_timestep = True
         return apply_controlled
 
     @torch.no_grad()
-    def decode_to_uint8_checked(self, latent: torch.Tensor):
-        """latent [B,C,h,w] (regulated space) → (uint8 images [B,8h,8w,3],
-        latent_finite, image_finite) with the NaN checks beside the decode."""
+    def decode_dispatch(self, latent: torch.Tensor) -> "DecodeHandle":
+        """Enqueue the decode of latent [B,C,h,w] (regulated space) and the
+        two finiteness checks, with no wait on the card: the checks stay
+        device tensors, and on CUDA the uint8 images [B,8h,8w,3] and the
+        flags start a non-blocking copy into pinned host memory behind a
+        recorded event. `decode_finish` waits for it."""
         z = latent.float()
-        lat_ok = bool(torch.isfinite(z).all())
+        lat_ok = torch.isfinite(z).all()
         z = self.latent_format.process_out(z)
         imgf = vae_mod.vae_decode(self.loaded.vae, z.to(self.compute_dtype)).float()
-        img_ok = bool(torch.isfinite(imgf).all())
+        flags = torch.stack([lat_ok, torch.isfinite(imgf).all()])
         img = torch.clamp((imgf + 1.0) * 127.5 + 0.5, 0, 255).to(torch.uint8)
-        return img.permute(0, 2, 3, 1).contiguous(), lat_ok, img_ok
+        img = img.permute(0, 2, 3, 1).contiguous()
+        if img.device.type != "cuda":
+            return DecodeHandle(img, flags, None)
+        host_img = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+        host_flags = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
+        host_img.copy_(img, non_blocking=True)
+        host_flags.copy_(flags, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return DecodeHandle(host_img, host_flags, done)
+
+    @staticmethod
+    def decode_finish(handle: "DecodeHandle") -> np.ndarray:
+        """Wait for `decode_dispatch`'s copy → uint8 images [B,H,W,3]; raise
+        NansException where the latent or the decoded image is not finite."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        lat_ok, img_ok = handle.flags.tolist()
+        if not lat_ok:
+            raise_nans("unet")
+        if not img_ok:
+            raise_nans("vae")
+        return handle.images.numpy().copy()  # the pinned buffer goes back to its pool
 
     @torch.no_grad()
     def encode_first_stage(self, images: torch.Tensor) -> torch.Tensor:

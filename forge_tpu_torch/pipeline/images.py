@@ -1,11 +1,14 @@
-"""Image resizing for img2img (port of forge_tpu/pipeline/images.py `resize_init_image`).
+"""Image resizing for img2img (port of forge_tpu/pipeline/images.py
+`resize_init_image`) and CLIP-vision preprocessing.
 
-The reference resizes with PIL's LANCZOS; the card's machine has no Pillow,
-so `lanczos_resize` computes what Pillow's `Image.resize(size, LANCZOS)`
-does for 8-bit images, in numpy: per axis, a = 3 Lanczos taps at half-pixel
-centres (the support widened by the scale when shrinking), normalised, then
-rounded to 22-bit fixed point; the horizontal pass first, its result
-rounded and clipped to uint8, then the vertical pass the same way.
+The reference resizes with PIL's LANCZOS (init images) and BICUBIC (the
+CLIP-vision input); the card's machine has no Pillow, so `lanczos_resize`
+and `bicubic_resize` compute what Pillow's `Image.resize` does for 8-bit
+images, in numpy: per axis, the filter's taps at half-pixel centres
+(Lanczos a = 3, support 3; cubic a = −0.5, support 2; the support widened
+by the scale when shrinking), normalised, then rounded to 22-bit fixed
+point; the horizontal pass first, its result rounded and clipped to uint8,
+then the vertical pass the same way.
 """
 
 from __future__ import annotations
@@ -26,17 +29,29 @@ def _lanczos(x: np.ndarray) -> np.ndarray:
     return np.where((x >= -3.0) & (x < 3.0), sinc(x) * sinc(x / 3.0), 0.0)
 
 
-def _coefficients(n_in: int, n_out: int):
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0
+    far = (((x - 5.0) * x + 8.0) * x - 4.0) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}  # (filter, support)
+
+
+def _coefficients(n_in: int, n_out: int, kind: str):
     """→ (first input index [n_out], fixed-point taps [n_out, k]) for one axis."""
+    filt, base_support = _FILTERS[kind]
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = base_support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     center = (np.arange(n_out) + 0.5) * scale
     xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)  # C casts truncate
     xmax = np.minimum((center + support + 0.5).astype(np.int64), n_in) - xmin
     taps = np.arange(ksize)
-    w = _lanczos((taps[None, :] + xmin[:, None] - center[:, None] + 0.5) / filterscale)
+    w = filt((taps[None, :] + xmin[:, None] - center[:, None] + 0.5) / filterscale)
     w = np.where(taps[None, :] < xmax[:, None], w, 0.0)
     total = w.sum(axis=1, keepdims=True)
     w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
@@ -45,10 +60,10 @@ def _coefficients(n_in: int, n_out: int):
     return xmin, fixed.astype(np.int64)
 
 
-def _resample_axis(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, n_out: int, axis: int, kind: str) -> np.ndarray:
     """One 8-bit pass of Pillow's resampler along `axis` of a uint8 array."""
     n_in = img.shape[axis]
-    xmin, k = _coefficients(n_in, n_out)
+    xmin, k = _coefficients(n_in, n_out, kind)
     src = np.moveaxis(img, axis, 0).astype(np.int64)
     acc = np.full((n_out,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
     extra = (1,) * (src.ndim - 1)
@@ -59,16 +74,25 @@ def _resample_axis(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def lanczos_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    """uint8 [H,W] or [H,W,C] → [h,w(,C)], as Pillow's LANCZOS resize."""
+def _resize(img: np.ndarray, w: int, h: int, kind: str) -> np.ndarray:
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
         arr = arr.astype(np.uint8)
     if arr.shape[1] != w:
-        arr = _resample_axis(arr, w, 1)
+        arr = _resample_axis(arr, w, 1, kind)
     if arr.shape[0] != h:
-        arr = _resample_axis(arr, h, 0)
+        arr = _resample_axis(arr, h, 0, kind)
     return arr
+
+
+def lanczos_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 [H,W] or [H,W,C] → [h,w(,C)], as Pillow's LANCZOS resize."""
+    return _resize(img, w, h, "lanczos")
+
+
+def bicubic_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 [H,W] or [H,W,C] → [h,w(,C)], as Pillow's BICUBIC resize."""
+    return _resize(img, w, h, "bicubic")
 
 
 def resize_init_image(img: np.ndarray, w: int, h: int, mode: int = 0) -> np.ndarray:

@@ -1,5 +1,6 @@
 """txt2img and img2img processing (port of forge_tpu/pipeline/processing.py:
-the txt2img slice, img2img, inpainting and "only masked" inpainting).
+the txt2img slice, img2img, inpainting and "only masked" inpainting, UNet
+hooks and MultiDiffusion tiling).
 
 resolve seeds → `<lora:...>` tags patch the UNet and text encoders for the
 request (pipeline/extra_networks.py, from `engine.lora_registry`) → encode
@@ -15,15 +16,24 @@ samples the tail of the schedule that `denoising_strength` keeps from noise
 scaled over that latent; with an `inpaint_mask` the sampler's x0 is blended
 with the init latent under the mask taken to latent size, and the decoded
 image is pasted into the init image under the blurred mask. `controlnets`
-(models/controlnet.py `ControlNetState`s) run beside the UNet at each step.
+(models/controlnet.py `ControlNetState`s) run beside the UNet at each step;
+`unet_hooks` is the UNet's attention hook manifest (models/unet.py; the
+IP-Adapter's, pipeline/ipadapter.py); `tiled_diffusion` ({"tile", "overlap"}
+in latent pixels) denoises the latent tile by tile (sampling/tiled.py).
 The reference's options `initial_noise_multiplier`, `img2img_extra_noise`
 and color correction take their defaults (1.0, 0, off).
 
+A batch goes through four stages, which the serving pipeline
+(runtime/serving.py) runs on three threads: `prepare` (seeds, LoRA, cond,
+noise or the init latent), `denoise` (the sampler's loop, enqueued on the
+card), `engine.decode_dispatch` / `engine.decode_finish` (the decode and its
+copy to the host, the NaN checks) and `finish` (the inpaint composite or
+paste). `process_images` runs them in turn.
+
 `Processing` takes only the fields this port reads. Any other field of the
-reference's request (hires fix, scripts, styles, tiled diffusion, soft
-inpainting, ...) raises NotImplementedError rather than being ignored, as do
-prompt features not ported yet: `[from:to:when]` editing and `AND`
-composition.
+reference's request (hires fix, scripts, styles, soft inpainting, ...)
+raises NotImplementedError rather than being ignored, as do prompt features
+not ported yet: `[from:to:when]` editing and `AND` composition.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ import dataclasses
 import inspect
 import random
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -42,11 +52,14 @@ from ..ops.resize import resize_bilinear
 from ..sampling import cfg as cfg_mod
 from ..sampling.samplers import get_sampler
 from ..sampling.schedules import get_sigmas
+from ..sampling.tiled import make_tiled_apply
 from ..text.schedule import get_schedule, split_composable
-from .engine import DiffusionEngine, raise_nans
+from .engine import DiffusionEngine
 from .extra_networks import activate, parse_prompt
 from .images import resize_init_image
 from .masking import expand_crop_region, get_crop_region, resize_image
+
+TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 32
 
 
 @dataclasses.dataclass
@@ -86,6 +99,8 @@ class Processing:
     inpaint_full_res_padding: int = 32
     inpainting_mask_invert: bool = False
     controlnets: Optional[List[Any]] = None  # models.controlnet.ControlNetState
+    unet_hooks: Optional[Dict[str, Any]] = None  # models/unet.py's attention hook manifest
+    tiled_diffusion: Optional[Dict[str, int]] = None  # MultiDiffusion {"tile", "overlap"}
 
     def __setattr__(self, name, value):
         if name not in _FIELDS:
@@ -114,6 +129,22 @@ class Processed:
     timings: Dict[str, float]
 
 
+@dataclasses.dataclass
+class Job:
+    """One batch of a request between the stages: what `prepare` made for
+    the sampler, and how `finish` turns the decoded batch into images."""
+    p: Processing  # the request the sampler runs ("only masked": its crop)
+    x: torch.Tensor  # the noised starting latent, NCHW
+    sigmas: np.ndarray
+    step_noise: Optional[torch.Tensor]
+    cond: Dict[str, torch.Tensor]
+    uncond: Dict[str, torch.Tensor]
+    unet_params: Any
+    mask: Optional[torch.Tensor] = None  # inpainting: the latent mask, 1 = repaint
+    init_latent: Optional[torch.Tensor] = None
+    paste: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None
+
+
 def _resolve_seeds(p: Processing) -> None:
     def fix(s):
         return random.randrange(4294967294) if s is None or int(s) == -1 else int(s)
@@ -140,6 +171,10 @@ def _auto_schedule(sampler_name: str, scheduler: str) -> str:
     return "karras" if "Karras" in sampler_name else "normal"
 
 
+def _add_time(timings: Dict[str, float], key: str, since: float) -> None:
+    timings[key] = timings.get(key, 0.0) + time.perf_counter() - since
+
+
 def _prepare_noise(p: Processing, rng: ImageRNG, info, n_steps: int, device):
     """Per-step sampler noise [n_steps, draws, B, C, h, w] (NCHW) on `device`,
     or None for a deterministic sampler."""
@@ -152,39 +187,6 @@ def _prepare_noise(p: Processing, rng: ImageRNG, info, n_steps: int, device):
     return torch.from_numpy(np.stack(steps)).to(device)
 
 
-def _sample(engine: DiffusionEngine, p: Processing, x: torch.Tensor, sigmas: np.ndarray,
-            step_noise, cond, uncond, unet_params, timings: Dict[str, float],
-            mask: Optional[torch.Tensor] = None,
-            init_latent: Optional[torch.Tensor] = None) -> np.ndarray:
-    """The sampler's step loop from x over `sigmas`, then the decode → uint8 [B,H,W,3]."""
-    info = get_sampler(p.sampler_name)
-    t1 = time.perf_counter()
-    apply_model = cfg_mod.make_apply_model(engine.unet_apply_fn(controlnets=p.controlnets),
-                                           unet_params, engine.predictor, engine.compute_dtype)
-    model_fn = cfg_mod.make_cfg_model_fn(apply_model, cond,
-                                         None if p.cfg_scale == 1.0 else uncond, p.cfg_scale)
-    if mask is not None:
-        model_fn = cfg_mod.make_masked_model_fn(model_fn, mask, init_latent)
-    params = inspect.signature(info.fn).parameters
-    kwargs = {name: value for name, value in
-              (("eta", p.eta), ("s_noise", p.s_noise), ("s_churn", p.s_churn))
-              if name in params}
-    latent = info.fn(model_fn, x, sigmas, step_noise, **kwargs)
-    if latent.is_cuda:
-        torch.cuda.synchronize(latent.device)
-    timings["sample"] = timings.get("sample", 0.0) + time.perf_counter() - t1
-
-    t2 = time.perf_counter()
-    img, lat_ok, img_ok = engine.decode_to_uint8_checked(latent)
-    out = img.cpu().numpy()
-    if not lat_ok:
-        raise_nans("unet")
-    if not img_ok:
-        raise_nans("vae")
-    timings["decode"] = timings.get("decode", 0.0) + time.perf_counter() - t2
-    return out
-
-
 def _image_rng(p: Processing, info, shape, seeds, subseeds) -> ImageRNG:
     return ImageRNG(
         shape, seeds, subseeds=subseeds, subseed_strength=p.subseed_strength,
@@ -192,8 +194,41 @@ def _image_rng(p: Processing, info, shape, seeds, subseeds) -> ImageRNG:
         eta_noise_seed_delta=p.eta_noise_seed_delta if info.uses_ensd else 0)
 
 
-def _sample_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
-                    unet_params, timings: Dict[str, float]) -> np.ndarray:
+def _conditioning(engine: DiffusionEngine, p: Processing, timings: Dict[str, float]):
+    """LoRA activation, then cond and uncond with a shared chunk count →
+    (cond, uncond, the UNet params the LoRAs patched)."""
+    tl = time.perf_counter()
+    prompts, unet_params, patched_tes = activate(engine, [p.prompt] * p.batch_size,
+                                                 registry=engine.lora_registry)
+    negs = [parse_prompt(p.negative_prompt)[0]] * p.batch_size
+    _check_prompt(p, prompts[0])
+    _check_prompt(p, negs[0])
+    _add_time(timings, "lora", tl)
+
+    tc = time.perf_counter()
+    te = engine.text_engines.get("clip_l")
+    orig_te = {name: engine.text_engines[name].params for name in patched_tes}
+    try:
+        for name, params in patched_tes.items():
+            engine.text_engines[name].params = params
+        max_chunks = (1 if te is None else
+                      max(te.tokenize_batch(prompts)[1], te.tokenize_batch(negs)[1]))
+        cond = engine.get_learned_conditioning(prompts, p.width, p.height, max_chunks=max_chunks)
+        uncond = engine.get_learned_conditioning(negs, p.width, p.height, max_chunks=max_chunks)
+    finally:
+        for name, params in orig_te.items():
+            engine.text_engines[name].params = params
+    if engine.family == "flux":
+        g = torch.full((p.batch_size,), float(p.distilled_cfg_scale),
+                       dtype=torch.float32, device=engine.device)
+        cond = dict(cond, guidance=g)
+        uncond = dict(uncond, guidance=g)
+    _add_time(timings, "cond", tc)
+    return cond, uncond, unet_params
+
+
+def _prep_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
+                  unet_params, timings: Dict[str, float]) -> Job:
     t_noise = time.perf_counter()
     info = get_sampler(p.sampler_name)
     lc = engine.latent_format.latent_channels
@@ -203,8 +238,8 @@ def _sample_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, con
     step_noise = _prepare_noise(p, rng, info, len(sigmas) - 1, engine.device)
     x = torch.from_numpy(engine.predictor.noise_scaling(
         np.float32(sigmas[0]), noise0, np.zeros_like(noise0))).to(engine.device)
-    timings["noise"] = timings.get("noise", 0.0) + time.perf_counter() - t_noise
-    return _sample(engine, p, x, sigmas, step_noise, cond, uncond, unet_params, timings)
+    _add_time(timings, "noise", t_noise)
+    return Job(p, x, sigmas, step_noise, cond, uncond, unet_params)
 
 
 def _gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
@@ -230,8 +265,8 @@ def _encode(engine: DiffusionEngine, images: np.ndarray) -> torch.Tensor:
     return engine.encode_first_stage(x)
 
 
-def _sample_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
-                    unet_params, timings: Dict[str, float]) -> np.ndarray:
+def _prep_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
+                  unet_params, timings: Dict[str, float]) -> Job:
     t_encode = time.perf_counter()
     info = get_sampler(p.sampler_name)
     lc = engine.latent_format.latent_channels
@@ -260,7 +295,7 @@ def _sample_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, con
             init_latent = init_latent * (1 - mask_latent) + fill_latent * mask_latent
         elif p.inpainting_fill == "latent_nothing":
             init_latent = init_latent * (1 - mask_latent)
-    timings["encode"] = timings.get("encode", 0.0) + time.perf_counter() - t_encode
+    _add_time(timings, "encode", t_encode)
 
     t_noise = time.perf_counter()
     rng = _image_rng(p, info, (lc, h8, w8), seeds, subseeds)
@@ -277,24 +312,29 @@ def _sample_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, con
     if p.initial_noise_multiplier != 1.0:
         noise0 = noise0 * p.initial_noise_multiplier
     x = engine.predictor.noise_scaling(float(np.float32(sigmas[0])), noise0, init_latent)
-    timings["noise"] = timings.get("noise", 0.0) + time.perf_counter() - t_noise
-    return _sample(engine, p, x, sigmas, step_noise, cond, uncond, unet_params, timings,
-                   mask=mask_latent, init_latent=init_latent)
+    _add_time(timings, "noise", t_noise)
+    job = Job(p, x, sigmas, step_noise, cond, uncond, unet_params, mask=mask_latent,
+              init_latent=init_latent)
+    if p.inpaint_mask is not None:
+        inits = p.init_images
+        job.paste = lambda batch: [_composite_inpaint(p, batch[b], inits[min(b, len(inits) - 1)])
+                                   for b in range(len(batch))]
+    return job
 
 
-def _sample_inpaint_full_res(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
-                             uncond, unet_params, timings: Dict[str, float]):
+def _prep_inpaint_full_res(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
+                           uncond, unet_params, timings: Dict[str, float]) -> Job:
     """'Only masked' inpainting (reference processing.py:1684-1842 and
     masking.py): crop around the mask, inpaint the crop at the processing
-    size, paste it back scaled under the blurred mask. → (images, pasted);
-    an empty mask falls back to whole-image inpainting, not pasted yet."""
+    size, paste it back scaled under the blurred mask. An empty mask falls
+    back to whole-image inpainting."""
     mask = _unit_mask(p)
     orig = np.asarray(p.init_images[0])
     ih, iw = orig.shape[:2]
     region = get_crop_region((mask > 0.5).astype(np.float32), p.inpaint_full_res_padding)
     if region is None:
         q = dataclasses.replace(p, inpaint_full_res=False)
-        return _sample_img2img(engine, q, seeds, subseeds, cond, uncond, unet_params, timings), False
+        return _prep_img2img(engine, q, seeds, subseeds, cond, uncond, unet_params, timings)
     x1, y1, x2, y2 = expand_crop_region(region, p.width, p.height, iw, ih)
     crop_mask = mask[y1:y2, x1:x2]
     crop_rs = resize_image(orig[y1:y2, x1:x2], p.width, p.height)
@@ -304,15 +344,20 @@ def _sample_inpaint_full_res(engine: DiffusionEngine, p: Processing, seeds, subs
     # call inverts it a second time (processing.py:1619), which is not kept
     q = dataclasses.replace(p, inpaint_full_res=False, inpainting_mask_invert=False,
                             init_images=[crop_rs], inpaint_mask=mask_rs)
-    out = _sample_img2img(engine, q, seeds, subseeds, cond, uncond, unet_params, timings)
+    job = _prep_img2img(engine, q, seeds, subseeds, cond, uncond, unet_params, timings)
     m = np.clip(_gaussian_blur(crop_mask, p.mask_blur), 0, 1)[..., None]
-    results = []
-    for b in range(out.shape[0]):
-        gen = resize_image(out[b], x2 - x1, y2 - y1)
-        full = orig.astype(np.float32).copy()
-        full[y1:y2, x1:x2] = full[y1:y2, x1:x2] * (1 - m) + gen.astype(np.float32) * m
-        results.append(np.clip(full, 0, 255).astype(np.uint8))
-    return np.stack(results), True
+
+    def paste(batch: np.ndarray) -> List[np.ndarray]:
+        results = []
+        for b in range(batch.shape[0]):
+            gen = resize_image(batch[b], x2 - x1, y2 - y1)
+            full = orig.astype(np.float32).copy()
+            full[y1:y2, x1:x2] = full[y1:y2, x1:x2] * (1 - m) + gen.astype(np.float32) * m
+            results.append(np.clip(full, 0, 255).astype(np.uint8))
+        return results
+
+    job.paste = paste
+    return job
 
 
 def _composite_inpaint(p: Processing, generated: np.ndarray, original) -> np.ndarray:
@@ -325,60 +370,75 @@ def _composite_inpaint(p: Processing, generated: np.ndarray, original) -> np.nda
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
+def prepare(engine: DiffusionEngine, p: Processing, it: int,
+            timings: Dict[str, float]) -> Job:
+    """The prep stage of batch `it` of a request whose seeds are resolved:
+    LoRA activation, cond and uncond, then the starting latent (noise, or
+    the encoded init images under noise)."""
+    seeds = p.all_seeds[it * p.batch_size:(it + 1) * p.batch_size]
+    subseeds = p.all_subseeds[it * p.batch_size:(it + 1) * p.batch_size]
+    engine.set_clip_skip(p.clip_skip)
+    cond, uncond, unet_params = _conditioning(engine, p, timings)
+    args = (engine, p, seeds, subseeds, cond, uncond, unet_params, timings)
+    if p.init_images is None:
+        return _prep_txt2img(*args)
+    if p.inpaint_full_res and p.inpaint_mask is not None:
+        return _prep_inpaint_full_res(*args)
+    return _prep_img2img(*args)
+
+
+def _tiled(apply_model: Callable, spec: Dict[str, int], x: torch.Tensor) -> Callable:
+    unknown = sorted(set(spec) - set(TILED_DIFFUSION_KEYS))
+    if unknown:
+        raise NotImplementedError(f"tiled_diffusion keys {unknown} are not ported yet "
+                                  f"(ported: {TILED_DIFFUSION_KEYS})")
+    return make_tiled_apply(apply_model, x.shape[2], x.shape[3], tile=int(spec.get("tile", 96)),
+                            overlap=int(spec.get("overlap", 32)))
+
+
+def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
+    """The denoise stage: the sampler's step loop from job.x over its σ,
+    enqueued on the engine's device (no wait for the card) → the latent."""
+    p = job.p
+    info = get_sampler(p.sampler_name)
+    net = engine.unet_apply_fn(hooks=p.unet_hooks, controlnets=p.controlnets)
+    apply_model = cfg_mod.make_apply_model(net, job.unet_params, engine.predictor,
+                                           engine.compute_dtype)
+    if p.tiled_diffusion:  # inside CFG: every tile's forward sees the CFG batch
+        apply_model = _tiled(apply_model, p.tiled_diffusion, job.x)
+    model_fn = cfg_mod.make_cfg_model_fn(apply_model, job.cond,
+                                         None if p.cfg_scale == 1.0 else job.uncond, p.cfg_scale)
+    if job.mask is not None:
+        model_fn = cfg_mod.make_masked_model_fn(model_fn, job.mask, job.init_latent)
+    params = inspect.signature(info.fn).parameters
+    kwargs = {name: value for name, value in
+              (("eta", p.eta), ("s_noise", p.s_noise), ("s_churn", p.s_churn))
+              if name in params}
+    return info.fn(model_fn, job.x, job.sigmas, job.step_noise, **kwargs)
+
+
+def finish(job: Job, batch: np.ndarray) -> List[np.ndarray]:
+    """The finish stage: decoded uint8 [B,H,W,3] → the request's images."""
+    return job.paste(batch) if job.paste is not None else list(batch)
+
+
 @torch.no_grad()
 def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
     t0 = time.perf_counter()
     _resolve_seeds(p)
-    engine.set_clip_skip(p.clip_skip)
-    is_img2img = p.init_images is not None
     timings: Dict[str, float] = {}
     images: List[np.ndarray] = []
-    te = engine.text_engines.get("clip_l")
     for it in range(p.n_iter):
-        seeds = p.all_seeds[it * p.batch_size:(it + 1) * p.batch_size]
-        subseeds = p.all_subseeds[it * p.batch_size:(it + 1) * p.batch_size]
-        tl = time.perf_counter()
-        prompts, unet_params, patched_tes = activate(engine, [p.prompt] * p.batch_size,
-                                                     registry=engine.lora_registry)
-        negs = [parse_prompt(p.negative_prompt)[0]] * p.batch_size
-        _check_prompt(p, prompts[0])
-        _check_prompt(p, negs[0])
-        timings["lora"] = timings.get("lora", 0.0) + time.perf_counter() - tl
-
-        tc = time.perf_counter()
-        orig_te = {name: engine.text_engines[name].params for name in patched_tes}
-        try:
-            for name, params in patched_tes.items():
-                engine.text_engines[name].params = params
-            max_chunks = (1 if te is None else
-                          max(te.tokenize_batch(prompts)[1], te.tokenize_batch(negs)[1]))
-            cond = engine.get_learned_conditioning(prompts, p.width, p.height,
-                                                   max_chunks=max_chunks)
-            uncond = engine.get_learned_conditioning(negs, p.width, p.height,
-                                                     max_chunks=max_chunks)
-        finally:
-            for name, params in orig_te.items():
-                engine.text_engines[name].params = params
-        if engine.family == "flux":
-            g = torch.full((p.batch_size,), float(p.distilled_cfg_scale),
-                           dtype=torch.float32, device=engine.device)
-            cond = dict(cond, guidance=g)
-            uncond = dict(uncond, guidance=g)
-        timings["cond"] = timings.get("cond", 0.0) + time.perf_counter() - tc
-
-        pasted = False
-        args = (engine, p, seeds, subseeds, cond, uncond, unet_params, timings)
-        if not is_img2img:
-            batch = _sample_txt2img(*args)
-        elif p.inpaint_full_res and p.inpaint_mask is not None:
-            batch, pasted = _sample_inpaint_full_res(*args)
-        else:
-            batch = _sample_img2img(*args)
-        for b in range(len(batch)):
-            img = batch[b]
-            if is_img2img and p.inpaint_mask is not None and not pasted:
-                img = _composite_inpaint(p, img, p.init_images[min(b, len(p.init_images) - 1)])
-            images.append(img)
+        job = prepare(engine, p, it, timings)
+        t1 = time.perf_counter()
+        latent = denoise(engine, job)
+        if latent.is_cuda:  # for the phase's time only; the decode would wait as well
+            torch.cuda.synchronize(latent.device)
+        _add_time(timings, "sample", t1)
+        t2 = time.perf_counter()
+        batch = engine.decode_finish(engine.decode_dispatch(latent))
+        _add_time(timings, "decode", t2)
+        images.extend(finish(job, batch))
     timings["total"] = time.perf_counter() - t0
     return Processed(images=images, seeds=list(p.all_seeds), subseeds=list(p.all_subseeds),
                      timings=timings)

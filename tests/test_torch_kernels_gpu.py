@@ -84,6 +84,11 @@ def _qkv(gen, b, h, lq, lk, d, dt=torch.bfloat16):
     ((2, 10, 4096, 64), 4096),   # SDXL level 1 at 1024²: head dim 64, 10 heads
     ((2, 20, 1024, 64), 1024),   # SDXL level 2 and the middle block: 20 heads
     ((1, 2, 1000, 64), 700),     # ragged Lq and Lk at head dim 64
+    ((4, 10, 4096, 64), 4096),   # config 5 serving: CFG batch 4
+    ((4, 20, 1024, 64), 1024),
+    ((2, 10, 2304, 64), 2304),   # a MultiDiffusion 96² tile's level 1 (48² tokens)
+    ((2, 20, 576, 64), 576),     # its level 2: 4.5 query tiles, the Lq tail on the main path
+    ((2, 1, 16384, 512), 16384),  # the VAE decoding a batch of 2 at 1024²
 ])
 def test_flash_attention_wgmma_body(gen, shape, lk):
     b, h, lq, d = shape
@@ -95,6 +100,18 @@ def test_flash_attention_wgmma_body(gen, shape, lk):
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     assert _rel(got, flash_attention_plain(q, k, v)) <= BOUNDS["bfloat16"]
     assert torch.equal(got, flash_attention(q, k, v))  # no atomics: bit-identical reruns
+
+
+def test_flash_attention_vae_at_2048(gen):
+    """The VAE mid-block at 2048²: one head of 512 over 65536 tokens. Plain
+    attention would hold 65536² f32 logits (16 GiB), so the first and last
+    1024 query rows are held against all of K and V: rows are independent."""
+    q, k, v = _qkv(gen, 1, 1, 65536, 65536, 512)
+    rows = torch.cat([torch.arange(1024), torch.arange(65536 - 1024, 65536)]).cuda()
+    before = flash_attention.launches_by_body["wgmma"]
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches_by_body["wgmma"] == before + 1
+    assert _rel(got[:, :, rows], flash_attention_plain(q[:, :, rows], k, v)) <= BOUNDS["bfloat16"]
 
 
 def test_flash_attention_small_true_scores(gen):
@@ -216,6 +233,13 @@ def test_gn_silu_conv3x3_wgmma_body(gen, c, o):
     ((2, 320, 128, 128), 320),  # SDXL level 0 at 1024²: C 320 on 128² latents
     ((2, 1920, 64, 64), 640),   # SDXL level-1 output block after a skip concat
     ((2, 2560, 32, 32), 1280),  # SDXL level-2 output block after a skip concat
+    ((2, 320, 96, 96), 320),    # config 5: a MultiDiffusion 96² tile, levels 0, 1 and 2
+    ((2, 1920, 48, 48), 640),
+    ((2, 2560, 24, 24), 1280),
+    ((4, 960, 128, 128), 320),  # config 5 serving: CFG batch 4
+    ((4, 2560, 32, 32), 1280),
+    ((1, 128, 2048, 2048), 128),  # the VAE at 2048²
+    ((1, 256, 2048, 2048), 128),  # 2^30 elements in: byte offsets past int32
 ])
 def test_gn_silu_conv3x3_wgmma_ragged(gen, shape, o):
     _check_wgmma_conv(gen, *shape, o)

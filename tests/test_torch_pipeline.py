@@ -69,8 +69,8 @@ def test_processing_refuses_unported_fields():
     with pytest.raises(NotImplementedError, match="enable_hr"):
         Processing(prompt="x", enable_hr=True)
     p = Processing()
-    with pytest.raises(NotImplementedError, match="tiled_diffusion"):
-        p.tiled_diffusion = {"tile": 96}
+    with pytest.raises(NotImplementedError, match="soft_inpainting"):
+        p.soft_inpainting = {"mask_blend_power": 1.0}
     with pytest.raises(NotImplementedError, match="styles"):
         Processing(prompt="x", styles=["cinematic"])
 
