@@ -1,6 +1,7 @@
 """Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths, its SDXL
-img2img-inpaint path with a LoRA and a ControlNet, and its batched SDXL serving with an
-IP-Adapter and a MultiDiffusion upscale, on one NVIDIA GPU.
+img2img-inpaint path with a LoRA and a ControlNet, its batched SDXL serving with an
+IP-Adapter and a MultiDiffusion upscale, and its SDXL hires fix and refiner, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -71,7 +72,21 @@ Phases:
      latent pixels, overlap 16; seeds 9, 10, 10) with exact launch counts,
      seed 10 twice byte-identical, one profiled upscale; then the UNet with
      the IP hooks at (4,4,128,128) and one 96² tile forward through the
-     kernels and the plain versions.
+     kernels and the plain versions;
+ 10. config 2 complete on the same engine (BASELINE configs[1], the webui's
+     hires and refiner defaults): (a) the hires fix in latent mode, 1024²
+     DPM++ 2M Karras 30 steps CFG 7, then "Latent" ×2 at denoising 0.7
+     (hires steps 0 = 30: 22 model calls on 256² latents) and the 2048²
+     decode, seeds 1, 2, 1, with exact launch counts by body, latency,
+     timings and peak memory, then one profiled request; (b) a full-width
+     SDXL refiner made on the card (384 channels, 44 transformer blocks,
+     context 1280, adm 2560, CLIP-G 1280 × 32) taking over at switch 0.8,
+     seed 1 twice (byte-identical) and one profiled; (c) the pixel mode
+     through a full-width RRDBNet ×4 (RealESRGAN_x4plus's widths) written to
+     logs/ by the port's safetensors writer: 192² tiles at overlap 8 over
+     the 1024² image, Lanczos to 2048², the VAE encoder at 2048²; then a
+     base UNet forward at (2,4,256,256) and a refiner forward at
+     (2,4,128,128) through the kernels and the plain versions.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -116,6 +131,11 @@ FLASH_SHAPES = [  # (B, H, Lq, D), Lk, a shape of a main path
     ((2, 20, 576, 64), 576, True),      # a tile's level 2: 24² tokens, 4.5 query tiles of 128
     ((2, 1, 16384, 512), 16384, True),  # the VAE mid-block decoding a served batch of 2 at 1024²
     ((1, 1, 65536, 512), 65536, True),  # the VAE mid-block at 2048² (encode and decode)
+    # config 2: the hires pass's UNet at 2048² (256² latents), and the refiner's at 1024²
+    ((2, 10, 16384, 64), 16384, True),  # hires level 1: 128² tokens
+    ((2, 20, 4096, 64), 4096, True),    # hires level 2
+    ((2, 12, 4096, 64), 4096, True),    # refiner level 1: 768 wide, 12 heads
+    ((2, 24, 1024, 64), 1024, True),    # refiner level 2: 1536 wide, 24 heads (its middle: 256 tokens, plain)
 ]
 FLASH_SUMMARY_SHAPE = FLASH_SHAPES[0][0]  # the JSON line's flash row (the same shape since the first)
 GN_CONV_SHAPES = [  # (B, C, H, W), O
@@ -152,6 +172,14 @@ GN_CONV_SHAPES += [((b, c, side >> level, side >> level), o) for b, side in ((4,
                    for c, o, level in SDXL_CONV_PAIRS]
 GN_CONV_SHAPES += [((1, 128, 2048, 2048), 128),  # the VAE at 2048²: encoder and decoder level 0
                    ((1, 256, 2048, 2048), 128)]  # decoder up.0's first resnet (2^30 elements in)
+# config 2: the twelve pairs at CFG batch 2 on the hires pass's 256², 128² and 64² latents, and
+# the refiner's fourteen (C, O, size) at CFG batch 2 on 128² latents
+GN_CONV_SHAPES += [((2, c, 256 >> level, 256 >> level), o) for c, o, level in SDXL_CONV_PAIRS]
+REFINER_CONV_SHAPES = [(384, 384, 128), (768, 384, 128), (1152, 384, 128), (384, 768, 64),
+                       (768, 768, 64), (1152, 768, 64), (1536, 768, 64), (2304, 768, 64),
+                       (768, 1536, 32), (1536, 1536, 32), (2304, 1536, 32), (3072, 1536, 32),
+                       (1536, 1536, 16), (3072, 1536, 16)]
+GN_CONV_SHAPES += [((2, c, side, side), o) for c, o, side in REFINER_CONV_SHAPES]
 PLAIN_MAX_LOGITS = 1 << 30  # above this many logits a head, plain flash is checked on row slices
 DEQUANT_SHAPES = [  # (M, N, K) of the Flux-dev linears at 1024²
     (4608, 21504, 3072),  # single block linear1
@@ -199,6 +227,26 @@ UPSCALE_PER_REQUEST = {"flash_attention": UPSCALE_CALLS * UPSCALE_TILES * 70 + 2
                        "gn_silu_conv3x3": UPSCALE_CALLS * UPSCALE_TILES * 34 + 20 + 28,
                        "dequant_matmul": 0}
 LORA_BLOCKS = ("input_blocks_4_1", "input_blocks_5_1", "output_blocks_3_1")
+# config 2 (tests/test_torch_refiner.py traces it on the meta device): (a) 30 base calls (70
+# flash, 34 conv each), then the hires pass at strength 0.7 of 30 steps, t_enc = int(0.7·30) =
+# 21: 22 calls on 256² latents (70, 34 each), then the 2048² decode (1, 28); (c) the pixel
+# mode adds the 1024² decode (1, 28) and the 2048² encode (1, 20); (b) the refiner takes over
+# at k = round(0.8·30) = 24: 24 base calls, 6 refiner calls (40 flash: 20 at 4096 and 20 at
+# 1024 tokens; 44 convs: 22 ResBlocks), then the refiner's 1024² decode (1, 28)
+CONFIG2_HR_STRENGTH, CONFIG2_SWITCH_AT = 0.7, 0.8
+CONFIG2_HIRES_CALLS = min(int(CONFIG2_HR_STRENGTH * SDXL_STEPS), SDXL_STEPS - 1) + 1
+CONFIG2_K = max(1, min(SDXL_STEPS - 1, round(CONFIG2_SWITCH_AT * SDXL_STEPS)))
+CONFIG2_LATENT_PER_REQUEST = {
+    "flash_attention": (SDXL_STEPS + CONFIG2_HIRES_CALLS) * 70 + 1,
+    "gn_silu_conv3x3": (SDXL_STEPS + CONFIG2_HIRES_CALLS) * 34 + 28, "dequant_matmul": 0}
+CONFIG2_PIXEL_PER_REQUEST = {
+    "flash_attention": CONFIG2_LATENT_PER_REQUEST["flash_attention"] + 2,
+    "gn_silu_conv3x3": CONFIG2_LATENT_PER_REQUEST["gn_silu_conv3x3"] + 28 + 20,
+    "dequant_matmul": 0}
+CONFIG2_REFINER_PER_REQUEST = {
+    "flash_attention": CONFIG2_K * 70 + (SDXL_STEPS - CONFIG2_K) * 40 + 1,
+    "gn_silu_conv3x3": CONFIG2_K * 34 + (SDXL_STEPS - CONFIG2_K) * 44 + 28, "dequant_matmul": 0}
+CONFIG2_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
 
 
 def log(*args):
@@ -288,9 +336,13 @@ def phase_dequant(gen: torch.Generator, summary):
             check(torch.equal(got, dequant_matmul(x, leaf)), "dequant_matmul rerun is bit-identical")
             ms = time_ms(lambda: dequant_matmul(x, leaf))
             plain_ms = time_ms(lambda: dequant_matmul_plain(x, leaf))
+            # x read once, y written once (both in x's dtype), the leaf's codes, scales, mins
+            bms, by = bound(2.0 * m * n * k, x.element_size() * (m * k + m * n) + leaf_bytes(leaf),
+                            dtype)
             log(f"dequant {kind}/{block} {str(dtype)[6:]} {m}x{n}x{k} [{body}]: err {err:.3e} "
                 f"rel {rel:.3e} (bound {tol:g}) | kernel {ms:.4f} ms "
-                f"{2.0 * m * n * k / (ms * 1e9):.2f} TFLOP/s | plain {plain_ms:.4f} ms")
+                f"{2.0 * m * n * k / (ms * 1e9):.2f} TFLOP/s | plain {plain_ms:.4f} ms "
+                f"| card bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f} % of it")
             check(rel <= tol, f"dequant_matmul {kind} {dtype} {(m, n, k)} within {tol}")
             if dtype == torch.bfloat16 and (m, n, k) in DEQUANT_SHAPES[:2]:
                 # the earlier body at the largest products, in the same run
@@ -303,8 +355,6 @@ def phase_dequant(gen: torch.Generator, summary):
                 check(simt_rel <= tol, f"dequant_matmul simt body {kind} {(m, n, k)} within {tol}")
                 check(ms < simt_ms, f"{body} body faster than the simt body at {kind} {(m, n, k)}")
                 if (kind, (m, n, k)) == ("nf4", DEQUANT_SHAPES[0]):
-                    bms, by = bound(2.0 * m * n * k, 2 * (m * k + m * n) + leaf_bytes(leaf),
-                                    torch.bfloat16)
                     summary["dequant_matmul"] = {
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                         "bound_by": by, "library_ms": None, "ms_by_body": {body: ms, "simt": simt_ms}}
@@ -1094,11 +1144,130 @@ def phase_config5(engine, gen: torch.Generator):
             for name in served_launches}
 
 
+def config2_request(engine, seed: int, label: str, **fields):
+    """BASELINE config 2's first pass (1024², DPM++ 2M Karras, 30 steps, CFG
+    7) with `fields` (the hires fix, the refiner) → its image."""
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    refiner = fields.pop("refiner", None)
+    p = Processing(prompt=CONFIG2_PROMPT, negative_prompt="blurry", seed=seed, steps=SDXL_STEPS,
+                   cfg_scale=7.0, width=1024, height=1024, sampler_name="DPM++ 2M",
+                   scheduler="karras", **fields)
+    if refiner is not None:
+        p._refiner_engine = refiner
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    img = res.images[0]
+    side = 2048 if fields.get("enable_hr") else 1024
+    check(img.shape == (side, side, 3) and img.dtype == np.uint8, f"{side}²×3 uint8 image")
+    log(f"config2 {label} seed={seed}: latency {latency:.4f} s, timings "
+        + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+        + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"image mean {img.mean():.3f} std {img.std():.3f}")
+    return img
+
+
+def kernels_vs_plain(label: str, run):
+    """run() through the kernels and through the plain versions → PSNR ≥ PSNR_BOUND."""
+    from forge_tpu_torch.ops import plain_versions
+
+    with torch.no_grad():
+        fused, _ = timed(f"{label}: kernels", run)
+        with plain_versions():
+            plain, _ = timed(f"{label}: plain versions", run)
+    value = psnr(fused, plain)
+    log(f"{label} bf16: kernels vs plain PSNR {value:.2f} dB (bound {PSNR_BOUND})")
+    check(value >= PSNR_BOUND, f"{label} PSNR ≥ {PSNR_BOUND} dB")
+
+
+def phase_config2(engine, gen: torch.Generator):
+    """BASELINE config 2 complete on the SDXL engine: (a) the hires fix in
+    latent mode, (b) the SDXL refiner's two-pass switch, (c) the hires fix
+    in pixel mode through a full-width ESRGAN."""
+    from forge_tpu_torch.core.convert import flatten
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.core.synth import DeviceFill, synth_esrgan_sd, synth_sdxl_refiner_checkpoint
+    from forge_tpu_torch.pipeline.engine import load_engine
+    from forge_tpu_torch.pipeline.upscalers import UpscalerRegistry
+
+    hires = dict(enable_hr=True, hr_scale=2.0, hr_upscaler="Latent",
+                 hr_denoising_strength=CONFIG2_HR_STRENGTH, hr_second_pass_steps=0)
+    zero_counts()
+    images = [config2_request(engine, seed, "hires latent", **hires) for seed in (1, 2, 1)]
+    latent_launches = read_counts()
+    check(np.array_equal(images[0], images[2]), "config2 hires seed 1 twice gives identical bytes")
+    check(not np.array_equal(images[0], images[1]), "config2 hires seeds 1 and 2 differ")
+    check_counts(latent_launches, CONFIG2_LATENT_PER_REQUEST, 3, "the 3 hires requests")
+    profile_request("config2 hires 2048²", lambda: config2_request(engine, 1, "hires, profiled",
+                                                                    **hires))
+
+    refiner, _ = timed("config2: the SDXL refiner made on the card and loaded", lambda: load_engine(
+        synth_sdxl_refiner_checkpoint(fill=DeviceFill("cuda", seed=1)), device="cuda"))
+    unet, tes = refiner.loaded.unet, refiner.loaded.text_encoders
+    blocks = sum(k.endswith("attn1.to_q.weight") for k in flatten(unet))
+    channels = unet["input_blocks"]["0"]["0"]["weight"].shape[0]
+    ctx = unet["middle_block"]["1"]["transformer_blocks"]["0"]["attn2"]["to_k"]["weight"].shape[1]
+    adm = unet["label_emb"]["0"]["0"]["weight"].shape[1]
+    g = tes["clip_g"]["text_model"]
+    g_width = g["embeddings"]["token_embedding"]["weight"].shape[1]
+    log(f"  family {refiner.family}, {channels} channels, {blocks} transformer blocks, context "
+        f"{ctx}, adm {adm}, CLIP-G {g_width} × {len(g['encoder']['layers'])}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check(refiner.family == "sdxl_refiner" and list(refiner.text_engines) == ["clip_g"]
+          and (channels, blocks, ctx, adm, g_width, len(g["encoder"]["layers"]))
+          == (384, 44, 1280, 2560, 1280, 32), "the SDXL refiner at full width")
+    switch = dict(refiner_switch_at=CONFIG2_SWITCH_AT, refiner=refiner)
+    zero_counts()
+    refined = [config2_request(engine, 1, "refiner", **switch) for _ in range(2)]
+    refiner_launches = read_counts()
+    check(np.array_equal(refined[0], refined[1]), "config2 refiner seed 1 twice gives identical bytes")
+    check_counts(refiner_launches, CONFIG2_REFINER_PER_REQUEST, 2, "the 2 refiner requests")
+    profile_request("config2 refiner 1024²", lambda: config2_request(
+        engine, 1, "refiner, profiled", **switch))
+
+    esrgan_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logs",
+                              "chip_smoke_esrgan")
+    os.makedirs(esrgan_dir, exist_ok=True)
+    _, seconds = timed("config2: RealESRGAN_x4plus-width RRDBNet (23 RRDBs, 64 features, growth "
+                       "32) written", lambda: save_safetensors(
+                           synth_esrgan_sd(fill="random", seed=3),
+                           os.path.join(esrgan_dir, "esrgan_x4_synth.safetensors")))
+    engine.upscalers = UpscalerRegistry(model_dirs={"ESRGAN": esrgan_dir}, device="cuda")
+    zero_counts()
+    pixel = config2_request(engine, 1, "hires pixel (ESRGAN ×4, tiles 192/8)",
+                               **dict(hires, hr_upscaler="esrgan_x4_synth"))
+    pixel_launches = read_counts()
+    engine.upscalers = None
+    check_counts(pixel_launches, CONFIG2_PIXEL_PER_REQUEST, 1, "the pixel-mode request")
+    check(not np.array_equal(pixel, images[0]), "the pixel mode's image is its own")
+
+    # kernels vs plain versions: a hires UNet forward at 256², a refiner forward at 128²
+    dt = engine.compute_dtype
+    cond = engine.get_learned_conditioning([CONFIG2_PROMPT, "blurry"], 1024, 1024)
+    rcond = refiner.get_learned_conditioning([CONFIG2_PROMPT, "blurry"], 1024, 1024)
+    check(tuple(rcond["context"].shape) == (2, 77, 1280) and tuple(rcond["y"].shape) == (2, 2560),
+          "the refiner's conditioning: context 1280, y 2560")
+    ts = torch.tensor([999.0, 400.0], device="cuda")
+    x = torch.randn((2, 4, 256, 256), generator=gen, device="cuda").to(dt)
+    kernels_vs_plain("sdxl unet 256x256 B=2", lambda: engine.unet_apply_fn()(
+        engine.loaded.unet, x, ts, cond["context"], y=cond["y"]))
+    xr = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(dt)
+    kernels_vs_plain("refiner unet 128x128 B=2", lambda: refiner.unet_apply_fn()(
+        refiner.loaded.unet, xr, ts, rcond["context"], y=rcond["y"]))
+    del refiner, x, xr
+    torch.cuda.empty_cache()
+    return {name: latent_launches[name] + refiner_launches[name] + pixel_launches[name]
+            for name in latent_launches}
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
-    card's activity is traced: with the host's operators too, summing
-    ~200,000 launches' events took minutes of the script's time limit."""
+    card's activity is traced, and its events are summed straight from the
+    raw trace: `key_averages()` builds an object a launch, and took 42–71 s
+    over the 200,000–362,000 launches of one config-2 request."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1106,16 +1275,19 @@ def profile_request(label: str, run):
         t = time.perf_counter()
         run()
         wall = time.perf_counter() - t
-    events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    by_name = {}  # kernel name → [launches, µs]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = by_name.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e3
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    busy_us = sum(us for _, (_, us) in kernels)
     log(f"profile {label}: wall {wall:.4f} s, kernel time {busy_us / 1e6:.4f} s "
-        f"({100 * busy_us / 1e6 / wall:.2f} % busy), {sum(e.count for e in kernels)} kernel launches "
-        f"(the trace summed in {time.perf_counter() - t - wall:.1f} s)")
-    for e in kernels[:10]:
-        log(f"  {e.count:6d} × {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
-            f"{100 * e.self_device_time_total / busy_us:6.2f} %")
+        f"({100 * busy_us / 1e6 / wall:.2f} % busy), {sum(n for _, (n, _) in kernels)} kernel "
+        f"launches (the trace summed in {time.perf_counter() - t - wall:.1f} s)")
+    for name, (n, us) in kernels[:10]:
+        log(f"  {n:6d} × {name[:70]:70s} {us / 1e3:10.3f} ms {100 * us / busy_us:6.2f} %")
     groups = {  # every instance of a port kernel, then the library's kernels by kind
         "gn_silu_conv3x3*": ("gn_silu_conv3x3",), "flash_fwd*": ("flash_fwd",),
         "dequant_matmul*": ("dequant_matmul",),
@@ -1123,11 +1295,12 @@ def profile_request(label: str, run):
         "layout and dtype copies": ("direct_copy",), "reductions": ("reduce_kernel",),
         "elementwise": ("elementwise",)}
     seen = set()
-    for name, marks in groups.items():
-        rows = [e for e in kernels if e.key not in seen and any(m in e.key for m in marks)]
-        seen.update(e.key for e in rows)
-        us = sum(e.self_device_time_total for e in rows)
-        log(f"  {name}: {sum(e.count for e in rows)} launches, "
+    for group, marks in groups.items():
+        rows = [(name, n, us) for name, (n, us) in kernels
+                if name not in seen and any(m in name for m in marks)]
+        seen.update(name for name, _, _ in rows)
+        us = sum(us for _, _, us in rows)
+        log(f"  {group}: {sum(n for _, n, _ in rows)} launches, "
             f"{us / 1e3:.3f} ms, {100 * us / busy_us:.2f} %")
 
 
@@ -1222,12 +1395,17 @@ def main():
         f"{time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     config5_launches = phase_config5(engine, gen)
-    del engine
-    torch.cuda.empty_cache()
     log(f"config5 phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    config2_launches = phase_config2(engine, gen)
+    del engine
+    torch.cuda.empty_cache()
+    log(f"config2 phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
     paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
-             "config3": config3_launches, "config5": config5_launches}
+             "config3": config3_launches, "config5": config5_launches,
+             "config2": config2_launches}
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",

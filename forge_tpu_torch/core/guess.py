@@ -1,4 +1,4 @@
-# Copied from forge_tpu/core/guess.py; numpy/stdlib only, so the port imports no JAX.
+# Copied from forge_tpu/core/guess.py; numpy/stdlib only, so the port imports no JAX. One change: a refiner's OpenCLIP-bigG under `conditioner.embedders.0.model.` is collected.
 """Checkpoint architecture detection from state-dict keys and shapes.
 
 Re-implements the *behavior* of the reference's loader dispatch
@@ -120,7 +120,7 @@ def guess(sd: Mapping[str, np.ndarray]) -> GuessResult:
             prediction=prediction,
             unet=unet_sd,
             vae=vae_sd,
-            text_encoders=_collect_text_encoders(sd),
+            text_encoders=_collect_text_encoders(sd, refiner=family == "sdxl_refiner"),
             context_dim=context_dim,
         )
 
@@ -150,9 +150,12 @@ def guess(sd: Mapping[str, np.ndarray]) -> GuessResult:
     )
 
 
-def _collect_text_encoders(sd: Mapping[str, np.ndarray]) -> Dict[str, Dict[str, np.ndarray]]:
+def _collect_text_encoders(sd: Mapping[str, np.ndarray],
+                           refiner: bool = False) -> Dict[str, Dict[str, np.ndarray]]:
     """Pull every text-encoder weight family present in a merged checkpoint,
-    normalized to HF transformer key space per encoder."""
+    normalized to HF transformer key space per encoder. The SDXL refiner's
+    only tower, OpenCLIP-bigG, sits at `conditioner.embedders.0.model.`
+    (the reference reads OpenCLIP-G only under `embedders.1` and drops it)."""
     out: Dict[str, Dict[str, np.ndarray]] = {}
 
     def grab(prefix: str, name: str):
@@ -167,6 +170,8 @@ def _collect_text_encoders(sd: Mapping[str, np.ndarray]) -> Dict[str, Dict[str, 
     # SDXL dual encoders
     grab("conditioner.embedders.0.transformer.", "clip_l")
     grab("conditioner.embedders.1.model.", "open_clip_g")
+    if refiner:
+        grab("conditioner.embedders.0.model.", "open_clip_g")
     # SD3 / Flux merged-file layouts
     grab("text_encoders.clip_l.transformer.", "clip_l")
     grab("text_encoders.clip_g.transformer.", "clip_g")

@@ -1,4 +1,4 @@
-"""Checkpoint → device parameter trees (port of forge_tpu/core/loader.py: SD1.5, SDXL and Flux).
+"""Checkpoint → device parameter trees (port of forge_tpu/core/loader.py: SD1.5, SDXL base and refiner, and Flux).
 
 Load the file (or take a flat state dict), guess the architecture, split it
 into components, key-normalize CLIP into the HF `text_model.*` space (open_clip
@@ -41,7 +41,7 @@ from .convert import nest, quant_leaf, to_tensor
 from .state_dict import load_state_dict
 from .synth import LazyTensor
 
-FAMILIES = ("sd15", "sdxl", "flux")
+FAMILIES = ("sd15", "sdxl", "sdxl_refiner", "flux")
 TEXT_ENCODERS = ("clip_l", "clip_g", "t5xxl")
 UNET_QUANT = ("nf4", "q8_0", "q4_0")
 QUANT_MIN_SIZE = 1 << 16  # leave small tensors in full precision

@@ -1,9 +1,13 @@
-# Copied from forge_tpu/core/state_dict.py (the safetensors reader and the .gguf route); numpy/stdlib only.
+# Copied from forge_tpu/core/state_dict.py (the safetensors reader, the .gguf route and load_torch_ckpt, here through torch.load).
 """Checkpoint files → {key: numpy array}.
 
-The safetensors reader and the GGUF route (core/gguf.py) are ported; torch
-`.ckpt` pickles and bitsandbytes-prequantized NF4 come with the loaders that
-need them.
+The safetensors reader, the GGUF route (core/gguf.py) and torch's zip
+pickles (`.pth`, `.pt`, `.ckpt`) are ported: `load_torch_ckpt` reads the
+latter with `torch.load(weights_only=True)`, which runs no code from the
+file, as the reference's restricted unpickler does. Unlike the reference's
+reader, it keeps nested dicts of tensors (a `params_ema` wrap) nested rather
+than dropping them. bitsandbytes-prequantized NF4 comes with the loader that
+needs it.
 """
 
 from __future__ import annotations
@@ -65,6 +69,31 @@ def load_safetensors(path: str, keep_bf16_raw: bool = False) -> Dict[str, np.nda
     return out
 
 
+def _tensors_to_numpy(obj: dict) -> dict:
+    """Tensors → numpy (bf16 widened to f32), nested dicts kept, anything else dropped."""
+    import torch
+
+    out = {}
+    for key, value in obj.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu()
+            out[key] = (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+        elif isinstance(value, dict):
+            out[key] = _tensors_to_numpy(value)
+    return out
+
+
+def load_torch_ckpt(path: str) -> Dict[str, np.ndarray]:
+    """A torch zip-format checkpoint → {key: numpy array}; its `state_dict`
+    entry where it has one, as the reference takes."""
+    import torch
+
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(obj, dict):
+        raise ValueError(f"{path}: not a state dict ({type(obj).__name__})")
+    return _tensors_to_numpy(obj.get("state_dict", obj))
+
+
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:
     """→ {key: array}; a `.gguf` file's quantized tensors come as leaf dicts."""
     if path.endswith(".safetensors") or path.endswith(".sft"):
@@ -75,5 +104,4 @@ def load_state_dict(path: str) -> Dict[str, np.ndarray]:
         sd = load_gguf(path)
         sd.pop("__metadata__", None)
         return sd
-    raise NotImplementedError(
-        f"{path}: only .safetensors and .gguf checkpoints are read by forge_tpu_torch so far")
+    return load_torch_ckpt(path)

@@ -1,5 +1,5 @@
 # Copied from forge_tpu/core/synth.py (the SD1.5, SDXL, Flux, T5 and ControlNet state dicts); numpy only, so the port imports no JAX.
-# `DeviceFill`, `LazyTensor` and the CLIP-vision and IP-Adapter state dicts are the port's own.
+# `DeviceFill`, `LazyTensor`, the SDXL refiner and the CLIP-vision, IP-Adapter and ESRGAN state dicts are the port's own.
 """Synthetic checkpoint synthesis: reference-format state dicts with real key
 names/shapes but generated weights.
 
@@ -347,10 +347,14 @@ def synth_sdxl_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, 
     )
     sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
     sd.update(synth_clip_sd(fill=fill, seed=seed + 3, prefix="conditioner.embedders.0.transformer."))
-    # CLIP-G in open_clip layout
-    f = _fill(fill, seed + 4)
-    g = "conditioner.embedders.1.model."
-    width, layers = 1280, 32
+    sd.update(_open_clip_g_sd(_fill(fill, seed + 4), "conditioner.embedders.1.model."))
+    return sd
+
+
+def _open_clip_g_sd(f, prefix: str, width: int = 1280, layers: int = 32) -> Dict[str, object]:
+    """OpenCLIP-bigG's text tower in open_clip layout under `prefix`."""
+    sd: Dict[str, object] = {}
+    g = prefix
     sd[g + "positional_embedding"] = f.w(77, width)
     sd[g + "token_embedding.weight"] = f.w(49408, width)
     sd[g + "ln_final.weight"] = f.ones(width)
@@ -370,6 +374,20 @@ def synth_sdxl_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, 
         sd[base + "mlp.c_fc.bias"] = f.zeros(width * 4)
         sd[base + "mlp.c_proj.weight"] = f.w(width, width * 4)
         sd[base + "mlp.c_proj.bias"] = f.zeros(width)
+    return sd
+
+
+def synth_sdxl_refiner_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, object]:
+    """Full-size SDXL refiner (stabilityai sd_xl_refiner_1.0): 384ch UNet,
+    mult (1,2,4,4), depths (0,4,4,0), middle depth 4, context 1280, adm
+    2560; OpenCLIP-bigG alone, under `conditioner.embedders.0.model.`; the
+    SDXL VAE."""
+    sd: Dict[str, object] = {}
+    sd.update(synth_unet_sd(model_channels=384, channel_mult=(1, 2, 4, 4),
+                            transformer_depth=(0, 4, 4, 0), context_dim=1280,
+                            adm_in_channels=2560, middle_depth=4, fill=fill, seed=seed + 1))
+    sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
+    sd.update(_open_clip_g_sd(_fill(fill, seed + 4), "conditioner.embedders.0.model."))
     return sd
 
 
@@ -597,4 +615,36 @@ def synth_ip_adapter_sd(
     for i, width in enumerate(widths):
         for name in ("to_k_ip", "to_v_ip"):
             sd[f"ip_adapter.{2 * i + 1}.{name}.weight"] = f.w(width, context_dim)
+    return sd
+
+
+def synth_esrgan_sd(num_feat: int = 64, num_block: int = 23, num_grow: int = 32,
+                    scale: int = 4, old_layout: bool = False, fill: FillSpec = "zeros",
+                    seed: int = 13) -> Dict[str, object]:
+    """ESRGAN's RRDBNet state dict; the defaults are RealESRGAN_x4plus's
+    (64 features, 23 RRDBs, growth 32, ×4). `old_layout` writes the old
+    ESRGAN `model.N` keys (model.1.sub.N.RDBk.convj.0 for the body,
+    model.1.sub.{num_block} for conv_body; ×4 only) in place of the new names."""
+    f = _fill(fill, seed)
+    sd: Dict[str, object] = {}
+
+    def conv(key, o, i):
+        sd[key + ".weight"] = f.w(o, i, 3, 3)
+        sd[key + ".bias"] = f.zeros(o)
+
+    names = {"conv_first": "model.0", "conv_body": f"model.1.sub.{num_block}",
+             "conv_up1": "model.3", "conv_up2": "model.6", "conv_hr": "model.8",
+             "conv_last": "model.10"} if old_layout else {}
+    conv(names.get("conv_first", "conv_first"), num_feat, 3)
+    for b in range(num_block):
+        for r in range(1, 4):
+            for c in range(1, 6):
+                key = (f"model.1.sub.{b}.RDB{r}.conv{c}.0" if old_layout
+                       else f"body.{b}.rdb{r}.conv{c}")
+                conv(key, num_feat if c == 5 else num_grow, num_feat + (c - 1) * num_grow)
+    conv(names.get("conv_body", "conv_body"), num_feat, num_feat)
+    for up in ("conv_up1", "conv_up2")[:{2: 1, 4: 2}[scale]]:
+        conv(names.get(up, up), num_feat, num_feat)
+    conv(names.get("conv_hr", "conv_hr"), num_feat, num_feat)
+    conv(names.get("conv_last", "conv_last"), 3, num_feat)
     return sd

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import nn
-from ..ops.resize import resize_bilinear
+from ..ops.resize import resize
 from .unet import UNetConfig, resblock, spatial_transformer
 
 
@@ -49,7 +49,7 @@ def controlnet_apply(params: Mapping[str, Any], x: torch.Tensor, hint: torch.Ten
         hint = hint.expand(-1, 3, -1, -1)
     want = (x.shape[2] * 8, x.shape[3] * 8)
     if tuple(hint.shape[2:]) != want:
-        hint = resize_bilinear(hint.float(), want)
+        hint = resize(hint.float(), want)
     guided = _hint_stack(params["input_hint_block"], hint.to(x.device, x.dtype))
 
     outs: List[torch.Tensor] = []

@@ -1,4 +1,4 @@
-"""Stable Diffusion UNet, SD1.5 and SDXL base (port of forge_tpu/models/unet.py).
+"""Stable Diffusion UNet, SD1.5 and SDXL base and refiner (port of forge_tpu/models/unet.py).
 
 A function over the checkpoint's `model.diffusion_model.*` keys, nested by
 `.`; activations NCHW. Block structure is discovered from the tree (key
@@ -48,6 +48,8 @@ class UNetConfig:
             return UNetConfig(context_dim=768, num_heads=8)
         if family == "sdxl":
             return UNetConfig(context_dim=2048, head_dim=64)
+        if family == "sdxl_refiner":
+            return UNetConfig(context_dim=1280, head_dim=64)
         raise NotImplementedError(f"no ported UNet config for family {family!r}")
 
 

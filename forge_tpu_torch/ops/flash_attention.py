@@ -33,13 +33,24 @@ def flash_body(d: int, dtype: torch.dtype) -> str:
     return "simt"
 
 
+PLAIN_MAX_LOGITS = 1 << 30  # above this many logits the plain version walks the query rows
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Reference math: f32 logits and softmax, probabilities cast to v's dtype.
-    `mask` (True = keep) serves the front end's masked calls."""
+    `mask` (True = keep) serves the front end's masked calls. Past
+    PLAIN_MAX_LOGITS logits (the hires UNet's 16384 tokens: 20 GiB of f32
+    logits, three times over) it runs slices of the query rows in turn;
+    rows are independent, so that is the same math."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    b, h, lq, lk = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
+    if mask is None and b * h * lq * lk > PLAIN_MAX_LOGITS:
+        rows = max(PLAIN_MAX_LOGITS // (b * h * lk), 1)
+        return torch.cat([flash_attention_plain(q[:, :, i:i + rows], k, v, scale)
+                          for i in range(0, lq, rows)], dim=2)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         s = s.masked_fill(~mask, -1e30)

@@ -1,13 +1,18 @@
 """Diffusion engine: one loaded checkpoint bound into runnable functions
-(port of forge_tpu/pipeline/engine.py: SD1.5, SDXL base and Flux; the VAE
-encode for img2img; ControlNets beside the UNet).
+(port of forge_tpu/pipeline/engine.py: SD1.5, SDXL base and refiner, and
+Flux; the VAE encode for img2img; ControlNets beside the UNet).
 
 SDXL: CLIP-L's and CLIP-G's penultimate hidden states, concatenated, are the
 context; `y` is CLIP-G's projected pooled output and the sinusoidal
-embeddings of the original size, crop and target size. Flux: T5-XXL features
+embeddings of the original size, crop and target size. The SDXL refiner:
+CLIP-G's penultimate hidden states alone are the context; `y` is its pooled
+output and the embeddings of the original size, crop and the aesthetic
+score (6.0, or 2.5 for a negative prompt; 2560 wide). Flux: T5-XXL features
 are the context, CLIP-L's pooled output the `y` vector, and the distilled-CFG
 guidance scale is added to the conditioning at sampling time
-(pipeline/processing.py). `lora_registry` (pipeline/extra_networks.py), when
+(pipeline/processing.py). `upscalers` (pipeline/upscalers.py), when set, is
+the registry the hires fix's pixel mode takes its upscaler from.
+`lora_registry` (pipeline/extra_networks.py), when
 set, resolves the prompt's `<lora:name:weight>` tags. The decode is split in
 two, `decode_dispatch` (enqueue, no wait) and `decode_finish` (wait, NaN
 checks), so the serving pipeline can overlap one request's copy to the host
@@ -88,6 +93,7 @@ class DiffusionEngine:
         self.unet_cfg = None
         self.flux_cfg = None
         self.lora_registry = None
+        self.upscalers = None
         tes = loaded.text_encoders
         self.text_engines = {}
         tokenizer = default_tokenizer()
@@ -96,6 +102,9 @@ class DiffusionEngine:
                 self.text_engines[name] = ClassicTextEngine(
                     tes[name], tokenizer,
                     TextEncoderOptions(layer="hidden", pooled_projection=pooled))
+        elif loaded.family == "sdxl_refiner":
+            self.text_engines["clip_g"] = ClassicTextEngine(
+                tes["clip_g"], tokenizer, TextEncoderOptions(layer="hidden", pooled_projection=True))
         elif "clip_l" in tes:
             self.text_engines["clip_l"] = ClassicTextEngine(tes["clip_l"], tokenizer)
         if loaded.family == "flux":
@@ -121,22 +130,29 @@ class DiffusionEngine:
                                  crop: Tuple[int, int] = (0, 0),
                                  original_size: Optional[Tuple[int, int]] = None,
                                  target_size: Optional[Tuple[int, int]] = None,
-                                 ) -> Dict[str, torch.Tensor]:
+                                 is_negative: bool = False) -> Dict[str, torch.Tensor]:
         """prompts → conditioning dict for the net: {context} (SD1.5),
         {context: CLIP-L ‖ CLIP-G hidden states, y: pooled CLIP-G ‖ size
-        embeddings} (SDXL) or {context: T5 features, y: CLIP-L pooled} (Flux).
-        The sizes are (height, width) pairs; both default to the image's."""
-        if self.family == "sdxl":
-            zl, _ = self.text_engines["clip_l"](prompts, max_chunks=max_chunks)
+        embeddings} (SDXL), {context: CLIP-G hidden states, y: pooled CLIP-G
+        ‖ size and aesthetic-score embeddings} (the SDXL refiner; the score
+        is 2.5 where `is_negative`) or {context: T5 features, y: CLIP-L
+        pooled} (Flux). The sizes are (height, width) pairs; both default to
+        the image's."""
+        if self.family in ("sdxl", "sdxl_refiner"):
+            refiner = self.family == "sdxl_refiner"
             zg, pooled_g = self.text_engines["clip_g"](prompts, max_chunks=max_chunks)
             osize = original_size or (height, width)
             tsize = target_size or (height, width)
-            sizes = [osize[0], osize[1], crop[0], crop[1], tsize[0], tsize[1]]
+            sizes = [osize[0], osize[1], crop[0], crop[1]]
+            # the refiner's aesthetic score: the reference's fixed 6.0, 2.5 for a negative prompt
+            sizes += [2.5 if is_negative else 6.0] if refiner else list(tsize)
             embs = [nn.timestep_embedding(torch.full((len(prompts),), float(s), device=self.device),
                                           256) for s in sizes]
             y = torch.cat([pooled_g.float()] + embs, dim=-1)
-            return {"context": torch.cat([zl, zg], dim=-1).to(self.compute_dtype),
-                    "y": y.to(self.compute_dtype)}
+            if not refiner:
+                zl, _ = self.text_engines["clip_l"](prompts, max_chunks=max_chunks)
+                zg = torch.cat([zl, zg], dim=-1)
+            return {"context": zg.to(self.compute_dtype), "y": y.to(self.compute_dtype)}
         if self.family == "flux":
             z = self.text_engines["t5xxl"](prompts)
             if "clip_l" in self.text_engines:

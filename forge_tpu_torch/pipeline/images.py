@@ -1,14 +1,18 @@
 """Image resizing for img2img (port of forge_tpu/pipeline/images.py
-`resize_init_image`) and CLIP-vision preprocessing.
+`resize_init_image`), CLIP-vision preprocessing and the simple upscalers.
 
-The reference resizes with PIL's LANCZOS (init images) and BICUBIC (the
-CLIP-vision input); the card's machine has no Pillow, so `lanczos_resize`
-and `bicubic_resize` compute what Pillow's `Image.resize` does for 8-bit
-images, in numpy: per axis, the filter's taps at half-pixel centres
-(Lanczos a = 3, support 3; cubic a = −0.5, support 2; the support widened
-by the scale when shrinking), normalised, then rounded to 22-bit fixed
-point; the horizontal pass first, its result rounded and clipped to uint8,
-then the vertical pass the same way.
+The reference resizes with PIL's LANCZOS (init images, the "Lanczos"
+upscaler), BICUBIC (the CLIP-vision input) and NEAREST (the "Nearest"
+upscaler); the card's machine has no Pillow, so `lanczos_resize`,
+`bicubic_resize` and `nearest_resize` compute what Pillow's `Image.resize`
+does for 8-bit images, in numpy. Lanczos and bicubic: per axis, the
+filter's taps at half-pixel centres (Lanczos a = 3, support 3; cubic
+a = −0.5, support 2; the support widened by the scale when shrinking),
+normalised, then rounded to 22-bit fixed point; the horizontal pass first,
+its result rounded and clipped to uint8, then the vertical pass the same
+way. Nearest: Pillow's affine scale, the source coordinate of output i
+being (i + 0.5)·n_in/n_out accumulated in double by repeated addition and
+truncated.
 """
 
 from __future__ import annotations
@@ -93,6 +97,22 @@ def lanczos_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
 def bicubic_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
     """uint8 [H,W] or [H,W,C] → [h,w(,C)], as Pillow's BICUBIC resize."""
     return _resize(img, w, h, "bicubic")
+
+
+def _nearest_indices(n_in: int, n_out: int) -> np.ndarray:
+    """Pillow's ImagingScaleAffine: xo = a·0.5, then xo += a per output, a = n_in/n_out."""
+    a = float(np.float32(n_in)) / n_out
+    steps = np.full(n_out, a, np.float64)
+    steps[0] = a * 0.5
+    return np.minimum(np.cumsum(steps).astype(np.int64), n_in - 1)  # cumsum adds in order
+
+
+def nearest_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 [H,W] or [H,W,C] → [h,w(,C)], as Pillow's NEAREST resize."""
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = arr.astype(np.uint8)
+    return arr[_nearest_indices(arr.shape[0], h)][:, _nearest_indices(arr.shape[1], w)]
 
 
 def resize_init_image(img: np.ndarray, w: int, h: int, mode: int = 0) -> np.ndarray:

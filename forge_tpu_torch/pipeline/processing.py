@@ -1,6 +1,7 @@
 """txt2img and img2img processing (port of forge_tpu/pipeline/processing.py:
 the txt2img slice, img2img, inpainting and "only masked" inpainting, UNet
-hooks and MultiDiffusion tiling).
+hooks, MultiDiffusion tiling, the SDXL refiner's two-pass switch and the
+hires fix).
 
 resolve seeds → `<lora:...>` tags patch the UNet and text encoders for the
 request (pipeline/extra_networks.py, from `engine.lora_registry`) → encode
@@ -23,17 +24,36 @@ in latent pixels) denoises the latent tile by tile (sampling/tiled.py).
 The reference's options `initial_noise_multiplier`, `img2img_extra_noise`
 and color correction take their defaults (1.0, 0, off).
 
+txt2img only, as in the reference: with `refiner_switch_at` in (0, 1) and a
+refiner (`refiner_checkpoint` through `ENGINE_RESOLVER`, or the engine set
+as `p._refiner_engine`), the base engine samples σ[:k+1] with k =
+clamp(round(switch_at·n), 1, n − 1), and the refiner continues σ[k:] from
+that latent with the step noise from k on, its own conds and a fresh
+multistep history, then decodes. With `enable_hr` the hires fix follows: the
+latent is upscaled in latent space ("Latent", "Latent (bicubic)", "Latent
+(nearest)", … with `jax.image.resize`'s weights, ops/resize.py) or decoded,
+upscaled in pixels (pipeline/upscalers.py: Lanczos, Nearest, an ESRGAN) and
+encoded again, then sampled as an img2img pass over the last
+hr_denoising_strength of a `hr_second_pass_steps` schedule, with noise from
+a fresh ImageRNG at the hires size and the same seeds, on the base engine
+or `hr_checkpoint_name`'s (`p._hr_engine`), at `hr_cfg_scale`, with conds
+encoded again for `hr_prompt` or another engine; that engine decodes. The
+reference's options `hires_fix_refiner_pass` and the refiner's aesthetic
+scores are not read by it either: the refiner runs in the first pass only,
+at scores 6.0 and 2.5.
+
 A batch goes through four stages, which the serving pipeline
 (runtime/serving.py) runs on three threads: `prepare` (seeds, LoRA, cond,
 noise or the init latent), `denoise` (the sampler's loop, enqueued on the
 card), `engine.decode_dispatch` / `engine.decode_finish` (the decode and its
 copy to the host, the NaN checks) and `finish` (the inpaint composite or
-paste). `process_images` runs them in turn.
+paste). `process_images` runs them in turn, with the refiner's switch
+inside `sample` and `hires_pass` between the denoise and the decode.
 
 `Processing` takes only the fields this port reads. Any other field of the
-reference's request (hires fix, scripts, styles, soft inpainting, ...)
-raises NotImplementedError rather than being ignored, as do prompt features
-not ported yet: `[from:to:when]` editing and `AND` composition.
+reference's request (scripts, styles, soft inpainting, ...) raises
+NotImplementedError rather than being ignored, as do prompt features not
+ported yet: `[from:to:when]` editing and `AND` composition.
 """
 
 from __future__ import annotations
@@ -42,13 +62,13 @@ import dataclasses
 import inspect
 import random
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.image_rng import ImageRNG
-from ..ops.resize import resize_bilinear
+from ..ops.resize import resize
 from ..sampling import cfg as cfg_mod
 from ..sampling.samplers import get_sampler
 from ..sampling.schedules import get_sigmas
@@ -101,9 +121,24 @@ class Processing:
     controlnets: Optional[List[Any]] = None  # models.controlnet.ControlNetState
     unet_hooks: Optional[Dict[str, Any]] = None  # models/unet.py's attention hook manifest
     tiled_diffusion: Optional[Dict[str, int]] = None  # MultiDiffusion {"tile", "overlap"}
+    # hires fix (txt2img)
+    enable_hr: bool = False
+    hr_scale: float = 2.0
+    hr_resize_x: int = 0  # an explicit target size overrides hr_scale
+    hr_resize_y: int = 0
+    hr_second_pass_steps: int = 0  # 0: steps
+    hr_upscaler: str = "Latent"
+    hr_denoising_strength: float = 0.7
+    hr_checkpoint_name: Optional[str] = None  # another checkpoint for the hires pass
+    hr_prompt: str = ""  # "": the first pass's prompts and conds
+    hr_negative_prompt: str = ""
+    hr_cfg_scale: float = 0.0  # 0: cfg_scale
+    # the SDXL refiner's two-pass switch (txt2img)
+    refiner_checkpoint: Optional[str] = None
+    refiner_switch_at: float = 0.0
 
     def __setattr__(self, name, value):
-        if name not in _FIELDS:
+        if name not in _FIELDS and name not in _ENGINE_ATTRS:
             raise NotImplementedError(
                 f"Processing.{name} is not ported to forge_tpu_torch yet")
         object.__setattr__(self, name, value)
@@ -119,6 +154,8 @@ class Processing:
 
 
 _FIELDS = frozenset(f.name for f in dataclasses.fields(Processing))
+# engines a caller (or a test) hands the request directly, ahead of ENGINE_RESOLVER
+_ENGINE_ATTRS = frozenset(("_hr_engine", "_refiner_engine"))
 
 
 @dataclasses.dataclass
@@ -143,6 +180,8 @@ class Job:
     mask: Optional[torch.Tensor] = None  # inpainting: the latent mask, 1 = repaint
     init_latent: Optional[torch.Tensor] = None
     paste: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None
+    seeds: Optional[List[int]] = None  # the batch's seeds and subseeds (the hires noise)
+    subseeds: Optional[List[int]] = None
 
 
 def _resolve_seeds(p: Processing) -> None:
@@ -284,11 +323,11 @@ def _prep_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
     init_latent = _encode(engine, batch)
     if p.resize_mode == 3 and tuple(init_latent.shape[2:]) != (h8, w8):
         # 'Just resize (latent upscale)': bilinear in latent space, no antialias
-        init_latent = resize_bilinear(init_latent, (h8, w8), antialias=False)
+        init_latent = resize(init_latent, (h8, w8), "bilinear", antialias=False)
 
     mask_latent = None
     if p.inpaint_mask is not None:
-        m8 = resize_bilinear(_gaussian_blur(_unit_mask(p), p.mask_blur), (h8, w8))
+        m8 = resize(_gaussian_blur(_unit_mask(p), p.mask_blur), (h8, w8))
         mask_latent = torch.from_numpy(np.clip(m8, 0, 1)[None, None]).to(engine.device)
         if p.inpainting_fill == "fill":
             fill_latent = _encode(engine, _gaussian_blur(batch, 10.0))
@@ -381,10 +420,13 @@ def prepare(engine: DiffusionEngine, p: Processing, it: int,
     cond, uncond, unet_params = _conditioning(engine, p, timings)
     args = (engine, p, seeds, subseeds, cond, uncond, unet_params, timings)
     if p.init_images is None:
-        return _prep_txt2img(*args)
-    if p.inpaint_full_res and p.inpaint_mask is not None:
-        return _prep_inpaint_full_res(*args)
-    return _prep_img2img(*args)
+        job = _prep_txt2img(*args)
+    elif p.inpaint_full_res and p.inpaint_mask is not None:
+        job = _prep_inpaint_full_res(*args)
+    else:
+        job = _prep_img2img(*args)
+    job.seeds, job.subseeds = seeds, subseeds
+    return job
 
 
 def _tiled(apply_model: Callable, spec: Dict[str, int], x: torch.Tensor) -> Callable:
@@ -422,6 +464,141 @@ def finish(job: Job, batch: np.ndarray) -> List[np.ndarray]:
     return job.paste(batch) if job.paste is not None else list(batch)
 
 
+# checkpoint name → DiffusionEngine, installed by whoever holds the engines;
+# p._refiner_engine and p._hr_engine take precedence
+ENGINE_RESOLVER: Optional[Callable[[str], DiffusionEngine]] = None
+
+
+def _resolve_engine(p: Processing, name: Optional[str], attr: str) -> DiffusionEngine:
+    eng = getattr(p, attr, None)
+    if eng is not None:
+        return eng
+    if name and ENGINE_RESOLVER is not None:
+        return ENGINE_RESOLVER(name)
+    raise ValueError(f"cannot resolve checkpoint {name!r}: no engine resolver installed")
+
+
+def _encode_base_conds(engine: DiffusionEngine, p: Processing, prompt: str, negative: str):
+    """cond and uncond from another engine's text stack (the refiner's, the
+    hires checkpoint's) or for the hires prompts: the prompts with their
+    extra-network tags stripped, each at its own chunk count."""
+    prompt, negative = parse_prompt(prompt)[0], parse_prompt(negative)[0]
+    _check_prompt(p, prompt)
+    _check_prompt(p, negative)
+    b = p.batch_size
+    cond = engine.get_learned_conditioning([prompt] * b, p.width, p.height)
+    uncond = engine.get_learned_conditioning([negative] * b, p.width, p.height, is_negative=True)
+    return cond, uncond
+
+
+def _refiner_step(p: Processing, n_steps: int) -> Optional[int]:
+    """The step the refiner takes over at, or None for no refiner."""
+    switch_at = float(p.refiner_switch_at or 0.0)
+    if not (0.0 < switch_at < 1.0 and (p.refiner_checkpoint
+                                       or getattr(p, "_refiner_engine", None) is not None)):
+        return None
+    return max(1, min(n_steps - 1, int(round(switch_at * n_steps))))
+
+
+def sample(engine: DiffusionEngine, job: Job, timings: Dict[str, float]):
+    """`denoise`, with the refiner's two-pass switch where a txt2img request
+    asks for it → (latent, the engine that decodes it)."""
+    p = job.p
+    k = _refiner_step(p, len(job.sigmas) - 1) if p.init_images is None else None
+    if k is None:
+        return denoise(engine, job), engine
+    noise = job.step_noise
+    latent = denoise(engine, dataclasses.replace(
+        job, sigmas=job.sigmas[:k + 1], step_noise=None if noise is None else noise[:k]))
+    refiner = _resolve_engine(p, p.refiner_checkpoint, "_refiner_engine")
+    t = time.perf_counter()
+    rcond, runcond = _encode_base_conds(refiner, p, p.prompt, p.negative_prompt)
+    _add_time(timings, "refiner_cond", t)
+    latent = denoise(refiner, Job(p, latent, job.sigmas[k:],
+                                  None if noise is None else noise[k:], rcond, runcond,
+                                  refiner.loaded.unet))
+    return latent, refiner
+
+
+def _hr_target(p: Processing) -> Optional[Tuple[int, int]]:
+    """An explicit hires size (latent units), overriding hr_scale."""
+    if p.hr_resize_x > 0 and p.hr_resize_y > 0:
+        return (p.hr_resize_y // 8, p.hr_resize_x // 8)
+    return None
+
+
+def _latent_upscale(latent: torch.Tensor, scale: float,
+                    target: Optional[Tuple[int, int]] = None,
+                    mode: str = "Latent") -> torch.Tensor:
+    """The latent modes: "Latent" bilinear, "(bicubic)" bicubic, "(nearest)"
+    and "(nearest-exact)" nearest, "antialiased" in the name turning the
+    antialias on, all as `jax.image.resize` computes them."""
+    h, w = latent.shape[2:]
+    size = target if target else (int(h * scale), int(w * scale))
+    method = "bicubic" if "bicubic" in mode else "nearest" if "nearest" in mode else "bilinear"
+    return resize(latent, size, method, antialias="antialiased" in mode)
+
+
+def hires_pass(engine: DiffusionEngine, job: Job, latent: torch.Tensor,
+               timings: Dict[str, float]):
+    """The hires fix's second pass over the first pass's latent → (latent,
+    the engine that sampled it and decodes it)."""
+    p = job.p
+    hr_engine, cond, uncond, unet_params = engine, job.cond, job.uncond, job.unet_params
+    reencode = bool(p.hr_prompt or p.hr_negative_prompt)
+    if p.hr_checkpoint_name or getattr(p, "_hr_engine", None) is not None:
+        hr_engine = _resolve_engine(p, p.hr_checkpoint_name, "_hr_engine")
+        unet_params, reencode = hr_engine.loaded.unet, True
+    if reencode:
+        t = time.perf_counter()
+        cond, uncond = _encode_base_conds(hr_engine, p, p.hr_prompt or p.prompt,
+                                          p.hr_negative_prompt or p.negative_prompt)
+        _add_time(timings, "hires_cond", t)
+
+    t = time.perf_counter()
+    target = _hr_target(p)
+    if p.hr_upscaler and not p.hr_upscaler.startswith("Latent"):
+        from .upscalers import get_default_registry
+
+        registry = hr_engine.upscalers or get_default_registry()
+        imgs = hr_engine.decode_finish(hr_engine.decode_dispatch(latent))
+        scale = (target[0] * 8 / imgs.shape[1]) if target else p.hr_scale
+        upscaler = registry.get(p.hr_upscaler)
+        ups = np.stack([np.asarray(upscaler.upscale(img, scale)) for img in imgs])
+        ups = ups.astype(np.float32) / 255.0 * 2.0 - 1.0
+        if target and ups.shape[1:3] != (target[0] * 8, target[1] * 8):
+            ups = resize(ups.transpose(0, 3, 1, 2), (target[0] * 8, target[1] * 8)
+                         ).transpose(0, 2, 3, 1)
+        _add_time(timings, "hires_upscale", t)
+        t = time.perf_counter()
+        latent = _encode(hr_engine, ups)
+        _add_time(timings, "hires_encode", t)
+    else:
+        latent = _latent_upscale(latent, p.hr_scale, target, p.hr_upscaler or "Latent")
+        _add_time(timings, "hires_upscale", t)
+
+    # an img2img pass over the schedule's tail (reference setup_img2img_steps)
+    t = time.perf_counter()
+    info = get_sampler(p.sampler_name)
+    _, lc, h8, w8 = latent.shape
+    steps = p.hr_second_pass_steps or p.steps
+    full_sigmas = get_sigmas(_auto_schedule(p.sampler_name, p.scheduler), steps,
+                             hr_engine.predictor)
+    t_enc = min(int(p.hr_denoising_strength * steps), steps - 1)
+    sigmas = full_sigmas[steps - t_enc - 1:]
+    rng = ImageRNG((lc, h8, w8), job.seeds, subseeds=job.subseeds,
+                   subseed_strength=p.subseed_strength)
+    noise0 = torch.from_numpy(rng.next()).to(hr_engine.device)
+    step_noise = _prepare_noise(p, rng, info, len(sigmas) - 1, hr_engine.device)
+    x = hr_engine.predictor.noise_scaling(float(np.float32(sigmas[0])), noise0, latent.float())
+    q = dataclasses.replace(p, cfg_scale=p.hr_cfg_scale or p.cfg_scale)
+    latent = denoise(hr_engine, Job(q, x, sigmas, step_noise, cond, uncond, unet_params))
+    if latent.is_cuda:
+        torch.cuda.synchronize(latent.device)
+    _add_time(timings, "hires_sample", t)
+    return latent, hr_engine
+
+
 @torch.no_grad()
 def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
     t0 = time.perf_counter()
@@ -431,12 +608,14 @@ def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
     for it in range(p.n_iter):
         job = prepare(engine, p, it, timings)
         t1 = time.perf_counter()
-        latent = denoise(engine, job)
+        latent, out_engine = sample(engine, job, timings)
         if latent.is_cuda:  # for the phase's time only; the decode would wait as well
             torch.cuda.synchronize(latent.device)
         _add_time(timings, "sample", t1)
+        if p.enable_hr and p.init_images is None:
+            latent, out_engine = hires_pass(engine, job, latent, timings)
         t2 = time.perf_counter()
-        batch = engine.decode_finish(engine.decode_dispatch(latent))
+        batch = out_engine.decode_finish(out_engine.decode_dispatch(latent))
         _add_time(timings, "decode", t2)
         images.extend(finish(job, batch))
     timings["total"] = time.perf_counter() - t0

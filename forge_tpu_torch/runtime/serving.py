@@ -19,8 +19,8 @@ is thread-local. Only the denoise thread launches the counted kernels
 
 A failed stage fails its request's future with the exception and the
 pipeline goes on with the next request. Requests with init images
-(img2img) or `n_iter` > 1 are refused, as the reference's serving takes
-plain txt2img requests. The reference's HBM plan (`plan_generation`, tiled
+(img2img), the hires fix, a refiner or `n_iter` > 1 are refused, as the
+reference's serving takes plain txt2img requests. The reference's HBM plan (`plan_generation`, tiled
 VAE) and infotexts are not ported yet.
 """
 
@@ -114,9 +114,11 @@ class ServingPipeline:
                     outq.put((p, fut, timings) + out)
 
     def _prep(self, p, timings):
-        if p.init_images is not None or p.n_iter != 1:
-            raise NotImplementedError("serving takes txt2img requests of one batch "
-                                      "(no init_images, n_iter 1); use process_images")
+        if (p.init_images is not None or p.n_iter != 1 or p.enable_hr
+                or proc._refiner_step(p, max(p.steps, 2)) is not None):
+            raise NotImplementedError("serving takes plain txt2img requests of one batch "
+                                      "(no init_images, hires fix or refiner; n_iter 1); "
+                                      "use process_images")
         proc._resolve_seeds(p)
         return (proc.prepare(self.engine, p, 0, timings),)
 

@@ -137,16 +137,16 @@ def test_latent_mask_resize_matches(src, dst, antialias):
     jax.image.resize, antialiased; "latent" resize mode without."""
     import jax
 
-    from forge_tpu_torch.ops.resize import resize_bilinear
+    from forge_tpu_torch.ops.resize import resize
 
     m = np.random.default_rng(7).uniform(size=src).astype(np.float32)
     want = np.asarray(jax.image.resize(jnp.asarray(m), dst, "bilinear", antialias=antialias))
-    got = resize_bilinear(m, dst, antialias=antialias)
+    got = resize(m, dst, "bilinear", antialias=antialias)
     assert np.abs(got - want).max() <= 1e-5
     lat = np.random.default_rng(8).standard_normal((1, 4) + src).astype(np.float32)
     want4 = np.asarray(jax.image.resize(jnp.asarray(lat), (1, 4) + dst, "bilinear",
                                         antialias=antialias))
-    got4 = resize_bilinear(torch.from_numpy(lat), dst, antialias=antialias).numpy()
+    got4 = resize(torch.from_numpy(lat), dst, "bilinear", antialias=antialias).numpy()
     assert np.abs(got4 - want4).max() <= 1e-5 * max(np.abs(want4).max(), 1.0)
 
 

@@ -66,8 +66,8 @@ def test_load_engine_without_a_device_does_not_fall_back_to_the_cpu():
 def test_processing_refuses_unported_fields():
     from forge_tpu_torch.pipeline.processing import Processing
 
-    with pytest.raises(NotImplementedError, match="enable_hr"):
-        Processing(prompt="x", enable_hr=True)
+    with pytest.raises(NotImplementedError, match="scripts"):
+        Processing(prompt="x", scripts=object())
     p = Processing()
     with pytest.raises(NotImplementedError, match="soft_inpainting"):
         p.soft_inpainting = {"mask_blend_power": 1.0}
@@ -83,8 +83,10 @@ def test_port_imports_no_jax():
         "'forge_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 25, mods\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors')"
-        " or m.startswith(('jax.', 'forge_tpu.', 'PIL.', 'safetensors.'))]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors',"
+        " 'transformers') or m.startswith(('jax.', 'forge_tpu.', 'PIL.', 'safetensors.',"
+        " 'transformers.'))]\n"
+        "assert 'forge_tpu_torch.pipeline.upscalers' in mods, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
