@@ -1,7 +1,7 @@
 """Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths, its SDXL
 img2img-inpaint path with a LoRA and a ControlNet, its batched SDXL serving with an
-IP-Adapter and a MultiDiffusion upscale, and its SDXL hires fix and refiner, on one
-NVIDIA GPU.
+IP-Adapter and a MultiDiffusion upscale, its SDXL hires fix and refiner, and one
+sampler of each group on SDXL, on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -86,7 +86,16 @@ Phases:
      logs/ by the port's safetensors writer: 192² tiles at overlap 8 over
      the 1024² image, Lanczos to 2048², the VAE encoder at 2048²; then a
      base UNet forward at (2,4,256,256) and a refiner forward at
-     (2,4,128,128) through the kernels and the plain versions.
+     (2,4,128,128) through the kernels and the plain versions;
+ 11. the samplers on the same engine: 1024², CFG 7, 20 steps, SDXL's prompt,
+     with "DPM++ 2M" Karras (the baseline, timed in the same phase), "DPM++
+     SDE" Karras (second order, Brownian noise with two draws a step),
+     "DPM2" Karras (second order, the penultimate σ discarded), "UniPC" and
+     "DDIM CFG++" (the uncond pair, the scale × 1/12.5): for
+     each, seeds 1, 1, 2 (seed 1 twice byte-identical, seed 2 another image)
+     with latency, timings (`noise` with the Brownian tree's host time),
+     peak memory and exact launch counts by body; the Brownian noise of one
+     request timed alone; then one "DPM++ SDE" request under torch.profiler.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -247,6 +256,15 @@ CONFIG2_REFINER_PER_REQUEST = {
     "flash_attention": CONFIG2_K * 70 + (SDXL_STEPS - CONFIG2_K) * 40 + 1,
     "gn_silu_conv3x3": CONFIG2_K * 34 + (SDXL_STEPS - CONFIG2_K) * 44 + 28, "dequant_matmul": 0}
 CONFIG2_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
+# the samplers phase (tests/test_torch_samplers_slice.py traces it): 20 steps, each model call
+# the UNet at CFG batch 2 (70 flash, 34 conv), then the 1024² decode (1, 28). DPM++ 2M, the
+# first-order multistep baseline, one call a step; the second-order samplers two a step but
+# none at σ = 0: 2 · 19 + 1; UniPC one call, then one a step but the peeled last; DDIM CFG++
+# one a step
+SAMPLERS_STEPS = 20
+SAMPLERS_PHASE = {"DPM++ 2M": ("karras", 20),
+                  "DPM++ SDE": ("karras", 2 * 19 + 1), "DPM2": ("karras", 2 * 19 + 1),
+                  "UniPC": ("automatic", 1 + 19), "DDIM CFG++": ("automatic", 20)}
 
 
 def log(*args):
@@ -1262,6 +1280,58 @@ def phase_config2(engine, gen: torch.Generator):
             for name in latent_launches}
 
 
+def samplers_request(engine, sampler: str, scheduler: str, seed: int, label: str):
+    """One 1024² SDXL request with `sampler` → its image."""
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    p = Processing(prompt=CONFIG2_PROMPT, negative_prompt="blurry", seed=seed,
+                   steps=SAMPLERS_STEPS, cfg_scale=7.0, width=1024, height=1024,
+                   sampler_name=sampler, scheduler=scheduler)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    img = res.images[0]
+    check(img.shape == (1024, 1024, 3) and img.dtype == np.uint8, "1024²×3 uint8 image")
+    check(0 < img.std(), f"{sampler}: the image is not flat")
+    log(f"samplers {sampler}{' ' + label if label else ''} seed={seed}: latency {latency:.4f} s, timings "
+        + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+        + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"image mean {img.mean():.3f} std {img.std():.3f}")
+    return img
+
+
+def phase_samplers(engine):
+    """One sampler of each group on the SDXL engine (see the docstring's
+    phase 11): seed 1 twice identical, seed 2 another, exact launch counts."""
+    from forge_tpu_torch.pipeline.processing import get_sampler
+    from forge_tpu_torch.sampling.brownian import brownian_step_noise
+    from forge_tpu_torch.sampling.schedules import get_sigmas
+
+    total = {}
+    for sampler, (scheduler, calls) in SAMPLERS_PHASE.items():
+        zero_counts()
+        images = [samplers_request(engine, sampler, scheduler, seed, "")
+                  for seed in (1, 1, 2)]
+        launches = read_counts()
+        check(np.array_equal(images[0], images[1]), f"{sampler} seed 1 twice gives identical bytes")
+        check(not np.array_equal(images[0], images[2]), f"{sampler} seeds 1 and 2 differ")
+        per_request = {"flash_attention": calls * 70 + 1, "gn_silu_conv3x3": calls * 34 + 28,
+                       "dequant_matmul": 0}
+        check_counts(launches, per_request, 3, f"the 3 {sampler} requests ({calls} model calls each)")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    info = get_sampler("DPM++ SDE")
+    sigmas = get_sigmas("karras", SAMPLERS_STEPS, engine.predictor)
+    t = time.perf_counter()
+    brownian_step_noise(sigmas, (128, 128, 4), [1], draws=info.noise_draws)
+    log(f"samplers: the Brownian noise of one DPM++ SDE request alone (host, {SAMPLERS_STEPS} "
+        f"steps, {info.noise_draws} draws, 128×128×4): {time.perf_counter() - t:.4f} s")
+    profile_request("samplers DPM++ SDE 1024²", lambda: samplers_request(
+        engine, "DPM++ SDE", "karras", 1, "profiled"))
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
@@ -1399,13 +1469,17 @@ def main():
         f"{time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     config2_launches = phase_config2(engine, gen)
+    log(f"config2 phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    samplers_launches = phase_samplers(engine)
     del engine
     torch.cuda.empty_cache()
-    log(f"config2 phase: {time.perf_counter() - t:.2f} s; script so far "
+    log(f"samplers phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
     paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
              "config3": config3_launches, "config5": config5_launches,
-             "config2": config2_launches}
+             "config2": config2_launches, "samplers": samplers_launches}
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",

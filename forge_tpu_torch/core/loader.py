@@ -141,8 +141,10 @@ def to_device_tree(sd: Mapping[str, Any], dtype: torch.dtype, device,
 
 
 def load_checkpoint_parts(path_or_sd, dtype: torch.dtype = torch.float32, device="cpu",
-                          unet_quant: Optional[str] = None) -> LoadedCheckpoint:
-    """Checkpoint path (or flat state dict) → components on `device`."""
+                          unet_quant: Optional[str] = None,
+                          vae_dtype: Optional[torch.dtype] = None) -> LoadedCheckpoint:
+    """Checkpoint path (or flat state dict) → components on `device`; the
+    VAE in `vae_dtype` (default: `dtype`)."""
     if unet_quant is not None and unet_quant not in UNET_QUANT:
         raise NotImplementedError(
             f"unet_quant={unet_quant!r} is not ported (ported: {', '.join(UNET_QUANT)})")
@@ -165,7 +167,7 @@ def load_checkpoint_parts(path_or_sd, dtype: torch.dtype = torch.float32, device
                    for k, v in tsd.items()}
         text_encoders[name] = to_device_tree(tsd, dtype, device)
     unet = to_device_tree(g.unet, dtype, device, quant=unet_quant)
-    vae = to_device_tree(g.vae, dtype, device)
+    vae = to_device_tree(g.vae, vae_dtype or dtype, device)
     return LoadedCheckpoint(g.family, g.prediction, g.context_dim, unet, vae, text_encoders)
 
 

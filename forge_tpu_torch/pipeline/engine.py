@@ -19,7 +19,11 @@ checks), so the serving pipeline can overlap one request's copy to the host
 with the next request's denoise.
 
 Compute dtype is bf16 on CUDA and f32 on the CPU, as the reference picks
-bf16 on the TPU and f32 elsewhere.
+bf16 on the TPU and f32 elsewhere. The VAE runs in the `vae_dtype` option's
+dtype ("auto": the compute dtype); its weights are cast to it once, when the
+engine is built (`load_engine` loads them in it from the checkpoint). Under
+the `disable_nan_check` option `decode_finish` lets non-finite values
+through.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..models import unet as unet_mod
 from ..models import vae as vae_mod
 from ..models.controlnet import run_controlnets
 from ..ops import nn
+from ..runtime.options import opts
 from ..sampling.prediction import DiscretePrediction, PredictionFlux
 from ..text.engine import ClassicTextEngine, TextEncoderOptions
 from ..text.t5_engine import T5TextEngine
@@ -81,6 +86,19 @@ def default_dtype(device) -> torch.dtype:
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
+def vae_dtype_for(compute_dtype: torch.dtype) -> torch.dtype:
+    """The VAE's dtype under the `vae_dtype` option ("auto": the compute dtype)."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(opts.get("vae_dtype"),
+                                                                     compute_dtype)
+
+
+def _cast_tree(tree, dtype: torch.dtype):
+    """Every floating tensor of a nested tree in `dtype` (memory format kept)."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
 class DiffusionEngine:
     def __init__(self, loaded: LoadedCheckpoint, device, compute_dtype: torch.dtype):
         if loaded.family not in FAMILIES:
@@ -89,6 +107,9 @@ class DiffusionEngine:
         self.loaded = loaded
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
+        self.vae_dtype = vae_dtype_for(compute_dtype)
+        if loaded.vae is not None:
+            loaded.vae = _cast_tree(loaded.vae, self.vae_dtype)
         self.latent_format = latent_formats.BY_FAMILY[loaded.family]
         self.unet_cfg = None
         self.flux_cfg = None
@@ -200,16 +221,21 @@ class DiffusionEngine:
         return apply_controlled
 
     @torch.no_grad()
+    def decode_first_stage(self, latent: torch.Tensor) -> torch.Tensor:
+        """latent [B,C,h,w] (regulated space) → f32 images [B,3,8h,8w] in
+        [-1, 1], decoded in the VAE's dtype."""
+        z = self.latent_format.process_out(latent.float())
+        return vae_mod.vae_decode(self.loaded.vae, z.to(self.vae_dtype)).float()
+
+    @torch.no_grad()
     def decode_dispatch(self, latent: torch.Tensor) -> "DecodeHandle":
         """Enqueue the decode of latent [B,C,h,w] (regulated space) and the
         two finiteness checks, with no wait on the card: the checks stay
         device tensors, and on CUDA the uint8 images [B,8h,8w,3] and the
         flags start a non-blocking copy into pinned host memory behind a
         recorded event. `decode_finish` waits for it."""
-        z = latent.float()
-        lat_ok = torch.isfinite(z).all()
-        z = self.latent_format.process_out(z)
-        imgf = vae_mod.vae_decode(self.loaded.vae, z.to(self.compute_dtype)).float()
+        lat_ok = torch.isfinite(latent.float()).all()
+        imgf = self.decode_first_stage(latent)
         flags = torch.stack([lat_ok, torch.isfinite(imgf).all()])
         img = torch.clamp((imgf + 1.0) * 127.5 + 0.5, 0, 255).to(torch.uint8)
         img = img.permute(0, 2, 3, 1).contiguous()
@@ -226,21 +252,23 @@ class DiffusionEngine:
     @staticmethod
     def decode_finish(handle: "DecodeHandle") -> np.ndarray:
         """Wait for `decode_dispatch`'s copy → uint8 images [B,H,W,3]; raise
-        NansException where the latent or the decoded image is not finite."""
+        NansException where the latent or the decoded image is not finite,
+        unless the `disable_nan_check` option is set."""
         if handle.done is not None:
             handle.done.synchronize()
         lat_ok, img_ok = handle.flags.tolist()
-        if not lat_ok:
-            raise_nans("unet")
-        if not img_ok:
-            raise_nans("vae")
+        if not opts.get("disable_nan_check"):
+            if not lat_ok:
+                raise_nans("unet")
+            if not img_ok:
+                raise_nans("vae")
         return handle.images.numpy().copy()  # the pinned buffer goes back to its pool
 
     @torch.no_grad()
     def encode_first_stage(self, images: torch.Tensor) -> torch.Tensor:
         """images [B,3,H,W] in [-1, 1] → the posterior mean as a regulated f32
-        latent [B,C,H/8,W/8], encoded in the compute dtype."""
-        z = vae_mod.vae_encode(self.loaded.vae, images.to(self.device, self.compute_dtype))
+        latent [B,C,H/8,W/8], encoded in the VAE's dtype."""
+        z = vae_mod.vae_encode(self.loaded.vae, images.to(self.device, self.vae_dtype))
         return self.latent_format.process_in(z.float())
 
 
@@ -254,5 +282,6 @@ def load_engine(path_or_sd, device=None, dtype: Optional[torch.dtype] = None,
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
     return DiffusionEngine(load_checkpoint_parts(path_or_sd, dtype=dtype, device=device,
-                                                 unet_quant=unet_quant),
+                                                 unet_quant=unet_quant,
+                                                 vae_dtype=vae_dtype_for(dtype)),
                            device, dtype)

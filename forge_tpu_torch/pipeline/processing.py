@@ -21,8 +21,17 @@ image is pasted into the init image under the blurred mask. `controlnets`
 `unet_hooks` is the UNet's attention hook manifest (models/unet.py; the
 IP-Adapter's, pipeline/ipadapter.py); `tiled_diffusion` ({"tile", "overlap"}
 in latent pixels) denoises the latent tile by tile (sampling/tiled.py).
-The reference's options `initial_noise_multiplier`, `img2img_extra_noise`
-and color correction take their defaults (1.0, 0, off).
+The reference's options `img2img_extra_noise` and color correction take
+their defaults (0, off).
+
+Options (runtime/options.py) fill the sampler parameters a request leaves
+at their defaults, as the reference's `_apply_option_defaults` does once the
+seeds resolve: `s_churn`, `s_noise`, `eta` (`eta_ancestral`), `eta_ddim`,
+the ENSD, clip skip and, for img2img, the initial noise multiplier. The
+sampler's `SamplerInfo` picks its noise (a Philox stream, or a Brownian
+tree per seed over the σ the pass runs for the SDE samplers), whether the
+penultimate σ is dropped, the eta it takes (`eta_ddim` for the timestep
+samplers) and, for CFG++, the scale's multiplier and the uncond pair.
 
 txt2img only, as in the reference: with `refiner_switch_at` in (0, 1) and a
 refiner (`refiner_checkpoint` through `ENGINE_RESOLVER`, or the engine set
@@ -69,7 +78,9 @@ import torch
 
 from ..ops.image_rng import ImageRNG
 from ..ops.resize import resize
+from ..runtime.options import opts
 from ..sampling import cfg as cfg_mod
+from ..sampling.brownian import brownian_step_noise
 from ..sampling.samplers import get_sampler
 from ..sampling.schedules import get_sigmas
 from ..sampling.tiled import make_tiled_apply
@@ -101,6 +112,7 @@ class Processing:
     batch_size: int = 1
     n_iter: int = 1
     eta: float = 1.0
+    eta_ddim: float = 0.0  # the timestep samplers' eta (DDIM, DDIM CFG++)
     s_churn: float = 0.0
     s_noise: float = 1.0
     clip_skip: int = 1
@@ -197,6 +209,25 @@ def _resolve_seeds(p: Processing) -> None:
     p.subseed = sub
 
 
+def _apply_option_defaults(p: Processing) -> None:
+    """Sampler fields the caller left at their defaults, from the options
+    (the reference's `_apply_option_defaults`): an explicit value wins."""
+    if p.s_churn == 0.0:
+        p.s_churn = float(opts.get("s_churn"))
+    if p.s_noise == 1.0:
+        p.s_noise = float(opts.get("s_noise"))
+    if p.eta == 1.0:
+        p.eta = float(opts.get("eta_ancestral"))
+    if p.eta_ddim == 0.0:
+        p.eta_ddim = float(opts.get("eta_ddim"))
+    if p.eta_noise_seed_delta == 0:
+        p.eta_noise_seed_delta = int(opts.get("eta_noise_seed_delta"))
+    if p.clip_skip <= 1:
+        p.clip_skip = int(opts.get("CLIP_stop_at_last_layers"))
+    if p.init_images is not None and p.initial_noise_multiplier == 1.0:
+        p.initial_noise_multiplier = float(opts.get("initial_noise_multiplier"))
+
+
 def _check_prompt(p: Processing, text: str) -> None:
     """`text` with its extra-network tags stripped."""
     if len(split_composable(text)) > 1 or len(get_schedule(text, p.steps)) > 1:
@@ -214,15 +245,27 @@ def _add_time(timings: Dict[str, float], key: str, since: float) -> None:
     timings[key] = timings.get(key, 0.0) + time.perf_counter() - since
 
 
-def _prepare_noise(p: Processing, rng: ImageRNG, info, n_steps: int, device):
-    """Per-step sampler noise [n_steps, draws, B, C, h, w] (NCHW) on `device`,
-    or None for a deterministic sampler."""
+def _prepare_noise(p: Processing, rng: ImageRNG, info, sigmas: np.ndarray, seeds,
+                   device) -> Optional[torch.Tensor]:
+    """Per-step sampler noise [n_steps, draws, B, C, h, w] (NCHW) on `device`
+    for the pass over `sigmas`, or None for a deterministic sampler. A
+    deterministic sampler turns stochastic under `s_churn` (Euler) or
+    `eta_ddim` (the DDIM family). The SDE samplers' noise is a Brownian
+    tree per seed over these σ, drawn as the reference draws it, (h, w, C)
+    a node, then taken to NCHW; the others draw the Philox stream."""
     draws = info.noise_draws
-    if draws == 0 and "s_churn" in inspect.signature(info.fn).parameters and p.s_churn > 0:
-        draws = 1  # a deterministic sampler turns stochastic under churn
+    if draws == 0:
+        if "s_churn" in inspect.signature(info.fn).parameters and p.s_churn > 0:
+            draws = 1
+        elif info.uses_eta_ddim and p.eta_ddim > 0:
+            draws = 1
     if draws == 0:
         return None
-    steps = [np.stack([rng.next() for _ in range(draws)]) for _ in range(n_steps)]
+    if info.brownian_noise:
+        c, h, w = rng.shape
+        noise = brownian_step_noise(np.asarray(sigmas, np.float64), (h, w, c), seeds, draws=draws)
+        return torch.from_numpy(np.ascontiguousarray(noise.transpose(0, 1, 2, 5, 3, 4))).to(device)
+    steps = [np.stack([rng.next() for _ in range(draws)]) for _ in range(len(sigmas) - 1)]
     return torch.from_numpy(np.stack(steps)).to(device)
 
 
@@ -273,8 +316,9 @@ def _prep_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
     lc = engine.latent_format.latent_channels
     rng = _image_rng(p, info, (lc, p.height // 8, p.width // 8), seeds, subseeds)
     noise0 = rng.next()  # NCHW, the layout the seeds encode
-    sigmas = get_sigmas(_auto_schedule(p.sampler_name, p.scheduler), p.steps, engine.predictor)
-    step_noise = _prepare_noise(p, rng, info, len(sigmas) - 1, engine.device)
+    sigmas = get_sigmas(_auto_schedule(p.sampler_name, p.scheduler), p.steps, engine.predictor,
+                        discard_next_to_last=info.discard_next_to_last_sigma)
+    step_noise = _prepare_noise(p, rng, info, sigmas, seeds, engine.device)
     x = torch.from_numpy(engine.predictor.noise_scaling(
         np.float32(sigmas[0]), noise0, np.zeros_like(noise0))).to(engine.device)
     _add_time(timings, "noise", t_noise)
@@ -343,9 +387,9 @@ def _prep_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
     steps = p.steps
     t_enc = min(int(p.denoising_strength * steps), steps - 1)
     full_sigmas = get_sigmas(_auto_schedule(p.sampler_name, p.scheduler), steps,
-                             engine.predictor)
+                             engine.predictor, discard_next_to_last=info.discard_next_to_last_sigma)
     sigmas = full_sigmas[steps - t_enc - 1:]
-    step_noise = _prepare_noise(p, rng, info, len(sigmas) - 1, engine.device)
+    step_noise = _prepare_noise(p, rng, info, sigmas, seeds, engine.device)
     if p.inpainting_fill == "latent_noise" and mask_latent is not None:
         init_latent = init_latent + noise0 * mask_latent * float(sigmas[0])
     if p.initial_noise_multiplier != 1.0:
@@ -449,12 +493,16 @@ def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
     if p.tiled_diffusion:  # inside CFG: every tile's forward sees the CFG batch
         apply_model = _tiled(apply_model, p.tiled_diffusion, job.x)
     model_fn = cfg_mod.make_cfg_model_fn(apply_model, job.cond,
-                                         None if p.cfg_scale == 1.0 else job.uncond, p.cfg_scale)
+                                         None if p.cfg_scale == 1.0 else job.uncond,
+                                         p.cfg_scale * info.cfg_multiplier,
+                                         return_uncond=info.needs_uncond)
     if job.mask is not None:
-        model_fn = cfg_mod.make_masked_model_fn(model_fn, job.mask, job.init_latent)
+        masked = cfg_mod.make_masked_pair_fn if info.needs_uncond else cfg_mod.make_masked_model_fn
+        model_fn = masked(model_fn, job.mask, job.init_latent)
     params = inspect.signature(info.fn).parameters
+    eta = p.eta_ddim if info.uses_eta_ddim else p.eta
     kwargs = {name: value for name, value in
-              (("eta", p.eta), ("s_noise", p.s_noise), ("s_churn", p.s_churn))
+              (("eta", eta), ("s_noise", p.s_noise), ("s_churn", p.s_churn))
               if name in params}
     return info.fn(model_fn, job.x, job.sigmas, job.step_noise, **kwargs)
 
@@ -583,13 +631,14 @@ def hires_pass(engine: DiffusionEngine, job: Job, latent: torch.Tensor,
     _, lc, h8, w8 = latent.shape
     steps = p.hr_second_pass_steps or p.steps
     full_sigmas = get_sigmas(_auto_schedule(p.sampler_name, p.scheduler), steps,
-                             hr_engine.predictor)
+                             hr_engine.predictor,
+                             discard_next_to_last=info.discard_next_to_last_sigma)
     t_enc = min(int(p.hr_denoising_strength * steps), steps - 1)
     sigmas = full_sigmas[steps - t_enc - 1:]
     rng = ImageRNG((lc, h8, w8), job.seeds, subseeds=job.subseeds,
                    subseed_strength=p.subseed_strength)
     noise0 = torch.from_numpy(rng.next()).to(hr_engine.device)
-    step_noise = _prepare_noise(p, rng, info, len(sigmas) - 1, hr_engine.device)
+    step_noise = _prepare_noise(p, rng, info, sigmas, job.seeds, hr_engine.device)
     x = hr_engine.predictor.noise_scaling(float(np.float32(sigmas[0])), noise0, latent.float())
     q = dataclasses.replace(p, cfg_scale=p.hr_cfg_scale or p.cfg_scale)
     latent = denoise(hr_engine, Job(q, x, sigmas, step_noise, cond, uncond, unet_params))
@@ -603,6 +652,7 @@ def hires_pass(engine: DiffusionEngine, job: Job, latent: torch.Tensor,
 def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
     t0 = time.perf_counter()
     _resolve_seeds(p)
+    _apply_option_defaults(p)
     timings: Dict[str, float] = {}
     images: List[np.ndarray] = []
     for it in range(p.n_iter):

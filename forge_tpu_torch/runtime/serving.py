@@ -120,6 +120,7 @@ class ServingPipeline:
                                       "(no init_images, hires fix or refiner; n_iter 1); "
                                       "use process_images")
         proc._resolve_seeds(p)
+        proc._apply_option_defaults(p)
         return (proc.prepare(self.engine, p, 0, timings),)
 
     def _denoise(self, p, timings, job):

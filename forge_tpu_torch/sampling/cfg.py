@@ -1,11 +1,10 @@
 """CFG executor: builds the `model_fn(x, σ) → denoised` the samplers integrate
-(port of forge_tpu/sampling/cfg.py, single cond branch, and the inpainting
-latent composite).
+(port of forge_tpu/sampling/cfg.py, single cond branch, the CFG++ pair and
+the inpainting latent composite).
 
 cond and uncond are fused into ONE model call by batch concatenation, and
 the uncond branch is skipped entirely when it is None (cfg == 1). Hooks,
-AND-composed branches, CFG rescale and the CFG++ pair composite are not
-ported yet.
+AND-composed branches and CFG rescale are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,18 +40,37 @@ def make_apply_model(net_apply: Callable, params: Any, predictor,
 
 def make_cfg_model_fn(apply_model: Callable, cond: Mapping[str, torch.Tensor],
                       uncond: Optional[Mapping[str, torch.Tensor]],
-                      cfg_scale: float) -> Callable:
-    """model_fn(x, σ) for the samplers; uncond=None skips the uncond branch."""
+                      cfg_scale: float, return_uncond: bool = False) -> Callable:
+    """model_fn(x, σ) for the samplers; uncond=None skips the uncond branch.
+    With `return_uncond` (the CFG++ samplers) it returns the pair (x0, the
+    uncond's x0), and (x0, x0) where the uncond is skipped."""
     if uncond is None:
-        return lambda x, sigma: apply_model(x, sigma, cond)
+        def model_fn_cond(x: torch.Tensor, sigma):
+            denoised = apply_model(x, sigma, cond)
+            return (denoised, denoised) if return_uncond else denoised
+
+        return model_fn_cond
     both = {k: torch.cat([cond[k], uncond[k]], dim=0) for k in cond}
 
-    def model_fn(x: torch.Tensor, sigma) -> torch.Tensor:
+    def model_fn(x: torch.Tensor, sigma):
         out = apply_model(torch.cat([x, x], dim=0), sigma, both)
         eps_cond, eps_uncond = out.chunk(2, dim=0)
-        return eps_uncond + cfg_scale * (eps_cond - eps_uncond)
+        x0 = eps_uncond + cfg_scale * (eps_cond - eps_uncond)
+        return (x0, eps_uncond) if return_uncond else x0
 
     return model_fn
+
+
+def make_masked_pair_fn(pair_fn: Callable, mask: torch.Tensor,
+                        init_latent: torch.Tensor) -> Callable:
+    """The inpainting composite for a pair-returning (CFG++) model_fn: the
+    x0 prediction is blended, the uncond direction term passes through."""
+
+    def wrapped(x: torch.Tensor, sigma):
+        x0, un = pair_fn(x, sigma)
+        return init_latent * (1.0 - mask) + x0 * mask, un
+
+    return wrapped
 
 
 def make_masked_model_fn(model_fn: Callable, mask: torch.Tensor,

@@ -144,9 +144,11 @@ def align_your_steps_32(n, sigma_min, sigma_max, predictor=None):
     return _ays(n, _AYS_32_SDXL if _is_xl_like(predictor) else _AYS_32_SD15)
 
 
-def beta_schedule(n, sigma_min, sigma_max, predictor=None, alpha=0.6, beta=0.6):
-    # the reference reads alpha/beta from its options registry (default 0.6),
-    # which the port does not have yet
+def beta_schedule(n, sigma_min, sigma_max, predictor=None, alpha=None, beta=None):
+    from ..runtime.options import opts
+
+    alpha = float(opts.get("beta_dist_alpha")) if alpha is None else alpha
+    beta = float(opts.get("beta_dist_beta")) if beta is None else beta
     import scipy.stats
 
     timesteps = 1 - np.linspace(0, 1, n)

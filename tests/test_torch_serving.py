@@ -56,6 +56,20 @@ def test_serving_matches_process_images(engine, hooks):
             "finish"} <= set(served["timings"])
 
 
+def test_served_sde_request_matches_process_images(engine):
+    """A "DPM++ SDE" request (second order, Brownian step noise made in the
+    prep stage) gives the bytes its sequential twin gives."""
+    from forge_tpu_torch.pipeline.processing import process_images
+    from forge_tpu_torch.runtime.serving import serve_throughput
+
+    kw = dict(sampler_name="DPM++ SDE", scheduler="karras")
+    ref = process_images(engine, _p(5, **kw))
+    served = serve_throughput(engine, [_p(5, **kw)])["outputs"][0]
+    assert served["seeds"] == ref.seeds == [5, 6]
+    assert all(np.array_equal(a, b) for a, b in zip(served["images"], ref.images))
+    assert not np.array_equal(ref.images[0], process_images(engine, _p(5)).images[0])
+
+
 def test_serving_pipelines_multiple_requests(engine, hooks):
     from forge_tpu_torch.runtime.serving import serve_throughput
 
@@ -82,7 +96,7 @@ def test_pipeline_close_drains_and_rejects(engine):
     for t in pipe._threads:
         assert not t.is_alive()
     assert good.result(timeout=0)["images"][0].shape == (64, 64, 3)
-    with pytest.raises(NotImplementedError, match="no_such_sampler"):
+    with pytest.raises(KeyError, match="no_such_sampler"):  # unknown, as in forge_tpu
         bad.result(timeout=0)
     with pytest.raises(NotImplementedError, match="txt2img"):
         img2img.result(timeout=0)
