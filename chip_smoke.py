@@ -1,7 +1,7 @@
 """Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths, its SDXL
 img2img-inpaint path with a LoRA and a ControlNet, its batched SDXL serving with an
-IP-Adapter and a MultiDiffusion upscale, its SDXL hires fix and refiner, and one
-sampler of each group on SDXL, on one NVIDIA GPU.
+IP-Adapter and a MultiDiffusion upscale, its SDXL hires fix and refiner, one
+sampler of each group and the prompt surface on SDXL, on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -95,7 +95,21 @@ Phases:
      each, seeds 1, 1, 2 (seed 1 twice byte-identical, seed 2 another image)
      with latency, timings (`noise` with the Brownian tree's host time),
      peak memory and exact launch counts by body; the Brownian noise of one
-     request timed alone; then one "DPM++ SDE" request under torch.profiler.
+     request timed alone; then one "DPM++ SDE" request under torch.profiler;
+ 12. the prompt surface on the same engine (1024², DPM++ 2M Karras, 20 steps,
+     CFG 7): (a) "a photo of a [cat:dog:0.5] wearing forgeemb", forgeemb a
+     dual textual-inversion embedding (2 vectors a tower, made from a seed
+     and written to logs/), a style from a CSV written beside it, CFG
+     rescale 0.7, twice (the second from the cond cache), its infotext
+     parsed back; (b) "a cat AND a red hat :0.8" at UNet batch 3, seeds 1, 1,
+     2, one profiled, one through the plain versions (the images' PSNR
+     printed), a witness (AND and "a cat" at seeds 1-3, each through the
+     kernels and the plain versions, their PSNRs printed side by side) and a
+     batch-3 UNet forward against plain; (c) two
+     regional prompts on the left and right halves (feather 8) at batch 4;
+     (d) NGMS at s_min_uncond 1.0, twice: batch 2, then batch 1 from the split;
+     each with latency, phases, peak memory, the UNet's batch shapes with
+     their calls and exact launch counts by body.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -145,6 +159,11 @@ FLASH_SHAPES = [  # (B, H, Lq, D), Lk, a shape of a main path
     ((2, 20, 4096, 64), 4096, True),    # hires level 2
     ((2, 12, 4096, 64), 4096, True),    # refiner level 1: 768 wide, 12 heads
     ((2, 24, 1024, 64), 1024, True),    # refiner level 2: 1536 wide, 24 heads (its middle: 256 tokens, plain)
+    # the prompts phase: SDXL at UNet batch 3 (one AND branch) and 1 (the NGMS tail)
+    ((3, 10, 4096, 64), 4096, True),
+    ((3, 20, 1024, 64), 1024, True),
+    ((1, 10, 4096, 64), 4096, True),
+    ((1, 20, 1024, 64), 1024, True),
 ]
 FLASH_SUMMARY_SHAPE = FLASH_SHAPES[0][0]  # the JSON line's flash row (the same shape since the first)
 GN_CONV_SHAPES = [  # (B, C, H, W), O
@@ -189,6 +208,9 @@ REFINER_CONV_SHAPES = [(384, 384, 128), (768, 384, 128), (1152, 384, 128), (384,
                        (768, 1536, 32), (1536, 1536, 32), (2304, 1536, 32), (3072, 1536, 32),
                        (1536, 1536, 16), (3072, 1536, 16)]
 GN_CONV_SHAPES += [((2, c, side, side), o) for c, o, side in REFINER_CONV_SHAPES]
+# the prompts phase: the twelve pairs at UNet batch 3 (AND) and 1 (the NGMS tail) on 128², 64², 32²
+GN_CONV_SHAPES += [((b, c, 128 >> level, 128 >> level), o) for b in (3, 1)
+                   for c, o, level in SDXL_CONV_PAIRS]
 PLAIN_MAX_LOGITS = 1 << 30  # above this many logits a head, plain flash is checked on row slices
 DEQUANT_SHAPES = [  # (M, N, K) of the Flux-dev linears at 1024²
     (4608, 21504, 3072),  # single block linear1
@@ -265,6 +287,19 @@ SAMPLERS_STEPS = 20
 SAMPLERS_PHASE = {"DPM++ 2M": ("karras", 20),
                   "DPM++ SDE": ("karras", 2 * 19 + 1), "DPM2": ("karras", 2 * 19 + 1),
                   "UniPC": ("automatic", 1 + 19), "DDIM CFG++": ("automatic", 20)}
+# the prompts phase (tests/test_torch_prompts_mixed.py traces it): DPM++ 2M Karras, 20 steps,
+# CFG 7, 1024², one model call a step whatever the UNet's batch (2 plain, 3 with one AND part,
+# 4 with two regions; the NGMS tail 1), then the 1024² decode
+PROMPTS_STEPS = 20
+PROMPTS_PER_REQUEST = {"flash_attention": PROMPTS_STEPS * 70 + 1,
+                       "gn_silu_conv3x3": PROMPTS_STEPS * 34 + 28, "dequant_matmul": 0}
+PROMPTS_EDIT = "a photo of a [cat:dog:0.5] wearing forgeemb"  # forgeemb: a dual TI embedding
+PROMPTS_STYLE = ("chip smoke", "{prompt}, dramatic lighting, film grain", "lowres")
+PROMPTS_AND = "a cat AND a red hat :0.8"
+PROMPTS_WITNESS_SEEDS = (1, 2, 3)  # AND and "a cat", each through the kernels and plain
+PROMPTS_REGIONS = [dict(prompt="a red fox in the snow", area=(0.0, 0.0, 0.5, 1.0), feather=8),
+                   dict(prompt="a snowy owl on a branch", area=(0.5, 0.0, 0.5, 1.0), feather=8)]
+PROMPTS_NGMS = 1.0  # s_min_uncond: the 20 Karras σ fall below it from step 11 (σ 0.791)
 
 
 def log(*args):
@@ -1332,6 +1367,182 @@ def phase_samplers(engine):
     return total
 
 
+def image_psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR of two uint8 images, in dB."""
+    mse = float(((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean())
+    return 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def prompts_request(engine, label: str, seed: int = 1, prompt: str = PROMPTS_AND, **fields):
+    """One 1024² DPM++ 2M Karras 20-step CFG-7 request with `fields` → (its
+    image, its `Processed`); logs the latency, the phases, peak memory and
+    the UNet's batch shapes with their calls."""
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    p = Processing(prompt=prompt, negative_prompt="blurry", seed=seed, steps=PROMPTS_STEPS,
+                   cfg_scale=7.0, width=1024, height=1024, sampler_name="DPM++ 2M",
+                   scheduler="karras", **fields)
+    engine.unet_batches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    img = res.images[0]
+    check(img.shape == (1024, 1024, 3) and img.dtype == np.uint8, "1024²×3 uint8 image")
+    check(0 < img.std(), f"prompts {label}: the image is not flat")
+    log(f"prompts {label} seed={seed}: latency {latency:.4f} s, timings "
+        + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+        + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, UNet batches "
+        + ", ".join(f"{shape} × {n}" for shape, n in engine.unet_batches.items())
+        + f", image mean {img.mean():.3f} std {img.std():.3f}")
+    return img, res
+
+
+def phase_prompts(engine, gen: torch.Generator):
+    """The prompt surface on the SDXL engine (see the docstring's phase 12)."""
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline import processing as proc
+    from forge_tpu_torch.pipeline.infotext import parse_generation_parameters
+    from forge_tpu_torch.runtime import styles
+    from forge_tpu_torch.runtime.options import opts
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logs", "chip_smoke_prompts")
+    emb_dir = os.path.join(work, "embeddings")
+    os.makedirs(emb_dir, exist_ok=True)
+    rng = np.random.default_rng(12)
+    save_safetensors({"clip_l": (rng.standard_normal((2, 768)) * 0.02).astype(np.float32),
+                      "clip_g": (rng.standard_normal((2, 1280)) * 0.02).astype(np.float32)},
+                     os.path.join(emb_dir, "forgeemb.safetensors"))
+    engine.embedding_db.load_dir(emb_dir)
+    check(set(engine.embedding_db.embeddings) == {"forgeemb"}, "the dual embedding loads")
+    for name, width in (("clip_l", 768), ("clip_g", 1280)):
+        chunk = engine.text_engines[name].tokenize_batch([PROMPTS_EDIT])[0][0][0]
+        check([v.shape for _, v in chunk.fixes] == [(2, width)],
+              f"{name} splices the embedding's 2 × {width} vectors")
+    csv_path = os.path.join(work, "styles.csv")
+    with open(csv_path, "w", encoding="utf-8") as f:
+        f.write("name,prompt,negative_prompt\n" + ",".join(f'"{v}"' for v in PROMPTS_STYLE) + "\n")
+    saved_styles = styles.prompt_styles
+    styles.prompt_styles = styles.StyleDatabase([csv_path])
+    apply_fn = engine.unet_apply_fn
+    engine.unet_batches = {}
+
+    def recording_apply_fn(hooks=None, controlnets=None):
+        fn = apply_fn(hooks=hooks, controlnets=controlnets)
+
+        def apply(params, x, t, *args, **kwargs):
+            shape = tuple(x.shape)
+            engine.unet_batches[shape] = engine.unet_batches.get(shape, 0) + 1
+            return fn(params, x, t, *args, **kwargs)
+
+        return apply
+
+    engine.unet_apply_fn = recording_apply_fn
+    total = {}
+    try:
+        # (a) prompt editing, the embedding, a style and CFG rescale 0.7, twice: the cond cache
+        encodes = []
+        real_cond = engine.get_learned_conditioning
+        engine.get_learned_conditioning = lambda *a, **k: encodes.append(a[0]) or real_cond(*a, **k)
+        zero_counts()
+        edit = dict(prompt=PROMPTS_EDIT, styles=[PROMPTS_STYLE[0]], cfg_rescale=0.7)
+        first, res = prompts_request(engine, "(a) editing + TI + style + rescale", **edit)
+        n_first = len(encodes)
+        second, res2 = prompts_request(engine, "(a) again", **edit)
+        launches = read_counts()
+        del engine.get_learned_conditioning
+        log(f"prompts (a): cond {res.timings['cond']:.4f} s, then {res2.timings['cond']:.4f} s "
+            f"from the cache ({n_first} encodes, then {len(encodes) - n_first})")
+        check(n_first == 3 and len(encodes) == n_first, "(a) three encodes, then a cache hit")
+        check(np.array_equal(first, second), "(a) twice gives identical bytes")
+        check(engine.unet_batches == {(2, 4, 128, 128): PROMPTS_STEPS}, "(a) 20 calls at batch 2")
+        check_counts(launches, PROMPTS_PER_REQUEST, 2, "the 2 (a) requests")
+        text = res.infotexts[0]
+        log("prompts (a) infotext: " + json.dumps(text))
+        d = parse_generation_parameters(text)
+        styled = PROMPTS_STYLE[1].replace("{prompt}", PROMPTS_EDIT)
+        check(d["Prompt"] == styled and d["Negative prompt"] == "blurry, " + PROMPTS_STYLE[2]
+              and (d["Steps"], d["Sampler"], d["Schedule type"], d["CFG scale"], d["Seed"],
+                   d["Size-1"], d["Size-2"]) == ("20", "DPM++ 2M", "Karras", "7.0", "1", "1024",
+                                                 "1024") and text == res2.infotexts[0],
+              "(a) the infotext parses back to the request")
+        total = dict(launches)
+
+        # (b) AND: seed 1 twice, seed 2; one request profiled; a batch-3 forward against plain
+        zero_counts()
+        images = [prompts_request(engine, "(b) AND", seed)[0] for seed in (1, 1, 2)]
+        launches = read_counts()
+        check(np.array_equal(images[0], images[1]), "(b) seed 1 twice gives identical bytes")
+        check(not np.array_equal(images[0], images[2]), "(b) seeds 1 and 2 differ")
+        check(engine.unet_batches == {(3, 4, 128, 128): PROMPTS_STEPS}, "(b) 20 calls at batch 3")
+        check_counts(launches, PROMPTS_PER_REQUEST, 3, "the 3 (b) requests")
+        total = {k: total[k] + launches[k] for k in total}
+        profile_request("prompts (b) AND 1024²", lambda: prompts_request(engine, "(b) profiled"))
+        with plain_versions():
+            plain_img, _ = prompts_request(engine, "(b) plain versions")
+        diff = np.abs(plain_img.astype(np.float64) - images[0].astype(np.float64))
+        log(f"prompts (b) image, kernels vs plain versions after 20 steps: PSNR "
+            f"{image_psnr(plain_img, images[0]):.2f} dB, "
+            f"max |Δ| {diff.max():.0f} of 255, mean |Δ| {diff.mean():.4f} (not a gate: the "
+            f"sampler carries each step's bf16 differences on; the forward below is held)")
+        # the witness: the AND request and the plain prompt "a cat" at the same seeds, each
+        # through the kernels and the plain versions. AND weighs the branches' differences
+        # by cfg·1, cfg·0.8 and 1 − cfg·1.8 where a plain prompt weighs them by cfg and
+        # 1 − cfg, so its images may read lower for the same kernels
+        kern = {(PROMPTS_AND, 1): images[0], (PROMPTS_AND, 2): images[2]}
+        plain = {(PROMPTS_AND, 1): plain_img}
+        for prompt in (PROMPTS_AND, "a cat"):
+            for seed in PROMPTS_WITNESS_SEEDS:
+                if (prompt, seed) not in kern:
+                    kern[prompt, seed] = prompts_request(engine, "(b) witness", seed, prompt)[0]
+                if (prompt, seed) not in plain:
+                    with plain_versions():
+                        plain[prompt, seed] = prompts_request(
+                            engine, "(b) witness plain versions", seed, prompt)[0]
+        for seed in PROMPTS_WITNESS_SEEDS:
+            db = [image_psnr(plain[q, seed], kern[q, seed]) for q in (PROMPTS_AND, "a cat")]
+            log(f"prompts (b) witness seed={seed}: kernels vs plain versions, AND {db[0]:.2f} dB, "
+                f"\"a cat\" {db[1]:.2f} dB, AND − plain prompt {db[0] - db[1]:+.2f} dB")
+        cond = engine.get_learned_conditioning(["a cat", " a red hat", "blurry"], 1024, 1024)
+        x = torch.randn((3, 4, 128, 128), generator=gen, device="cuda").to(engine.compute_dtype)
+        ts = torch.full((3,), 700.0, device="cuda")
+        kernels_vs_plain("sdxl unet AND batch 3 128x128", lambda: apply_fn()(
+            engine.loaded.unet, x, ts, cond["context"], y=cond["y"]))
+        del x
+
+        # (c) two regions, the left and the right half
+        zero_counts()
+        prompts_request(engine, "(c) regional", prompt="a winter landscape",
+                        regional_prompts=PROMPTS_REGIONS)
+        launches = read_counts()
+        check(engine.unet_batches == {(4, 4, 128, 128): PROMPTS_STEPS}, "(c) 20 calls at batch 4")
+        check_counts(launches, PROMPTS_PER_REQUEST, 1, "the (c) request")
+        total = {k: total[k] + launches[k] for k in total}
+
+        # (d) NGMS: the uncond dropped below σ = PROMPTS_NGMS
+        zero_counts()
+        with opts.override({"s_min_uncond": PROMPTS_NGMS}):
+            sigmas = proc.get_sigmas("karras", PROMPTS_STEPS, engine.predictor)
+            k = proc._ngms_split(proc.Processing(cfg_scale=7.0),
+                                 proc.Job(None, None, sigmas, None, {}, {}, None))
+            log(f"prompts (d): s_min_uncond {PROMPTS_NGMS} splits the 20 Karras σ at step {k}")
+            ngms = [prompts_request(engine, "(d) NGMS", prompt="a cat") for _ in range(2)]
+        launches = read_counts()
+        check(k is not None and engine.unet_batches == {(2, 4, 128, 128): k,
+                                                        (1, 4, 128, 128): PROMPTS_STEPS - k},
+              f"(d) {k} calls at batch 2, then {PROMPTS_STEPS - k} at batch 1")
+        check(np.array_equal(ngms[0][0], ngms[1][0]), "(d) twice gives identical bytes")
+        check(f"NGMS: {PROMPTS_NGMS}" in ngms[0][1].infotexts[0], "(d) the infotext records NGMS")
+        check_counts(launches, PROMPTS_PER_REQUEST, 2, "the 2 (d) requests")
+        total = {k: total[k] + launches[k] for k in total}
+    finally:
+        engine.unet_apply_fn = apply_fn
+        styles.prompt_styles = saved_styles
+    torch.cuda.empty_cache()
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
@@ -1443,6 +1654,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    from forge_tpu_torch.runtime.options import opts
+
+    opts.set("save_write_params_txt", False)  # no params.txt written inside timed requests
     summary = phase_kernels(gen)
     if args.kernels:
         log("kernels only: phases 1-2 passed")
@@ -1473,13 +1687,18 @@ def main():
         f"{time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     samplers_launches = phase_samplers(engine)
+    log(f"samplers phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    prompts_launches = phase_prompts(engine, gen)
     del engine
     torch.cuda.empty_cache()
-    log(f"samplers phase: {time.perf_counter() - t:.2f} s; script so far "
+    log(f"prompts phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
     paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
              "config3": config3_launches, "config5": config5_launches,
-             "config2": config2_launches, "samplers": samplers_launches}
+             "config2": config2_launches, "samplers": samplers_launches,
+             "prompts": prompts_launches}
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",

@@ -37,6 +37,7 @@ import torch
 
 from ..ops import quant as quant_mod
 from . import guess as guess_mod
+from .device import default_device, default_dtype
 from .convert import nest, quant_leaf, to_tensor
 from .state_dict import load_state_dict
 from .synth import LazyTensor
@@ -140,11 +141,15 @@ def to_device_tree(sd: Mapping[str, Any], dtype: torch.dtype, device,
     return nest(out)
 
 
-def load_checkpoint_parts(path_or_sd, dtype: torch.dtype = torch.float32, device="cpu",
+def load_checkpoint_parts(path_or_sd, dtype: Optional[torch.dtype] = None, device=None,
                           unet_quant: Optional[str] = None,
                           vae_dtype: Optional[torch.dtype] = None) -> LoadedCheckpoint:
-    """Checkpoint path (or flat state dict) → components on `device`; the
-    VAE in `vae_dtype` (default: `dtype`)."""
+    """Checkpoint path (or flat state dict) → components on `device` (the
+    CUDA card unless given; without one this raises) in `dtype` (bf16 on
+    CUDA, f32 on the CPU unless given); the VAE in `vae_dtype` (default:
+    `dtype`)."""
+    device = torch.device(device) if device is not None else default_device()
+    dtype = dtype or default_dtype(device)
     if unet_quant is not None and unet_quant not in UNET_QUANT:
         raise NotImplementedError(
             f"unet_quant={unet_quant!r} is not ported (ported: {', '.join(UNET_QUANT)})")

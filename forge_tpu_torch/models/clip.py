@@ -54,17 +54,22 @@ def clip_text_apply(
     params: Mapping[str, Any],
     tokens: torch.Tensor,
     cfg: Optional[ClipConfig] = None,
+    input_embeds: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
     """tokens [B, L] int → (final_hidden [B,L,D], hidden states [num_layers+1],
     pooled [B,D]). hidden_states[i] is the input to layer i; clip-skip k
-    selects hidden_states[-k]."""
+    selects hidden_states[-k]. `input_embeds` [B, L, D], when given, stands
+    for the token embeddings (textual-inversion vectors spliced in); the
+    pooled output is still taken at the EOT of `tokens`."""
     tm = params["text_model"]
     emb = tm["embeddings"]
     table = emb["token_embedding"]["weight"]
     cfg = cfg or ClipConfig.for_width(table.shape[1])
 
     seq = tokens.shape[1]
-    x = F.embedding(tokens, table) + emb["position_embedding"]["weight"][:seq]
+    if input_embeds is None:
+        input_embeds = F.embedding(tokens, table)
+    x = input_embeds + emb["position_embedding"]["weight"][:seq]
     causal = torch.ones(seq, seq, dtype=torch.bool, device=x.device).tril()[None, None]
     layers = tm["encoder"]["layers"]
 

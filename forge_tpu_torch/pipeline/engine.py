@@ -10,7 +10,9 @@ output and the embeddings of the original size, crop and the aesthetic
 score (6.0, or 2.5 for a negative prompt; 2560 wide). Flux: T5-XXL features
 are the context, CLIP-L's pooled output the `y` vector, and the distilled-CFG
 guidance scale is added to the conditioning at sampling time
-(pipeline/processing.py). `upscalers` (pipeline/upscalers.py), when set, is
+(pipeline/processing.py). `embedding_db` (text/textual_inversion.py) holds
+the textual-inversion embeddings every CLIP tower splices, CLIP-G from an
+embedding's `clip_g` vectors. `upscalers` (pipeline/upscalers.py), when set, is
 the registry the hires fix's pixel mode takes its upscaler from.
 `lora_registry` (pipeline/extra_networks.py), when
 set, resolves the prompt's `<lora:name:weight>` tags. The decode is split in
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core import latent_formats
+from ..core.device import default_device, default_dtype
 from ..core.loader import FAMILIES, LoadedCheckpoint, load_checkpoint_parts
 from ..models import flux as flux_mod
 from ..models import unet as unet_mod
@@ -45,6 +48,7 @@ from ..runtime.options import opts
 from ..sampling.prediction import DiscretePrediction, PredictionFlux
 from ..text.engine import ClassicTextEngine, TextEncoderOptions
 from ..text.t5_engine import T5TextEngine
+from ..text.textual_inversion import EmbeddingDatabase
 from ..text.tokenizer import default_tokenizer
 
 _NAN_MESSAGES = {
@@ -73,19 +77,6 @@ class DecodeHandle:
     done: Optional["torch.cuda.Event"]
 
 
-def default_device() -> torch.device:
-    """The device an engine runs on unless the caller names one: the CUDA
-    card. Where there is none this raises; the CPU is taken only on request."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("forge_tpu_torch: no CUDA device found; pass device=\"cpu\" "
-                           "to run on the CPU")
-    return torch.device("cuda")
-
-
-def default_dtype(device) -> torch.dtype:
-    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
-
-
 def vae_dtype_for(compute_dtype: torch.dtype) -> torch.dtype:
     """The VAE's dtype under the `vae_dtype` option ("auto": the compute dtype)."""
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(opts.get("vae_dtype"),
@@ -100,7 +91,8 @@ def _cast_tree(tree, dtype: torch.dtype):
 
 
 class DiffusionEngine:
-    def __init__(self, loaded: LoadedCheckpoint, device, compute_dtype: torch.dtype):
+    def __init__(self, loaded: LoadedCheckpoint, device, compute_dtype: torch.dtype,
+                 embeddings_dir: Optional[str] = None):
         if loaded.family not in FAMILIES:
             raise NotImplementedError(f"{loaded.family} is not ported yet (ported: {FAMILIES})")
         self.family = loaded.family
@@ -118,16 +110,24 @@ class DiffusionEngine:
         tes = loaded.text_encoders
         self.text_engines = {}
         tokenizer = default_tokenizer()
+        self.embedding_db = EmbeddingDatabase(tokenizer)
+        if embeddings_dir:
+            self.embedding_db.load_dir(embeddings_dir)
+        db = self.embedding_db
         if loaded.family == "sdxl":  # each tower's heads and activation follow its width
-            for name, pooled in (("clip_l", False), ("clip_g", True)):
+            for name, pooled, which in (("clip_l", False, "l"), ("clip_g", True, "g")):
                 self.text_engines[name] = ClassicTextEngine(
                     tes[name], tokenizer,
-                    TextEncoderOptions(layer="hidden", pooled_projection=pooled))
+                    TextEncoderOptions(layer="hidden", pooled_projection=pooled,
+                                       which_embedding=which), embedding_db=db)
         elif loaded.family == "sdxl_refiner":
             self.text_engines["clip_g"] = ClassicTextEngine(
-                tes["clip_g"], tokenizer, TextEncoderOptions(layer="hidden", pooled_projection=True))
+                tes["clip_g"], tokenizer,
+                TextEncoderOptions(layer="hidden", pooled_projection=True, which_embedding="g"),
+                embedding_db=db)
         elif "clip_l" in tes:
-            self.text_engines["clip_l"] = ClassicTextEngine(tes["clip_l"], tokenizer)
+            self.text_engines["clip_l"] = ClassicTextEngine(tes["clip_l"], tokenizer,
+                                                            embedding_db=db)
         if loaded.family == "flux":
             hidden = loaded.unet["img_in"]["weight"].shape[0]
             self.flux_cfg = flux_mod.FluxConfig(num_heads=max(hidden // 128, 1),
@@ -273,15 +273,17 @@ class DiffusionEngine:
 
 
 def load_engine(path_or_sd, device=None, dtype: Optional[torch.dtype] = None,
-                unet_quant: Optional[str] = None) -> DiffusionEngine:
+                unet_quant: Optional[str] = None,
+                embeddings_dir: Optional[str] = None) -> DiffusionEngine:
     """Checkpoint path (.safetensors or .gguf) or flat state dict → engine on
     `device` (the CUDA card unless given; without one this raises). `dtype` is the weights' and activations'
     dtype: bf16 on CUDA and f32 on the CPU unless given. `unet_quant`
     ("nf4" | "q8_0" | "q4_0") quantizes the diffusion model's large matmul
-    weights at load (core/loader.py)."""
+    weights at load (core/loader.py). `embeddings_dir` holds the
+    textual-inversion embeddings the prompts' trigger words take."""
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
     return DiffusionEngine(load_checkpoint_parts(path_or_sd, dtype=dtype, device=device,
                                                  unet_quant=unet_quant,
                                                  vae_dtype=vae_dtype_for(dtype)),
-                           device, dtype)
+                           device, dtype, embeddings_dir=embeddings_dir)

@@ -4,7 +4,8 @@ Parse and strip the tags from the prompts, resolve LoRA files from the
 registry, and build patched UNet and text-encoder parameter trees for this
 generation (copy on write, core/patches.py: the engine's weights are never
 changed). The reference's option `extra_networks_default_multiplier` takes
-its default, 1.0; its "Lora hashes" infotext waits for the infotext port.
+its default, 1.0. Given the request, `activate` records the "Lora hashes"
+infotext key: each file's first MiB through sha256, 10 hex digits.
 """
 
 from __future__ import annotations
@@ -55,6 +56,18 @@ def parse_prompts(prompts: List[str]) -> Tuple[List[str], List[ExtraNetworkParam
     return cleaned, first
 
 
+def _short_file_hash(path: str, _cache: Dict[str, str] = {}) -> str:
+    """10 hex digits of sha256 over the file's first MiB."""
+    if path not in _cache:
+        import hashlib
+
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            h.update(f.read(1 << 20))
+        _cache[path] = h.hexdigest()[:10]
+    return _cache[path]
+
+
 class LoraRegistry:
     """LoRA file discovery and a state-dict LRU (reference networks.py:56)."""
 
@@ -89,13 +102,21 @@ class LoraRegistry:
 
 
 def activate(engine, prompts: List[str], registry: Optional[LoraRegistry] = None,
-             ) -> Tuple[List[str], Any, Dict[str, Any]]:
+             p=None) -> Tuple[List[str], Any, Dict[str, Any]]:
     """→ (cleaned prompts, UNet params, {text engine name: patched params}).
-    Without LoRA tags or a registry the UNet params are the engine's own."""
+    Without LoRA tags or a registry the UNet params are the engine's own.
+    With the request `p`, its "Lora hashes" infotext key is recorded."""
     cleaned, networks = parse_prompts(prompts)
     loras = [n for n in networks if n.kind in ("lora", "lyco")]
     if not loras or registry is None:
         return cleaned, engine.loaded.unet, {}
+
+    if p is not None:
+        hashes = {n.name: _short_file_hash(registry.available[n.name]) for n in loras
+                  if registry.available.get(n.name)}
+        if hashes:
+            p.extra_generation_params["Lora hashes"] = ", ".join(
+                f"{k}: {v}" for k, v in hashes.items())
 
     unet_keys = flatten(engine.loaded.unet).keys()
     te_keys = {name: flatten(te.params).keys() for name, te in engine.text_engines.items()}

@@ -1,13 +1,15 @@
 """Image resizing for img2img (port of forge_tpu/pipeline/images.py
-`resize_init_image`), CLIP-vision preprocessing and the simple upscalers.
+`resize_init_image`), CLIP-vision preprocessing, regional prompt masks and
+the simple upscalers.
 
 The reference resizes with PIL's LANCZOS (init images, the "Lanczos"
-upscaler), BICUBIC (the CLIP-vision input) and NEAREST (the "Nearest"
-upscaler); the card's machine has no Pillow, so `lanczos_resize`,
-`bicubic_resize` and `nearest_resize` compute what Pillow's `Image.resize`
-does for 8-bit images, in numpy. Lanczos and bicubic: per axis, the
-filter's taps at half-pixel centres (Lanczos a = 3, support 3; cubic
-a = −0.5, support 2; the support widened by the scale when shrinking),
+upscaler), BICUBIC (the CLIP-vision input), BILINEAR (regional prompts'
+masks) and NEAREST (the "Nearest" upscaler); the card's machine has no
+Pillow, so `lanczos_resize`, `bicubic_resize`, `bilinear_resize` and
+`nearest_resize` compute what Pillow's `Image.resize` does for 8-bit images,
+in numpy. Lanczos, bicubic and bilinear: per axis, the filter's taps at
+half-pixel centres (Lanczos a = 3, support 3; cubic a = −0.5, support 2;
+the triangle, support 1; the support widened by the scale when shrinking),
 normalised, then rounded to 22-bit fixed point; the horizontal pass first,
 its result rounded and clipped to uint8, then the vertical pass the same
 way. Nearest: Pillow's affine scale, the source coordinate of output i
@@ -41,7 +43,13 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}  # (filter, support)
+def _triangle(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0),  # (filter, support)
+            "bilinear": (_triangle, 1.0)}
 
 
 def _coefficients(n_in: int, n_out: int, kind: str):
@@ -92,6 +100,11 @@ def _resize(img: np.ndarray, w: int, h: int, kind: str) -> np.ndarray:
 def lanczos_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
     """uint8 [H,W] or [H,W,C] → [h,w(,C)], as Pillow's LANCZOS resize."""
     return _resize(img, w, h, "lanczos")
+
+
+def bilinear_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 [H,W] or [H,W,C] → [h,w(,C)], as Pillow's BILINEAR resize."""
+    return _resize(img, w, h, "bilinear")
 
 
 def bicubic_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:

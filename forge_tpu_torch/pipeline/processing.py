@@ -59,14 +59,34 @@ copy to the host, the NaN checks) and `finish` (the inpaint composite or
 paste). `process_images` runs them in turn, with the refiner's switch
 inside `sample` and `hires_pass` between the denoise and the decode.
 
+The prompt surface: styles (runtime/styles.py) expand into the prompts once,
+up front; `[from:to:when]` editing encodes each variant once and stacks them
+into per-step conds (sampling/cfg.py `PerStep`) that the step loop selects
+by the host σ; `AND` parts and `regional_prompts` ({prompt, weight, area
+[x, y, w, h] fractions or mask [H, W], mask_strength, feather}) add cond
+branches to the one batched UNet call, the regions blended by multiplier
+maps at latent size; textual-inversion trigger words take their vectors in
+the text engines (text/textual_inversion.py). cond, uncond and the AND
+branches are cached per engine for the last four distinct requests
+(`_cond_cache_key`). `cfg_rescale` rescales the CFG result. NGMS (the
+`s_min_uncond` option) samples the txt2img pass's σ below the threshold
+without the uncond branch; its per-step conds still select by the σ's
+position in the whole pass (the reference restarts them at the split).
+Every image gets an infotext (pipeline/infotext.py) in `Processed.infotexts`,
+and `params.txt` the first one under the `save_write_params_txt` option.
+
 `Processing` takes only the fields this port reads. Any other field of the
-reference's request (scripts, styles, soft inpainting, ...) raises
-NotImplementedError rather than being ignored, as do prompt features not
-ported yet: `[from:to:when]` editing and `AND` composition.
+reference's request (scripts, hooks, hook phases, soft inpainting, ...)
+raises NotImplementedError rather than being ignored, as do combinations the
+reference mixes or fails on: AND or regional branches with the refiner or
+on Flux, regional masks or the base prompt's AND branches under a hires pass
+that changes the latent size's masks or re-encodes the prompt, and `AND` or
+`[from:to:when]` in a prompt the refiner or a hires pass encodes itself.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import inspect
 import random
@@ -87,7 +107,8 @@ from ..sampling.tiled import make_tiled_apply
 from ..text.schedule import get_schedule, split_composable
 from .engine import DiffusionEngine
 from .extra_networks import activate, parse_prompt
-from .images import resize_init_image
+from .images import bilinear_resize, resize_init_image
+from .infotext import create_infotext, write_params_txt
 from .masking import expand_crop_region, get_crop_region, resize_image
 
 TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 32
@@ -97,6 +118,7 @@ TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 3
 class Processing:
     prompt: str = ""
     negative_prompt: str = ""
+    styles: Optional[List[str]] = None  # style names from runtime/styles.py's `prompt_styles`
     seed: int = -1
     subseed: int = -1
     subseed_strength: float = 0.0
@@ -120,6 +142,14 @@ class Processing:
     all_seeds: Optional[List[int]] = None
     all_subseeds: Optional[List[int]] = None
     initial_noise_multiplier: float = 1.0
+    cfg_rescale: float = 0.0
+    # the model's name and hash for the infotext
+    sd_model_name: Optional[str] = None
+    sd_model_hash: Optional[str] = None
+    extra_generation_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # regional prompts: {prompt, weight?, area? [x, y, w, h] fractions, mask? [H, W] 0..1,
+    # mask_strength?, feather? (latent pixels)}, an area or a mask each
+    regional_prompts: Optional[List[Dict[str, Any]]] = None
     # img2img
     init_images: Optional[List[np.ndarray]] = None  # [H,W,3] uint8 or float in [0, 1]
     resize_mode: int = 0  # 0 just resize, 1 crop and resize, 2 resize and fill, 3 latent
@@ -150,7 +180,7 @@ class Processing:
     refiner_switch_at: float = 0.0
 
     def __setattr__(self, name, value):
-        if name not in _FIELDS and name not in _ENGINE_ATTRS:
+        if name not in _FIELDS and name not in _INTERNAL_ATTRS:
             raise NotImplementedError(
                 f"Processing.{name} is not ported to forge_tpu_torch yet")
         object.__setattr__(self, name, value)
@@ -166,8 +196,9 @@ class Processing:
 
 
 _FIELDS = frozenset(f.name for f in dataclasses.fields(Processing))
-# engines a caller (or a test) hands the request directly, ahead of ENGINE_RESOLVER
-_ENGINE_ATTRS = frozenset(("_hr_engine", "_refiner_engine"))
+# engines a caller (or a test) hands the request directly, ahead of ENGINE_RESOLVER, and
+# the engine's family, which the infotext reads
+_INTERNAL_ATTRS = frozenset(("_hr_engine", "_refiner_engine", "_engine_family"))
 
 
 @dataclasses.dataclass
@@ -175,6 +206,8 @@ class Processed:
     images: List[np.ndarray]  # uint8 HWC
     seeds: List[int]
     subseeds: List[int]
+    infotexts: List[str]
+    params: Dict[str, Any]
     timings: Dict[str, float]
 
 
@@ -194,6 +227,10 @@ class Job:
     paste: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None
     seeds: Optional[List[int]] = None  # the batch's seeds and subseeds (the hires noise)
     subseeds: Optional[List[int]] = None
+    branches: Optional[List[Dict[str, Any]]] = None  # AND parts after the first, then regions
+    weights: Optional[List[float]] = None  # one a branch, the first cond's first
+    masks: Optional[List[Optional[torch.Tensor]]] = None  # regional maps [1, 1, h, w] or None
+    sigma_table: Optional[np.ndarray] = None  # the σ the per-step conds select by (None: sigmas)
 
 
 def _resolve_seeds(p: Processing) -> None:
@@ -228,11 +265,107 @@ def _apply_option_defaults(p: Processing) -> None:
         p.initial_noise_multiplier = float(opts.get("initial_noise_multiplier"))
 
 
-def _check_prompt(p: Processing, text: str) -> None:
-    """`text` with its extra-network tags stripped."""
-    if len(split_composable(text)) > 1 or len(get_schedule(text, p.steps)) > 1:
-        raise NotImplementedError(
-            f"prompt editing / AND composition in {text!r} is not ported yet")
+def _record_generation_params(engine: DiffusionEngine, p: Processing) -> None:
+    """The infotext's keys the request's options decide, in
+    `p.extra_generation_params` (the sampler's eta and σ keys, the img2img
+    and inpainting keys, the hires keys, the refiner's), and the model's name
+    and hash where the engine has them."""
+    info = get_sampler(p.sampler_name)
+    eg = p.extra_generation_params
+    p._engine_family = engine.family
+    if p.sd_model_name is None:
+        name = getattr(engine, "checkpoint_name", None)
+        if name:
+            p.sd_model_name = name.rsplit(".", 1)[0]
+    if p.sd_model_hash is None:
+        p.sd_model_hash = getattr(engine, "checkpoint_hash", None)
+
+    if info.discard_next_to_last_sigma:
+        eg["Discard penultimate sigma"] = "True"
+    if info.noise_draws > 0 and info.uses_ensd and p.eta != 1.0:
+        eg["Eta"] = p.eta
+    if info.uses_eta_ddim and p.eta_ddim > 0:
+        eg["Eta DDIM"] = p.eta_ddim
+    if p.s_churn:
+        eg["Sigma churn"] = p.s_churn
+    if p.s_noise != 1.0:
+        eg["Sigma noise"] = p.s_noise
+
+    if p.init_images is not None:
+        eg["Denoising strength"] = p.denoising_strength
+        if p.inpaint_mask is not None:
+            eg["Mask blur"] = p.mask_blur if p.mask_blur else None
+            if p.inpainting_mask_invert:
+                eg["Mask mode"] = "Inpaint not masked"
+            if p.inpaint_full_res:
+                eg["Inpaint area"] = "Only masked"
+                eg["Masked area padding"] = p.inpaint_full_res_padding
+            if p.inpainting_fill != "original":
+                eg["Masked content"] = p.inpainting_fill.replace("_", " ")
+        if p.initial_noise_multiplier != 1.0:
+            eg["Noise multiplier"] = p.initial_noise_multiplier
+    elif p.enable_hr:
+        eg["Denoising strength"] = p.hr_denoising_strength
+        eg["Hires upscale"] = p.hr_scale
+        if p.hr_resize_x and p.hr_resize_y:
+            eg["Hires resize"] = f"{p.hr_resize_x}x{p.hr_resize_y}"
+        if p.hr_second_pass_steps:
+            eg["Hires steps"] = p.hr_second_pass_steps
+        eg["Hires upscaler"] = p.hr_upscaler
+        if p.hr_checkpoint_name:
+            eg["Hires checkpoint"] = p.hr_checkpoint_name
+        if p.hr_prompt:
+            eg["Hires prompt"] = p.hr_prompt
+        if p.hr_negative_prompt:
+            eg["Hires negative prompt"] = p.hr_negative_prompt
+        if p.hr_cfg_scale:
+            eg["Hires CFG Scale"] = p.hr_cfg_scale
+
+    if p.refiner_checkpoint and 0.0 < p.refiner_switch_at < 1.0:
+        eg["Refiner"] = p.refiner_checkpoint
+        eg["Refiner switch at"] = p.refiner_switch_at
+
+
+def setup(engine: DiffusionEngine, p: Processing) -> None:
+    """A request's setup, once: its styles expand into the prompts (the
+    infotext records the styled prompts), then the seeds, the option
+    defaults and the infotext's keys."""
+    if p.styles:
+        from ..runtime.styles import prompt_styles
+
+        p.prompt = prompt_styles.apply_styles_to_prompt(p.prompt, p.styles)
+        p.negative_prompt = prompt_styles.apply_negative_styles_to_prompt(p.negative_prompt,
+                                                                          p.styles)
+        if p.hr_prompt:
+            p.hr_prompt = prompt_styles.apply_styles_to_prompt(p.hr_prompt, p.styles)
+        if p.hr_negative_prompt:
+            p.hr_negative_prompt = prompt_styles.apply_negative_styles_to_prompt(
+                p.hr_negative_prompt, p.styles)
+        p.styles = None  # applied once
+    _resolve_seeds(p)
+    _apply_option_defaults(p)
+    _record_generation_params(engine, p)
+
+
+def infotexts(p: Processing, seeds: List[int], subseeds: List[int]) -> List[str]:
+    return [create_infotext(p, seed, sub) for seed, sub in zip(seeds, subseeds)]
+
+
+def _simple_params(p: Processing) -> Dict[str, Any]:
+    """The request's plain fields (scalars, strings, lists and dicts of
+    them), shallow copies: never a deep copy of arrays or tensors."""
+    out: Dict[str, Any] = {}
+    for f in dataclasses.fields(p):
+        v = getattr(p, f.name)
+        if v is None or isinstance(v, (bool, int, float, str)):
+            out[f.name] = v
+        elif isinstance(v, (list, tuple)) and all(
+                x is None or isinstance(x, (bool, int, float, str)) for x in v):
+            out[f.name] = list(v)
+        elif isinstance(v, dict) and all(
+                x is None or isinstance(x, (bool, int, float, str)) for x in v.values()):
+            out[f.name] = dict(v)
+    return out
 
 
 def _auto_schedule(sampler_name: str, scheduler: str) -> str:
@@ -276,37 +409,170 @@ def _image_rng(p: Processing, info, shape, seeds, subseeds) -> ImageRNG:
         eta_noise_seed_delta=p.eta_noise_seed_delta if info.uses_ensd else 0)
 
 
+def _build_scheduled_cond(engine: DiffusionEngine, p: Processing, prompts: List[str],
+                          max_chunks: Optional[int] = None, is_negative: bool = False,
+                          allow_and: bool = True):
+    """Encode prompts with their `[from:to:when]` schedules and `AND` parts →
+    (cond, the branches after the first, their weights) — (cond, None, None)
+    without AND. A scheduled prompt encodes each variant once; its cond
+    values are PerStep tensors [steps, B, ...], the variant of each step."""
+    def encode(texts):
+        return engine.get_learned_conditioning(texts, p.width, p.height, max_chunks=max_chunks,
+                                               is_negative=is_negative)
+
+    def encode_scheduled(text):
+        sched = get_schedule(text, p.steps)
+        if len(sched) == 1:
+            return encode([sched[0][1]] * len(prompts))
+        variants = [encode([t] * len(prompts)) for _, t in sched]
+        idx = np.zeros(p.steps, np.int64)
+        start = 0
+        for vi, (end, _) in enumerate(sched):
+            idx[start:end] = vi
+            start = end
+        return {k: cfg_mod.PerStep(torch.stack([variants[i][k] for i in idx]))
+                for k in variants[0]}
+
+    parts = split_composable(prompts[0]) if allow_and else [(prompts[0], 1.0)]
+    conds = [encode_scheduled(text) for text, _ in parts]
+    if len(conds) == 1:
+        return conds[0], None, None
+    return conds[0], conds[1:], [w for _, w in parts]
+
+
+_COND_CACHE_SIZE = 4
+
+
+def _cond_cache_key(engine: DiffusionEngine, p: Processing, prompts, negs, max_chunks):
+    """The cond cache's key: the engine's weights, the prompts (the raw ones
+    carry the LoRA tags that patch the text encoders), steps, size, clip
+    skip, the chunk count, the emphasis mode and the embeddings' version.
+    Regional prompts carry masks and are not cached."""
+    if p.regional_prompts:
+        return None
+    return (id(engine.loaded), p.prompt, p.negative_prompt, tuple(prompts), tuple(negs), p.steps,
+            p.width, p.height, p.clip_skip, max_chunks, opts.get("emphasis"),
+            engine.embedding_db.version)
+
+
+def _cond_cache_get(engine: DiffusionEngine, key):
+    cache = getattr(engine, "_cond_cache", None)
+    if key is None or cache is None or key not in cache:
+        return None
+    cache.move_to_end(key)
+    cond, uncond, branches, weights = cache[key]
+    return dict(cond), dict(uncond), branches, weights
+
+
+def _cond_cache_put(engine: DiffusionEngine, key, cond, uncond, branches, weights) -> None:
+    if key is None:
+        return
+    cache = getattr(engine, "_cond_cache", None)
+    if cache is None:
+        cache = engine._cond_cache = collections.OrderedDict()
+    cache[key] = (dict(cond), dict(uncond), branches, weights)
+    while len(cache) > _COND_CACHE_SIZE:
+        cache.popitem(last=False)
+
+
+def _region_mult_map(spec: Dict[str, Any], lh: int, lw: int) -> np.ndarray:
+    """A regional prompt's multiplier map at latent size [lh, lw]: an area
+    rectangle with an 8-step (`feather`) linear ramp on every edge that does
+    not touch the canvas, or a mask taken to uint8 and resized as Pillow's
+    BILINEAR does, times `mask_strength`."""
+    if spec.get("mask") is not None:
+        mask = np.asarray(spec["mask"], np.float32)
+        if mask.ndim == 3:
+            mask = mask.mean(-1)
+        if mask.max() > 1.5:
+            mask = mask / 255.0
+        img = np.clip(mask * 255, 0, 255).astype(np.uint8)
+        m = bilinear_resize(img, lw, lh).astype(np.float32) / 255.0
+        return m * float(spec.get("mask_strength", 1.0))
+    x, y, w, h = spec.get("area", (0.0, 0.0, 1.0, 1.0))
+    x0 = int(round(x * lw))
+    y0 = int(round(y * lh))
+    x1 = min(lw, x0 + max(1, int(round(w * lw))))
+    y1 = min(lh, y0 + max(1, int(round(h * lh))))
+    m = np.zeros((lh, lw), np.float32)
+    m[y0:y1, x0:x1] = 1.0
+    rr = int(spec.get("feather", 8))
+    for t in range(rr):
+        f = (t + 1) / rr
+        if y0 != 0 and y0 + t < y1:
+            m[y0 + t, x0:x1] *= f
+        if y1 != lh and y1 - 1 - t >= y0:
+            m[y1 - 1 - t, x0:x1] *= f
+        if x0 != 0 and x0 + t < x1:
+            m[y0:y1, x0 + t] *= f
+        if x1 != lw and x1 - 1 - t >= x0:
+            m[y0:y1, x1 - 1 - t] *= f
+    return m
+
+
+def _attach_regional_conds(engine: DiffusionEngine, p: Processing, branches, weights,
+                           max_chunks):
+    """p.regional_prompts as branches after the AND parts, each with its
+    multiplier map; the prompt's own branches keep the whole canvas (None),
+    so pixels no region covers fall back to them → (branches, weights, masks)."""
+    branches = list(branches or [])
+    weights = list(weights or [1.0] * (1 + len(branches)))
+    masks: List[Optional[torch.Tensor]] = [None] * (1 + len(branches))
+    lh, lw = p.height // 8, p.width // 8
+    for spec in p.regional_prompts:
+        rcond, _, _ = _build_scheduled_cond(engine, p, [spec["prompt"]] * p.batch_size,
+                                            max_chunks=max_chunks, allow_and=False)
+        branches.append(rcond)
+        weights.append(float(spec.get("weight", 1.0)))
+        masks.append(torch.from_numpy(_region_mult_map(spec, lh, lw))[None, None]
+                     .to(engine.device))
+    return branches, weights, masks
+
+
 def _conditioning(engine: DiffusionEngine, p: Processing, timings: Dict[str, float]):
-    """LoRA activation, then cond and uncond with a shared chunk count →
-    (cond, uncond, the UNet params the LoRAs patched)."""
+    """LoRA activation, then cond, uncond and the AND and regional branches
+    at a shared chunk count (from the cache where the request repeats) →
+    (cond, uncond, the UNet params the LoRAs patched, branches, weights, masks)."""
     tl = time.perf_counter()
     prompts, unet_params, patched_tes = activate(engine, [p.prompt] * p.batch_size,
-                                                 registry=engine.lora_registry)
+                                                 registry=engine.lora_registry, p=p)
     negs = [parse_prompt(p.negative_prompt)[0]] * p.batch_size
-    _check_prompt(p, prompts[0])
-    _check_prompt(p, negs[0])
     _add_time(timings, "lora", tl)
 
     tc = time.perf_counter()
-    te = engine.text_engines.get("clip_l")
+    te = next((e for e in engine.text_engines.values() if hasattr(e, "tokenize_batch")), None)
     orig_te = {name: engine.text_engines[name].params for name in patched_tes}
     try:
         for name, params in patched_tes.items():
             engine.text_engines[name].params = params
         max_chunks = (1 if te is None else
                       max(te.tokenize_batch(prompts)[1], te.tokenize_batch(negs)[1]))
-        cond = engine.get_learned_conditioning(prompts, p.width, p.height, max_chunks=max_chunks)
-        uncond = engine.get_learned_conditioning(negs, p.width, p.height, max_chunks=max_chunks)
+        key = _cond_cache_key(engine, p, prompts, negs, max_chunks)
+        cached = _cond_cache_get(engine, key)
+        if cached is not None:
+            cond, uncond, branches, weights = cached
+        else:
+            cond, branches, weights = _build_scheduled_cond(engine, p, prompts, max_chunks)
+            uncond, _, _ = _build_scheduled_cond(engine, p, negs, max_chunks, is_negative=True,
+                                                 allow_and=False)
+            _cond_cache_put(engine, key, cond, uncond, branches, weights)
+        masks = None
+        if p.regional_prompts:
+            branches, weights, masks = _attach_regional_conds(engine, p, branches, weights,
+                                                              max_chunks)
     finally:
         for name, params in orig_te.items():
             engine.text_engines[name].params = params
     if engine.family == "flux":
+        if branches:  # the reference adds the guidance to cond and uncond only
+            raise NotImplementedError("AND and regional prompts on Flux are not ported: the "
+                                      "reference's branches lack the guidance scale")
         g = torch.full((p.batch_size,), float(p.distilled_cfg_scale),
                        dtype=torch.float32, device=engine.device)
         cond = dict(cond, guidance=g)
         uncond = dict(uncond, guidance=g)
     _add_time(timings, "cond", tc)
-    return cond, uncond, unet_params
+    return cond, uncond, unet_params, branches, weights, masks
 
 
 def _prep_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
@@ -461,7 +727,7 @@ def prepare(engine: DiffusionEngine, p: Processing, it: int,
     seeds = p.all_seeds[it * p.batch_size:(it + 1) * p.batch_size]
     subseeds = p.all_subseeds[it * p.batch_size:(it + 1) * p.batch_size]
     engine.set_clip_skip(p.clip_skip)
-    cond, uncond, unet_params = _conditioning(engine, p, timings)
+    cond, uncond, unet_params, branches, weights, masks = _conditioning(engine, p, timings)
     args = (engine, p, seeds, subseeds, cond, uncond, unet_params, timings)
     if p.init_images is None:
         job = _prep_txt2img(*args)
@@ -470,6 +736,7 @@ def prepare(engine: DiffusionEngine, p: Processing, it: int,
     else:
         job = _prep_img2img(*args)
     job.seeds, job.subseeds = seeds, subseeds
+    job.branches, job.weights, job.masks = branches, weights, masks
     return job
 
 
@@ -492,10 +759,14 @@ def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
                                            engine.compute_dtype)
     if p.tiled_diffusion:  # inside CFG: every tile's forward sees the CFG batch
         apply_model = _tiled(apply_model, p.tiled_diffusion, job.x)
-    model_fn = cfg_mod.make_cfg_model_fn(apply_model, job.cond,
-                                         None if p.cfg_scale == 1.0 else job.uncond,
-                                         p.cfg_scale * info.cfg_multiplier,
-                                         return_uncond=info.needs_uncond)
+        p.extra_generation_params.setdefault(
+            "Tiled Diffusion", f"MultiDiffusion tile {p.tiled_diffusion.get('tile', 96)}")
+    model_fn = cfg_mod.make_cfg_model_fn(
+        apply_model, job.cond, None if p.cfg_scale == 1.0 else job.uncond,
+        p.cfg_scale * info.cfg_multiplier, cfg_rescale=p.cfg_rescale,
+        sigmas_np=job.sigmas if job.sigma_table is None else job.sigma_table,
+        cond_branches=job.branches, branch_weights=job.weights, branch_masks=job.masks,
+        return_uncond=info.needs_uncond)
     if job.mask is not None:
         masked = cfg_mod.make_masked_pair_fn if info.needs_uncond else cfg_mod.make_masked_model_fn
         model_fn = masked(model_fn, job.mask, job.init_latent)
@@ -529,10 +800,9 @@ def _resolve_engine(p: Processing, name: Optional[str], attr: str) -> DiffusionE
 def _encode_base_conds(engine: DiffusionEngine, p: Processing, prompt: str, negative: str):
     """cond and uncond from another engine's text stack (the refiner's, the
     hires checkpoint's) or for the hires prompts: the prompts with their
-    extra-network tags stripped, each at its own chunk count."""
+    extra-network tags stripped, each at its own chunk count. These conds
+    are plain (`_refuse_mixed` refuses `AND` and `[from:to:when]` here)."""
     prompt, negative = parse_prompt(prompt)[0], parse_prompt(negative)[0]
-    _check_prompt(p, prompt)
-    _check_prompt(p, negative)
     b = p.batch_size
     cond = engine.get_learned_conditioning([prompt] * b, p.width, p.height)
     uncond = engine.get_learned_conditioning([negative] * b, p.width, p.height, is_negative=True)
@@ -548,14 +818,71 @@ def _refiner_step(p: Processing, n_steps: int) -> Optional[int]:
     return max(1, min(n_steps - 1, int(round(switch_at * n_steps))))
 
 
+def _ngms_split(p: Processing, job: Job) -> Optional[int]:
+    """NGMS: the first step whose σ is below the `s_min_uncond` option, where
+    the uncond branch is dropped, or None (no threshold, CFG 1, AND or
+    regional branches, or no σ on each side of it)."""
+    thr = float(opts.get("s_min_uncond") or 0.0)
+    if thr <= 0 or p.cfg_scale == 1.0 or job.branches:
+        return None
+    below = np.asarray(job.sigmas[:-1]) < thr
+    if not below.any() or below.all():
+        return None
+    k = int(np.argmax(below))
+    return k if 0 < k < len(job.sigmas) - 1 else None
+
+
+def _refuse_mixed(p: Processing, job: Job) -> None:
+    """The combinations the reference mixes or fails on raise, before the
+    first denoise."""
+    if p.init_images is not None:
+        return
+    refiner = _refiner_step(p, len(job.sigmas) - 1) is not None
+    hr_reencode = p.enable_hr and bool(p.hr_prompt or p.hr_negative_prompt
+                                       or p.hr_checkpoint_name
+                                       or getattr(p, "_hr_engine", None) is not None)
+    if job.branches and refiner:
+        raise NotImplementedError("AND or regional prompts with the refiner are not ported: "
+                                  "the reference joins the refiner's conds with the base's "
+                                  "branches of another width")
+    if job.branches and p.enable_hr and job.masks:
+        raise NotImplementedError("regional prompts with the hires fix are not ported: the "
+                                  "reference applies the first pass's masks to the hires latent")
+    if job.branches and hr_reencode:
+        raise NotImplementedError("AND prompts with a hires pass that encodes its own conds "
+                                  "are not ported: the reference keeps the first prompt's "
+                                  "branches beside them")
+    # the refiner's and a re-encoding hires pass's conds are plain (_encode_base_conds)
+    texts = [p.prompt, p.negative_prompt] if refiner else []
+    if hr_reencode:
+        texts += [p.hr_prompt or p.prompt, p.hr_negative_prompt or p.negative_prompt]
+    for text in texts:
+        text = parse_prompt(text)[0]
+        if len(split_composable(text)) > 1 or len(get_schedule(text, p.steps)) > 1:
+            raise NotImplementedError(
+                f"AND or [from:to:when] in {text!r} for the refiner or a hires pass's own "
+                "conds is not ported: the reference encodes it as literal text")
+
+
 def sample(engine: DiffusionEngine, job: Job, timings: Dict[str, float]):
-    """`denoise`, with the refiner's two-pass switch where a txt2img request
-    asks for it → (latent, the engine that decodes it)."""
+    """`denoise`, with the refiner's two-pass switch or the NGMS split where
+    a txt2img request asks for it → (latent, the engine that decodes it)."""
     p = job.p
+    _refuse_mixed(p, job)
     k = _refiner_step(p, len(job.sigmas) - 1) if p.init_images is None else None
-    if k is None:
-        return denoise(engine, job), engine
     noise = job.step_noise
+    if k is None:
+        k = _ngms_split(p, job) if p.init_images is None else None
+        if k is None:
+            return denoise(engine, job), engine
+        # NGMS: the tail without the uncond, its conds selected in the whole σ table
+        head = dataclasses.replace(job, sigmas=job.sigmas[:k + 1], sigma_table=job.sigmas,
+                                   step_noise=None if noise is None else noise[:k])
+        tail = dataclasses.replace(job, x=denoise(engine, head), sigmas=job.sigmas[k:],
+                                   sigma_table=job.sigmas, uncond=None,
+                                   step_noise=None if noise is None else noise[k:])
+        p.extra_generation_params.setdefault("NGMS", float(opts.get("s_min_uncond")))
+        return denoise(engine, tail), engine
     latent = denoise(engine, dataclasses.replace(
         job, sigmas=job.sigmas[:k + 1], step_noise=None if noise is None else noise[:k]))
     refiner = _resolve_engine(p, p.refiner_checkpoint, "_refiner_engine")
@@ -641,7 +968,8 @@ def hires_pass(engine: DiffusionEngine, job: Job, latent: torch.Tensor,
     step_noise = _prepare_noise(p, rng, info, sigmas, job.seeds, hr_engine.device)
     x = hr_engine.predictor.noise_scaling(float(np.float32(sigmas[0])), noise0, latent.float())
     q = dataclasses.replace(p, cfg_scale=p.hr_cfg_scale or p.cfg_scale)
-    latent = denoise(hr_engine, Job(q, x, sigmas, step_noise, cond, uncond, unet_params))
+    latent = denoise(hr_engine, Job(q, x, sigmas, step_noise, cond, uncond, unet_params,
+                                    branches=job.branches, weights=job.weights))
     if latent.is_cuda:
         torch.cuda.synchronize(latent.device)
     _add_time(timings, "hires_sample", t)
@@ -651,10 +979,10 @@ def hires_pass(engine: DiffusionEngine, job: Job, latent: torch.Tensor,
 @torch.no_grad()
 def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
     t0 = time.perf_counter()
-    _resolve_seeds(p)
-    _apply_option_defaults(p)
+    setup(engine, p)
     timings: Dict[str, float] = {}
     images: List[np.ndarray] = []
+    texts: List[str] = []
     for it in range(p.n_iter):
         job = prepare(engine, p, it, timings)
         t1 = time.perf_counter()
@@ -668,6 +996,9 @@ def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
         batch = out_engine.decode_finish(out_engine.decode_dispatch(latent))
         _add_time(timings, "decode", t2)
         images.extend(finish(job, batch))
+        texts.extend(infotexts(p, job.seeds, job.subseeds))
     timings["total"] = time.perf_counter() - t0
+    if texts and opts.get("save_write_params_txt"):
+        write_params_txt(texts[0])
     return Processed(images=images, seeds=list(p.all_seeds), subseeds=list(p.all_subseeds),
-                     timings=timings)
+                     infotexts=texts, params=_simple_params(p), timings=timings)

@@ -81,6 +81,15 @@ _DEFAULTS = {
     "eta_noise_seed_delta": OptionInfo(0, "ENSD", "sampler"),
     "beta_dist_alpha": OptionInfo(0.6, "Beta schedule alpha", "sampler"),
     "beta_dist_beta": OptionInfo(0.6, "Beta schedule beta", "sampler"),
+    "emphasis": OptionInfo("Original", "Emphasis mode", "sd",
+                           ["None", "Ignore", "Original", "No norm"]),
+    "s_min_uncond": OptionInfo(0.0, "NGMS: skip uncond below sigma", "perf"),
+    "save_write_params_txt": OptionInfo(True, "Write params.txt after generation", "saving"),
+    "add_model_name_to_info": OptionInfo(True, "Model name in infotext", "infotext"),
+    "add_model_hash_to_info": OptionInfo(True, "Model hash in infotext", "infotext"),
+    "add_version_to_infotext": OptionInfo(True, "Version in infotext", "infotext"),
+    "infotext_styles": OptionInfo("Apply if any", "Infotext style extraction", "infotext",
+                                  ["Ignore", "Apply", "Discard", "Apply if any"]),
 }
 for _k, _v in _DEFAULTS.items():
     opts.add(_k, _v)

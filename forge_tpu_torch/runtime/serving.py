@@ -8,9 +8,10 @@ current request's denoise on the card.
           enqueued on the card's stream with no wait
   finish  (thread 3): wait for that copy's event, the NaN checks, the images
 
-The stages are pipeline/processing.py's `prepare`, `denoise`,
-`engine.decode_dispatch` / `engine.decode_finish` and `finish`, the code
-`process_images` runs, so a served request gives the same bytes as
+The stages are pipeline/processing.py's `setup` and `prepare`, `sample`
+(the NGMS split where the options ask for it), `engine.decode_dispatch` /
+`engine.decode_finish`, `finish` and `infotexts`, the code `process_images`
+runs, so a served request gives the same bytes and infotexts as
 `process_images` on the same `Processing`. All three threads launch onto
 the default stream, and only the finish stage waits on the card, on its
 own request's event. Each thread enters `torch.no_grad()` itself: grad mode
@@ -21,7 +22,7 @@ A failed stage fails its request's future with the exception and the
 pipeline goes on with the next request. Requests with init images
 (img2img), the hires fix, a refiner or `n_iter` > 1 are refused, as the
 reference's serving takes plain txt2img requests. The reference's HBM plan (`plan_generation`, tiled
-VAE) and infotexts are not ported yet.
+VAE) is not ported yet.
 """
 
 from __future__ import annotations
@@ -119,12 +120,11 @@ class ServingPipeline:
             raise NotImplementedError("serving takes plain txt2img requests of one batch "
                                       "(no init_images, hires fix or refiner; n_iter 1); "
                                       "use process_images")
-        proc._resolve_seeds(p)
-        proc._apply_option_defaults(p)
+        proc.setup(self.engine, p)
         return (proc.prepare(self.engine, p, 0, timings),)
 
     def _denoise(self, p, timings, job):
-        latent = proc.denoise(self.engine, job)
+        latent, _ = proc.sample(self.engine, job, timings)
         t0 = time.perf_counter()
         handle = self.engine.decode_dispatch(latent)
         timings["decode_dispatch"] = time.perf_counter() - t0
@@ -132,12 +132,13 @@ class ServingPipeline:
 
     def _finish(self, p, timings, job, handle):
         images = proc.finish(job, self.engine.decode_finish(handle))
-        return {"images": images, "seeds": list(p.all_seeds), "timings": timings}
+        return {"images": images, "seeds": list(p.all_seeds),
+                "infotexts": proc.infotexts(p, job.seeds, job.subseeds), "timings": timings}
 
 
 def serve_throughput(engine, ps: List[proc.Processing], depth: int = 4) -> dict:
     """Run a list of requests through the pipeline → {wall_s, n_images,
-    images_per_s, outputs} (each output {images, seeds, timings})."""
+    images_per_s, outputs} (each output {images, seeds, infotexts, timings})."""
     pipe = ServingPipeline(engine, depth=depth)
     try:
         t0 = time.perf_counter()

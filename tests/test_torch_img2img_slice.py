@@ -160,10 +160,21 @@ def test_only_masked_inverts_the_mask_once(setup):
 
 
 def test_prompt_features_not_ported_still_raise(setup):
+    """Prompt editing and AND run now, beside a LoRA tag (its hash in the
+    infotext), on img2img too; in the prompt a hires pass encodes for
+    itself they still raise (the reference encodes them as literal text)."""
     from forge_tpu_torch.pipeline import processing as tproc
+    from forge_tpu_torch.runtime.options import opts
 
-    teng = setup[1]
-    for prompt in ("a [cat:dog:0.5] <lora:tiny:0.8>", "a cat AND a dog"):
+    teng, init = setup[1], setup[4]
+    with opts.override({"save_write_params_txt": False}):
+        for prompt in ("a [cat:dog:0.5] <lora:tiny:0.8>", "a cat AND a dog"):
+            for fields in ({}, dict(init_images=[init], denoising_strength=0.6)):
+                res = tproc.process_images(teng, tproc.Processing(
+                    prompt=prompt, seed=1, steps=2, width=SIZE, height=SIZE, **fields))
+                assert res.images[0].shape == (SIZE, SIZE, 3)
+                assert ('Lora hashes: "tiny: ' in res.infotexts[0]) == ("lora" in prompt)
         with pytest.raises(NotImplementedError, match="not ported"):
-            tproc.process_images(teng, tproc.Processing(prompt=prompt, steps=2, width=SIZE,
-                                                        height=SIZE))
+            tproc.process_images(teng, tproc.Processing(
+                prompt="a cat", hr_prompt="a [cat:dog:0.5]", enable_hr=True, steps=2,
+                width=SIZE, height=SIZE))

@@ -16,7 +16,9 @@ from fixtures import make_sd15_checkpoint  # noqa: E402
 
 KEYS = ("eta_ancestral", "eta_ddim", "s_churn", "s_noise", "eta_noise_seed_delta",
         "CLIP_stop_at_last_layers", "initial_noise_multiplier", "beta_dist_alpha",
-        "beta_dist_beta", "disable_nan_check", "vae_dtype")
+        "beta_dist_beta", "disable_nan_check", "vae_dtype", "emphasis", "s_min_uncond",
+        "save_write_params_txt", "add_model_name_to_info",
+        "add_model_hash_to_info", "add_version_to_infotext", "infotext_styles")
 
 
 def test_registered_keys_carry_the_reference_defaults():
@@ -24,14 +26,16 @@ def test_registered_keys_carry_the_reference_defaults():
     from forge_tpu_torch.runtime.options import opts
 
     assert set(opts._registry) == set(KEYS)
-    for key in KEYS:
-        assert opts.get(key) == jopts.get(key), key
+    for key in KEYS:  # the registered defaults (tests/conftest.py sets forge_tpu's params.txt off)
+        assert opts._registry[key].default == jopts._registry[key].default, key
+        assert opts._registry[key].choices == jopts._registry[key].choices, key
 
 
 def test_unregistered_key_raises():
     from forge_tpu_torch.runtime.options import opts
 
-    for key in ("s_min_uncond", "cfg_rescale", "no_such_option"):
+    for key in ("textual_inversion_add_hashes_to_infotext", "s_min_uncond_all", "cfg_rescale",
+                "no_such_option"):
         with pytest.raises(KeyError, match="not ported"):
             opts.set(key, 1.0)
         with pytest.raises(KeyError, match="not ported"):
@@ -39,7 +43,8 @@ def test_unregistered_key_raises():
         with pytest.raises(KeyError, match="not ported"):
             with opts.override({key: 1.0}):
                 pass
-    assert "s_min_uncond" not in opts._values
+    assert "textual_inversion_add_hashes_to_infotext" not in opts._values
+    assert "s_min_uncond_all" not in opts._values
 
 
 def test_set_and_override():

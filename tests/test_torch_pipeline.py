@@ -71,8 +71,10 @@ def test_processing_refuses_unported_fields():
     p = Processing()
     with pytest.raises(NotImplementedError, match="soft_inpainting"):
         p.soft_inpainting = {"mask_blend_power": 1.0}
-    with pytest.raises(NotImplementedError, match="styles"):
-        Processing(prompt="x", styles=["cinematic"])
+    for name, value in (("hook_phases", [(0.5, {})]), ("cond_transform", lambda c: c),
+                        ("pre_cfg_hooks", [lambda *a: a]), ("cfg_combine_hook", object())):
+        with pytest.raises(NotImplementedError, match=name):
+            Processing(prompt="x", **{name: value})
 
 
 def test_port_imports_no_jax():
@@ -82,12 +84,14 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(forge_tpu_torch.__path__, "
         "'forge_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 57, mods\n"
+        "assert len(mods) >= 61, mods\n"
         "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors',"
         " 'transformers') or m.startswith(('jax.', 'forge_tpu.', 'PIL.', 'safetensors.',"
         " 'transformers.'))]\n"
         "assert 'forge_tpu_torch.pipeline.upscalers' in mods, mods\n"
         "assert {'forge_tpu_torch.runtime.options', 'forge_tpu_torch.sampling.brownian'} <= set(mods)\n"
+        "assert {'forge_tpu_torch.text.textual_inversion', 'forge_tpu_torch.runtime.styles',"
+        " 'forge_tpu_torch.pipeline.infotext', 'forge_tpu_torch.core.device'} <= set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -70,6 +70,35 @@ def test_served_sde_request_matches_process_images(engine):
     assert not np.array_equal(ref.images[0], process_images(engine, _p(5)).images[0])
 
 
+@pytest.mark.parametrize("prompt, options", [
+    ("a photograph of an astronaut AND a red horse :0.7", {}),
+    ("a photograph of an [astronaut:diver:0.5] riding a horse", {}),
+    ("a photograph of an astronaut riding a horse", {"s_min_uncond": 3.0}),
+], ids=["AND", "prompt editing", "NGMS"])
+def test_served_prompt_features_match_process_images(engine, prompt, options):
+    """An AND request (UNet batch 6 at batch size 2), a prompt-editing one
+    (per-step conds) and an NGMS one (the tail at batch 2) give the bytes and
+    infotexts their sequential twins give; the infotext records the NGMS
+    threshold where it acted."""
+    from forge_tpu_torch.pipeline.processing import process_images
+    from forge_tpu_torch.runtime.options import opts
+    from forge_tpu_torch.runtime.serving import serve_throughput
+
+    # an override is the calling thread's: the serving threads read the set value
+    opts.set("s_min_uncond", options.get("s_min_uncond", 0.0))
+    try:
+        with opts.override({"save_write_params_txt": False}):
+            ref = process_images(engine, _p(9, prompt=prompt))
+        served = serve_throughput(engine, [_p(9, prompt=prompt)])["outputs"][0]
+    finally:
+        opts.set("s_min_uncond", 0.0)
+    assert served["seeds"] == ref.seeds == [9, 10]
+    assert all(np.array_equal(a, b) for a, b in zip(served["images"], ref.images))
+    assert served["infotexts"] == ref.infotexts and len(ref.infotexts) == 2
+    assert ("NGMS: 3.0" in ref.infotexts[0]) == bool(options)
+    assert ["Seed: 9," in ref.infotexts[0], "Seed: 10," in ref.infotexts[1]] == [True, True]
+
+
 def test_serving_pipelines_multiple_requests(engine, hooks):
     from forge_tpu_torch.runtime.serving import serve_throughput
 
@@ -155,7 +184,9 @@ def test_serving_stages_run_without_grad(engine, monkeypatch):
         return q, k, v
 
     monkeypatch.setattr(engine, "get_learned_conditioning", spy_encode)
-    serve_throughput(engine, [_p(1, {"attn1_patch": [spy_attention]})])
+    # a prompt no earlier request encoded: the cond cache would answer for one
+    serve_throughput(engine, [_p(1, {"attn1_patch": [spy_attention]},
+                                 prompt="a prompt only the grad check encodes")])
     assert seen == {"prep": {("serve-prep", False)}, "denoise": {("serve-denoise", False)}}
 
 
