@@ -1,10 +1,12 @@
 """Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths, its SDXL
 img2img-inpaint path with a LoRA and a ControlNet, its batched SDXL serving with an
 IP-Adapter and a MultiDiffusion upscale, its SDXL hires fix and refiner, one
-sampler of each group and the prompt surface on SDXL, on one NVIDIA GPU.
+sampler of each group and the prompt surface on SDXL, and SD2.1-768-v, SD3-medium
+and Playground v2.5, on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
+    python3 chip_smoke.py --families   # phase 1, phase 2's rows for phase 13, phase 13; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -109,7 +111,28 @@ Phases:
      regional prompts on the left and right halves (feather 8) at batch 4;
      (d) NGMS at s_min_uncond 1.0, twice: batch 2, then batch 1 from the split;
      each with latency, phases, peak memory, the UNet's batch shapes with
-     their calls and exact launch counts by body.
+     their calls and exact launch counts by body;
+ 13. the other diffusion families, each made on the card at its published
+     widths and driven with its model card's request: SD2.1-768-v (UNet
+     320·(1,2,4,4), 64-wide heads, linear projections, context 1024;
+     OpenCLIP ViT-H/14's text tower; v by its marker key) at 768², DPM++ 2M
+     Karras, 20 steps, CFG 7; SD3-medium (24 joint blocks, hidden 1536, a
+     192² positional grid; CLIP-L, CLIP-G, T5-XXL; the 16-channel VAE) at
+     1024², Euler "simple", 28 steps, CFG 7, shift 3.0; Playground v2.5
+     (SDXL's geometry, EDM at σ_data 0.5, the channel latent format) at
+     1024², DPM++ 2M Karras, 50 steps, CFG 3. Each: the engine's widths
+     checked, a warm request, seeds 1, 2, 1 (seed 1 twice byte-identical)
+     with latency, phases, peak memory and exact launch counts by body, one
+     profiled request, seed 1's whole request through the plain versions
+     (its image ≥ 40 dB against the kernels' for SD3 and Playground; for
+     SD2, which reads under, printed beside a witness: the plain versions
+     from a starting noise moved by subseed strength 0.001), and the
+     network's forward
+     (CFG batch 2, the request's latent) and the VAE decode through the
+     kernels and the plain versions. Phase 2 holds flash at SD3's ragged q(2,24,4250,64), SD2's
+     q(2,5,9216,64) and the 768² VAE's q(1,1,9216,512), and the conv at
+     SD2's fourteen (C, O, size) (twelve are config 5's tile rows) and the
+     768² decoder's six.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -165,6 +188,12 @@ FLASH_SHAPES = [  # (B, H, Lq, D), Lk, a shape of a main path
     ((1, 10, 4096, 64), 4096, True),
     ((1, 20, 1024, 64), 1024, True),
 ]
+FAMILY_FLASH_SHAPES = [  # SD2.1-768-v, SD3-medium and Playground v2.5 (SDXL's shapes)
+    ((2, 24, 4250, 64), 4250, True),    # SD3 joint attention: 77 + 77 text, 4096 image tokens
+    ((2, 5, 9216, 64), 9216, True),     # SD2 level 0 at 768²: 96² tokens, 5 heads
+    ((1, 1, 9216, 512), 9216, True),    # the VAE mid-block decoding 768²
+]  # SD2's levels 1 and 2 (2304 and 576 tokens) are config 5's tile rows above
+FLASH_SHAPES += FAMILY_FLASH_SHAPES
 FLASH_SUMMARY_SHAPE = FLASH_SHAPES[0][0]  # the JSON line's flash row (the same shape since the first)
 GN_CONV_SHAPES = [  # (B, C, H, W), O
     ((2, 320, 64, 64), 320),     # UNet level-0 resblock
@@ -211,6 +240,17 @@ GN_CONV_SHAPES += [((2, c, side, side), o) for c, o, side in REFINER_CONV_SHAPES
 # the prompts phase: the twelve pairs at UNet batch 3 (AND) and 1 (the NGMS tail) on 128², 64², 32²
 GN_CONV_SHAPES += [((b, c, 128 >> level, 128 >> level), o) for b in (3, 1)
                    for c, o, level in SDXL_CONV_PAIRS]
+# SD2.1-768-v: every (C, O, size) of its UNet's 44 ResBlock convs on 96² latents at CFG batch
+# 2 (twelve of them are config 5's 96²-tile rows, held once), and of the VAE decoder at 768²
+SD2_CONV_SHAPES = [(320, 320, 96), (640, 320, 96), (960, 320, 96), (320, 640, 48),
+                   (640, 640, 48), (960, 640, 48), (1280, 640, 48), (1920, 640, 48),
+                   (640, 1280, 24), (1280, 1280, 24), (1920, 1280, 24), (2560, 1280, 24),
+                   (1280, 1280, 12), (2560, 1280, 12)]
+FAMILY_CONV_SHAPES = ([((2, c, side, side), o) for c, o, side in SD2_CONV_SHAPES]
+                      + [((1, 512, 96, 96), 512), ((1, 512, 192, 192), 512),
+                         ((1, 512, 384, 384), 256), ((1, 256, 384, 384), 256),
+                         ((1, 256, 768, 768), 128), ((1, 128, 768, 768), 128)])
+GN_CONV_SHAPES += [shape for shape in FAMILY_CONV_SHAPES if shape not in GN_CONV_SHAPES]
 PLAIN_MAX_LOGITS = 1 << 30  # above this many logits a head, plain flash is checked on row slices
 DEQUANT_SHAPES = [  # (M, N, K) of the Flux-dev linears at 1024²
     (4608, 21504, 3072),  # single block linear1
@@ -300,6 +340,28 @@ PROMPTS_WITNESS_SEEDS = (1, 2, 3)  # AND and "a cat", each through the kernels a
 PROMPTS_REGIONS = [dict(prompt="a red fox in the snow", area=(0.0, 0.0, 0.5, 1.0), feather=8),
                    dict(prompt="a snowy owl on a branch", area=(0.5, 0.0, 0.5, 1.0), feather=8)]
 PROMPTS_NGMS = 1.0  # s_min_uncond: the 20 Karras σ fall below it from step 11 (σ 0.791)
+# the other diffusion families, each at its published widths with its model card's request
+# (tests/test_torch_sd2.py, test_torch_sd3.py and test_torch_playground.py trace them): model
+# calls a request, and each call's flash and fused-conv launches; every request then decodes
+# (one flash, 28 convs). SD2: 15 self-attentions of ≥ 512 tokens and 22 ResBlocks a call; SD3:
+# 24 joint attentions and no ResBlock; Playground: SDXL's 70 and 34
+FAMILIES = {
+    "sd2": dict(synth="synth_sd2_checkpoint", family="sd20", size=768, sampler="DPM++ 2M",
+                scheduler="karras", steps=20, cfg=7.0, calls=20, flash=15, conv=44,
+                request_gate=False),
+    "sd3": dict(synth="synth_sd3_checkpoint", family="sd3", size=1024, sampler="Euler",
+                scheduler="simple", steps=28, cfg=7.0, calls=28, flash=24, conv=0,
+                request_gate=True),
+    "playground": dict(synth="synth_playground_checkpoint", family="playground", size=1024,
+                       sampler="DPM++ 2M", scheduler="karras", steps=50, cfg=3.0, calls=50,
+                       flash=70, conv=34, request_gate=True),
+}
+# `request_gate`: the whole request's image through the kernels is held ≥ PSNR_BOUND against
+# the plain versions'. SD2's reads under it (36.66 dB on an H100 80GB HBM3, its forward 49.93
+# dB): its gate is the forward, as the prompts phase's AND request's, and a witness measures how
+# far a perturbation of the starting noise of a bf16 rounding's size moves the plain image
+FAMILY_WITNESS_SUBSEED = dict(subseed=2, subseed_strength=0.001)
+FAMILY_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
 
 
 def log(*args):
@@ -417,12 +479,12 @@ def phase_dequant(gen: torch.Generator, summary):
     torch.cuda.empty_cache()
 
 
-def phase_flash(gen: torch.Generator, summary):
+def phase_flash(gen: torch.Generator, summary, shapes=FLASH_SHAPES):
     from forge_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_plain,
                                                      flash_body)
 
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
-        for (b, h, lq, d), lk, main_path in FLASH_SHAPES:
+        for (b, h, lq, d), lk, main_path in shapes:
             # plain holds every logit in f32: past PLAIN_MAX_LOGITS it is held on the first and
             # the last 1024 query rows against all of K and V (rows are independent, so that is
             # exact), and the shape is run in bf16 only
@@ -473,13 +535,13 @@ def phase_flash(gen: torch.Generator, summary):
     torch.cuda.empty_cache()
 
 
-def phase_conv(gen: torch.Generator, summary):
+def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
     import torch.nn.functional as F
 
     from forge_tpu_torch.ops.fused_gn_conv import conv_body, gn_silu_conv3x3, gn_silu_conv3x3_plain
 
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
-        for (b, c, hh, ww), o in GN_CONV_SHAPES:
+        for (b, c, hh, ww), o in shapes:
             x = torch.randn((b, c, hh, ww), generator=gen, device="cuda").to(dtype)
             a = 1.0 + 0.1 * torch.randn((b, c), generator=gen, device="cuda")
             s = 0.1 * torch.randn((b, c), generator=gen, device="cuda")
@@ -530,8 +592,14 @@ def phase_conv(gen: torch.Generator, summary):
     torch.cuda.empty_cache()
 
 
-def phase_kernels(gen: torch.Generator):
+def phase_kernels(gen: torch.Generator, families_only: bool = False):
+    """Phase 2; with `families_only`, the flash and conv rows of the SD2, SD3
+    and Playground paths alone."""
     summary = {}
+    if families_only:
+        phase_flash(gen, summary, FAMILY_FLASH_SHAPES)
+        phase_conv(gen, summary, FAMILY_CONV_SHAPES)
+        return summary
     phase_flash(gen, summary)
     phase_conv(gen, summary)
     phase_dequant(gen, summary)
@@ -1543,6 +1611,135 @@ def phase_prompts(engine, gen: torch.Generator):
     return total
 
 
+def family_request(engine, spec, seed: int, label: str, **fields):
+    """One request of the family's model card with `fields` → its image; logs
+    the latency, the phases and peak memory."""
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    size = spec["size"]
+    p = Processing(prompt=FAMILY_PROMPT, negative_prompt="blurry", seed=seed,
+                   steps=spec["steps"], cfg_scale=spec["cfg"], width=size, height=size,
+                   sampler_name=spec["sampler"], scheduler=spec["scheduler"], **fields)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    img = res.images[0]
+    check(img.shape == (size, size, 3) and img.dtype == np.uint8, f"{size}²×3 uint8 image")
+    log(f"{spec['family']} request {label} seed={seed}: latency {latency:.4f} s, "
+        f"{spec['steps'] / latency:.4f} steps/s, timings "
+        + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+        + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"image mean {img.mean():.3f} std {img.std():.3f}")
+    return img
+
+
+def check_family_engine(name: str, engine):
+    """The engine's family, widths and objective are the published model's."""
+    from forge_tpu_torch.core.convert import flatten
+    from forge_tpu_torch.sampling.prediction import PredictionEDM, PredictionFlow
+
+    unet = engine.loaded.unet
+    width = {n: t["text_model"]["embeddings"]["token_embedding"]["weight"].shape[1]
+             for n, t in engine.loaded.text_encoders.items() if "text_model" in t}
+    layers = {n: len(t["text_model"]["encoder"]["layers"])
+              for n, t in engine.loaded.text_encoders.items() if "text_model" in t}
+    if name == "sd3":
+        blocks = len(unet["joint_blocks"])
+        hidden = unet["x_embedder"]["proj"]["bias"].shape[0]
+        t5 = engine.loaded.text_encoders["t5xxl"]["shared"]["weight"].shape
+        log(f"  sd3: {blocks} joint blocks, hidden {hidden}, {engine.mmdit_cfg.num_heads} heads, "
+            f"pos grid {engine.mmdit_cfg.pos_embed_max_size}², context {engine.loaded.context_dim}, "
+            f"CLIP-L {width['clip_l']} × {layers['clip_l']}, CLIP-G {width['clip_g']} × "
+            f"{layers['clip_g']}, T5 {tuple(t5)}, shift {engine.predictor.shift}")
+        check((blocks, hidden, engine.mmdit_cfg.num_heads, engine.mmdit_cfg.pos_embed_max_size,
+               engine.loaded.context_dim, width, layers, t5[1])
+              == (24, 1536, 24, 192, 4096, {"clip_l": 768, "clip_g": 1280},
+                  {"clip_l": 12, "clip_g": 32}, 4096)
+              and isinstance(engine.predictor, PredictionFlow) and engine.predictor.shift == 3.0,
+              "SD3-medium at full width")
+        return
+    blocks = sum(k.endswith("attn1.to_q.weight") for k in flatten(unet))
+    ctx = unet["middle_block"]["1"]["transformer_blocks"]["0"]["attn2"]["to_k"]["weight"].shape[1]
+    log(f"  {engine.family}: {blocks} transformer blocks, context {ctx}, text "
+        + ", ".join(f"{n} {width[n]} × {layers[n]}" for n in width)
+        + f", prediction {engine.loaded.prediction}, σ {engine.predictor.sigma_min:.4g}–"
+        f"{engine.predictor.sigma_max:.4g}")
+    if name == "sd2":
+        check((blocks, ctx, width, layers, engine.loaded.prediction)
+              == (16, 1024, {"clip_h": 1024}, {"clip_h": 24}, "v"), "SD2.1-768-v at full width")
+    else:
+        check((blocks, ctx, width, layers) == (70, 2048, {"clip_l": 768, "clip_g": 1280},
+                                               {"clip_l": 12, "clip_g": 32})
+              and isinstance(engine.predictor, PredictionEDM)
+              and (engine.predictor.sigma_min, engine.predictor.sigma_max,
+                   engine.predictor.sigma_data) == (0.002, 120.0, 0.5),
+              "Playground v2.5 at full width, EDM")
+
+
+def phase_family(name: str, gen: torch.Generator):
+    """One diffusion family at its published widths (see the docstring's
+    phase 13): a warm request, seeds 1, 2, 1 with exact launch counts, one
+    profiled request, seed 1's request through the plain versions, and the
+    network's forward and the VAE decode through the kernels and the plain
+    versions."""
+    from forge_tpu_torch.core import synth
+    from forge_tpu_torch.core.synth import DeviceFill
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline.engine import load_engine
+
+    spec = FAMILIES[name]
+    engine, _ = timed(f"{name}: weights made on the card and loaded", lambda: load_engine(
+        getattr(synth, spec["synth"])(fill=DeviceFill("cuda", seed=0)), device="cuda"))
+    log(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check(engine.family == spec["family"] and engine.compute_dtype == torch.bfloat16,
+          f"{name} engine, bf16")
+    check_family_engine(name, engine)
+    family_request(engine, spec, 0, "warm")
+    zero_counts()
+    images = [family_request(engine, spec, seed, "") for seed in (1, 2, 1)]
+    launches = read_counts()
+    check(np.array_equal(images[0], images[2]), f"{name} seed 1 twice gives identical bytes")
+    check(not np.array_equal(images[0], images[1]), f"{name} seeds 1 and 2 differ")
+    per_request = {"flash_attention": spec["calls"] * spec["flash"] + 1,
+                   "gn_silu_conv3x3": spec["calls"] * spec["conv"] + 28, "dequant_matmul": 0}
+    check_counts(launches, per_request, 3, f"the 3 {name} requests")
+    profile_request(f"{name} {spec['size']}²", lambda: family_request(engine, spec, 1, "profiled"))
+    with plain_versions():
+        plain_img = family_request(engine, spec, 1, "plain versions")
+    value = image_psnr(plain_img, images[0])
+    diff = np.abs(plain_img.astype(np.float64) - images[0].astype(np.float64))
+    log(f"{name} image, kernels vs plain versions after {spec['steps']} steps: PSNR {value:.2f} dB, "
+        f"max |Δ| {diff.max():.0f} of 255, mean |Δ| {diff.mean():.4f}"
+        + (f" (bound {PSNR_BOUND})" if spec["request_gate"] else
+           " (not a gate: the forward below is held)"))
+    if spec["request_gate"]:
+        check(value >= PSNR_BOUND, f"{name} whole request kernels vs plain PSNR ≥ {PSNR_BOUND} dB")
+    else:  # the witness: the plain versions against themselves from a perturbed start
+        with plain_versions():
+            moved = family_request(engine, spec, 1, "plain versions, witness",
+                                   **FAMILY_WITNESS_SUBSEED)
+        log(f"{name} witness: plain versions, seed 1 against seed 1 with subseed "
+            f"{FAMILY_WITNESS_SUBSEED['subseed']} at strength "
+            f"{FAMILY_WITNESS_SUBSEED['subseed_strength']}: PSNR {image_psnr(plain_img, moved):.2f} "
+            f"dB (kernels vs plain {value:.2f} dB)")
+
+    size, dt = spec["size"], engine.compute_dtype
+    channels = engine.latent_format.latent_channels
+    cond = engine.get_learned_conditioning([FAMILY_PROMPT, "blurry"], size, size)
+    ts = torch.tensor([float(engine.predictor.timestep(np.float32(s)))
+                       for s in (engine.predictor.sigma_max * 0.9, 1.0)], device="cuda")
+    x = torch.randn((2, channels, size // 8, size // 8), generator=gen, device="cuda").to(dt)
+    net = engine.unet_apply_fn()
+    kernels_vs_plain(f"{name} {'mmdit' if name == 'sd3' else 'unet'} {size // 8}² B=2",
+                     lambda: net(engine.loaded.unet, x, ts, **cond))
+    z = torch.randn((1, channels, size // 8, size // 8), generator=gen, device="cuda")
+    kernels_vs_plain(f"{name} vae decode {size}²", lambda: engine.decode_first_stage(z))
+    del engine, x, z
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
@@ -1623,6 +1820,9 @@ def ptxas_summary(build_log: str):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true", help="run phases 1-2 only")
+    ap.add_argument("--families", action="store_true",
+                    help="run phase 1, phase 2's SD2, SD3 and Playground rows and phase 13 only, "
+                         "with no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1657,9 +1857,17 @@ def main():
     from forge_tpu_torch.runtime.options import opts
 
     opts.set("save_write_params_txt", False)  # no params.txt written inside timed requests
-    summary = phase_kernels(gen)
+    summary = phase_kernels(gen, families_only=args.families)
     if args.kernels:
         log("kernels only: phases 1-2 passed")
+        return
+    if args.families:
+        for name in FAMILIES:
+            t = time.perf_counter()
+            phase_family(name, gen)
+            log(f"{name} phase: {time.perf_counter() - t:.2f} s; script so far "
+                f"{time.perf_counter() - t_start:.2f} s")
+        log("families only: phases 1, 2 (their rows) and 13 passed")
         return
     t = time.perf_counter()
     engine, launches = phase_slice()
@@ -1699,6 +1907,11 @@ def main():
              "config3": config3_launches, "config5": config5_launches,
              "config2": config2_launches, "samplers": samplers_launches,
              "prompts": prompts_launches}
+    for name in FAMILIES:
+        t = time.perf_counter()
+        paths[name] = phase_family(name, gen)
+        log(f"{name} phase: {time.perf_counter() - t:.2f} s; script so far "
+            f"{time.perf_counter() - t_start:.2f} s")
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",

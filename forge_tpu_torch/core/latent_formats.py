@@ -1,4 +1,5 @@
-# Copied from forge_tpu/core/latent_formats.py; numpy/stdlib only, so the port imports no JAX.
+# Copied from forge_tpu/core/latent_formats.py; stdlib only, so the port imports no JAX.
+# `ChannelLatentFormat` takes NCHW tensors (the port's layout) and broadcasts over their channel axis.
 """Latent regulation (scale/shift) per model family — the reference's
 `process_in/out` latent "regulation" on the VAE patcher (backend/nn/vae.py,
 patcher/vae.py)."""
@@ -29,18 +30,17 @@ class ChannelLatentFormat(LatentFormat):
     mean: tuple = (0.0, 0.0, 0.0, 0.0)
     std: tuple = (1.0, 1.0, 1.0, 1.0)
 
-    def process_in(self, latent):
-        import numpy as np
+    def _stats(self, latent):
+        """mean and std as [1, C, 1, …] tensors in latent's dtype, on its device."""
+        shape = (1, -1) + (1,) * (latent.dim() - 2)
+        return latent.new_tensor(self.mean).reshape(shape), latent.new_tensor(self.std).reshape(shape)
 
-        m = np.asarray(self.mean, np.float32)
-        s = np.asarray(self.std, np.float32)
+    def process_in(self, latent):
+        m, s = self._stats(latent)
         return (latent - m) * (self.scale_factor / s)
 
     def process_out(self, latent):
-        import numpy as np
-
-        m = np.asarray(self.mean, np.float32)
-        s = np.asarray(self.std, np.float32)
+        m, s = self._stats(latent)
         return latent * (s / self.scale_factor) + m
 
 

@@ -1,8 +1,11 @@
-"""Checkpoint → device parameter trees (port of forge_tpu/core/loader.py: SD1.5, SDXL base and refiner, and Flux).
+"""Checkpoint → device parameter trees (port of forge_tpu/core/loader.py: SD1.5,
+SD2, SDXL base and refiner, Playground v2.5, SD3 and Flux).
 
 Load the file (or take a flat state dict), guess the architecture, split it
-into components, key-normalize CLIP into the HF `text_model.*` space (open_clip
-towers, SDXL's CLIP-G, through `convert_open_clip`), cast
+into components, key-normalize CLIP into the HF `text_model.*` space (the
+open_clip towers, SD2's CLIP-H as `clip_h` and SDXL's CLIP-G as `clip_g`,
+through `convert_open_clip`; SD3's single-file CLIP-L and CLIP-G are in that
+space already, CLIP-G with its `text_projection`), cast
 floating leaves to the compute dtype and move them to the device. Conv
 kernels stay OIHW: the port computes in the checkpoints' own layout. On the
 card the weights of the convs that `ops/fused_gn_conv.py` fuses (UNet
@@ -42,8 +45,9 @@ from .convert import nest, quant_leaf, to_tensor
 from .state_dict import load_state_dict
 from .synth import LazyTensor
 
-FAMILIES = ("sd15", "sdxl", "sdxl_refiner", "flux")
-TEXT_ENCODERS = ("clip_l", "clip_g", "t5xxl")
+FAMILIES = ("sd15", "sd20", "sdxl", "sdxl_refiner", "playground", "sd3", "flux")
+TEXT_ENCODERS = ("clip_l", "clip_h", "clip_g", "t5xxl")
+OPEN_CLIP_NAMES = {"open_clip_h": "clip_h", "open_clip_g": "clip_g"}
 UNET_QUANT = ("nf4", "q8_0", "q4_0")
 QUANT_MIN_SIZE = 1 << 16  # leave small tensors in full precision
 QUANT_SKIP = ("norm", "emb", "bias")
@@ -162,11 +166,11 @@ def load_checkpoint_parts(path_or_sd, dtype: Optional[torch.dtype] = None, devic
             f"(ported: {', '.join(FAMILIES)})")
     text_encoders: Dict[str, Any] = {}
     for name, tsd in g.text_encoders.items():
-        if name == "open_clip_g":
-            tsd, name = convert_open_clip(tsd), "clip_g"
+        if name in OPEN_CLIP_NAMES:
+            tsd, name = convert_open_clip(tsd), OPEN_CLIP_NAMES[name]
         if name not in TEXT_ENCODERS:
             raise NotImplementedError(f"text encoder {name} is not ported yet")
-        if name == "clip_l" and not any(k.startswith("text_model.") for k in tsd):
+        if name.startswith("clip") and not any(k.startswith("text_model.") for k in tsd):
             # bare CLIP dumps → HF text_model namespace
             tsd = {f"text_model.{k}" if not k.startswith("text_projection") else k: v
                    for k, v in tsd.items()}

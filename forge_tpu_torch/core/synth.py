@@ -1,5 +1,5 @@
-# Copied from forge_tpu/core/synth.py (the SD1.5, SDXL, Flux, T5 and ControlNet state dicts); numpy only, so the port imports no JAX.
-# `DeviceFill`, `LazyTensor`, the SDXL refiner and the CLIP-vision, IP-Adapter and ESRGAN state dicts are the port's own.
+# Copied from forge_tpu/core/synth.py (the SD1.5, SDXL, Flux, MMDiT, T5 and ControlNet state dicts); numpy only, so the port imports no JAX.
+# `DeviceFill`, `LazyTensor`, the SD2, SDXL refiner, Playground and SD3 checkpoints and the CLIP-vision, IP-Adapter and ESRGAN state dicts are the port's own.
 """Synthetic checkpoint synthesis: reference-format state dicts with real key
 names/shapes but generated weights.
 
@@ -347,12 +347,13 @@ def synth_sdxl_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, 
     )
     sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
     sd.update(synth_clip_sd(fill=fill, seed=seed + 3, prefix="conditioner.embedders.0.transformer."))
-    sd.update(_open_clip_g_sd(_fill(fill, seed + 4), "conditioner.embedders.1.model."))
+    sd.update(_open_clip_text_sd(_fill(fill, seed + 4), "conditioner.embedders.1.model."))
     return sd
 
 
-def _open_clip_g_sd(f, prefix: str, width: int = 1280, layers: int = 32) -> Dict[str, object]:
-    """OpenCLIP-bigG's text tower in open_clip layout under `prefix`."""
+def _open_clip_text_sd(f, prefix: str, width: int = 1280, layers: int = 32) -> Dict[str, object]:
+    """An open_clip text tower in open_clip layout under `prefix`: OpenCLIP-bigG's
+    by default, ViT-H/14's at width 1024 and 24 layers."""
     sd: Dict[str, object] = {}
     g = prefix
     sd[g + "positional_embedding"] = f.w(77, width)
@@ -387,7 +388,35 @@ def synth_sdxl_refiner_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Di
                             transformer_depth=(0, 4, 4, 0), context_dim=1280,
                             adm_in_channels=2560, middle_depth=4, fill=fill, seed=seed + 1))
     sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
-    sd.update(_open_clip_g_sd(_fill(fill, seed + 4), "conditioner.embedders.0.model."))
+    sd.update(_open_clip_text_sd(_fill(fill, seed + 4), "conditioner.embedders.0.model."))
+    return sd
+
+
+def synth_sd2_checkpoint(fill: FillSpec = "zeros", seed: int = 0,
+                         v_prediction: bool = True) -> Dict[str, object]:
+    """Full-size SD2.1 (stabilityai v2-inference-v.yaml): 320ch UNet, mult
+    (1,2,4,4), depths (1,1,1,0), 64-wide heads, linear projections, context
+    1024; OpenCLIP ViT-H/14's text tower (1024 wide, 24 layers) under
+    `cond_stage_model.model.`; the 4-channel VAE. `v_prediction` adds the
+    `v_pred` marker key that tells the loader the 768-v objective."""
+    sd: Dict[str, object] = {}
+    sd.update(synth_unet_sd(context_dim=1024, fill=fill, seed=seed + 1))
+    sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
+    f = _fill(fill, seed + 3)
+    sd.update(_open_clip_text_sd(f, "cond_stage_model.model.", width=1024, layers=24))
+    if v_prediction:
+        sd["v_pred"] = f.zeros()
+    return sd
+
+
+def synth_playground_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, object]:
+    """Full-size Playground v2.5 (playgroundai/playground-v2.5-1024px-aesthetic):
+    SDXL base's geometry, with the `edm_mean`/`edm_std` marker keys of its
+    single-file export that tell the loader the EDM objective."""
+    sd = synth_sdxl_checkpoint(fill=fill, seed=seed)
+    f = _fill(fill, seed + 5)
+    sd["edm_mean"] = f.zeros(4)
+    sd["edm_std"] = f.ones(4)
     return sd
 
 
@@ -449,6 +478,65 @@ def synth_flux_sd(
     return sd
 
 
+def synth_mmdit_sd(
+    hidden: int = 1536,
+    depth: int = 24,
+    context_dim: int = 4096,
+    pooled_dim: int = 2048,
+    in_channels: int = 16,
+    patch: int = 2,
+    pos_max: int = 192,
+    qk_norm: bool = False,
+    x_attn2: bool = False,
+    fill: FillSpec = "zeros",
+    seed: int = 6,
+    prefix: str = "model.diffusion_model.",
+):
+    """SD3-format state dict (sd3-medium defaults). `qk_norm` adds SD3.5's
+    q/k RMSNorm weights, `x_attn2` the x-only second attention of
+    SD3.5-medium's MMDiT-X."""
+    f = _fill(fill, seed)
+    sd = {}
+    mlp = hidden * 4
+
+    def lin(key, o, i):
+        sd[key + ".weight"] = f.w(o, i)
+        sd[key + ".bias"] = f.zeros(o)
+
+    sd[prefix + "x_embedder.proj.weight"] = f.w(hidden, in_channels, patch, patch)
+    sd[prefix + "x_embedder.proj.bias"] = f.zeros(hidden)
+    sd[prefix + "pos_embed"] = f.w(1, pos_max * pos_max, hidden)
+    lin(prefix + "t_embedder.mlp.0", hidden, 256)
+    lin(prefix + "t_embedder.mlp.2", hidden, hidden)
+    lin(prefix + "y_embedder.mlp.0", hidden, pooled_dim)
+    lin(prefix + "y_embedder.mlp.2", hidden, hidden)
+    lin(prefix + "context_embedder", hidden, context_dim)
+
+    for i in range(depth):
+        pre_only = i == depth - 1
+        for blk in ("context_block", "x_block"):
+            b = f"{prefix}joint_blocks.{i}.{blk}."
+            lin(b + "attn.qkv", hidden * 3, hidden)
+            if qk_norm:
+                sd[b + "attn.ln_q.weight"] = f.ones(hidden // (hidden // 64))
+                sd[b + "attn.ln_k.weight"] = f.ones(hidden // (hidden // 64))
+            if blk == "context_block" and pre_only:
+                lin(b + "adaLN_modulation.1", hidden * 2, hidden)
+                continue
+            lin(b + "attn.proj", hidden, hidden)
+            n_mod = 9 if (x_attn2 and blk == "x_block") else 6
+            lin(b + "adaLN_modulation.1", hidden * n_mod, hidden)
+            lin(b + "mlp.fc1", mlp, hidden)
+            lin(b + "mlp.fc2", hidden, mlp)
+            if x_attn2 and blk == "x_block":
+                lin(b + "attn2.qkv", hidden * 3, hidden)
+                lin(b + "attn2.proj", hidden, hidden)
+
+    lin(prefix + "final_layer.linear", patch * patch * in_channels, hidden)
+    lin(prefix + "final_layer.adaLN_modulation.1", hidden * 2, hidden)
+    return sd
+
+
 def synth_t5_sd(
     width: int = 4096,
     layers: int = 24,
@@ -490,6 +578,22 @@ def synth_flux_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, 
     sd.update(synth_flux_sd(fill=fill, seed=seed + 5))
     sd.update(synth_vae_sd(z_channels=16, fill=fill, seed=seed + 2))
     sd.update(synth_clip_sd(fill=fill, seed=seed + 3, prefix="text_encoders.clip_l.transformer."))
+    sd.update(synth_t5_sd(fill=fill, seed=seed + 7))
+    return sd
+
+
+def synth_sd3_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, object]:
+    """Full-size SD3-medium single-file checkpoint (stabilityai
+    stable-diffusion-3-medium): the 24-block MMDiT (hidden 1536, 24 heads,
+    pos_embed_max_size 192, context 4096, pooled 2048), CLIP-L (768 × 12) and
+    CLIP-G (1280 × 32, with its text projection) in HF layout, T5-XXL, and
+    the 16-channel VAE."""
+    sd: Dict[str, object] = {}
+    sd.update(synth_mmdit_sd(fill=fill, seed=seed + 6))
+    sd.update(synth_vae_sd(z_channels=16, fill=fill, seed=seed + 2))
+    sd.update(synth_clip_sd(fill=fill, seed=seed + 3, prefix="text_encoders.clip_l.transformer."))
+    sd.update(synth_clip_sd(width=1280, layers=32, fill=fill, seed=seed + 4,
+                            prefix="text_encoders.clip_g.transformer.", text_projection=True))
     sd.update(synth_t5_sd(fill=fill, seed=seed + 7))
     return sd
 

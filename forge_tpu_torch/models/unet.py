@@ -1,10 +1,11 @@
-"""Stable Diffusion UNet, SD1.5 and SDXL base and refiner (port of forge_tpu/models/unet.py).
+"""Stable Diffusion UNet, SD1.5, SD2, SDXL base and refiner and Playground v2.5
+(port of forge_tpu/models/unet.py).
 
 A function over the checkpoint's `model.diffusion_model.*` keys, nested by
 `.`; activations NCHW. Block structure is discovered from the tree (key
-presence), as in the reference: SD1.5's conv `proj_in`/`proj_out` or SDXL's
-linear ones on [B, HW, C], and SDXL's label embedding of the size vector `y`
-added to the timestep embedding. ControlNet residuals come in through
+presence), as in the reference: SD1.5's conv `proj_in`/`proj_out` or SD2's
+and SDXL's linear ones on [B, HW, C], and SDXL's label embedding of the size
+vector `y` added to the timestep embedding. ControlNet residuals come in through
 `control`.
 
 `hooks` is the attention part of the reference's hook manifest (the
@@ -40,13 +41,15 @@ class UNetConfig:
     projections' kind and the label embedding it finds in the tree."""
     context_dim: int = 768
     num_heads: int = 8          # used when head_dim is None (SD1.5)
-    head_dim: Optional[int] = None  # 64 for SDXL
+    head_dim: Optional[int] = None  # 64 for SD2, SDXL and Playground
 
     @staticmethod
     def for_family(family: str) -> "UNetConfig":
         if family == "sd15":
             return UNetConfig(context_dim=768, num_heads=8)
-        if family == "sdxl":
+        if family == "sd20":
+            return UNetConfig(context_dim=1024, head_dim=64)
+        if family in ("sdxl", "playground"):  # Playground v2.5: SDXL's geometry under EDM
             return UNetConfig(context_dim=2048, head_dim=64)
         if family == "sdxl_refiner":
             return UNetConfig(context_dim=1280, head_dim=64)

@@ -1,14 +1,22 @@
 """Diffusion engine: one loaded checkpoint bound into runnable functions
-(port of forge_tpu/pipeline/engine.py: SD1.5, SDXL base and refiner, and
-Flux; the VAE encode for img2img; ControlNets beside the UNet).
+(port of forge_tpu/pipeline/engine.py: SD1.5, SD2, SDXL base and refiner,
+Playground v2.5, SD3 and Flux; the VAE encode for img2img; ControlNets
+beside the UNet).
 
-SDXL: CLIP-L's and CLIP-G's penultimate hidden states, concatenated, are the
-context; `y` is CLIP-G's projected pooled output and the sinusoidal
+SD1.5 and SD2: the last layer of CLIP-L or of OpenCLIP ViT-H (`clip_h`)
+is the context (the reference's choice for SD2, whose own inference config
+takes the penultimate layer). SDXL and Playground v2.5: CLIP-L's and
+CLIP-G's penultimate hidden states, concatenated, are the context; `y` is
+CLIP-G's projected pooled output and the sinusoidal
 embeddings of the original size, crop and target size. The SDXL refiner:
 CLIP-G's penultimate hidden states alone are the context; `y` is its pooled
 output and the embeddings of the original size, crop and the aesthetic
-score (6.0, or 2.5 for a negative prompt; 2560 wide). Flux: T5-XXL features
-are the context, CLIP-L's pooled output the `y` vector, and the distilled-CFG
+score (6.0, or 2.5 for a negative prompt; 2560 wide). SD3: CLIP-L's and
+CLIP-G's penultimate hidden states, concatenated and zero-padded to the
+checkpoint's context width (4096), then T5-XXL's 77 tokens after them, are
+the context; `y` is CLIP-L's pooled output ‖ CLIP-G's projected one. Flux:
+T5-XXL features are the context, CLIP-L's pooled output the `y` vector, and
+the distilled-CFG
 guidance scale is added to the conditioning at sampling time
 (pipeline/processing.py). `embedding_db` (text/textual_inversion.py) holds
 the textual-inversion embeddings every CLIP tower splices, CLIP-G from an
@@ -40,12 +48,14 @@ from ..core import latent_formats
 from ..core.device import default_device, default_dtype
 from ..core.loader import FAMILIES, LoadedCheckpoint, load_checkpoint_parts
 from ..models import flux as flux_mod
+from ..models import mmdit as mmdit_mod
 from ..models import unet as unet_mod
 from ..models import vae as vae_mod
 from ..models.controlnet import run_controlnets
 from ..ops import nn
 from ..runtime.options import opts
-from ..sampling.prediction import DiscretePrediction, PredictionFlux
+from ..sampling.prediction import (DiscretePrediction, PredictionEDM, PredictionFlow,
+                                   PredictionFlux)
 from ..text.engine import ClassicTextEngine, TextEncoderOptions
 from ..text.t5_engine import T5TextEngine
 from ..text.textual_inversion import EmbeddingDatabase
@@ -105,6 +115,7 @@ class DiffusionEngine:
         self.latent_format = latent_formats.BY_FAMILY[loaded.family]
         self.unet_cfg = None
         self.flux_cfg = None
+        self.mmdit_cfg = None
         self.lora_registry = None
         self.upscalers = None
         tes = loaded.text_encoders
@@ -114,30 +125,47 @@ class DiffusionEngine:
         if embeddings_dir:
             self.embedding_db.load_dir(embeddings_dir)
         db = self.embedding_db
-        if loaded.family == "sdxl":  # each tower's heads and activation follow its width
+        family = loaded.family
+        # each tower's heads and activation follow its width
+        if family in ("sdxl", "playground", "sd3"):  # the penultimate layer, no final LayerNorm
             for name, pooled, which in (("clip_l", False, "l"), ("clip_g", True, "g")):
-                self.text_engines[name] = ClassicTextEngine(
-                    tes[name], tokenizer,
-                    TextEncoderOptions(layer="hidden", pooled_projection=pooled,
-                                       which_embedding=which), embedding_db=db)
-        elif loaded.family == "sdxl_refiner":
+                if name in tes:
+                    self.text_engines[name] = ClassicTextEngine(
+                        tes[name], tokenizer,
+                        TextEncoderOptions(layer="hidden", pooled_projection=pooled,
+                                           which_embedding=which), embedding_db=db)
+        elif family == "sdxl_refiner":
             self.text_engines["clip_g"] = ClassicTextEngine(
                 tes["clip_g"], tokenizer,
                 TextEncoderOptions(layer="hidden", pooled_projection=True, which_embedding="g"),
                 embedding_db=db)
+        elif family == "sd20":
+            self.text_engines["clip_h"] = ClassicTextEngine(tes["clip_h"], tokenizer,
+                                                            embedding_db=db)
         elif "clip_l" in tes:
             self.text_engines["clip_l"] = ClassicTextEngine(tes["clip_l"], tokenizer,
                                                             embedding_db=db)
-        if loaded.family == "flux":
+        if family in ("sd3", "flux") and "t5xxl" in tes:
+            self.text_engines["t5xxl"] = T5TextEngine(tes["t5xxl"],
+                                                      max_length=77 if family == "sd3" else 512)
+        if family == "flux":
             hidden = loaded.unet["img_in"]["weight"].shape[0]
             self.flux_cfg = flux_mod.FluxConfig(num_heads=max(hidden // 128, 1),
                                                 guidance_embed="guidance_in" in loaded.unet)
             self.predictor = PredictionFlux()
-            if "t5xxl" in tes:
-                self.text_engines["t5xxl"] = T5TextEngine(tes["t5xxl"])
+        elif family == "sd3":
+            hidden = loaded.unet["x_embedder"]["proj"]["bias"].shape[0]
+            pos = loaded.unet.get("pos_embed")
+            self.mmdit_cfg = mmdit_mod.MMDiTConfig(
+                num_heads=max(hidden // 64, 1),
+                pos_embed_max_size=int(np.sqrt(pos.shape[1])) if pos is not None else 192)
+            self.predictor = PredictionFlow(shift=3.0)
         else:
-            self.unet_cfg = unet_mod.UNetConfig.for_family(loaded.family)
-            self.predictor = DiscretePrediction(prediction_type=loaded.prediction)
+            self.unet_cfg = unet_mod.UNetConfig.for_family(family)
+            # Playground v2.5: the EDM objective at σ_data 0.5 (its scheduler config)
+            self.predictor = (PredictionEDM(sigma_data=0.5) if family == "playground"
+                              else DiscretePrediction(prediction_type=loaded.prediction))
+        self.predictor.family = family  # the Align-Your-Steps schedules pick their table by it
 
     def set_clip_skip(self, clip_skip: int):
         """Clip-skip moves only the engines that read the last layer; SDXL's
@@ -152,14 +180,17 @@ class DiffusionEngine:
                                  original_size: Optional[Tuple[int, int]] = None,
                                  target_size: Optional[Tuple[int, int]] = None,
                                  is_negative: bool = False) -> Dict[str, torch.Tensor]:
-        """prompts → conditioning dict for the net: {context} (SD1.5),
+        """prompts → conditioning dict for the net: {context} (SD1.5, SD2),
         {context: CLIP-L ‖ CLIP-G hidden states, y: pooled CLIP-G ‖ size
-        embeddings} (SDXL), {context: CLIP-G hidden states, y: pooled CLIP-G
-        ‖ size and aesthetic-score embeddings} (the SDXL refiner; the score
-        is 2.5 where `is_negative`) or {context: T5 features, y: CLIP-L
-        pooled} (Flux). The sizes are (height, width) pairs; both default to
-        the image's."""
-        if self.family in ("sdxl", "sdxl_refiner"):
+        embeddings} (SDXL, Playground), {context: CLIP-G hidden states, y:
+        pooled CLIP-G ‖ size and aesthetic-score embeddings} (the SDXL
+        refiner; the score is 2.5 where `is_negative`), {context: CLIP-L ‖
+        CLIP-G hidden states zero-padded to the context width, then T5
+        features, y: pooled CLIP-L ‖ CLIP-G} (SD3; one CLIP chunk, as the
+        reference encodes it) or {context: T5 features, y: CLIP-L pooled}
+        (Flux). The sizes are (height, width) pairs; both default to the
+        image's."""
+        if self.family in ("sdxl", "sdxl_refiner", "playground"):
             refiner = self.family == "sdxl_refiner"
             zg, pooled_g = self.text_engines["clip_g"](prompts, max_chunks=max_chunks)
             osize = original_size or (height, width)
@@ -181,8 +212,28 @@ class DiffusionEngine:
             else:
                 pooled = torch.zeros((len(prompts), 768), device=self.device)
             return {"context": z.to(self.compute_dtype), "y": pooled.to(self.compute_dtype)}
-        z, _ = self.text_engines["clip_l"](prompts, max_chunks=max_chunks)
+        if self.family == "sd3":
+            return self._sd3_conditioning(prompts)
+        z, _ = self.text_engines["clip_h" if self.family == "sd20" else "clip_l"](
+            prompts, max_chunks=max_chunks)
         return {"context": z.to(self.compute_dtype)}
+
+    def _sd3_conditioning(self, prompts: List[str]) -> Dict[str, torch.Tensor]:
+        parts, pooled = [], []
+        for name in ("clip_l", "clip_g"):
+            if name in self.text_engines:
+                z, p = self.text_engines[name](prompts, max_chunks=1)
+                parts.append(z.to(self.compute_dtype))
+                pooled.append(p.to(self.compute_dtype))
+        pieces = []
+        if parts:
+            lg = torch.cat(parts, dim=-1)
+            pieces.append(torch.nn.functional.pad(lg, (0, self.loaded.context_dim - lg.shape[-1])))
+        if "t5xxl" in self.text_engines:
+            pieces.append(self.text_engines["t5xxl"](prompts).to(self.compute_dtype))
+        y = (torch.cat(pooled, dim=-1) if pooled
+             else torch.zeros((len(prompts), 2048), dtype=self.compute_dtype, device=self.device))
+        return {"context": torch.cat(pieces, dim=1), "y": y}
 
     def unet_apply_fn(self, hooks=None, controlnets=None):
         """The raw network `apply(params, x, t, **cond)` (the reference's
@@ -192,9 +243,18 @@ class DiffusionEngine:
         timestep as a host float that `sampling/cfg.py` already holds: the
         ControlNets' schedule gate 1 − t/999 is computed from it, so no step
         waits on the card to read t. Hooks and ControlNets compose."""
-        if self.family == "flux":
+        if self.family in ("flux", "sd3"):
             if controlnets or hooks:
-                raise NotImplementedError("ControlNets and UNet hooks for Flux are not ported yet")
+                raise NotImplementedError(f"ControlNets and UNet hooks for {self.family} are not "
+                                          "ported yet")
+        if self.family == "sd3":
+            mcfg = self.mmdit_cfg
+
+            def apply_sd3(params, x, t, context, y=None):
+                return mmdit_mod.mmdit_apply(params, x, t, context, y, cfg=mcfg)
+
+            return apply_sd3
+        if self.family == "flux":
             fcfg = self.flux_cfg
 
             def apply_flux(params, x, t, context, y=None, guidance=None):

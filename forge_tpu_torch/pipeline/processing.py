@@ -9,8 +9,9 @@ cond and uncond with a shared chunk count → host Philox noise → the
 sampler's step loop on the CFG-batched latent → VAE decode with the NaN
 checks → uint8 images. SDXL's conditioning embeds the image's width and
 height in `y`. Flux adds the distilled-CFG guidance scale to both
-conditionings and samples 16-channel latents; at CFG 1 the uncond branch is
-skipped, as for every family.
+conditionings and samples 16-channel latents; SD3 samples 16-channel
+latents under real CFG; Playground v2.5's latents go through its channel
+format. At CFG 1 the uncond branch is skipped, as for every family.
 
 img2img encodes the init images (resized by `resize_mode`) with the VAE and
 samples the tail of the schedule that `denoising_strength` keeps from noise
@@ -81,7 +82,11 @@ raises NotImplementedError rather than being ignored, as do combinations the
 reference mixes or fails on: AND or regional branches with the refiner or
 on Flux, regional masks or the base prompt's AND branches under a hires pass
 that changes the latent size's masks or re-encodes the prompt, and `AND` or
-`[from:to:when]` in a prompt the refiner or a hires pass encodes itself.
+`[from:to:when]` in a prompt the refiner or a hires pass encodes itself. On
+SD2, Playground v2.5 and SD3 the features `UNPORTED_BY_FAMILY` lists raise
+as well: LoRA, ControlNets, UNet hooks (the IP-Adapter), tiling, the hires
+fix, the refiner, regional prompts and inpainting, and img2img on
+Playground.
 """
 
 from __future__ import annotations
@@ -112,6 +117,12 @@ from .infotext import create_infotext, write_params_txt
 from .masking import expand_crop_region, get_crop_region, resize_image
 
 TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 32
+# the request features that no test holds against the reference on a family: each raises
+# NotImplementedError there (SD2, Playground v2.5 and SD3 take txt2img, SD2 and SD3 img2img)
+_COMMON_UNPORTED = ("lora", "controlnets", "unet_hooks", "tiled_diffusion", "enable_hr",
+                    "refiner", "regional_prompts", "inpaint_mask")
+UNPORTED_BY_FAMILY = {"sd20": _COMMON_UNPORTED, "sd3": _COMMON_UNPORTED,
+                      "playground": _COMMON_UNPORTED + ("init_images",)}
 
 
 @dataclasses.dataclass
@@ -326,10 +337,29 @@ def _record_generation_params(engine: DiffusionEngine, p: Processing) -> None:
         eg["Refiner switch at"] = p.refiner_switch_at
 
 
+def _refuse_for_family(engine: DiffusionEngine, p: Processing) -> None:
+    """Raise for a request feature `UNPORTED_BY_FAMILY` lists for the engine's family."""
+    asked = {
+        "lora": bool(parse_prompt(p.prompt)[1] or parse_prompt(p.negative_prompt)[1]),
+        "refiner": bool(p.refiner_checkpoint or getattr(p, "_refiner_engine", None) is not None)
+        and 0.0 < p.refiner_switch_at < 1.0,
+        **{name: bool(getattr(p, name)) for name in
+           ("controlnets", "unet_hooks", "tiled_diffusion", "enable_hr", "regional_prompts")},
+        "inpaint_mask": p.inpaint_mask is not None,
+        "init_images": p.init_images is not None,
+    }
+    refused = [name for name in UNPORTED_BY_FAMILY.get(engine.family, ()) if asked[name]]
+    if refused:
+        raise NotImplementedError(f"{', '.join(refused)} on {engine.family} is not ported to "
+                                  "forge_tpu_torch yet")
+
+
 def setup(engine: DiffusionEngine, p: Processing) -> None:
-    """A request's setup, once: its styles expand into the prompts (the
-    infotext records the styled prompts), then the seeds, the option
-    defaults and the infotext's keys."""
+    """A request's setup, once: the features its engine's family does not
+    take raise, its styles expand into the prompts (the infotext records the
+    styled prompts), then the seeds, the option defaults and the infotext's
+    keys."""
+    _refuse_for_family(engine, p)
     if p.styles:
         from ..runtime.styles import prompt_styles
 

@@ -1,8 +1,8 @@
 """Classic (CLIP) text engine: prompts → conditioning (port of forge_tpu/text/engine.py).
 
 Emphasis parse → 75-token chunks → per-chunk CLIP encode with clip-skip (or,
-for SDXL's towers, a fixed hidden layer) → emphasis application → chunk
-concat. Returns (cond [B, 77·n, D], pooled [B, Dp]); the pooled output is
+for SDXL's and SD3's towers, a fixed hidden layer) → emphasis application →
+chunk concat. Returns (cond [B, 77·n, D], pooled [B, Dp]); the pooled output is
 always the true final layer's at EOT, projected for CLIP-G.
 
 Textual inversion: with an `embedding_db` (text/textual_inversion.py) a
@@ -34,8 +34,11 @@ class TextEncoderOptions:
     """The reference's options this port sets; the comma backtrack (20)
     keeps its default."""
     clip_skip: int = 1
-    # "last" (clip-skip aware) | "hidden" (SDXL: the penultimate layer, no final LayerNorm)
+    # "last" (clip-skip aware) | "hidden": hidden state `layer_idx`, with the final
+    # LayerNorm where `final_layer_norm` (SDXL and SD3: the penultimate layer, no LayerNorm)
     layer: str = "last"
+    layer_idx: int = -2
+    final_layer_norm: bool = False
     pooled_projection: bool = False  # CLIP-G text_projection
     which_embedding: str = "l"  # the textual-inversion slot: "l" (CLIP-L) or "g" (CLIP-G)
 
@@ -121,7 +124,9 @@ class ClassicTextEngine:
         final, hiddens, pooled = clip_text_apply(params, flat_tokens, cfg=self.cfg,
                                                  input_embeds=input_embeds)
         if o.layer == "hidden":
-            z = hiddens[-2]
+            z = hiddens[o.layer_idx]
+            if o.final_layer_norm:
+                z = nn.layer_norm(z, params["text_model"]["final_layer_norm"])
         elif o.clip_skip > 1:
             z = nn.layer_norm(hiddens[-o.clip_skip], params["text_model"]["final_layer_norm"])
         else:

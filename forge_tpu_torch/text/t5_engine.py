@@ -1,8 +1,8 @@
-"""T5 text engine for Flux: prompts → T5 features (port of forge_tpu/text/t5_engine.py).
+"""T5 text engine for Flux and SD3: prompts → T5 features (port of forge_tpu/text/t5_engine.py).
 
 Emphasis-weighted T5 encoding, one window per prompt (no 75-token chunks):
 each emphasis segment is tokenized on its own, EOS (id 1) ends the prompt,
-and the ids are padded with 0 to `max_length` (512). Pad keys are masked
+and the ids are padded with 0 to `max_length` (Flux 512, SD3 77). Pad keys are masked
 except the first position. Emphasis mode "Original" scales each token's
 features by its weight, then restores the mean of the whole batch.
 """
@@ -25,10 +25,10 @@ MAX_LENGTH = 512  # the reference pads every Flux prompt to this many tokens
 class T5TextEngine:
     """The reference's emphasis mode keeps its default here: "Original"."""
 
-    def __init__(self, params: Mapping[str, Any]):
+    def __init__(self, params: Mapping[str, Any], max_length: int = MAX_LENGTH):
         self.params = params
         self.tokenizer = default_t5_tokenizer()
-        self.max_length = MAX_LENGTH
+        self.max_length = max_length
 
     def tokenize(self, prompts: List[str]):
         """→ (ids [B, max_length] int64, multipliers [B, max_length] f32)."""

@@ -10,7 +10,8 @@ scale), `hr_second_pass_steps`, `hr_cfg_scale`, `hr_prompt` and
 ESRGAN (tests/test_torch_upscalers.py's, from each package's registry), and
 another checkpoint for the second pass (`_hr_engine`). The uint8 images
 must reach PSNR ≥ 40 dB against each other, the bar of
-tests/test_golden_parity.py.
+tests/test_golden_parity.py. tests/test_torch_hires_fields.py holds the
+port's own checks of the same fields.
 """
 
 import numpy as np
@@ -98,37 +99,3 @@ def test_hires_matches_forge_tpu(engines, case):
     value = _psnr(got, want)
     print(f"{case}: PSNR {value:.2f} dB")
     assert value >= 40.0, value
-
-
-def test_hires_fields_change_the_image(engines):
-    """Each field the parity cases pass moves the port's image: the hires
-    pass itself, its upscaler, its prompt and its engine."""
-    from forge_tpu_torch.pipeline import processing as tproc
-
-    (_, teng), (_, thr) = engines["sd15"], engines["hr"]
-
-    def run(**fields):
-        return _run(tproc, teng, thr, "sd15", fields).images[0]
-
-    base = run()
-    assert base.shape == (128, 128, 3)
-    assert np.array_equal(base, run())  # the same seed twice
-    for fields in (dict(hr_upscaler="Latent (bicubic)"), dict(hr_upscaler="Lanczos"),
-                   dict(hr_prompt="a red castle"), dict(hr_engine=True),
-                   dict(hr_denoising_strength=0.3), dict(seed=2)):
-        assert not np.array_equal(base, run(**fields)), fields
-    first = tproc.process_images(teng, tproc.Processing(**dict(SD15, enable_hr=False)))
-    assert first.images[0].shape == (64, 64, 3) and "hires_sample" not in first.timings
-
-
-def test_hires_checkpoint_needs_a_resolver(engines, monkeypatch):
-    from forge_tpu_torch.pipeline import processing as tproc
-
-    (_, teng), (_, thr) = engines["sd15"], engines["hr"]
-    with pytest.raises(ValueError, match="no engine resolver"):
-        tproc.process_images(teng, tproc.Processing(**SD15, hr_checkpoint_name="other"))
-    monkeypatch.setattr(tproc, "ENGINE_RESOLVER", {"other": thr}.__getitem__)
-    by_name = tproc.process_images(teng, tproc.Processing(**SD15, hr_checkpoint_name="other"))
-    p = tproc.Processing(**SD15)
-    p._hr_engine = thr
-    assert np.array_equal(by_name.images[0], tproc.process_images(teng, p).images[0])

@@ -84,14 +84,15 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(forge_tpu_torch.__path__, "
         "'forge_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 61, mods\n"
+        "assert len(mods) >= 62, mods\n"
         "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors',"
         " 'transformers') or m.startswith(('jax.', 'forge_tpu.', 'PIL.', 'safetensors.',"
         " 'transformers.'))]\n"
         "assert 'forge_tpu_torch.pipeline.upscalers' in mods, mods\n"
         "assert {'forge_tpu_torch.runtime.options', 'forge_tpu_torch.sampling.brownian'} <= set(mods)\n"
         "assert {'forge_tpu_torch.text.textual_inversion', 'forge_tpu_torch.runtime.styles',"
-        " 'forge_tpu_torch.pipeline.infotext', 'forge_tpu_torch.core.device'} <= set(mods)\n"
+        " 'forge_tpu_torch.pipeline.infotext', 'forge_tpu_torch.core.device',"
+        " 'forge_tpu_torch.models.mmdit'} <= set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
