@@ -1,12 +1,13 @@
 """Drive forge_tpu_torch's SD1.5, quantized Flux and SDXL txt2img paths, its SDXL
 img2img-inpaint path with a LoRA and a ControlNet, its batched SDXL serving with an
 IP-Adapter and a MultiDiffusion upscale, its SDXL hires fix and refiner, one
-sampler of each group and the prompt surface on SDXL, and SD2.1-768-v, SD3-medium
-and Playground v2.5, on one NVIDIA GPU.
+sampler of each group and the prompt surface on SDXL, its REST API on SDXL with
+the tiled VAE, and SD2.1-768-v, SD3-medium and Playground v2.5, on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
     python3 chip_smoke.py --families   # phase 1, phase 2's rows for phase 13, phase 13; no result
+    python3 chip_smoke.py --api        # phase 1, phase 2's VAE tile rows, phase 14; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -133,6 +134,32 @@ Phases:
      q(2,5,9216,64) and the 768² VAE's q(1,1,9216,512), and the conv at
      SD2's fourteen (C, O, size) (twelve are config 5's tile rows) and the
      768² decoder's six.
+ 14. the REST API on the SDXL engine, run before phase 13 frees it
+     (`--api`: on an engine of its own): forge_tpu_torch's server on
+     127.0.0.1, port 0, on a thread, over a ModelManager holding the engine;
+     GET samplers, options, sd-models and memory (its "cuda" within 1 GiB of
+     torch.cuda.mem_get_info); bench.py's `config2` request (1024², DPM++ 2M
+     Karras, 30 steps, CFG 7) as txt2img over HTTP at seeds 1, 2 (/progress
+     polled every 0.1 s: it never falls and reaches 30 of 30, a live preview
+     decodes through the port's PNG reader) and seed 1 four times in turns
+     with the live previews on, off, off, on (their cost), exact launch
+     counts, every seed-1 response identical and its PNG's pixels and
+     "parameters" equal to process_images' image and infotext (both wall
+     times, the PNG encode's ms; the host decode of that image as the
+     port's filter-None PNG and as a client's upload filtered Average and
+     Paeth); an interrupt posted once /progress shows
+     step 10 (the response carries an image; the UNet's launches are the
+     steps the state counted, plus one whole decode); under
+     `vae_always_tiled` a txt2img (9 decode tiles) and an img2img at strength
+     0.5 from the first image sent as that Average/Paeth upload (9 encode and
+     9 decode tiles), exact launches;
+     a 2048² latent decoded whole and tiled (25 tiles) from fresh peaks:
+     both peaks and times, the tiled peak lower, the tiled decode ≥ 40 dB
+     against its plain versions; a request under `sd_vae_decode_method`
+     "TAESD" with synthetic taesdxl weights made on the card (no VAE kernel
+     launched), and a 1024² TAESD decode timed beside the full VAE's. Phase
+     2 holds the six (C, O, size) of a 512² tile's resnets that no other
+     row holds.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -251,6 +278,12 @@ FAMILY_CONV_SHAPES = ([((2, c, side, side), o) for c, o, side in SD2_CONV_SHAPES
                          ((1, 512, 384, 384), 256), ((1, 256, 384, 384), 256),
                          ((1, 256, 768, 768), 128), ((1, 128, 768, 768), 128)])
 GN_CONV_SHAPES += [shape for shape in FAMILY_CONV_SHAPES if shape not in GN_CONV_SHAPES]
+# phase 14's tiled VAE: a 512² decode tile (64² latent) and a 512² encode tile, the (C, O, size)
+# of their resnets that no row above holds (the 512² decode is SD1.5's at batch 1)
+TILE_FLASH_SHAPES = [((1, 1, 4096, 512), 4096, True)]  # the VAE mid-block on a tile, held above
+TILE_CONV_SHAPES = [((1, 512, 64, 64), 512), ((1, 512, 256, 256), 256), ((1, 256, 256, 256), 256),
+                    ((1, 128, 512, 512), 128), ((1, 128, 256, 256), 256), ((1, 256, 128, 128), 512)]
+GN_CONV_SHAPES += [shape for shape in TILE_CONV_SHAPES if shape not in GN_CONV_SHAPES]
 PLAIN_MAX_LOGITS = 1 << 30  # above this many logits a head, plain flash is checked on row slices
 DEQUANT_SHAPES = [  # (M, N, K) of the Flux-dev linears at 1024²
     (4608, 21504, 3072),  # single block linear1
@@ -361,6 +394,27 @@ FAMILIES = {
 # dB): its gate is the forward, as the prompts phase's AND request's, and a witness measures how
 # far a perturbation of the starting noise of a bf16 rounding's size moves the plain image
 FAMILY_WITNESS_SUBSEED = dict(subseed=2, subseed_strength=0.001)
+# phase 14, the REST API on the SDXL engine, bench.py's `config2` request over HTTP: each
+# txt2img is SDXL's 2101 flash and 1048 conv launches; under `vae_always_tiled` the 1024²
+# decode runs 9 tiles of 64² latent pixels (3 × 3 at stride 56 over 128²), each a 512² decode
+# (1 flash, 28 conv); the img2img at strength 0.5 of 30 steps makes 16 model calls and encodes
+# 9 tiles of 512² (1 flash, 20 conv each); the 2048² tiled decode runs 25 tiles; TAESD decodes
+# through cuDNN's convs, no counted kernel
+API_REQUEST = dict(prompt="a photograph of an astronaut riding a horse", negative_prompt="blurry",
+                   steps=SDXL_STEPS, width=1024, height=1024, cfg_scale=7.0,
+                   sampler_name="DPM++ 2M", scheduler="karras")
+API_TILES_1024, API_TILES_2048 = 9, 25
+API_IMG2IMG_STRENGTH = 0.5
+API_IMG2IMG_CALLS = min(int(API_IMG2IMG_STRENGTH * SDXL_STEPS), SDXL_STEPS - 1) + 1
+API_TILED_PER_REQUEST = {"flash_attention": SDXL_STEPS * 70 + API_TILES_1024,
+                         "gn_silu_conv3x3": SDXL_STEPS * 34 + API_TILES_1024 * 28,
+                         "dequant_matmul": 0}
+API_IMG2IMG_PER_REQUEST = {"flash_attention": API_IMG2IMG_CALLS * 70 + 2 * API_TILES_1024,
+                           "gn_silu_conv3x3": API_IMG2IMG_CALLS * 34 + API_TILES_1024 * (20 + 28),
+                           "dequant_matmul": 0}
+API_TAESD_PER_REQUEST = {"flash_attention": SDXL_STEPS * 70, "gn_silu_conv3x3": SDXL_STEPS * 34,
+                         "dequant_matmul": 0}
+API_INTERRUPT_AT = 10  # POST /interrupt once /progress shows this step
 FAMILY_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
 
 
@@ -592,13 +646,15 @@ def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
     torch.cuda.empty_cache()
 
 
-def phase_kernels(gen: torch.Generator, families_only: bool = False):
-    """Phase 2; with `families_only`, the flash and conv rows of the SD2, SD3
-    and Playground paths alone."""
+def phase_kernels(gen: torch.Generator, rows: str = "all"):
+    """Phase 2; with rows "families" or "api", the flash and conv rows of the
+    SD2, SD3 and Playground paths or of phase 14's VAE tiles alone."""
     summary = {}
-    if families_only:
-        phase_flash(gen, summary, FAMILY_FLASH_SHAPES)
-        phase_conv(gen, summary, FAMILY_CONV_SHAPES)
+    if rows != "all":
+        flash, conv = ((FAMILY_FLASH_SHAPES, FAMILY_CONV_SHAPES) if rows == "families"
+                       else (TILE_FLASH_SHAPES, TILE_CONV_SHAPES))
+        phase_flash(gen, summary, flash)
+        phase_conv(gen, summary, conv)
         return summary
     phase_flash(gen, summary)
     phase_conv(gen, summary)
@@ -898,23 +954,27 @@ def sdxl_request(engine, seed: int, label: str):
     return img
 
 
-def phase_sdxl(gen: torch.Generator):
-    from forge_tpu_torch.core.convert import flatten
+def load_sdxl():
+    """The full-width SDXL base engine, its weights made on the card from seed 0."""
     from forge_tpu_torch.core.synth import DeviceFill, synth_sdxl_checkpoint
-    from forge_tpu_torch.ops import plain_versions
     from forge_tpu_torch.pipeline.engine import load_engine
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    engine = load_engine(synth_sdxl_checkpoint(fill=DeviceFill("cuda", seed=0)), device="cuda")
-    torch.cuda.synchronize()
+    engine, _ = timed("sdxl: SDXL base weights made on the card + load_engine", lambda: load_engine(
+        synth_sdxl_checkpoint(fill=DeviceFill("cuda", seed=0)), device="cuda"))
+    return engine
+
+
+def phase_sdxl(gen: torch.Generator):
+    from forge_tpu_torch.core.convert import flatten
+    from forge_tpu_torch.ops import plain_versions
+
+    engine = load_sdxl()
     unet, tes = engine.loaded.unet, engine.loaded.text_encoders
     blocks = sum(k.endswith("attn1.to_q.weight") for k in flatten(unet))
     ctx = unet["middle_block"]["1"]["transformer_blocks"]["0"]["attn2"]["to_k"]["weight"].shape[1]
     adm = unet["label_emb"]["0"]["0"]["weight"].shape[1]
     g_width = tes["clip_g"]["text_model"]["embeddings"]["token_embedding"]["weight"].shape[1]
-    log(f"sdxl: SDXL base + CLIP-L + CLIP-G + VAE made on the card and loaded in "
-        f"{time.perf_counter() - t:.2f} s; family {engine.family}, {blocks} transformer blocks, "
+    log(f"sdxl: SDXL base + CLIP-L + CLIP-G + VAE: family {engine.family}, {blocks} transformer blocks, "
         f"context {ctx}, adm {adm}, CLIP-G width {g_width} × {len(tes['clip_g']['text_model']['encoder']['layers'])} "
         f"layers; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     check(engine.family == "sdxl" and engine.compute_dtype == torch.bfloat16, "SDXL engine, bf16")
@@ -1740,6 +1800,291 @@ def phase_family(name: str, gen: torch.Generator):
     return launches
 
 
+def http(base: str, path: str, body=None):
+    """GET (or POST `body` as JSON) → the answer's JSON; a status other than 200 raises."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data, {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def add_counts(total, launches):
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def paeth_average_png(image: np.ndarray) -> bytes:
+    """uint8 [H,W,3] → an RGB PNG whose rows are filtered Average and Paeth in
+    turn, the filters Pillow's adaptive choice gives a photograph's rows
+    (the port's writer filters none), built by the PNG specification's
+    section 9.2."""
+    import struct
+    import zlib
+
+    h, w, bpp = image.shape
+    x = image.reshape(h, w * bpp).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[:, bpp:] = b[:, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kinds = 3 + np.arange(h) % 2
+    pred = np.where(kinds[:, None] == 4, paeth, (a + b) >> 1)
+    rows = np.concatenate([kinds[:, None], (x - pred) & 255], 1).astype(np.uint8)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def api_txt2img(base: str, label: str, seed: int, **fields):
+    """One txt2img over HTTP → (answer, decoded pixels, PNG text, wall seconds)."""
+    import base64
+
+    from forge_tpu_torch.pipeline.images import decode_png
+
+    t = time.perf_counter()
+    answer = http(base, "/sdapi/v1/txt2img", dict(API_REQUEST, seed=seed, **fields))
+    wall = time.perf_counter() - t
+    pixels, text = decode_png(base64.b64decode(answer["images"][0]))
+    check(pixels.shape == (1024, 1024, 3), f"API {label}: a 1024²×3 PNG")
+    log(f"api {label} seed={seed}: wall {wall:.4f} s, image mean {pixels.mean():.3f} "
+        f"std {pixels.std():.3f}")
+    return answer, pixels, text, wall
+
+
+def phase_api(engine, gen: torch.Generator):
+    """The REST API on the SDXL engine (see the docstring's phase 14)."""
+    import base64
+    import threading
+
+    from forge_tpu_torch.api.server import create_server
+    from forge_tpu_torch.core.synth import DeviceFill, synth_taesd_sd
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline.images import decode_png, encode_png
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+    from forge_tpu_torch.pipeline.taesd import register_taesd, taesd_decode, taesd_for_family
+    from forge_tpu_torch.runtime.models import ModelManager
+    from forge_tpu_torch.runtime.queue import work_queue
+
+    total = {}
+    manager = ModelManager(checkpoint_dirs=["logs/chip_smoke_api"], device="cuda")
+    manager.set_engine(engine)
+    server = create_server(manager, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        samplers = http(base, "/sdapi/v1/samplers")
+        options = http(base, "/sdapi/v1/options")
+        models = http(base, "/sdapi/v1/sd-models")
+        memory = http(base, "/sdapi/v1/memory")
+        free, total_bytes = torch.cuda.mem_get_info()
+        log(f"api: {base}, {len(samplers)} samplers, {len(options)} options, {len(models)} "
+            f"checkpoints listed; /memory cuda free {memory['cuda']['free'] / 2**30:.2f} GiB of "
+            f"{memory['cuda']['total'] / 2**30:.2f} (mem_get_info {free / 2**30:.2f} of "
+            f"{total_bytes / 2**30:.2f}), ram free {memory['ram']['free'] / 2**30:.2f} GiB")
+        check(len(samplers) == 25 and options["live_previews_enable"] is True
+              and abs(memory["cuda"]["free"] - free) <= 2**30
+              and memory["cuda"]["total"] == total_bytes, "the listing routes")
+
+        # txt2img: seeds 1, 2 (polled), 1, then 1 with the live previews off
+        zero_counts()
+        first, pixels, text, on_wall = api_txt2img(base, "previews on", 1)
+        polls, stop = [], threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                polls.append(http(base, "/sdapi/v1/progress"))
+                time.sleep(0.1)
+
+        poller = threading.Thread(target=poll)
+        poller.start()
+        try:
+            api_txt2img(base, "previews on, /progress polled every 0.1 s", 2)
+        finally:
+            stop.set()
+            poller.join()
+        after = http(base, "/sdapi/v1/progress")
+        # seed 1 in turns, the live previews on, off, off, on: their cost is the difference
+        previews_off = {"override_settings": {"live_previews_enable": False}}
+        turns = [api_txt2img(base, f"previews {'off' if off else 'on'}", 1,
+                             **(previews_off if off else {})) for off in (False, True, True, False)]
+        launches = read_counts()
+        add_counts(total, launches)
+        check_counts(launches, SDXL_PER_REQUEST, 6, "the 6 API txt2img requests")
+        check(all(turn[0]["images"] == first["images"] for turn in turns),
+              "seed 1's responses identical, previews on and off")
+        running = [(q["state"]["sampling_step"], q["progress"]) for q in polls if q["state"]["job"]]
+        previews = [q["current_image"] for q in polls if q["state"]["job"] and q["current_image"]]
+        check(len(running) >= 5 and all(b >= a for a, b in zip(running, running[1:])),
+              "progress never falls while the request runs")
+        check(after["state"]["sampling_step"] == SDXL_STEPS and after["progress"] == 1.0,
+              f"progress reaches {SDXL_STEPS} of {SDXL_STEPS}")
+        check(bool(previews), "a live preview while the request runs")
+        preview, _ = decode_png(base64.b64decode(previews[-1]))
+        check(preview.shape == (128, 128, 3), "the preview decodes (128²×3, Approx cheap)")
+        log(f"api progress: {len(polls)} polls, {len(running)} while running, steps "
+            f"{running[0][0]}…{running[-1][0]}, then {after['state']['sampling_step']} of "
+            f"{after['state']['sampling_steps']}; {len(previews)} previews seen, last {preview.shape}")
+        on_s, off_s = [turns[0][3], turns[3][3]], [turns[1][3], turns[2][3]]
+        log(f"api live previews (Approx cheap, every 10 steps, a host sync each), seed 1 in turns: "
+            f"on {on_s[0]:.4f} s, off {off_s[0]:.4f} s, off {off_s[1]:.4f} s, on {on_s[1]:.4f} s: "
+            f"on − off {(sum(on_s) - sum(off_s)) / 2:+.4f} s a request (the first request, "
+            f"{on_wall:.4f} s, is not in the turns)")
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = process_images(engine, Processing(**API_REQUEST, seed=1))
+        pi_wall = time.perf_counter() - t
+        check(np.array_equal(res.images[0], pixels), "the API's PNG pixels = process_images' image")
+        check(text == {"parameters": res.infotexts[0]}, "the PNG's parameters = the infotext")
+        t = time.perf_counter()
+        for _ in range(3):
+            png = encode_png(res.images[0], {"parameters": res.infotexts[0]})
+        png_ms = (time.perf_counter() - t) / 3 * 1e3
+        t = time.perf_counter()
+        b64 = base64.b64encode(png)
+        b64_ms = (time.perf_counter() - t) * 1e3
+        log(f"api vs library, seed 1: API wall {min(on_s):.4f} s (previews on), {min(off_s):.4f} s "
+            f"(off); process_images {pi_wall:.4f} s (timings "
+            + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+            + f"); PNG encode {png_ms:.2f} ms ({len(png) / 2**20:.2f} MiB), base64 {b64_ms:.2f} ms "
+            f"({len(b64) / 2**20:.2f} MiB)")
+        # a client's upload: the same pixels, rows filtered Average and Paeth
+        upload = paeth_average_png(res.images[0])
+        decode_ms = {}
+        for name, data in (("filter None (the port's writer)", png), ("Average/Paeth", upload)):
+            t = time.perf_counter()
+            for _ in range(3):
+                back, _ = decode_png(data)
+            decode_ms[name] = (time.perf_counter() - t) / 3 * 1e3
+            check(np.array_equal(back, res.images[0]), f"the 1024² {name} PNG decodes")
+        log("api PNG decode of a 1024² RGB upload (host): " + ", ".join(
+            f"{name} {ms:.2f} ms" for name, ms in decode_ms.items())
+            + f" ({len(upload) / 2**20:.2f} MiB Average/Paeth)")
+
+        # interrupt once /progress shows step ≥ API_INTERRUPT_AT
+        zero_counts()
+        answer = {}
+        runner = threading.Thread(target=lambda: answer.update(
+            http(base, "/sdapi/v1/txt2img", dict(API_REQUEST, seed=4))))
+        runner.start()
+        deadline, seen = time.perf_counter() + 120, None
+        while time.perf_counter() < deadline and runner.is_alive():
+            q = http(base, "/sdapi/v1/progress?skip_current_image=true")
+            if q["state"]["job"] and q["state"]["sampling_step"] >= API_INTERRUPT_AT:
+                seen = q["state"]["sampling_step"]
+                http(base, "/sdapi/v1/interrupt", {})
+                break
+            time.sleep(0.02)
+        runner.join()
+        launches = read_counts()
+        add_counts(total, launches)
+        steps = http(base, "/sdapi/v1/progress?skip_current_image=true")["state"]
+        k = steps["sampling_step"]
+        check(seen is not None and steps["interrupted"] and API_INTERRUPT_AT <= k < SDXL_STEPS,
+              f"the interrupt landed between step {API_INTERRUPT_AT} and {SDXL_STEPS}")
+        pixels_int, _ = decode_png(base64.b64decode(answer["images"][0]))
+        check(pixels_int.shape == (1024, 1024, 3), "the interrupted response carries an image")
+        log(f"api interrupt: posted at step {seen}, the loop stopped after {k} of {SDXL_STEPS}")
+        check_counts(launches, {"flash_attention": k * 70 + 1, "gn_silu_conv3x3": k * 34 + 28,
+                                "dequant_matmul": 0}, 1,
+                     f"the interrupted request ({k} steps, one whole decode)")
+
+        # the tiled VAE: txt2img, then img2img from the first image (as the client's
+        # Average/Paeth upload), under vae_always_tiled
+        tiled_opts = {"override_settings": {"vae_always_tiled": True}}
+        zero_counts()
+        _, tiled_px, _, tiled_wall = api_txt2img(base, "vae_always_tiled", 1, **tiled_opts)
+        launches = read_counts()
+        add_counts(total, launches)
+        check_counts(launches, API_TILED_PER_REQUEST, 1, "the tiled-VAE txt2img (9 decode tiles)")
+        log(f"api tiled vs whole decode, seed 1: PSNR {image_psnr(tiled_px, pixels):.2f} dB "
+            "(seams; printed, not a gate)")
+        zero_counts()
+        t = time.perf_counter()
+        i2i = http(base, "/sdapi/v1/img2img", dict(
+            API_REQUEST, seed=1, init_images=[base64.b64encode(upload).decode()],
+            denoising_strength=API_IMG2IMG_STRENGTH, **tiled_opts))
+        i2i_wall = time.perf_counter() - t
+        launches = read_counts()
+        add_counts(total, launches)
+        i2i_px, _ = decode_png(base64.b64decode(i2i["images"][0]))
+        check(i2i_px.shape == (1024, 1024, 3), "the tiled img2img's 1024² image")
+        log(f"api img2img, strength {API_IMG2IMG_STRENGTH}, vae_always_tiled: wall {i2i_wall:.4f} s")
+        check_counts(launches, API_IMG2IMG_PER_REQUEST, 1,
+                     f"the tiled img2img ({API_IMG2IMG_CALLS} calls, 9 encode and 9 decode tiles)")
+
+        # the 2048² decode, whole and tiled, each from a fresh peak
+        lat = torch.randn((1, 4, 256, 256), generator=torch.Generator("cuda").manual_seed(1),
+                          device="cuda")
+        runs = {}
+        for name, fn in (("whole", engine.decode_first_stage),
+                         ("tiled", engine.decode_first_stage_tiled)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t = time.perf_counter()
+            out = fn(lat)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated()
+            launches = read_counts()
+            t = time.perf_counter()
+            fn(lat)
+            torch.cuda.synchronize()
+            runs[name] = (out, peak, peak - before, first_s, time.perf_counter() - t, launches)
+            log(f"api 2048² decode {name}: peak {peak / 2**30:.2f} GiB ({(peak - before) / 2**30:.2f} "
+                f"over the {before / 2**30:.2f} GiB held), {first_s:.4f} s, again "
+                f"{runs[name][4]:.4f} s; {launches['flash_attention']} flash, "
+                f"{launches['gn_silu_conv3x3']} conv launches")
+        add_counts(total, runs["tiled"][5])
+        check_counts(runs["tiled"][5], {"flash_attention": API_TILES_2048,
+                                        "gn_silu_conv3x3": API_TILES_2048 * 28,
+                                        "dequant_matmul": 0}, 1, "the 2048² tiled decode (25 tiles)")
+        check(runs["tiled"][1] < runs["whole"][1], "the tiled 2048² decode peaks lower")
+        with plain_versions():
+            plain = engine.decode_first_stage_tiled(lat)
+        value = psnr(runs["tiled"][0], plain)
+        log(f"api 2048² tiled decode, kernels vs plain: PSNR {value:.2f} dB (bound {PSNR_BOUND}); "
+            f"tiled vs whole {psnr(runs['tiled'][0], runs['whole'][0]):.2f} dB (printed)")
+        check(value >= PSNR_BOUND, f"the tiled 2048² decode ≥ {PSNR_BOUND} dB against plain")
+        del runs, plain, lat
+
+        # TAESD: synthetic taesdxl weights made on the card
+        register_taesd("taesdxl", "decoder", synth_taesd_sd(fill=DeviceFill("cuda", seed=14)))
+        zero_counts()
+        _, taesd_px, _, taesd_wall = api_txt2img(
+            base, "sd_vae_decode_method TAESD", 1,
+            override_settings={"sd_vae_decode_method": "TAESD"})
+        launches = read_counts()
+        add_counts(total, launches)
+        check_counts(launches, API_TAESD_PER_REQUEST, 1, "the TAESD request (no VAE kernel)")
+        params = taesd_for_family("sdxl", device="cuda")
+        z = torch.randn((1, 4, 128, 128), generator=gen, device="cuda")
+        with torch.no_grad():
+            taesd_ms = time_ms(lambda: taesd_decode(params, engine.latent_format.process_out(z)))
+            full_ms = time_ms(lambda: engine.decode_first_stage(z))
+        log(f"api TAESD: request wall {taesd_wall:.4f} s; a 1024² decode TAESD (f32, cuDNN) "
+            f"{taesd_ms:.4f} ms, the full VAE (bf16, the kernels) {full_ms:.4f} ms")
+    finally:
+        server.shutdown()
+        server.server_close()
+        work_queue.stop()
+    return total
+
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
@@ -1823,6 +2168,9 @@ def main():
     ap.add_argument("--families", action="store_true",
                     help="run phase 1, phase 2's SD2, SD3 and Playground rows and phase 13 only, "
                          "with no result")
+    ap.add_argument("--api", action="store_true",
+                    help="run phase 1, phase 2's VAE tile rows and phase 14 (the REST API on "
+                         "SDXL) only, with no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1857,9 +2205,17 @@ def main():
     from forge_tpu_torch.runtime.options import opts
 
     opts.set("save_write_params_txt", False)  # no params.txt written inside timed requests
-    summary = phase_kernels(gen, families_only=args.families)
+    summary = phase_kernels(gen, "families" if args.families else "api" if args.api else "all")
     if args.kernels:
         log("kernels only: phases 1-2 passed")
+        return
+    if args.api:
+        engine = load_sdxl()
+        t = time.perf_counter()
+        phase_api(engine, gen)
+        log(f"api phase: {time.perf_counter() - t:.2f} s; script so far "
+            f"{time.perf_counter() - t_start:.2f} s")
+        log("api only: phases 1, 2 (the tile rows) and 14 passed")
         return
     if args.families:
         for name in FAMILIES:
@@ -1899,14 +2255,18 @@ def main():
         f"{time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     prompts_launches = phase_prompts(engine, gen)
+    log(f"prompts phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    api_launches = phase_api(engine, gen)  # phase 14, on the SDXL engine before phase 13 frees it
     del engine
     torch.cuda.empty_cache()
-    log(f"prompts phase: {time.perf_counter() - t:.2f} s; script so far "
+    log(f"api phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
     paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
              "config3": config3_launches, "config5": config5_launches,
              "config2": config2_launches, "samplers": samplers_launches,
-             "prompts": prompts_launches}
+             "prompts": prompts_launches, "api": api_launches}
     for name in FAMILIES:
         t = time.perf_counter()
         paths[name] = phase_family(name, gen)

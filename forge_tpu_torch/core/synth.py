@@ -1,5 +1,5 @@
 # Copied from forge_tpu/core/synth.py (the SD1.5, SDXL, Flux, MMDiT, T5 and ControlNet state dicts); numpy only, so the port imports no JAX.
-# `DeviceFill`, `LazyTensor`, the SD2, SDXL refiner, Playground and SD3 checkpoints and the CLIP-vision, IP-Adapter and ESRGAN state dicts are the port's own.
+# `DeviceFill`, `LazyTensor`, the SD2, SDXL refiner, Playground and SD3 checkpoints and the CLIP-vision, IP-Adapter, ESRGAN and TAESD state dicts are the port's own.
 """Synthetic checkpoint synthesis: reference-format state dicts with real key
 names/shapes but generated weights.
 
@@ -751,4 +751,40 @@ def synth_esrgan_sd(num_feat: int = 64, num_block: int = 23, num_grow: int = 32,
         conv(names.get(up, up), num_feat, num_feat)
     conv(names.get("conv_hr", "conv_hr"), num_feat, num_feat)
     conv(names.get("conv_last", "conv_last"), 3, num_feat)
+    return sd
+
+
+def synth_taesd_sd(latent_channels: int = 4, fill: FillSpec = "zeros",
+                   seed: int = 14, scale: float = 0.045) -> Dict[str, object]:
+    """A TAESD state dict in the `.pth` files' layout (taesd and taesdxl at 4
+    latent channels; taesd3 and taef1 at 16): `decoder.<i>.…` and
+    `encoder.<i>.…` by `nn.Sequential` index, 64 channels, OIHW kernels, the
+    residual blocks' convs at 0, 2 and 4, the upsample and stride-2 convs
+    without bias. Weights are N(0, scale²): at 0.045 the decoder's RGB
+    spreads over [0, 0.5] and no residual stack blows up."""
+    f = (DeviceFill(fill.device, fill.seed, scale).seeded(seed) if isinstance(fill, DeviceFill)
+         else _Fill(fill, seed, scale))
+    sd: Dict[str, object] = {}
+
+    def conv(key, o, i, bias=True):
+        sd[key + ".weight"] = f.w(o, i, 3, 3)
+        if bias:
+            sd[key + ".bias"] = f.zeros(o)
+
+    def block(key):
+        for j in (0, 2, 4):
+            conv(f"{key}.conv.{j}", 64, 64)
+
+    conv("decoder.1", 64, latent_channels)
+    for i in (3, 4, 5, 8, 9, 10, 13, 14, 15, 18):
+        block(f"decoder.{i}")
+    for i in (7, 12, 17):
+        conv(f"decoder.{i}", 64, 64, bias=False)
+    conv("decoder.19", 3, 64)
+    conv("encoder.0", 64, 3)
+    for i in (1, 3, 4, 5, 7, 8, 9, 11, 12, 13):
+        block(f"encoder.{i}")
+    for i in (2, 6, 10):
+        conv(f"encoder.{i}", 64, 64, bias=False)
+    conv("encoder.14", latent_channels, 64)
     return sd

@@ -26,7 +26,14 @@ the registry the hires fix's pixel mode takes its upscaler from.
 set, resolves the prompt's `<lora:name:weight>` tags. The decode is split in
 two, `decode_dispatch` (enqueue, no wait) and `decode_finish` (wait, NaN
 checks), so the serving pipeline can overlap one request's copy to the host
-with the next request's denoise.
+with the next request's denoise. `decode_first_stage_tiled` and
+`encode_first_stage_tiled` run the VAE over overlapping tiles blended by a
+feathered weight (the reference's defaults: 64-latent-pixel decode tiles at
+overlap 8, 512-pixel encode tiles at overlap 64; the last tile of a row or
+column clamped to the edge); the tiles stay on the device and the blend
+accumulates there in f32. `decode_dispatch` runs the decode its caller
+picks (whole, tiled or TAESD's) under one uint8 conversion and the same
+NaN checks.
 
 Compute dtype is bf16 on CUDA and f32 on the CPU, as the reference picks
 bf16 on the TPU and f32 elsewhere. The VAE runs in the `vae_dtype` option's
@@ -287,16 +294,75 @@ class DiffusionEngine:
         z = self.latent_format.process_out(latent.float())
         return vae_mod.vae_decode(self.loaded.vae, z.to(self.vae_dtype)).float()
 
+    @staticmethod
+    def _feather(tile: int, overlap: int, device) -> torch.Tensor:
+        """[tile, tile] f32 blend weight: a linear ramp 1/overlap … 1 over the
+        `overlap` pixels at each edge, the minimum of the two axes'."""
+        ramp = np.minimum(np.arange(1, tile + 1), overlap) / overlap
+        ramp = np.minimum(ramp, ramp[::-1])
+        return torch.from_numpy(np.minimum.outer(ramp, ramp).astype(np.float32)).to(device)
+
+    @staticmethod
+    def _tiles(h: int, w: int, tile: int, overlap: int):
+        """(top, left, bottom, right) of each tile in the reference's order,
+        rows then columns at stride tile − overlap, the last clamped to the edge."""
+        stride = tile - overlap
+        for top in range(0, max(h - overlap, 1), stride):
+            for left in range(0, max(w - overlap, 1), stride):
+                bottom, right = min(top + tile, h), min(left + tile, w)
+                yield bottom - min(tile, h), right - min(tile, w), bottom, right
+
+    def _blend_tiles(self, fn, x: torch.Tensor, tile: int, overlap: int, channels: int,
+                     scale: float) -> torch.Tensor:
+        """fn over x's overlapping tiles of `tile` pixels, each output tile
+        (`scale` times the input's size) weighted by the feather at output
+        size, the sum divided by the weights' → f32 [B, channels, ...]."""
+        b, _, h, w = x.shape
+        out = torch.zeros((b, channels, int(h * scale), int(w * scale)), dtype=torch.float32,
+                          device=x.device)
+        weight = torch.zeros((1, 1) + out.shape[2:], dtype=torch.float32, device=x.device)
+        feather = self._feather(int(tile * scale), int(overlap * scale), x.device)
+        for t0, l0, bottom, right in self._tiles(h, w, tile, overlap):
+            piece = fn(x[:, :, t0:bottom, l0:right])
+            fh, fw = piece.shape[2:]
+            fm = feather[:fh, :fw]
+            top, left = int(t0 * scale), int(l0 * scale)
+            out[:, :, top:top + fh, left:left + fw] += piece * fm
+            weight[:, :, top:top + fh, left:left + fw] += fm
+        return out / torch.clamp_min(weight, 1e-6)
+
     @torch.no_grad()
-    def decode_dispatch(self, latent: torch.Tensor) -> "DecodeHandle":
-        """Enqueue the decode of latent [B,C,h,w] (regulated space) and the
-        two finiteness checks, with no wait on the card: the checks stay
-        device tensors, and on CUDA the uint8 images [B,8h,8w,3] and the
-        flags start a non-blocking copy into pinned host memory behind a
-        recorded event. `decode_finish` waits for it."""
-        lat_ok = torch.isfinite(latent.float()).all()
-        imgf = self.decode_first_stage(latent)
-        flags = torch.stack([lat_ok, torch.isfinite(imgf).all()])
+    def decode_first_stage_tiled(self, latent: torch.Tensor, tile: int = 64,
+                                 overlap: int = 8) -> torch.Tensor:
+        """`decode_first_stage` over overlapping latent tiles of `tile` pixels,
+        blended by the feather → f32 images [B,3,8h,8w] in [-1, 1]; a latent
+        no larger than one tile decodes whole."""
+        if latent.shape[2] <= tile and latent.shape[3] <= tile:
+            return self.decode_first_stage(latent)
+        return self._blend_tiles(self.decode_first_stage, latent, tile, overlap, 3, 8)
+
+    @torch.no_grad()
+    def encode_first_stage_tiled(self, images: torch.Tensor, tile: int = 512,
+                                 overlap: int = 64) -> torch.Tensor:
+        """`encode_first_stage` over overlapping image tiles of `tile` pixels,
+        blended by the feather at latent size → regulated f32 latent
+        [B,C,H/8,W/8]; an image no larger than one tile encodes whole."""
+        if images.shape[2] <= tile and images.shape[3] <= tile:
+            return self.encode_first_stage(images)
+        return self._blend_tiles(self.encode_first_stage, images.to(self.device), tile, overlap,
+                                 self.latent_format.latent_channels, 1 / 8)
+
+    @torch.no_grad()
+    def decode_dispatch(self, latent: torch.Tensor, decode=None) -> "DecodeHandle":
+        """Enqueue `decode` (regulated latent [B,C,h,w] → image [B,3,8h,8w] in
+        [-1, 1]; `decode_first_stage` unless given: the tiled decode or TAESD's,
+        pipeline/taesd.py `taesd_decoder`) and the two finiteness checks, with
+        no wait on the card: the checks stay device tensors, and on CUDA the
+        uint8 images [B,8h,8w,3] and the flags start a non-blocking copy into
+        pinned host memory behind a recorded event. `decode_finish` waits for
+        it."""
+        imgf = (decode or self.decode_first_stage)(latent)
+        flags = torch.stack([torch.isfinite(latent.float()).all(), torch.isfinite(imgf).all()])
         img = torch.clamp((imgf + 1.0) * 127.5 + 0.5, 0, 255).to(torch.uint8)
         img = img.permute(0, 2, 3, 1).contiguous()
         if img.device.type != "cuda":

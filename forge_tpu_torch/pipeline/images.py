@@ -1,6 +1,6 @@
 """Image resizing for img2img (port of forge_tpu/pipeline/images.py
 `resize_init_image`), CLIP-vision preprocessing, regional prompt masks and
-the simple upscalers.
+the simple upscalers, and the PNG codec the API reads and writes images with.
 
 The reference resizes with PIL's LANCZOS (init images, the "Lanczos"
 upscaler), BICUBIC (the CLIP-vision input), BILINEAR (regional prompts'
@@ -15,9 +15,27 @@ its result rounded and clipped to uint8, then the vertical pass the same
 way. Nearest: Pillow's affine scale, the source coordinate of output i
 being (i + 0.5)·n_in/n_out accumulated in double by repeated addition and
 truncated.
+
+PNG without Pillow: `encode_png` writes 8-bit gray, RGB or RGBA (every row
+filter None, zlib from the standard library) with the infotext as a tEXt
+chunk "parameters" (iTXt where it is not Latin-1, as Pillow writes it);
+`decode_png` reads non-interlaced gray (1, 2, 4 and 8 bits), gray+alpha,
+RGB, RGBA and palette images (1-8 bits, tRNS alpha) under all five row
+filters, with their tEXt, zTXt and iTXt text. Any other image (JPEG, WebP,
+GIF, 16-bit or interlaced PNG) raises `UnsupportedImage` with its format's
+name: nothing is guessed. As Pillow does against decompression bombs, an
+image past `MAX_IMAGE_PIXELS` (or 16384 a side) raises `ImageTooLarge`
+before its data is inflated, the data is inflated no further than the
+image's rows, and a compressed text no further than 1 MiB. Rows filtered
+Average or Paeth are undone a pixel anti-diagonal at a time. The bytes are
+not Pillow's; the pixels and the text are.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -150,3 +168,231 @@ def resize_init_image(img: np.ndarray, w: int, h: int, mode: int = 0) -> np.ndar
         top, left = (h - rh) // 2, (w - rw) // 2
         return np.pad(r, ((top, h - rh - top), (left, w - rw - left), (0, 0)), mode="edge")
     return lanczos_resize(img, w, h)
+
+
+# -- PNG ---------------------------------------------------------------------
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_COLOR_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples a pixel
+_MODE_COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels → colour type (gray, RGB, RGBA)
+
+
+# Pillow's Image.MAX_IMAGE_PIXELS: the most pixels `decode_png` reads (Pillow
+# warns past it and refuses twice it)
+MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
+# the longest side it reads: the row filters take h + w numpy steps
+MAX_IMAGE_SIDE = 16384
+_MAX_TEXT_BYTES = 1 << 20  # Pillow's MAX_TEXT_CHUNK: the most a zTXt or iTXt text inflates to
+
+
+class UnsupportedImage(ValueError):
+    """An image the codec does not read; `format` names it."""
+
+    def __init__(self, fmt: str):
+        super().__init__(f"unsupported image format: {fmt} (the port reads 8-bit PNG only)")
+        self.format = fmt
+
+
+class ImageTooLarge(ValueError):
+    """A PNG past `MAX_IMAGE_PIXELS` or `MAX_IMAGE_SIDE`, or a text chunk past
+    1 MiB inflated."""
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_png(image: np.ndarray, text: Optional[Dict[str, str]] = None) -> bytes:
+    """uint8 [H,W], [H,W,1], [H,W,3] or [H,W,4] → PNG bytes; `text` → one
+    tEXt chunk a key (iTXt, UTF-8, where the value is not Latin-1)."""
+    arr = np.asarray(image)
+    if arr.dtype != np.uint8:
+        raise ValueError(f"encode_png takes uint8 pixels, not {arr.dtype}")
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    h, w, c = arr.shape
+    if c not in _MODE_COLOR_TYPE:
+        raise ValueError(f"encode_png takes 1, 3 or 4 channels, not {c}")
+    out = [_PNG_SIGNATURE, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                                       _MODE_COLOR_TYPE[c], 0, 0, 0))]
+    for key, value in (text or {}).items():
+        try:
+            out.append(_chunk(b"tEXt", key.encode("latin-1") + b"\0" + value.encode("latin-1")))
+        except UnicodeEncodeError:
+            out.append(_chunk(b"iTXt", key.encode("latin-1") + b"\0\0\0\0\0"
+                              + value.encode("utf-8")))
+    rows = np.empty((h, 1 + w * c), np.uint8)
+    rows[:, 0] = 0  # filter type None
+    rows[:, 1:] = arr.reshape(h, w * c)
+    out.append(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+    out.append(_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def _sniff(data: bytes) -> str:
+    if data[:3] == b"\xff\xd8\xff":
+        return "JPEG"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if data[:2] == b"BM":
+        return "BMP"
+    if data[:4] in (b"II*\0", b"MM\0*"):
+        return "TIFF"
+    return "unknown"
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG row filters → [h, stride] uint8."""
+    data = np.frombuffer(raw, np.uint8)
+    if data.size < h * (stride + 1):
+        raise ValueError("PNG image data is truncated")
+    data = data[:h * (stride + 1)].reshape(h, stride + 1)
+    ftypes, lines = data[:, 0], data[:, 1:]
+    if ftypes.max() > 4:
+        raise ValueError(f"PNG row filter {int(ftypes.max())} is not defined")
+    if np.isin(ftypes, (3, 4)).any():
+        return _unfilter_wavefront(lines, ftypes, bpp)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, line = ftypes[y], lines[y]
+        if ftype == 0:
+            row = line.copy()
+        elif ftype == 1:  # Sub: a running sum along each byte lane
+            row = np.empty(stride, np.uint8)
+            for lane in range(bpp):
+                row[lane::bpp] = np.cumsum(line[lane::bpp], dtype=np.uint64) % 256
+        else:  # Up
+            row = line + prior
+        out[y] = row
+        prior = row
+    return out
+
+
+def _unfilter_wavefront(lines: np.ndarray, ftypes: np.ndarray, bpp: int) -> np.ndarray:
+    """The row filters of an image with Average or Paeth rows, whose bytes each
+    need their reconstructed left, upper and upper-left pixels: undone one
+    anti-diagonal of pixels at a time, h + w − 1 numpy steps in place of
+    h·w·bpp Python ones. In the padded [h+1, w+1] image, anti-diagonal d's
+    pixels and their three neighbours lie w apart in the flat array."""
+    h, n = lines.shape[0], lines.shape[1] // bpp
+    out = np.zeros(((h + 1) * (n + 1), bpp), np.int16)  # row 0 and column 0: the zeros
+    filt = lines.reshape(h * n, bpp).astype(np.int16)
+    kind = ftypes.astype(np.int16)[:, None]
+    for d in range(h + n - 1):
+        lo, hi = max(0, d - n + 1), min(h, d + 1)  # the rows on this anti-diagonal
+        at = slice(d + lo * n, d + (hi - 1) * n + 1, n)  # their upper-left neighbours
+        c = out[at]
+        b = out[at.start + 1:at.stop + 1:n]  # up
+        a = out[at.start + n + 1:at.stop + n + 1:n]  # left
+        ac, bc = a - c, b - c
+        pa, pb, pc = np.abs(bc), np.abs(ac), np.abs(ac + bc)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        t = kind[lo:hi]
+        pred = np.where(t == 4, paeth, np.where(t == 3, (a + b) >> 1,
+                                                np.where(t == 2, b, np.where(t == 1, a, 0))))
+        f = filt[d + lo * (n - 1):d + (hi - 1) * (n - 1) + 1:max(n - 1, 1)]
+        out[at.start + n + 2:at.stop + n + 2:n] = (f + pred) & 255
+    return out.reshape(h + 1, n + 1, bpp)[1:, 1:].reshape(h, n * bpp).astype(np.uint8)
+
+
+def _inflate(data: bytes, limit: int, what: str) -> bytes:
+    """zlib data → at most `limit` bytes; more raises (a decompression bomb)."""
+    out = zlib.decompressobj().decompress(data, limit + 1)
+    if len(out) > limit:
+        raise ImageTooLarge(f"{what} inflates past {limit} bytes")
+    return out
+
+
+def _text_chunk(kind: bytes, data: bytes) -> Tuple[str, str]:
+    key, _, rest = data.partition(b"\0")
+    if kind == b"tEXt":
+        return key.decode("latin-1"), rest.decode("latin-1")
+    if kind == b"zTXt":
+        return key.decode("latin-1"), _inflate(rest[1:], _MAX_TEXT_BYTES,
+                                               "zTXt").decode("latin-1")
+    compressed, rest = rest[0], rest[2:]  # iTXt: flag, method, language\0, translated\0, text
+    _, _, rest = rest.partition(b"\0")
+    _, _, rest = rest.partition(b"\0")
+    if compressed:
+        rest = _inflate(rest, _MAX_TEXT_BYTES, "iTXt")
+    return key.decode("latin-1"), rest.decode("utf-8")
+
+
+def decode_png(data: bytes) -> Tuple[np.ndarray, Dict[str, str]]:
+    """PNG bytes → (uint8 pixels, text chunks). Pixels are [H,W] gray, [H,W,2]
+    gray+alpha, [H,W,3] RGB or [H,W,4] RGBA; a palette image comes out
+    through its palette as RGB (RGBA where it has a tRNS chunk)."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise UnsupportedImage(_sniff(data))
+    pos, ihdr, idat, text, palette, trns = 8, None, [], {}, None, None
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
+        elif kind in (b"tEXt", b"zTXt", b"iTXt"):
+            key, value = _text_chunk(kind, body)
+            text[key] = value
+        elif kind == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError("PNG has no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if ctype not in _COLOR_CHANNELS:
+        raise ValueError(f"PNG colour type {ctype} is not defined")
+    if depth == 16:
+        raise UnsupportedImage("16-bit PNG")
+    if interlace:
+        raise UnsupportedImage("interlaced PNG")
+    if depth != 8 and ctype not in (0, 3):
+        raise ValueError(f"PNG bit depth {depth} is not defined for colour type {ctype}")
+    if not w * h:
+        raise ValueError(f"PNG of {w}x{h} pixels holds none")
+    if w * h > MAX_IMAGE_PIXELS or max(w, h) > MAX_IMAGE_SIDE:
+        raise ImageTooLarge(f"PNG of {w}x{h} pixels: the port reads up to {MAX_IMAGE_PIXELS} "
+                            f"pixels and {MAX_IMAGE_SIDE} a side")
+    channels = _COLOR_CHANNELS[ctype]
+    stride = (w * channels * depth + 7) // 8
+    size = h * (stride + 1)  # the filtered rows' bytes; the stream is read no further
+    raw = zlib.decompressobj().decompress(b"".join(idat), size)
+    rows = _unfilter(raw, h, stride, max(channels * depth // 8, 1))
+    if depth < 8:  # 1, 2 or 4 bits a sample, packed from the high bits
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
+        px = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1).astype(np.uint8)
+        if ctype == 0:
+            px = (px.astype(np.uint16) * 255 // ((1 << depth) - 1)).astype(np.uint8)
+    else:
+        px = rows.reshape(h, w, channels)
+        if channels == 1:
+            px = px[..., 0]
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("palette PNG has no PLTE chunk")
+        table = palette
+        if trns is not None:
+            alpha = np.full(len(palette), 255, np.uint8)
+            alpha[:len(trns)] = trns[:len(palette)]
+            table = np.concatenate([palette, alpha[:, None]], axis=1)
+        px = table[px]
+    return np.ascontiguousarray(px), text
+
+
+def to_rgb(pixels: np.ndarray) -> np.ndarray:
+    """Decoded pixels → uint8 [H,W,3], as Pillow's convert("RGB"): gray
+    repeated, alpha dropped."""
+    if pixels.ndim == 2:
+        return np.repeat(pixels[..., None], 3, axis=-1)
+    if pixels.shape[-1] == 2:
+        return np.repeat(pixels[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(pixels[..., :3])

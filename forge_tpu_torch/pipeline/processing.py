@@ -55,8 +55,8 @@ at scores 6.0 and 2.5.
 A batch goes through four stages, which the serving pipeline
 (runtime/serving.py) runs on three threads: `prepare` (seeds, LoRA, cond,
 noise or the init latent), `denoise` (the sampler's loop, enqueued on the
-card), `engine.decode_dispatch` / `engine.decode_finish` (the decode and its
-copy to the host, the NaN checks) and `finish` (the inpaint composite or
+card), `decode_dispatch` / `engine.decode_finish` (the decode the plan and
+options pick, its copy to the host, the NaN checks) and `finish` (the inpaint composite or
 paste). `process_images` runs them in turn, with the refiner's switch
 inside `sample` and `hires_pass` between the denoise and the decode.
 
@@ -75,6 +75,24 @@ without the uncond branch; its per-step conds still select by the σ's
 position in the whole pass (the reference restarts them at the split).
 Every image gets an infotext (pipeline/infotext.py) in `Processed.infotexts`,
 and `params.txt` the first one under the `save_write_params_txt` option.
+
+The memory plan (runtime/memory.py `plan_generation`) is made as the request
+starts, on the engine's device: it chunks the batch (the chunk divides the
+batch, so the seeds keep their layout) and decides whether the VAE runs in
+tiles, which the `vae_always_tiled` option forces; a tiled plan tiles the
+img2img encode too. `sd_vae_decode_method` "TAESD" decodes with the family's
+TAESD weights where they are found and with the full VAE where not;
+`Processed.decode_method` says which ran.
+
+The sampler's model calls tick the job state (runtime/state.py): each call
+advances `state.sampling_step`, and while a job runs (the API's
+`state.begin`) every `show_progress_every_n_steps` calls under
+`live_previews_enable` the call's x0 is decoded by `show_progress_type`
+("Approx cheap", "Approx NN", "TAESD", "Full") into `state.current_image`.
+A preview copies x0 to the host and so waits for the card. While a job runs,
+the step loop ends at the next step boundary once `state.interrupted` (the
+request: the partial latent decodes, no hires pass follows and no further
+batch starts) or `state.skipped` (this batch) is set.
 
 `Processing` takes only the fields this port reads. Any other field of the
 reference's request (scripts, hooks, hook phases, soft inpainting, ...)
@@ -103,10 +121,12 @@ import torch
 
 from ..ops.image_rng import ImageRNG
 from ..ops.resize import resize
+from ..runtime.memory import Plan, plan_generation, tree_bytes
 from ..runtime.options import opts
+from ..runtime.state import state
 from ..sampling import cfg as cfg_mod
 from ..sampling.brownian import brownian_step_noise
-from ..sampling.samplers import get_sampler
+from ..sampling.samplers import get_sampler, step_gate
 from ..sampling.schedules import get_sigmas
 from ..sampling.tiled import make_tiled_apply
 from ..text.schedule import get_schedule, split_composable
@@ -115,6 +135,7 @@ from .extra_networks import activate, parse_prompt
 from .images import bilinear_resize, resize_init_image
 from .infotext import create_infotext, write_params_txt
 from .masking import expand_crop_region, get_crop_region, resize_image
+from .taesd import preview_decode, taesd_decoder, taesd_for_family
 
 TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 32
 # the request features that no test holds against the reference on a family: each raises
@@ -209,7 +230,7 @@ class Processing:
 _FIELDS = frozenset(f.name for f in dataclasses.fields(Processing))
 # engines a caller (or a test) hands the request directly, ahead of ENGINE_RESOLVER, and
 # the engine's family, which the infotext reads
-_INTERNAL_ATTRS = frozenset(("_hr_engine", "_refiner_engine", "_engine_family"))
+_INTERNAL_ATTRS = frozenset(("_hr_engine", "_refiner_engine", "_engine_family", "_plan"))
 
 
 @dataclasses.dataclass
@@ -220,6 +241,7 @@ class Processed:
     infotexts: List[str]
     params: Dict[str, Any]
     timings: Dict[str, float]
+    decode_method: str = "full"  # "full", "tiled" or "TAESD", as `decode_dispatch` picked
 
 
 @dataclasses.dataclass
@@ -375,6 +397,68 @@ def setup(engine: DiffusionEngine, p: Processing) -> None:
     _resolve_seeds(p)
     _apply_option_defaults(p)
     _record_generation_params(engine, p)
+
+
+def plan(engine: DiffusionEngine, p: Processing, chunk: bool = True) -> Plan:
+    """The request's memory plan on the engine's device, `vae_always_tiled`
+    forcing the tiled VAE, in `p._plan`; with `chunk` a chunked batch is
+    applied, to the largest divisor of the batch not above the chunk."""
+    pl = plan_generation(p.batch_size, p.height, p.width,
+                         weight_bytes=tree_bytes(engine.loaded.unet), device=engine.device)
+    if opts.get("vae_always_tiled"):
+        pl.tiled_vae = True
+    if chunk and 0 < pl.batch_chunk < p.batch_size:
+        size = pl.batch_chunk
+        while p.batch_size % size:  # the seeds keep their layout: the chunk divides the batch
+            size -= 1
+        if size < p.batch_size:
+            p.n_iter *= p.batch_size // size
+            p.batch_size = size
+    p._plan = pl
+    return pl
+
+
+def _tiled_vae(p: Processing) -> bool:
+    pl = getattr(p, "_plan", None)
+    return pl is not None and pl.tiled_vae
+
+
+def decode_dispatch(engine: DiffusionEngine, latent: torch.Tensor, p: Processing):
+    """The decode the request's options and plan pick, enqueued (the engine's
+    `decode_dispatch`) → (handle, the method that runs): "TAESD" where the
+    `sd_vae_decode_method` option asks for it and the family's weights are
+    found, else the full VAE, "tiled" where the plan tiles."""
+    tiled = _tiled_vae(p)
+    method = "tiled" if tiled else "full"
+    if opts.get("sd_vae_decode_method") == "TAESD":
+        params = taesd_for_family(engine.family, device=engine.device)
+        if params is not None:
+            return engine.decode_dispatch(latent, taesd_decoder(engine, params)), "TAESD"
+        method += f" (no TAESD weights for {engine.family})"
+    decode = engine.decode_first_stage_tiled if tiled else None
+    return engine.decode_dispatch(latent, decode), method
+
+
+def _stop_requested() -> bool:
+    """The step gate: a running job was interrupted or its batch skipped."""
+    return bool(state.job) and (state.interrupted or state.skipped)
+
+
+def _progress_tick(engine: DiffusionEngine, x0: torch.Tensor) -> None:
+    """After each model call (the reference's `_progress_tick`): advance the
+    job's step and, while a job runs, refresh the live preview from x0's
+    first image every `show_progress_every_n_steps` calls (≤ 0: none)."""
+    with state._lock:  # the API's handler threads read it
+        state.sampling_step += 1
+    if not state.job or not opts.get("live_previews_enable"):
+        return
+    every = int(opts.get("show_progress_every_n_steps"))
+    if every <= 0 or state.sampling_step % every:
+        return
+    try:
+        state.set_current_image(preview_decode(engine, x0[:1], str(opts.get("show_progress_type")))[0])
+    except Exception as e:  # noqa: BLE001 — a failed preview leaves the image as it was
+        state.textinfo = f"preview failed: {e}"
 
 
 def infotexts(p: Processing, seeds: List[int], subseeds: List[int]) -> List[str]:
@@ -638,10 +722,11 @@ def _unit_mask(p: Processing) -> np.ndarray:
     return 1.0 - m if p.inpainting_mask_invert else m
 
 
-def _encode(engine: DiffusionEngine, images: np.ndarray) -> torch.Tensor:
-    """[B,H,W,3] float in [-1, 1] → regulated f32 latent [B,C,H/8,W/8] on the device."""
+def _encode(engine: DiffusionEngine, images: np.ndarray, tiled: bool = False) -> torch.Tensor:
+    """[B,H,W,3] float in [-1, 1] → regulated f32 latent [B,C,H/8,W/8] on the
+    device, encoded whole or in tiles."""
     x = torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2)))
-    return engine.encode_first_stage(x)
+    return engine.encode_first_stage_tiled(x) if tiled else engine.encode_first_stage(x)
 
 
 def _prep_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
@@ -660,7 +745,7 @@ def _prep_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
             arr = arr / 255.0
         imgs.append(arr * 2.0 - 1.0)
     batch = np.stack([imgs[min(i, len(imgs) - 1)] for i in range(p.batch_size)])
-    init_latent = _encode(engine, batch)
+    init_latent = _encode(engine, batch, tiled=_tiled_vae(p))  # a tiled plan tiles both ways
     if p.resize_mode == 3 and tuple(init_latent.shape[2:]) != (h8, w8):
         # 'Just resize (latent upscale)': bilinear in latent space, no antialias
         init_latent = resize(init_latent, (h8, w8), "bilinear", antialias=False)
@@ -800,12 +885,20 @@ def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
     if job.mask is not None:
         masked = cfg_mod.make_masked_pair_fn if info.needs_uncond else cfg_mod.make_masked_model_fn
         model_fn = masked(model_fn, job.mask, job.init_latent)
+    inner = model_fn
+
+    def ticking(x, sigma):
+        out = inner(x, sigma)
+        _progress_tick(engine, out[0] if isinstance(out, tuple) else out)
+        return out
+
     params = inspect.signature(info.fn).parameters
     eta = p.eta_ddim if info.uses_eta_ddim else p.eta
     kwargs = {name: value for name, value in
               (("eta", eta), ("s_noise", p.s_noise), ("s_churn", p.s_churn))
               if name in params}
-    return info.fn(model_fn, job.x, job.sigmas, job.step_noise, **kwargs)
+    with step_gate(_stop_requested):
+        return info.fn(ticking, job.x, job.sigmas, job.step_noise, **kwargs)
 
 
 def finish(job: Job, batch: np.ndarray) -> List[np.ndarray]:
@@ -1010,25 +1103,33 @@ def hires_pass(engine: DiffusionEngine, job: Job, latent: torch.Tensor,
 def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
     t0 = time.perf_counter()
     setup(engine, p)
+    plan(engine, p)
     timings: Dict[str, float] = {}
     images: List[np.ndarray] = []
     texts: List[str] = []
+    methods = []
     for it in range(p.n_iter):
+        if it and state.job and state.interrupted:
+            break
         job = prepare(engine, p, it, timings)
         t1 = time.perf_counter()
         latent, out_engine = sample(engine, job, timings)
         if latent.is_cuda:  # for the phase's time only; the decode would wait as well
             torch.cuda.synchronize(latent.device)
         _add_time(timings, "sample", t1)
-        if p.enable_hr and p.init_images is None:
+        if p.enable_hr and p.init_images is None and not _stop_requested():
             latent, out_engine = hires_pass(engine, job, latent, timings)
         t2 = time.perf_counter()
-        batch = out_engine.decode_finish(out_engine.decode_dispatch(latent))
+        handle, method = decode_dispatch(out_engine, latent, p)
+        batch = out_engine.decode_finish(handle)
         _add_time(timings, "decode", t2)
+        methods.append(method)
         images.extend(finish(job, batch))
         texts.extend(infotexts(p, job.seeds, job.subseeds))
+        state.skipped = False  # a skip ends one batch
     timings["total"] = time.perf_counter() - t0
     if texts and opts.get("save_write_params_txt"):
         write_params_txt(texts[0])
     return Processed(images=images, seeds=list(p.all_seeds), subseeds=list(p.all_subseeds),
-                     infotexts=texts, params=_simple_params(p), timings=timings)
+                     infotexts=texts, params=_simple_params(p), timings=timings,
+                     decode_method=", ".join(dict.fromkeys(methods)))

@@ -1,15 +1,19 @@
-# Copied from forge_tpu/runtime/options.py (OptionInfo, Options get/set/override; the keys the port reads).
+# Copied from forge_tpu/runtime/options.py (OptionInfo, Options get/set/override, save/load/dump_registry; the keys the port reads).
 """Runtime options registry with per-request overrides.
 
 The port registers only the options it reads, with the reference's
 defaults. Reading, setting or overriding any other key raises KeyError: an
-option that is not ported is refused, never stored and ignored.
-Persistence (`save`, `load`) and the registry dump wait for the API.
+option that is not ported is refused, never stored and ignored, and a
+settings file (`load`) that holds one raises as well. `save` writes the
+values set, `dump_registry` every key with its default, label, section and
+value (the API's GET /sdapi/v1/options).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import threading
 from typing import Any, Dict, Optional
 
@@ -66,6 +70,32 @@ class Options:
             self._overrides.stack.pop()
 
 
+    def save(self, path: str):
+        with self._lock:
+            data = dict(self._values)
+        with open(path, "w") as f:
+            json.dump(data, f, indent=2, default=str)
+
+    def load(self, path: str):
+        """The values of a settings file `save` wrote; a missing file loads
+        nothing, and a key that is not ported raises KeyError."""
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            data = json.load(f)
+        for key in data:
+            self._check(key)
+        with self._lock:
+            self._values.update(data)
+
+    def dump_registry(self) -> Dict[str, Dict[str, Any]]:
+        return {
+            k: {"default": i.default, "label": i.label, "section": i.section,
+                "value": self.get(k)}
+            for k, i in self._registry.items()
+        }
+
+
 opts = Options()
 
 _DEFAULTS = {
@@ -90,6 +120,14 @@ _DEFAULTS = {
     "add_version_to_infotext": OptionInfo(True, "Version in infotext", "infotext"),
     "infotext_styles": OptionInfo("Apply if any", "Infotext style extraction", "infotext",
                                   ["Ignore", "Apply", "Discard", "Apply if any"]),
+    "sd_model_checkpoint": OptionInfo(None, "Checkpoint", "sd"),
+    "sd_vae_decode_method": OptionInfo("Full", "VAE decode method", "vae", ["Full", "TAESD"]),
+    "vae_always_tiled": OptionInfo(False, "NeverOOM: always use tiled VAE decode/encode", "perf"),
+    "live_previews_enable": OptionInfo(True, "Live previews", "live_previews"),
+    "show_progress_every_n_steps": OptionInfo(10, "Live preview period (steps; -1 = off)",
+                                              "live_previews"),
+    "show_progress_type": OptionInfo("Approx cheap", "Live preview method", "live_previews",
+                                     ["Full", "Approx NN", "Approx cheap", "TAESD"]),
 }
 for _k, _v in _DEFAULTS.items():
     opts.add(_k, _v)

@@ -9,7 +9,8 @@ current request's denoise on the card.
   finish  (thread 3): wait for that copy's event, the NaN checks, the images
 
 The stages are pipeline/processing.py's `setup` and `prepare`, `sample`
-(the NGMS split where the options ask for it), `engine.decode_dispatch` /
+(the NGMS split where the options ask for it), `decode_dispatch` (whole,
+tiled or TAESD, as the request's plan and options pick) /
 `engine.decode_finish`, `finish` and `infotexts`, the code `process_images`
 runs, so a served request gives the same bytes and infotexts as
 `process_images` on the same `Processing`. All three threads launch onto
@@ -21,8 +22,10 @@ is thread-local. Only the denoise thread launches the counted kernels
 A failed stage fails its request's future with the exception and the
 pipeline goes on with the next request. Requests with init images
 (img2img), the hires fix, a refiner or `n_iter` > 1 are refused, as the
-reference's serving takes plain txt2img requests. The reference's HBM plan (`plan_generation`, tiled
-VAE) is not ported yet.
+reference's serving takes plain txt2img requests. The prep stage makes the
+request's memory plan as `process_images` does (`plan`), without chunking
+the batch, as the reference's serving makes it: a tiled plan, TAESD or the
+`vae_always_tiled` option pick the decode (`decode_dispatch`).
 """
 
 from __future__ import annotations
@@ -121,12 +124,13 @@ class ServingPipeline:
                                       "(no init_images, hires fix or refiner; n_iter 1); "
                                       "use process_images")
         proc.setup(self.engine, p)
+        proc.plan(self.engine, p, chunk=False)
         return (proc.prepare(self.engine, p, 0, timings),)
 
     def _denoise(self, p, timings, job):
         latent, _ = proc.sample(self.engine, job, timings)
         t0 = time.perf_counter()
-        handle = self.engine.decode_dispatch(latent)
+        handle, _ = proc.decode_dispatch(self.engine, latent, p)
         timings["decode_dispatch"] = time.perf_counter() - t0
         return job, handle
 

@@ -15,6 +15,11 @@ Restart) make a model call at σ = 0 and throw it away. These loops skip it,
 as k-diffusion does: the image is the same. DPM adaptive reads its error
 norm back each iteration (`.item()`), since the next σ depends on it.
 
+Every loop walks its steps through `_pairs` or `_steps`, which end the loop
+at the next step boundary once the gate `step_gate` installs on the calling
+thread says stop (the API's interrupt and skip): the sampler then returns
+the latent of the steps it took.
+
 Conventions:
     d = to_d(x, σ, denoised) = (x - denoised) / σ
     ancestral split: σ_up = min(σ_next, η·sqrt(σ_next²·(σ²-σ_next²)/σ²)),
@@ -23,8 +28,10 @@ Conventions:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -55,9 +62,35 @@ def _sig_of(t) -> np.float32:
     return np.exp(-F(t))
 
 
+_gate = threading.local()
+
+
+@contextlib.contextmanager
+def step_gate(stop: Callable[[], bool]):
+    """Within this block, on this thread, every sampler's loop ends at the next
+    step boundary once stop() is true."""
+    previous = getattr(_gate, "stop", None)
+    _gate.stop = stop
+    try:
+        yield
+    finally:
+        _gate.stop = previous
+
+
+def _steps(n: int, start: int = 0):
+    """range(start, n), ending early once the thread's step gate says stop."""
+    stop = getattr(_gate, "stop", None)
+    for i in range(start, n):
+        if stop is not None and stop():
+            return
+        yield i
+
+
 def _pairs(sigmas):
+    """(σ_i, σ_i+1) for each step, through `_steps`."""
     sig = np.asarray(sigmas, np.float32)
-    return [(sig[i], sig[i + 1]) for i in range(len(sig) - 1)]
+    for i in _steps(len(sig) - 1):
+        yield sig[i], sig[i + 1]
 
 
 def _dot(coeffs, history: List[torch.Tensor]) -> torch.Tensor:
@@ -581,7 +614,7 @@ def _restart_plan(sigmas: np.ndarray):
 def sample_restart(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray,
                    noise: Optional[torch.Tensor] = None, s_noise: float = 1.0) -> torch.Tensor:
     old, new, scale, jump = _restart_plan(np.asarray(sigmas))
-    for k in range(len(old)):
+    for k in _steps(len(old)):
         if noise is not None and scale[k] != 0:
             # the jump's noise, from the per-step stream
             x = x + noise[min(int(jump[k]), noise.shape[0] - 1)][0] * float(F(s_noise) * scale[k])
@@ -621,8 +654,8 @@ def sample_dpm_fast(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray,
     def s_of(t):
         return F(np.exp(-t))
 
-    for i, order in enumerate(orders):
-        t, t_next = ts[i], ts[i + 1]
+    for i in _steps(len(orders)):
+        order, t, t_next = orders[i], ts[i], ts[i + 1]
         h = t_next - t
         e_h = F(np.expm1(h))
         eps = _dpm_eps(model_fn, x, s_of(t))
@@ -662,7 +695,7 @@ def sample_dpm_adaptive(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray,
     s, h = F(-math.log(sigma_max)), F(h_init)
     r1, r2 = F(1 / 3), F(2 / 3)
     x_prev = x
-    for _ in range(max_steps):
+    for _ in _steps(max_steps):
         if not s < stop:
             break
         t = np.minimum(t_end, s + h)
@@ -713,7 +746,7 @@ def sample_plms(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray,
     e_t_next = to_d(x_prev, s1, model_fn(x_prev, s1))
     x = x + (e_t + e_t_next) / 2 * float(s1 - s0)
     es = [e_t]
-    for i in range(1, n):
+    for i in _steps(n, 1):
         sigma, sigma_next = sig[i], sig[i + 1]
         es = [to_d(x, sigma, model_fn(x, sigma))] + es[:3]
         coeffs = np.asarray(_PLMS_COEFFS[min(i, 3)], np.float32)
@@ -794,7 +827,7 @@ def sample_unipc(model_fn: Callable, x: torch.Tensor, sigmas: np.ndarray,
     n = len(sig) - 1
     cf = _unipc_coeffs(sig, order)
     ms = [model_fn(x, sig[0])]  # x0 history, newest first
-    for i in range(n):
+    for i in _steps(n):
         x_t_ = x * float(cf["ratio"][i]) - ms[0] * float(cf["phi1"][i])
         pred = _unipc_sum(cf["cp"][i], ms)
         x_pred = x_t_ if pred is None else x_t_ - pred * float(cf["bh"][i])

@@ -13,7 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from fixtures import CLIP_HEADS, CLIP_WIDTH, make_sd15_checkpoint  # noqa: E402
-from test_torch_hires import SD15, _run  # noqa: E402
+from torch_hires_cases import SD15, _run  # noqa: E402
 from test_torch_upscalers import tiny_esrgan_sd  # noqa: E402
 
 

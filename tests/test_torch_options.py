@@ -18,7 +18,9 @@ KEYS = ("eta_ancestral", "eta_ddim", "s_churn", "s_noise", "eta_noise_seed_delta
         "CLIP_stop_at_last_layers", "initial_noise_multiplier", "beta_dist_alpha",
         "beta_dist_beta", "disable_nan_check", "vae_dtype", "emphasis", "s_min_uncond",
         "save_write_params_txt", "add_model_name_to_info",
-        "add_model_hash_to_info", "add_version_to_infotext", "infotext_styles")
+        "add_model_hash_to_info", "add_version_to_infotext", "infotext_styles",
+        "sd_model_checkpoint", "sd_vae_decode_method", "vae_always_tiled",
+        "live_previews_enable", "show_progress_every_n_steps", "show_progress_type")
 
 
 def test_registered_keys_carry_the_reference_defaults():

@@ -86,8 +86,12 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 62, mods\n"
         "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors',"
-        " 'transformers') or m.startswith(('jax.', 'forge_tpu.', 'PIL.', 'safetensors.',"
-        " 'transformers.'))]\n"
+        " 'transformers', 'psutil') or m.startswith(('jax.', 'forge_tpu.', 'PIL.',"
+        " 'safetensors.', 'transformers.', 'psutil.'))]\n"
+        "assert {'forge_tpu_torch.api.server', 'forge_tpu_torch.webui',"
+        " 'forge_tpu_torch.runtime.memory', 'forge_tpu_torch.runtime.state',"
+        " 'forge_tpu_torch.runtime.queue', 'forge_tpu_torch.runtime.models',"
+        " 'forge_tpu_torch.pipeline.preview', 'forge_tpu_torch.pipeline.taesd'} <= set(mods)\n"
         "assert 'forge_tpu_torch.pipeline.upscalers' in mods, mods\n"
         "assert {'forge_tpu_torch.runtime.options', 'forge_tpu_torch.sampling.brownian'} <= set(mods)\n"
         "assert {'forge_tpu_torch.text.textual_inversion', 'forge_tpu_torch.runtime.styles',"
