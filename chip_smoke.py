@@ -2,12 +2,15 @@
 img2img-inpaint path with a LoRA and a ControlNet, its batched SDXL serving with an
 IP-Adapter and a MultiDiffusion upscale, its SDXL hires fix and refiner, one
 sampler of each group and the prompt surface on SDXL, its REST API on SDXL with
-the tiled VAE, and SD2.1-768-v, SD3-medium and Playground v2.5, on one NVIDIA GPU.
+the tiled VAE, SD2.1-768-v, SD3-medium and Playground v2.5, and the rest of the Flux
+family (a bitsandbytes NF4 file with separate VAE and text-encoder files, fp8 storage and
+Chroma), on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
     python3 chip_smoke.py --families   # phase 1, phase 2's rows for phase 13, phase 13; no result
     python3 chip_smoke.py --api        # phase 1, phase 2's VAE tile rows, phase 14; no result
+    python3 chip_smoke.py --flux-family  # phase 1, phase 2's rows for phase 15, phase 15; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -160,6 +163,25 @@ Phases:
      launched), and a 1024² TAESD decode timed beside the full VAE's. Phase
      2 holds the six (C, O, size) of a 512² tile's resnets that no other
      row holds.
+ 15. the Flux family as users download it, after phase 13: (a) phase 5's
+     Flux-dev weights written under logs/ by the port's safetensors writer
+     as a transformer-only bitsandbytes file (NF4, block 64, f32 absmax, no
+     double quantization: flux1-dev-bnb-nf4-v2's layout), a bf16 VAE file
+     and a bf16 text-encoder file (`text_encoders.*`), loaded through
+     `load_engine(path, additional_modules=…)` (file sizes, write and load
+     seconds, GiB allocated; the UNet holds no VAE or text-encoder subtree)
+     and driven as phase 5 (seeds 1, 2, 1, exact launches by body); seed 1's
+     image byte-identical to phase 5's `unet_quant="nf4"` image; the
+     directory removed; (b) `unet_quant="fp8_e4m3"`: the 314 big weights
+     float8_e4m3fn (about 12 GB below the bf16 tree), one request with exact
+     launches (no dequant), its latency beside NF4's, one profiled, one
+     whole forward against plain (≥ 40 dB); (c) Chroma at full width in bf16 (hidden 3072,
+     24 heads, 19 + 38 blocks, the Approximator 5120 × 5, T5-XXL, the
+     16-channel VAE): 1024², Euler "simple", 26 steps, CFG 4 with a negative
+     prompt, a warm request, seeds 1, 2, 1 (seed 1 twice byte-identical;
+     26 × 57 + 1 flash launches a request on the tensor-core body, 28 conv,
+     0 dequant), one profiled, one forward at CFG batch 2 against plain
+     (≥ 40 dB). Phase 2 holds flash at Chroma's q(2,24,4608,128).
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -170,6 +192,7 @@ is printed. The last two lines are the per-kernel JSON summary and
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -221,6 +244,12 @@ FAMILY_FLASH_SHAPES = [  # SD2.1-768-v, SD3-medium and Playground v2.5 (SDXL's s
     ((1, 1, 9216, 512), 9216, True),    # the VAE mid-block decoding 768²
 ]  # SD2's levels 1 and 2 (2304 and 576 tokens) are config 5's tile rows above
 FLASH_SHAPES += FAMILY_FLASH_SHAPES
+# phase 15: Chroma's joint attention at CFG batch 2 (the bnb and fp8 Flux paths take the
+# (1,24,4608,128) and (1,1,16384,512) rows above)
+FLUX_FAMILY_FLASH_SHAPES = [((1, 24, 4608, 128), 4608, True), ((2, 24, 4608, 128), 4608, True),
+                            ((1, 1, 16384, 512), 16384, True)]
+FLASH_SHAPES += FLUX_FAMILY_FLASH_SHAPES[1:2]
+FLUX_FAMILY_CONV_SHAPES = [((1, 512, 128, 128), 512), ((1, 128, 1024, 1024), 128)]  # Flux's VAE
 FLASH_SUMMARY_SHAPE = FLASH_SHAPES[0][0]  # the JSON line's flash row (the same shape since the first)
 GN_CONV_SHAPES = [  # (B, C, H, W), O
     ((2, 320, 64, 64), 320),     # UNet level-0 resblock
@@ -416,6 +445,17 @@ API_TAESD_PER_REQUEST = {"flash_attention": SDXL_STEPS * 70, "gn_silu_conv3x3": 
                          "dequant_matmul": 0}
 API_INTERRUPT_AT = 10  # POST /interrupt once /progress shows this step
 FAMILY_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
+# phase 15, the Flux family as users download it: (a) Flux-dev written as a bitsandbytes NF4
+# transformer file (block 64, no double quantization: flux1-dev-bnb-nf4-v2's layout) beside a
+# VAE file and a text-encoder file, driven as phase 5; (b) fp8-e4m3 weight storage; (c) Chroma
+# (lodestones/Chroma: 1024², Euler "simple", 26 steps, CFG 4 with a negative prompt). A Chroma
+# request: 26 model calls at CFG batch 2, each 19 + 38 joint attentions, then the decode
+FLUX_FILES_DIR = "logs/chip_smoke_flux_files"
+CHROMA_STEPS, CHROMA_CFG, CHROMA_NEGATIVE = 26, 4.0, "blurry, low quality"
+CHROMA_PER_REQUEST = {"flash_attention": CHROMA_STEPS * (19 + 38) + 1, "gn_silu_conv3x3": 28,
+                      "dequant_matmul": 0}
+FP8_PER_REQUEST = {"flash_attention": FLUX_STEPS * (19 + 38) + 1, "gn_silu_conv3x3": 28,
+                   "dequant_matmul": 0}
 
 
 def log(*args):
@@ -488,11 +528,11 @@ def leaf_bytes(leaf) -> int:
                if t is not None)
 
 
-def phase_dequant(gen: torch.Generator, summary):
+def phase_dequant(gen: torch.Generator, summary, cases=DEQUANT_CASES):
     from forge_tpu_torch.ops.dequant_matmul import (dequant_body, dequant_matmul,
                                                     dequant_matmul_plain)
 
-    for kind, block, (m, n, k) in DEQUANT_CASES:
+    for kind, block, (m, n, k) in cases:
         leaf = dequant_leaf(kind, block, n, k, gen)
         for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
@@ -647,14 +687,19 @@ def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
 
 
 def phase_kernels(gen: torch.Generator, rows: str = "all"):
-    """Phase 2; with rows "families" or "api", the flash and conv rows of the
-    SD2, SD3 and Playground paths or of phase 14's VAE tiles alone."""
+    """Phase 2; with rows "families", "api" or "flux_family", the flash and
+    conv rows of the SD2, SD3 and Playground paths, of phase 14's VAE tiles
+    or of phase 15 (with its NF4 dequant rows) alone."""
     summary = {}
     if rows != "all":
-        flash, conv = ((FAMILY_FLASH_SHAPES, FAMILY_CONV_SHAPES) if rows == "families"
-                       else (TILE_FLASH_SHAPES, TILE_CONV_SHAPES))
+        flash, conv = {"families": (FAMILY_FLASH_SHAPES, FAMILY_CONV_SHAPES),
+                       "api": (TILE_FLASH_SHAPES, TILE_CONV_SHAPES),
+                       "flux_family": (FLUX_FAMILY_FLASH_SHAPES, FLUX_FAMILY_CONV_SHAPES)}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
+        if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
+            phase_dequant(gen, summary, [c for c in DEQUANT_CASES
+                                         if c[0] == "nf4" and c[2] in DEQUANT_SHAPES[:2]])
         return summary
     phase_flash(gen, summary)
     phase_conv(gen, summary)
@@ -848,7 +893,8 @@ def phase_flux():
     engine, n_quant = load_flux("nf4")
     check(n_quant == 10 * 19 + 3 * 38 + 10, "314 quantized leaves in the Flux-dev tree")
     zero_counts()
-    images = [flux_request(engine, seed, "nf4")[0] for seed in (1, 2, 1)]
+    runs = [flux_request(engine, seed, "nf4") for seed in (1, 2, 1)]
+    images = [img for img, _ in runs]
     launches = read_counts()
     check_flux_counts(launches, n_quant, 3, "the 3 NF4 requests")
     check(np.array_equal(images[0], images[2]), "Flux seed 1 twice gives identical bytes")
@@ -872,12 +918,15 @@ def phase_flux():
     check(float(img.std()) > 0, "Q4_0 image is not constant")
     del engine
     torch.cuda.empty_cache()
-    return {name: launches[name] + q4_launches[name] for name in launches}
+    # seed 1's NF4 image and latency: phase 15's bnb file must give the same bytes
+    return {name: launches[name] + q4_launches[name] for name in launches}, runs[2]
 
 
-def phase_flux_blocks(engine, size: int = 1024):
+def phase_flux_blocks(engine, size: int = 1024,
+                      parts=("double block 0", "single block 0", "whole forward")):
     """Kernels vs plain versions on one double block, one single block and
-    one whole forward at the engine's width, on size²-sized inputs."""
+    one whole forward (the `parts` named) at the engine's width, on
+    size²-sized inputs."""
     from forge_tpu_torch.models import flux as flux_mod
     from forge_tpu_torch.ops import plain_versions
 
@@ -907,6 +956,8 @@ def phase_flux_blocks(engine, size: int = 1024):
     }
     with torch.no_grad():
         for name, fn in runs.items():
+            if name not in parts:
+                continue
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fused = fn()
@@ -1800,6 +1851,204 @@ def phase_family(name: str, gen: torch.Generator):
     return launches
 
 
+def write_flux_files(directory: str):
+    """Flux-dev from phase 5's `DeviceFill(seed=0)` weights as a Forge user
+    downloads it: the transformer alone in the bitsandbytes layout (every
+    weight `unet_quant="nf4"` quantizes as NF4 at block 64 with f32 absmax,
+    the rest bf16), the VAE in bf16, and CLIP-L and T5-XXL in bf16 under
+    `text_encoders.*` → the three paths."""
+    from forge_tpu_torch.core.loader import _quantizes
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.core.synth import DeviceFill, bnb_serialize, synth_flux_checkpoint
+
+    os.makedirs(directory, exist_ok=True)
+    sd = synth_flux_checkpoint(fill=DeviceFill("cuda", seed=0))
+    prefix = "model.diffusion_model."
+    unet, vae, tes = {}, {}, {}
+    t = time.perf_counter()
+    for key, value in sd.items():
+        if key.startswith(prefix):
+            key = key[len(prefix):]
+            if _quantizes(key, value.shape):
+                unet.update(bnb_serialize(key, value))  # on the card, 0.56 B a weight
+            else:
+                unet[key] = value.to(torch.bfloat16)
+        else:
+            (vae if key.startswith("first_stage_model.") else tes)[key] = value.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"flux files: NF4 codes made on the card in {time.perf_counter() - t:.2f} s")
+    paths = {}
+    for name, part in (("flux1-dev-bnb-nf4.safetensors", unet), ("ae.safetensors", vae),
+                       ("text_encoders.safetensors", tes)):
+        path = os.path.join(directory, name)
+        t = time.perf_counter()
+        save_safetensors(part, path)
+        log(f"  wrote {name}: {os.path.getsize(path) / 2**30:.3f} GiB in "
+            f"{time.perf_counter() - t:.2f} s")
+        paths[name] = path
+        part.clear()
+    return [paths[n] for n in ("flux1-dev-bnb-nf4.safetensors", "ae.safetensors",
+                               "text_encoders.safetensors")]
+
+
+def phase_flux_bnb(nf4_seed1):
+    """Phase 15 (a): the files of `write_flux_files` loaded through
+    `load_engine(path, additional_modules=…)` and driven as phase 5; seed 1's
+    image byte-identical to phase 5's `unet_quant="nf4"` image."""
+    import shutil
+
+    from forge_tpu_torch.pipeline.engine import load_engine
+
+    shutil.rmtree(FLUX_FILES_DIR, ignore_errors=True)
+    try:
+        (unet_path, vae_path, te_path), _ = timed("flux bnb: files written",
+                                                  lambda: write_flux_files(FLUX_FILES_DIR))
+        torch.cuda.empty_cache()
+        engine, seconds = timed("flux bnb: load_engine(bnb file, additional_modules=VAE, text "
+                                "encoders)", lambda: load_engine(
+                                    unet_path, device="cuda",
+                                    additional_modules={"vae": vae_path, "text_encoders": te_path}))
+    finally:
+        shutil.rmtree(FLUX_FILES_DIR, ignore_errors=True)
+    n_quant = quant_leaves(engine.loaded.unet)
+    log(f"  {n_quant} NF4 leaves, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"unet subtrees {sorted(engine.loaded.unet)}")
+    check(engine.family == "flux" and n_quant == 314, "the bnb file's 314 NF4 leaves")
+    check(not {"first_stage_model", "text_encoders"} & set(engine.loaded.unet),
+          "the bnb file's UNet holds no VAE or text-encoder subtree")
+    check(set(engine.loaded.text_encoders) == {"clip_l", "t5xxl"}, "CLIP-L and T5 from their file")
+    zero_counts()
+    runs = [flux_request(engine, seed, "bnb nf4 file") for seed in (1, 2, 1)]
+    launches = read_counts()
+    check_flux_counts(launches, n_quant, 3, "the 3 bnb-file requests")
+    images = [img for img, _ in runs]
+    check(np.array_equal(images[0], images[2]), "bnb file seed 1 twice gives identical bytes")
+    check(not np.array_equal(images[0], images[1]), "bnb file seeds 1 and 2 differ")
+    log(f"flux bnb file seed 1 vs unet_quant=\"nf4\" seed 1: max |Δ| "
+        f"{np.abs(images[0].astype(np.int16) - nf4_seed1[0].astype(np.int16)).max()}; latency "
+        f"{runs[2][1]:.4f} s against {nf4_seed1[1]:.4f} s")
+    check(np.array_equal(images[0], nf4_seed1[0]),
+          "the bnb file's seed-1 image is byte-identical to unet_quant=\"nf4\"'s")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flux_fp8(nf4_seed1):
+    """Phase 15 (b): `unet_quant="fp8_e4m3"`: the big weights float8_e4m3fn,
+    one request with exact launches, one profiled, one whole forward against
+    plain."""
+    from forge_tpu_torch.core.convert import flatten
+    from forge_tpu_torch.core.synth import DeviceFill, synth_flux_checkpoint
+    from forge_tpu_torch.pipeline.engine import load_engine
+
+    engine, _ = timed("flux fp8: Flux-dev made on the card, load_engine(unet_quant=\"fp8_e4m3\")",
+                      lambda: load_engine(synth_flux_checkpoint(fill=DeviceFill("cuda", seed=0)),
+                                          device="cuda", unet_quant="fp8_e4m3"))
+    leaves = flatten(engine.loaded.unet)
+    fp8 = {k: v for k, v in leaves.items() if v.dtype == torch.float8_e4m3fn}
+    fp8_bytes = sum(v.numel() for v in fp8.values())
+    allocated = torch.cuda.memory_allocated()
+    log(f"  {len(fp8)} float8_e4m3fn weights ({fp8_bytes / 1e9:.3f} GB), the rest "
+        f"{sorted({str(v.dtype)[6:] for k, v in leaves.items() if k not in fp8})}; "
+        f"{allocated / 2**30:.2f} GiB allocated, the bf16 tree's "
+        f"{(allocated + fp8_bytes) / 2**30:.2f} GiB ({fp8_bytes / 1e9:.2f} GB below)")
+    check(len(fp8) == 314 and all(v.dim() == 2 for v in fp8.values()),
+          "the 314 big Flux-dev weights stored float8_e4m3fn")
+    check(fp8_bytes > 11.5e9, "fp8 storage about 12 GB below the bf16 tree")
+    check(all(v.dtype == torch.bfloat16 for k, v in leaves.items() if k not in fp8),
+          "the rest in bf16")
+    zero_counts()
+    img, latency = flux_request(engine, 1, "fp8_e4m3")
+    launches = read_counts()
+    check_counts(launches, FP8_PER_REQUEST, 1, "the fp8 request")
+    check(float(img.std()) > 0, "fp8 image is not constant")
+    log(f"flux fp8_e4m3 request latency {latency:.4f} s, NF4 {nf4_seed1[1]:.4f} s")
+    profile_request("flux fp8_e4m3 1024²", lambda: flux_request(engine, 1, "fp8_e4m3, profiled"))
+    phase_flux_blocks(engine, parts=("whole forward",))
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def chroma_request(engine, seed: int, label: str, size: int = 1024):
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    p = Processing(prompt=FLUX_PROMPT, negative_prompt=CHROMA_NEGATIVE, seed=seed,
+                   steps=CHROMA_STEPS, cfg_scale=CHROMA_CFG, width=size, height=size,
+                   sampler_name="Euler", scheduler="simple")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    img = res.images[0]
+    check(img.shape == (size, size, 3) and img.dtype == np.uint8, f"{size}²×3 uint8 image")
+    log(f"chroma request {label} seed={seed}: latency {latency:.4f} s, "
+        f"{CHROMA_STEPS / latency:.4f} steps/s, timings "
+        + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+        + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"image mean {img.mean():.3f} std {img.std():.3f}")
+    return img
+
+
+def phase_chroma(gen: torch.Generator):
+    """Phase 15 (c): Chroma at full width in bf16: a warm request, seeds 1, 2,
+    1 with exact launches, one profiled, one batch-2 forward against plain."""
+    from forge_tpu_torch.core.synth import DeviceFill, synth_chroma_checkpoint
+    from forge_tpu_torch.pipeline.engine import load_engine
+
+    engine, _ = timed("chroma: weights made on the card and loaded", lambda: load_engine(
+        synth_chroma_checkpoint(fill=DeviceFill("cuda", seed=0)), device="cuda"))
+    unet = engine.loaded.unet
+    approx = unet["distilled_guidance_layer"]
+    t5 = engine.loaded.text_encoders["t5xxl"]
+    widths = (engine.family, unet["img_in"]["weight"].shape[0], engine.flux_cfg.num_heads,
+              len(unet["double_blocks"]), len(unet["single_blocks"]),
+              tuple(approx["in_proj"]["weight"].shape), len(approx["layers"]),
+              tuple(t5["shared"]["weight"].shape), len(t5["encoder"]["block"]),
+              sorted(engine.text_engines), engine.latent_format.latent_channels,
+              engine.flux_cfg.guidance_embed, engine.compute_dtype)
+    log(f"  chroma: {widths}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check(widths == ("chroma", 3072, 24, 19, 38, (5120, 64), 5, (32128, 4096), 24, ["t5xxl"], 16,
+                     False, torch.bfloat16), "Chroma at full width, bf16")
+    chroma_request(engine, 0, "warm")
+    zero_counts()
+    images = [chroma_request(engine, seed, "") for seed in (1, 2, 1)]
+    launches = read_counts()
+    check(np.array_equal(images[0], images[2]), "Chroma seed 1 twice gives identical bytes")
+    check(not np.array_equal(images[0], images[1]), "Chroma seeds 1 and 2 differ")
+    check_counts(launches, CHROMA_PER_REQUEST, 3, "the 3 Chroma requests")
+    profile_request("chroma 1024²", lambda: chroma_request(engine, 1, "profiled"))
+    cond = engine.get_learned_conditioning([FLUX_PROMPT, CHROMA_NEGATIVE], 1024, 1024)
+    x = torch.randn((2, 16, 128, 128), generator=gen, device="cuda").to(engine.compute_dtype)
+    t = torch.tensor([1000.0 * 0.9, 1000.0 * 0.4], device="cuda")
+    net = engine.unet_apply_fn()
+    kernels_vs_plain("chroma forward 128² B=2", lambda: net(unet, x, t, **cond))
+    del engine, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flux_family(gen: torch.Generator, nf4_seed1=None):
+    """Phase 15: (a) the bnb NF4 files, (b) fp8-e4m3 storage, (c) Chroma. Without
+    phase 5's seed-1 NF4 image (`--flux-family`), one NF4 request makes it."""
+    if nf4_seed1 is None:
+        engine, _ = load_flux("nf4")
+        flux_request(engine, 2, "nf4, warm")
+        nf4_seed1 = flux_request(engine, 1, "nf4, for the bnb file's comparison")
+        del engine
+        torch.cuda.empty_cache()
+    paths = {}
+    for name, run in (("flux_bnb", lambda: phase_flux_bnb(nf4_seed1)),
+                      ("flux_fp8", lambda: phase_flux_fp8(nf4_seed1)),
+                      ("chroma", lambda: phase_chroma(gen))):
+        t = time.perf_counter()
+        paths[name] = run()
+        log(f"{name} phase: {time.perf_counter() - t:.2f} s")
+    return paths
+
+
+
 def http(base: str, path: str, body=None):
     """GET (or POST `body` as JSON) → the answer's JSON; a status other than 200 raises."""
     import urllib.request
@@ -2081,6 +2330,7 @@ def phase_api(engine, gen: torch.Generator):
         server.shutdown()
         server.server_close()
         work_queue.stop()
+        manager.close()  # its resolver would keep the SDXL engine alive past `del engine`
     return total
 
 
@@ -2171,6 +2421,9 @@ def main():
     ap.add_argument("--api", action="store_true",
                     help="run phase 1, phase 2's VAE tile rows and phase 14 (the REST API on "
                          "SDXL) only, with no result")
+    ap.add_argument("--flux-family", action="store_true",
+                    help="run phase 1, phase 2's rows for phase 15 and phase 15 (bnb NF4 files, "
+                         "fp8 storage, Chroma) only, with no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2205,7 +2458,8 @@ def main():
     from forge_tpu_torch.runtime.options import opts
 
     opts.set("save_write_params_txt", False)  # no params.txt written inside timed requests
-    summary = phase_kernels(gen, "families" if args.families else "api" if args.api else "all")
+    summary = phase_kernels(gen, "families" if args.families else "api" if args.api
+                            else "flux_family" if args.flux_family else "all")
     if args.kernels:
         log("kernels only: phases 1-2 passed")
         return
@@ -2216,6 +2470,13 @@ def main():
         log(f"api phase: {time.perf_counter() - t:.2f} s; script so far "
             f"{time.perf_counter() - t_start:.2f} s")
         log("api only: phases 1, 2 (the tile rows) and 14 passed")
+        return
+    if args.flux_family:
+        t = time.perf_counter()
+        phase_flux_family(gen)
+        log(f"flux family phase: {time.perf_counter() - t:.2f} s; script so far "
+            f"{time.perf_counter() - t_start:.2f} s")
+        log("flux family only: phases 1, 2 (their rows) and 15 passed")
         return
     if args.families:
         for name in FAMILIES:
@@ -2232,7 +2493,7 @@ def main():
     torch.cuda.empty_cache()
     log(f"SD1.5 phases: {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    flux_launches = phase_flux()
+    flux_launches, nf4_seed1 = phase_flux()
     log(f"Flux phases: {time.perf_counter() - t:.2f} s; script so far {time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     engine, sdxl_launches = phase_sdxl(gen)
@@ -2260,6 +2521,7 @@ def main():
     t = time.perf_counter()
     api_launches = phase_api(engine, gen)  # phase 14, on the SDXL engine before phase 13 frees it
     del engine
+    gc.collect()  # phase 14 leaves reference cycles that hold the engine until the collector runs
     torch.cuda.empty_cache()
     log(f"api phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
@@ -2272,6 +2534,10 @@ def main():
         paths[name] = phase_family(name, gen)
         log(f"{name} phase: {time.perf_counter() - t:.2f} s; script so far "
             f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    paths.update(phase_flux_family(gen, nf4_seed1))
+    log(f"flux family phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",

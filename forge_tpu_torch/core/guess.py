@@ -1,4 +1,4 @@
-# Copied from forge_tpu/core/guess.py; numpy/stdlib only, so the port imports no JAX. One change: a refiner's OpenCLIP-bigG under `conditioner.embedders.0.model.` is collected.
+# Copied from forge_tpu/core/guess.py; numpy/stdlib only, so the port imports no JAX. Two changes: a refiner's OpenCLIP-bigG under `conditioner.embedders.0.model.` is collected, and a bare Flux/SD3 file's UNet keeps only its own keys.
 """Checkpoint architecture detection from state-dict keys and shapes.
 
 Re-implements the *behavior* of the reference's loader dispatch
@@ -17,6 +17,25 @@ import numpy as np
 
 UNET_PREFIX = "model.diffusion_model."
 VAE_PREFIX = "first_stage_model."
+# where `_collect_text_encoders` looks, by encoder
+TEXT_ENCODER_PREFIXES = {
+    "cond_stage_model.transformer.": "clip_l",  # SD1.5 CLIP-L (HF layout already)
+    "cond_stage_model.model.": "open_clip_h",  # SD2 open_clip layout
+    "conditioner.embedders.0.transformer.": "clip_l",  # SDXL dual encoders
+    "conditioner.embedders.1.model.": "open_clip_g",
+    "text_encoders.clip_l.transformer.": "clip_l",  # SD3 / Flux merged-file layouts
+    "text_encoders.clip_g.transformer.": "clip_g",
+    "text_encoders.t5xxl.transformer.": "t5xxl",
+    "text_encoders.chatglm.": "chatglm",  # Kolors ChatGLM3
+}
+REFINER_CLIP_G_PREFIX = "conditioner.embedders.0.model."
+COMPONENT_PREFIXES = (VAE_PREFIX, "cond_stage_model.", "conditioner.", "text_encoders.")
+
+
+def collected(key: str) -> bool:
+    """Whether `guess` takes the key into a component (a bare file's own keys aside)."""
+    return key.startswith((UNET_PREFIX, VAE_PREFIX, REFINER_CLIP_G_PREFIX,
+                           *TEXT_ENCODER_PREFIXES))
 
 
 @dataclasses.dataclass
@@ -41,11 +60,11 @@ def guess(sd: Mapping[str, np.ndarray]) -> GuessResult:
     unet_sd = {k[len(UNET_PREFIX):]: v for k, v in sd.items() if k.startswith(UNET_PREFIX)}
     vae_sd = {k[len(VAE_PREFIX):]: v for k, v in sd.items() if k.startswith(VAE_PREFIX)}
 
-    # Bare diffusion-model dumps (common for Flux/SD3 single-component files).
-    if not unet_sd and any(k.startswith("double_blocks.") for k in keys):
-        unet_sd = dict(sd)
-    if not unet_sd and any(k.startswith("joint_blocks.") for k in keys):
-        unet_sd = dict(sd)
+    # Bare diffusion-model dumps (common for Flux/SD3 single-component files):
+    # the UNet is every key no other component claims (the reference takes
+    # the whole dict, merged VAE and text encoders too, and loads them twice)
+    if not unet_sd and any(k.startswith(("double_blocks.", "joint_blocks.")) for k in keys):
+        unet_sd = {k: v for k, v in sd.items() if not k.startswith(COMPONENT_PREFIXES)}
 
     # Recognized-but-unsupported families: fail loudly instead of falling
     # through to the sd15 default. The reference bundles HF configs for these
@@ -163,19 +182,8 @@ def _collect_text_encoders(sd: Mapping[str, np.ndarray],
         if got:
             out[name] = got
 
-    # SD1.5 CLIP-L (HF layout already)
-    grab("cond_stage_model.transformer.", "clip_l")
-    # SD2 open_clip layout
-    grab("cond_stage_model.model.", "open_clip_h")
-    # SDXL dual encoders
-    grab("conditioner.embedders.0.transformer.", "clip_l")
-    grab("conditioner.embedders.1.model.", "open_clip_g")
-    if refiner:
-        grab("conditioner.embedders.0.model.", "open_clip_g")
-    # SD3 / Flux merged-file layouts
-    grab("text_encoders.clip_l.transformer.", "clip_l")
-    grab("text_encoders.clip_g.transformer.", "clip_g")
-    grab("text_encoders.t5xxl.transformer.", "t5xxl")
-    # Kolors ChatGLM3 (merged single-file exports prefix it text_encoders.chatglm.)
-    grab("text_encoders.chatglm.", "chatglm")
+    for prefix, name in TEXT_ENCODER_PREFIXES.items():
+        grab(prefix, name)
+        if refiner and prefix == "conditioner.embedders.1.model.":
+            grab(REFINER_CLIP_G_PREFIX, "open_clip_g")
     return out

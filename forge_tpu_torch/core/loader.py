@@ -1,5 +1,5 @@
 """Checkpoint → device parameter trees (port of forge_tpu/core/loader.py: SD1.5,
-SD2, SDXL base and refiner, Playground v2.5, SD3 and Flux).
+SD2, SDXL base and refiner, Playground v2.5, SD3, Flux and Chroma).
 
 Load the file (or take a flat state dict), guess the architecture, split it
 into components, key-normalize CLIP into the HF `text_model.*` space (the
@@ -17,10 +17,25 @@ them, and none on each call.
 Quantized weights: `unet_quant` ("nf4" | "q8_0" | "q4_0") quantizes the
 diffusion model's large matmul weights as each tensor arrives, on its device,
 with the reference's selection rule (2-D, ≥ QUANT_MIN_SIZE elements, no
-"norm", "emb" or "bias" in the key). Prequantized leaves (GGUF files, or
-forge_tpu leaf dicts) pass through as `QuantLeaf`s whatever `unet_quant` is.
-Lazy weights (`core/synth.py` `LazyTensor`) are made one at a time, so a
-full-width checkpoint is never resident at full precision.
+"norm", "emb" or "bias" in the key). Prequantized leaves (GGUF files,
+bitsandbytes NF4 files, or forge_tpu leaf dicts) pass through as
+`QuantLeaf`s whatever `unet_quant` is. The fp8 storage modes ("fp8" and
+"fp8_e4m3": float8_e4m3fn; "fp8_e5m2") store the diffusion model's weights
+the reference picks (≥ 2 dims, conv kernels too, ≥ QUANT_MIN_SIZE
+elements, no "norm", "emb" or "bias" in the key) as torch fp8 tensors on the
+device, everything else in the compute dtype; the ops upcast an fp8 weight
+where they use it, with no copy kept. A weight an fp8 file holds (read as
+fp8 by core/state_dict.py) stays fp8 where that rule picks it, in any
+component. Lazy weights (`core/synth.py` `LazyTensor`) are made one at a
+time, so a full-width checkpoint is never resident at full precision.
+
+`additional_modules` ({name: file}) merges files into the checkpoint before
+the guess, as the reference does: "vae" replaces its VAE (the file's keys
+under `first_stage_model.`, with or without that prefix in the file), any
+other name merges the file's keys as they are (a text-encoder file in the
+merged `text_encoders.*` layout). A file none of whose keys a component
+takes raises, naming it. A bare Flux or SD3 file's UNet holds its own
+keys alone, not the merged files' (core/guess.py).
 
 `load_controlnet` takes a cldm ControlNet's state dict (or file) to its tree
 on the device the same way; its ResBlocks' fused convs are stored
@@ -45,10 +60,13 @@ from .convert import nest, quant_leaf, to_tensor
 from .state_dict import load_state_dict
 from .synth import LazyTensor
 
-FAMILIES = ("sd15", "sd20", "sdxl", "sdxl_refiner", "playground", "sd3", "flux")
+FAMILIES = ("sd15", "sd20", "sdxl", "sdxl_refiner", "playground", "sd3", "flux", "chroma")
 TEXT_ENCODERS = ("clip_l", "clip_h", "clip_g", "t5xxl")
 OPEN_CLIP_NAMES = {"open_clip_h": "clip_h", "open_clip_g": "clip_g"}
-UNET_QUANT = ("nf4", "q8_0", "q4_0")
+FP8_STORAGE = {"fp8": torch.float8_e4m3fn, "fp8_e4m3": torch.float8_e4m3fn,
+               "fp8_e5m2": torch.float8_e5m2}
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+UNET_QUANT = ("nf4", "q8_0", "q4_0") + tuple(FP8_STORAGE)
 QUANT_MIN_SIZE = 1 << 16  # leave small tensors in full precision
 QUANT_SKIP = ("norm", "emb", "bias")
 FUSED_CONV_WEIGHTS = ("in_layers.2.weight", "out_layers.3.weight", "conv1.weight",
@@ -62,12 +80,16 @@ def _rows(value, part: int, parts: int):
         n = value.shape[0] // parts
         return LazyTensor((n,) + value.shape[1:],
                           lambda: value.materialize()[part * n:(part + 1) * n].clone())
+    if isinstance(value, torch.Tensor):
+        return value.chunk(parts, dim=0)[part].clone()
     return np.split(np.asarray(value), parts, axis=0)[part]
 
 
 def _transposed(value):
     if isinstance(value, LazyTensor):
         return LazyTensor(value.shape[::-1], lambda: value.materialize().t().contiguous())
+    if isinstance(value, torch.Tensor):
+        return value.t().contiguous()
     return np.ascontiguousarray(np.asarray(value).T)
 
 
@@ -117,26 +139,41 @@ class LoadedCheckpoint:
         self.text_encoders = text_encoders  # name -> nested params
 
 
-def _quantizes(key: str, shape) -> bool:
-    return (len(shape) == 2 and math.prod(shape) >= QUANT_MIN_SIZE
+def _stores_fp8(key: str, shape) -> bool:
+    """The reference's fp8 storage rule: ≥ 2 dims (conv kernels too), big, no norm/emb/bias."""
+    return (len(shape) >= 2 and math.prod(shape) >= QUANT_MIN_SIZE
             and not any(t in key for t in QUANT_SKIP))
+
+
+def _quantizes(key: str, shape) -> bool:
+    """The block quantizers' rule: the fp8 rule's weights that are 2-D."""
+    return len(shape) == 2 and _stores_fp8(key, shape)
 
 
 def to_device_tree(sd: Mapping[str, Any], dtype: torch.dtype, device,
                    quant: Optional[str] = None) -> Dict[str, Any]:
     """Flat {key: array} → nested {..: tensor | QuantLeaf} on `device`;
-    floating leaves cast to `dtype`, integer leaves keep theirs, and with
-    `quant` the weights `_quantizes` picks become `QuantLeaf`s."""
+    floating leaves cast to `dtype`, integer leaves keep theirs; with a block
+    `quant` the weights `_quantizes` picks become `QuantLeaf`s, with an fp8
+    `quant` the weights `_stores_fp8` picks become fp8 tensors, as do those
+    that are fp8 already."""
+    fp8 = FP8_STORAGE.get(quant)
     out = {}
     for key, value in sd.items():
         if isinstance(value, (Mapping, quant_mod.QuantLeaf)):  # prequantized
             out[key] = quant_leaf(value).to(device)
             continue
         t = value.materialize() if isinstance(value, LazyTensor) else to_tensor(value)
-        if quant is not None and t.is_floating_point() and _quantizes(key, t.shape):
+        if (fp8 is None and quant is not None and t.is_floating_point()
+                and _quantizes(key, t.shape)):
             t = quant_mod.quantize(t.to(device), quant)
         elif t.is_floating_point():
-            t = t.to(device=device, dtype=dtype)
+            keep = fp8 or (t.dtype if t.dtype in FP8_DTYPES else None)
+            store = keep if keep is not None and _stores_fp8(key, t.shape) else dtype
+            if store in FP8_DTYPES and t.dtype not in FP8_DTYPES:  # rounded once, from f32
+                t = t.to(device=device, dtype=torch.float32).to(store)
+            else:
+                t = t.to(device=device, dtype=store)
             if t.device.type == "cuda" and t.dim() == 4 and key.endswith(FUSED_CONV_WEIGHTS):
                 t = t.contiguous(memory_format=torch.channels_last)
         else:
@@ -145,19 +182,51 @@ def to_device_tree(sd: Mapping[str, Any], dtype: torch.dtype, device,
     return nest(out)
 
 
+def merge_additional_modules(sd: Dict[str, Any],
+                             additional_modules: Mapping[str, Any]) -> Dict[str, Any]:
+    """The checkpoint's flat state dict with each {name: file (or flat state
+    dict)} merged in: "vae" replaces the VAE, any other name adds its keys as
+    they are (the reference's rule). A file none of whose keys a component
+    takes raises ValueError naming it (a text encoder in its upstream key
+    space, `encoder.block.*`, where the reference drops it without a word)."""
+    sd = dict(sd)
+    for name, path in additional_modules.items():
+        extra = load_state_dict(path) if isinstance(path, str) else dict(path)
+        if name == "vae":
+            vae_prefix = guess_mod.VAE_PREFIX
+            if any(k.startswith(vae_prefix) for k in extra):
+                extra = {k[len(vae_prefix):]: v for k, v in extra.items()
+                         if k.startswith(vae_prefix)}
+            sd = {k: v for k, v in sd.items() if not k.startswith(vae_prefix)}
+            sd.update({vae_prefix + k: v for k, v in extra.items()})
+            continue
+        if not any(guess_mod.collected(k) for k in extra):
+            raise ValueError(
+                f"additional module {name!r} ({path if isinstance(path, str) else 'a state dict'}): "
+                f"no key of it is one a component takes (text encoders go under "
+                f"{', '.join(sorted(set(guess_mod.TEXT_ENCODER_PREFIXES)))})")
+        sd.update(extra)
+    return sd
+
+
 def load_checkpoint_parts(path_or_sd, dtype: Optional[torch.dtype] = None, device=None,
                           unet_quant: Optional[str] = None,
-                          vae_dtype: Optional[torch.dtype] = None) -> LoadedCheckpoint:
+                          vae_dtype: Optional[torch.dtype] = None,
+                          additional_modules: Optional[Mapping[str, Any]] = None
+                          ) -> LoadedCheckpoint:
     """Checkpoint path (or flat state dict) → components on `device` (the
     CUDA card unless given; without one this raises) in `dtype` (bf16 on
     CUDA, f32 on the CPU unless given); the VAE in `vae_dtype` (default:
-    `dtype`)."""
+    `dtype`). `additional_modules` ({"vae" | a text encoder's name: file})
+    merges separate files in (`merge_additional_modules`)."""
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
     if unet_quant is not None and unet_quant not in UNET_QUANT:
         raise NotImplementedError(
             f"unet_quant={unet_quant!r} is not ported (ported: {', '.join(UNET_QUANT)})")
     sd = load_state_dict(path_or_sd) if isinstance(path_or_sd, str) else dict(path_or_sd)
+    if additional_modules:
+        sd = merge_additional_modules(sd, additional_modules)
     g = guess_mod.guess(sd)
     del sd
     if g.family not in FAMILIES:

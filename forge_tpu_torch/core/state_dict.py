@@ -1,4 +1,4 @@
-# Copied from forge_tpu/core/state_dict.py (the safetensors reader, the .gguf route and load_torch_ckpt, here through torch.load).
+# Copied from forge_tpu/core/state_dict.py (the safetensors reader, collapse_bnb_quant, the .gguf route and load_torch_ckpt, here through torch.load).
 """Checkpoint files → {key: numpy array}.
 
 The safetensors reader, the GGUF route (core/gguf.py) and torch's zip
@@ -6,15 +6,26 @@ pickles (`.pth`, `.pt`, `.ckpt`) are ported: `load_torch_ckpt` reads the
 latter with `torch.load(weights_only=True)`, which runs no code from the
 file, as the reference's restricted unpickler does. Unlike the reference's
 reader, it keeps nested dicts of tensors (a `params_ema` wrap) nested rather
-than dropping them. bitsandbytes-prequantized NF4 comes with the loader that
-needs it.
+than dropping them.
+
+fp8 tensors (safetensors `F8_E4M3`, `F8_E5M2`; torch's float8 storages)
+come as `torch.float8_e4m3fn` / `torch.float8_e5m2` tensors, numpy having no
+fp8: their values, where the reference keeps the raw bytes as uint8 and so
+computes with the numbers 0–255.
+
+`collapse_bnb_quant` folds bitsandbytes-prequantized 4-bit layers (Forge's
+`flux1-dev-bnb-nf4`) into weights: NF4 at block 64 becomes a `QuantLeaf`,
+the dequant-matmul kernel's own layout (the same nibble order and block-64
+f32 absmax), so no code is repacked; FP4 or another block size is
+dequantized to f32 here, as the reference does. `load_state_dict` applies
+it to safetensors files and torch checkpoints.
 """
 
 from __future__ import annotations
 
 import json
 import struct
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 
@@ -62,21 +73,36 @@ def load_safetensors(path: str, keep_bf16_raw: bool = False) -> Dict[str, np.nda
             if dt == "BF16":
                 u16 = np.frombuffer(raw, dtype=np.uint16).reshape(shape)
                 out[key] = u16 if keep_bf16_raw else _bf16_to_f32(u16).reshape(shape)
-            elif dt in ("F8_E4M3", "F8_E5M2"):
-                out[key] = np.frombuffer(raw, dtype=np.uint8).reshape(shape)
+            elif dt in _FP8_DTYPES:
+                out[key] = _fp8_tensor(raw, dt, shape)
             else:
                 out[key] = np.frombuffer(raw, dtype=_SAFETENSORS_DTYPES[dt]).reshape(shape)
     return out
 
 
+_FP8_DTYPES = {"F8_E4M3": "float8_e4m3fn", "F8_E5M2": "float8_e5m2"}
+
+
+def _fp8_tensor(raw: bytes, name: str, shape):
+    """A safetensors fp8 payload → a torch fp8 tensor of its values."""
+    import torch
+
+    codes = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).copy())
+    return codes.view(getattr(torch, _FP8_DTYPES[name])).reshape(shape)
+
+
 def _tensors_to_numpy(obj: dict) -> dict:
-    """Tensors → numpy (bf16 widened to f32), nested dicts kept, anything else dropped."""
+    """Tensors → numpy (bf16 widened to f32; fp8 kept as torch fp8 tensors),
+    nested dicts kept, anything else dropped."""
     import torch
 
     out = {}
     for key, value in obj.items():
         if isinstance(value, torch.Tensor):
             value = value.detach().cpu()
+            if value.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+                out[key] = value
+                continue
             out[key] = (value.float() if value.dtype == torch.bfloat16 else value).numpy()
         elif isinstance(value, dict):
             out[key] = _tensors_to_numpy(value)
@@ -94,14 +120,69 @@ def load_torch_ckpt(path: str) -> Dict[str, np.ndarray]:
     return _tensors_to_numpy(obj.get("state_dict", obj))
 
 
-def load_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """→ {key: array}; a `.gguf` file's quantized tensors come as leaf dicts."""
+def load_state_dict(path: str) -> Dict[str, Any]:
+    """→ {key: array}; a `.gguf` file's quantized tensors come as leaf dicts,
+    a bitsandbytes file's NF4 layers as `QuantLeaf`s."""
     if path.endswith(".safetensors") or path.endswith(".sft"):
-        return load_safetensors(path)
+        return collapse_bnb_quant(load_safetensors(path))
     if path.endswith(".gguf"):
         from .gguf import load_gguf
 
         sd = load_gguf(path)
         sd.pop("__metadata__", None)
         return sd
-    return load_torch_ckpt(path)
+    return collapse_bnb_quant(load_torch_ckpt(path))
+
+
+def collapse_bnb_quant(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Fold bitsandbytes-serialized 4-bit layers into weights.
+
+    Per layer a file holds `{k}` (uint8 [n/2, 1], the first element in the
+    high nibble), `{k}.absmax`, `{k}.quant_map` and
+    `{k}.quant_state.bitsandbytes__{nf4,fp4}` (its JSON metadata as a uint8
+    tensor) and, with double quantization, `{k}.nested_absmax` and
+    `{k}.nested_quant_map` (uint8 `absmax` codes; the offset in the JSON),
+    which are expanded to f32 absmax first. NF4 at block 64 with the NF4
+    table becomes a `QuantLeaf` (one with a shape the kernel cannot take
+    raises); anything else is dequantized to f32. Host numpy, one
+    vectorized pass a layer."""
+    qkeys = [k for k in sd if ".quant_state.bitsandbytes__" in k]
+    if not qkeys:
+        return sd
+    from ..ops.quant import NF4_BLOCK, NF4_CODE
+    from .convert import quant_leaf
+
+    out = dict(sd)
+    for qk in qkeys:
+        base = qk.split(".quant_state.")[0]  # "....weight"
+        qtype = qk.rsplit("bitsandbytes__", 1)[1]
+        meta = json.loads(bytes(np.asarray(out.pop(qk)).astype(np.uint8).reshape(-1)).decode())
+        shape = tuple(int(s) for s in meta["shape"])
+        blocksize = int(meta.get("blocksize", 64))
+        codes = np.asarray(out.pop(base)).reshape(-1)
+        absmax = np.asarray(out.pop(base + ".absmax"))
+        quant_map = np.asarray(out.pop(base + ".quant_map"), np.float32)
+        if base + ".nested_absmax" in out:  # double-quantized absmax
+            nab = np.asarray(out.pop(base + ".nested_absmax"), np.float32)
+            nmap = np.asarray(out.pop(base + ".nested_quant_map"), np.float32)
+            nbs = int(meta.get("nested_blocksize", 256))
+            offset = float(meta.get("nested_offset", 0.0))
+            absmax = (nmap[absmax.astype(np.int64).reshape(-1)]
+                      * np.repeat(nab, nbs)[: absmax.size] + offset)
+        absmax = absmax.astype(np.float32).reshape(-1)
+        if (qtype == "nf4" and blocksize == NF4_BLOCK and quant_map.size == 16
+                and np.allclose(quant_map, NF4_CODE, atol=1e-4)):
+            if len(shape) != 2 or shape[1] % NF4_BLOCK:
+                raise ValueError(f"{base}: a bitsandbytes NF4 weight of shape {shape} has no "
+                                 f"kernel (it takes [out, in] with in a multiple of {NF4_BLOCK})")
+            out[base] = quant_leaf({"kind": "nf4", "codes": codes, "scales": absmax,
+                                    "shape": shape})
+        else:  # fp4 / another block size: dequantize at load
+            idx = np.stack([codes >> 4, codes & 0xF], axis=-1).reshape(-1)
+            pad = (-idx.size) % blocksize
+            if pad:
+                idx = np.concatenate([idx, np.zeros(pad, idx.dtype)])
+            vals = quant_map[idx.astype(np.int64)].reshape(-1, blocksize) * absmax[:, None]
+            n = int(np.prod(shape))
+            out[base] = vals.reshape(-1)[:n].reshape(shape).astype(np.float32)
+    return out

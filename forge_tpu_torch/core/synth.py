@@ -1,5 +1,5 @@
 # Copied from forge_tpu/core/synth.py (the SD1.5, SDXL, Flux, MMDiT, T5 and ControlNet state dicts); numpy only, so the port imports no JAX.
-# `DeviceFill`, `LazyTensor`, the SD2, SDXL refiner, Playground and SD3 checkpoints and the CLIP-vision, IP-Adapter, ESRGAN and TAESD state dicts are the port's own.
+# `DeviceFill`, `LazyTensor`, the SD2, SDXL refiner, Playground, SD3 and Chroma checkpoints, the bitsandbytes writer and the CLIP-vision, IP-Adapter, ESRGAN and TAESD state dicts are the port's own.
 """Synthetic checkpoint synthesis: reference-format state dicts with real key
 names/shapes but generated weights.
 
@@ -19,6 +19,7 @@ same hyperparameters.
 
 from __future__ import annotations
 
+import json
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -44,11 +45,17 @@ class _Fill:
 
 
 class LazyTensor:
-    """A weight whose shape is known before it exists; `materialize()` makes it."""
+    """A weight whose shape (and dtype) is known before it exists; `materialize()` makes it."""
 
-    def __init__(self, shape: Tuple[int, ...], make: Callable[[], torch.Tensor]):
+    def __init__(self, shape: Tuple[int, ...], make: Callable[[], torch.Tensor],
+                 dtype: torch.dtype = torch.float32):
         self.shape = tuple(shape)
+        self.dtype = dtype
         self._make = make
+
+    def to(self, dtype: torch.dtype) -> "LazyTensor":
+        """The same weight, made in `dtype`."""
+        return LazyTensor(self.shape, lambda: self._make().to(dtype), dtype)
 
     @property
     def size(self) -> int:
@@ -596,6 +603,133 @@ def synth_sd3_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, o
                             prefix="text_encoders.clip_g.transformer.", text_projection=True))
     sd.update(synth_t5_sd(fill=fill, seed=seed + 7))
     return sd
+
+
+def synth_chroma_sd(
+    hidden: int = 3072,
+    num_heads: int = 24,
+    depth: int = 19,
+    depth_single: int = 38,
+    context_dim: int = 4096,
+    approx_hidden: int = 5120,
+    approx_layers: int = 5,
+    fill: FillSpec = "zeros",
+    seed: int = 8,
+    prefix: str = "model.diffusion_model.",
+):
+    """Chroma-format state dict: Flux's blocks without their modulation
+    linears, time, vector and guidance embedders, plus the
+    `distilled_guidance_layer` Approximator (in 64 = 16 + 16 + 32)."""
+    sd = synth_flux_sd(hidden=hidden, num_heads=num_heads, depth=depth,
+                       depth_single=depth_single, context_dim=context_dim,
+                       pooled_dim=16, guidance=False, fill=fill, seed=seed,
+                       prefix=prefix)
+    for k in list(sd):  # the flux-only modulation, vector and time paths
+        if any(t in k for t in ("img_mod.lin", "txt_mod.lin", "modulation.lin",
+                                "time_in.", "vector_in.", "adaLN_modulation")):
+            del sd[k]
+    f = _fill(fill, seed + 1)
+    g = prefix + "distilled_guidance_layer."
+    sd[g + "in_proj.weight"] = f.w(approx_hidden, 64)
+    sd[g + "in_proj.bias"] = f.zeros(approx_hidden)
+    for i in range(approx_layers):
+        sd[g + f"layers.{i}.in_layer.weight"] = f.w(approx_hidden, approx_hidden)
+        sd[g + f"layers.{i}.in_layer.bias"] = f.zeros(approx_hidden)
+        sd[g + f"layers.{i}.out_layer.weight"] = f.w(approx_hidden, approx_hidden)
+        sd[g + f"layers.{i}.out_layer.bias"] = f.zeros(approx_hidden)
+        sd[g + f"norms.{i}.scale"] = f.ones(approx_hidden)
+    sd[g + "out_proj.weight"] = f.w(hidden, approx_hidden)
+    sd[g + "out_proj.bias"] = f.zeros(hidden)
+    return sd
+
+
+def synth_chroma_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, object]:
+    """Full-width Chroma merged checkpoint (lodestones/Chroma): the 19 + 38
+    block transformer (hidden 3072, 24 heads) with its 5120 × 5
+    Approximator, the 16-channel VAE and T5-XXL (Chroma has no CLIP-L)."""
+    sd: Dict[str, object] = {}
+    sd.update(synth_chroma_sd(fill=fill, seed=seed + 8))
+    sd.update(synth_vae_sd(z_channels=16, fill=fill, seed=seed + 2))
+    sd.update(synth_t5_sd(fill=fill, seed=seed + 7))
+    return sd
+
+
+# -- the bitsandbytes serialized layout ---------------------------------------
+
+# bitsandbytes' FP4 (e2m1) code table, by code
+BNB_FP4_CODE = (0.0, 0.0052083333, 0.6666667, 1.0, 0.33333334, 0.5, 0.16666667, 0.25,
+                -0.0, -0.0052083333, -0.6666667, -1.0, -0.33333334, -0.5, -0.16666667, -0.25)
+BNB_NESTED_BLOCK = 256
+
+
+def bnb_dynamic_map() -> np.ndarray:
+    """bitsandbytes' signed 8-bit dynamic map (create_dynamic_map(signed=True)),
+    the code table of a double-quantized absmax: 256 values in [-1, 1]."""
+    data = []
+    for i in range(7):  # 7 exponent steps, 2^i fractions each, both signs
+        bounds = np.linspace(0.1, 1.0, 2 ** i + 1, dtype=np.float32)
+        means = (bounds[:-1] + bounds[1:]) / 2.0
+        data += list((10.0 ** (i - 6)) * means) + list(-(10.0 ** (i - 6)) * means)
+    data += [0.0, 1.0]
+    return np.sort(np.asarray(data, np.float32))
+
+
+def _nearest(table: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Index of the nearest entry of a sorted table, for every value of v."""
+    mids = (table[:-1] + table[1:]) * 0.5
+    return torch.searchsorted(mids, v.contiguous())
+
+
+def bnb_serialize(key: str, weight, qtype: str = "nf4", double_quant: bool = False,
+                  blocksize: int = 64) -> Dict[str, torch.Tensor]:
+    """A weight → the tensors bitsandbytes saves for a Params4bit `{key}`:
+    `{key}` uint8 [n/2, 1] (the first element in the high nibble),
+    `{key}.absmax` (f32, or with `double_quant` uint8 codes with
+    `{key}.nested_absmax` and `{key}.nested_quant_map`), `{key}.quant_map`
+    and `{key}.quant_state.bitsandbytes__{qtype}` (its JSON as uint8). NF4
+    codes are the port's quantizer's (ops/quant.py); FP4 takes the nearest
+    of bitsandbytes' FP4 table. Tensors stay on the weight's device."""
+    from ..ops.quant import NF4_CODE, quantize_nf4
+
+    w = weight.materialize() if isinstance(weight, LazyTensor) else torch.as_tensor(weight)
+    dev = w.device
+    if qtype == "nf4":
+        leaf = quantize_nf4(w, block=blocksize)
+        codes, absmax, table = leaf.codes, leaf.scales, NF4_CODE
+    elif qtype == "fp4":
+        blocks = w.reshape(-1, blocksize).float()
+        absmax = blocks.abs().amax(dim=1)
+        scaled = blocks / torch.where(absmax == 0, torch.ones_like(absmax), absmax)[:, None]
+        order = sorted(range(16), key=lambda i: BNB_FP4_CODE[i])
+        table_sorted = torch.tensor([BNB_FP4_CODE[i] for i in order], device=dev)
+        idx = torch.tensor(order, device=dev)[_nearest(table_sorted, scaled)].to(torch.uint8)
+        flat = idx.reshape(-1)
+        codes, table = (flat[0::2] << 4) | flat[1::2], BNB_FP4_CODE
+    else:
+        raise ValueError(f"bitsandbytes quant type {qtype!r}: nf4 or fp4")
+    meta = {"quant_type": qtype, "blocksize": blocksize, "dtype": "bfloat16",
+            "shape": list(w.shape)}
+    out = {key: codes.reshape(-1, 1),
+           key + ".quant_map": torch.tensor(table, dtype=torch.float32, device=dev)}
+    if double_quant:
+        offset = float(absmax.mean())
+        centered = absmax - offset
+        pad = (-centered.numel()) % BNB_NESTED_BLOCK
+        blocks = torch.cat([centered, centered.new_zeros(pad)]).reshape(-1, BNB_NESTED_BLOCK)
+        nested = blocks.abs().amax(dim=1)
+        nested = torch.where(nested == 0, torch.ones_like(nested), nested)
+        nmap = torch.from_numpy(bnb_dynamic_map()).to(dev)
+        codes8 = _nearest(nmap, blocks / nested[:, None]).to(torch.uint8)
+        out[key + ".absmax"] = codes8.reshape(-1)[: centered.numel()]
+        out[key + ".nested_absmax"] = nested
+        out[key + ".nested_quant_map"] = nmap
+        meta.update(nested_blocksize=BNB_NESTED_BLOCK, nested_offset=offset,
+                    nested_dtype="float32")
+    else:
+        out[key + ".absmax"] = absmax
+    text = json.dumps(meta).encode()
+    out[key + f".quant_state.bitsandbytes__{qtype}"] = torch.tensor(list(text), dtype=torch.uint8)
+    return out
 
 
 def synth_controlnet_sd(

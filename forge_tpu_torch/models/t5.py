@@ -58,7 +58,12 @@ def t5_apply(params: Mapping[str, Any], tokens: torch.Tensor,
              attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens [B, L] int → final hidden states [B, L, D]. `attention_mask`
     [B, L] (True or nonzero = attend) masks keys."""
-    x = F.embedding(tokens, params["shared"]["weight"])
+    table = params["shared"]["weight"]
+    if table.element_size() == 1 and table.is_floating_point():  # fp8 storage: the rows, upcast
+        dtype = params["encoder"]["final_layer_norm"]["weight"].dtype
+        x = F.embedding(tokens, table.view(torch.uint8)).view(table.dtype).to(dtype)
+    else:
+        x = F.embedding(tokens, table)
     l = tokens.shape[1]
     blocks = params["encoder"]["block"]
     rel = blocks["0"]["layer"]["0"]["SelfAttention"]["relative_attention_bias"]["weight"]

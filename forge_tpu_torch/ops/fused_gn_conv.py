@@ -13,7 +13,8 @@ otherwise. On a CPU tensor it runs `gn_silu_conv3x3_plain`.
 The tensor-core body reads the weight as [O, 3, 3, C] (torch's channels_last
 of the OIHW tensor), which the loader gives the fused convs' weights on the
 card (`core/loader.py`); a weight in another layout is copied into it on
-each call.
+each call. A weight stored as fp8 is upcast to x's dtype before either body
+or the plain version reads it, on each call: no fp8 byte enters the kernel.
 
 Unlike the TPU gate (C % 128, H·W ≥ 65536, an 8 MB weight cap), every call
 on CUDA launches the kernel: the port's dispatch boundary is to be set by

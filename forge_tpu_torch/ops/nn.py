@@ -22,7 +22,9 @@ from .quant import QuantLeaf
 
 def linear(x: torch.Tensor, p: Mapping[str, Any]) -> torch.Tensor:
     """x [..., in] @ weight[out, in]ᵀ + bias. A quantized weight (NF4/GGUF
-    `QuantLeaf`, ops/quant.py) goes to the dequant-matmul kernel."""
+    `QuantLeaf`, ops/quant.py) goes to the dequant-matmul kernel; an fp8
+    weight (core/loader.py's fp8 storage) is upcast to x's dtype here, on
+    every call, and no upcast copy is kept."""
     w = p["weight"]
     bias = p.get("bias")
     if isinstance(w, QuantLeaf):
@@ -32,7 +34,7 @@ def linear(x: torch.Tensor, p: Mapping[str, Any]) -> torch.Tensor:
 
 def conv2d(x: torch.Tensor, p: Mapping[str, Any], stride: int = 1,
            padding: int = 0) -> torch.Tensor:
-    """NCHW conv with an OIHW kernel."""
+    """NCHW conv with an OIHW kernel (an fp8 kernel upcast to x's dtype, as in `linear`)."""
     bias = p.get("bias")
     return F.conv2d(x, p["weight"].to(x.dtype),
                     None if bias is None else bias.to(x.dtype),

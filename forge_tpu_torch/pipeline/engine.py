@@ -1,7 +1,7 @@
 """Diffusion engine: one loaded checkpoint bound into runnable functions
 (port of forge_tpu/pipeline/engine.py: SD1.5, SD2, SDXL base and refiner,
-Playground v2.5, SD3 and Flux; the VAE encode for img2img; ControlNets
-beside the UNet).
+Playground v2.5, SD3, Flux and Chroma; the VAE encode for img2img;
+ControlNets beside the UNet).
 
 SD1.5 and SD2: the last layer of CLIP-L or of OpenCLIP ViT-H (`clip_h`)
 is the context (the reference's choice for SD2, whose own inference config
@@ -18,7 +18,9 @@ the context; `y` is CLIP-L's pooled output ‖ CLIP-G's projected one. Flux:
 T5-XXL features are the context, CLIP-L's pooled output the `y` vector, and
 the distilled-CFG
 guidance scale is added to the conditioning at sampling time
-(pipeline/processing.py). `embedding_db` (text/textual_inversion.py) holds
+(pipeline/processing.py). Chroma: Flux's conditioning (T5-XXL, and CLIP-L's
+pooled output where the checkpoint has CLIP-L, else zeros), which its
+network does not read past the context (models/chroma.py). `embedding_db` (text/textual_inversion.py) holds
 the textual-inversion embeddings every CLIP tower splices, CLIP-G from an
 embedding's `clip_g` vectors. `upscalers` (pipeline/upscalers.py), when set, is
 the registry the hires fix's pixel mode takes its upscaler from.
@@ -53,7 +55,8 @@ import torch
 
 from ..core import latent_formats
 from ..core.device import default_device, default_dtype
-from ..core.loader import FAMILIES, LoadedCheckpoint, load_checkpoint_parts
+from ..core.loader import FAMILIES, FP8_DTYPES, LoadedCheckpoint, load_checkpoint_parts
+from ..models import chroma as chroma_mod
 from ..models import flux as flux_mod
 from ..models import mmdit as mmdit_mod
 from ..models import unet as unet_mod
@@ -101,10 +104,11 @@ def vae_dtype_for(compute_dtype: torch.dtype) -> torch.dtype:
 
 
 def _cast_tree(tree, dtype: torch.dtype):
-    """Every floating tensor of a nested tree in `dtype` (memory format kept)."""
+    """Every floating tensor of a nested tree in `dtype` (memory format kept),
+    bar fp8 weights, which stay fp8 (core/loader.py)."""
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype) if tree.is_floating_point() else tree
+    return tree.to(dtype) if tree.is_floating_point() and tree.dtype not in FP8_DTYPES else tree
 
 
 class DiffusionEngine:
@@ -152,10 +156,10 @@ class DiffusionEngine:
         elif "clip_l" in tes:
             self.text_engines["clip_l"] = ClassicTextEngine(tes["clip_l"], tokenizer,
                                                             embedding_db=db)
-        if family in ("sd3", "flux") and "t5xxl" in tes:
+        if family in ("sd3", "flux", "chroma") and "t5xxl" in tes:
             self.text_engines["t5xxl"] = T5TextEngine(tes["t5xxl"],
                                                       max_length=77 if family == "sd3" else 512)
-        if family == "flux":
+        if family in ("flux", "chroma"):
             hidden = loaded.unet["img_in"]["weight"].shape[0]
             self.flux_cfg = flux_mod.FluxConfig(num_heads=max(hidden // 128, 1),
                                                 guidance_embed="guidance_in" in loaded.unet)
@@ -195,8 +199,8 @@ class DiffusionEngine:
         CLIP-G hidden states zero-padded to the context width, then T5
         features, y: pooled CLIP-L ‖ CLIP-G} (SD3; one CLIP chunk, as the
         reference encodes it) or {context: T5 features, y: CLIP-L pooled}
-        (Flux). The sizes are (height, width) pairs; both default to the
-        image's."""
+        (Flux, Chroma). The sizes are (height, width) pairs; both default to
+        the image's."""
         if self.family in ("sdxl", "sdxl_refiner", "playground"):
             refiner = self.family == "sdxl_refiner"
             zg, pooled_g = self.text_engines["clip_g"](prompts, max_chunks=max_chunks)
@@ -212,7 +216,7 @@ class DiffusionEngine:
                 zl, _ = self.text_engines["clip_l"](prompts, max_chunks=max_chunks)
                 zg = torch.cat([zl, zg], dim=-1)
             return {"context": zg.to(self.compute_dtype), "y": y.to(self.compute_dtype)}
-        if self.family == "flux":
+        if self.family in ("flux", "chroma"):
             z = self.text_engines["t5xxl"](prompts)
             if "clip_l" in self.text_engines:
                 _, pooled = self.text_engines["clip_l"](prompts, max_chunks=1)
@@ -249,11 +253,14 @@ class DiffusionEngine:
         `ControlNetState`s) the UNet's apply also takes `t_host`, the
         timestep as a host float that `sampling/cfg.py` already holds: the
         ControlNets' schedule gate 1 − t/999 is computed from it, so no step
-        waits on the card to read t. Hooks and ControlNets compose."""
-        if self.family in ("flux", "sd3"):
+        waits on the card to read t. Hooks and ControlNets compose. On Flux,
+        Chroma and SD3 they raise: the reference's Flux and Chroma apply take
+        them and drop them without a word."""
+        if self.family in ("flux", "chroma", "sd3"):
             if controlnets or hooks:
-                raise NotImplementedError(f"ControlNets and UNet hooks for {self.family} are not "
-                                          "ported yet")
+                raise NotImplementedError(
+                    f"ControlNets and UNet hooks on {self.family} are refused: the reference "
+                    "takes them there and drops them without a word")
         if self.family == "sd3":
             mcfg = self.mmdit_cfg
 
@@ -261,6 +268,14 @@ class DiffusionEngine:
                 return mmdit_mod.mmdit_apply(params, x, t, context, y, cfg=mcfg)
 
             return apply_sd3
+        if self.family == "chroma":
+            ccfg = self.flux_cfg
+
+            def apply_chroma(params, x, t, context, y=None, guidance=None):
+                return chroma_mod.chroma_apply(params, x, t, context, y=y, guidance=guidance,
+                                               cfg=ccfg)
+
+            return apply_chroma
         if self.family == "flux":
             fcfg = self.flux_cfg
 
@@ -400,16 +415,20 @@ class DiffusionEngine:
 
 def load_engine(path_or_sd, device=None, dtype: Optional[torch.dtype] = None,
                 unet_quant: Optional[str] = None,
-                embeddings_dir: Optional[str] = None) -> DiffusionEngine:
+                embeddings_dir: Optional[str] = None,
+                additional_modules: Optional[Dict[str, str]] = None) -> DiffusionEngine:
     """Checkpoint path (.safetensors or .gguf) or flat state dict → engine on
     `device` (the CUDA card unless given; without one this raises). `dtype` is the weights' and activations'
     dtype: bf16 on CUDA and f32 on the CPU unless given. `unet_quant`
     ("nf4" | "q8_0" | "q4_0") quantizes the diffusion model's large matmul
-    weights at load (core/loader.py). `embeddings_dir` holds the
-    textual-inversion embeddings the prompts' trigger words take."""
+    weights at load, "fp8" | "fp8_e4m3" | "fp8_e5m2" stores them as fp8
+    (core/loader.py). `embeddings_dir` holds the textual-inversion embeddings
+    the prompts' trigger words take. `additional_modules` ({"vae" | a text
+    encoder's name: file}) merges separate VAE and text-encoder files in."""
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
     return DiffusionEngine(load_checkpoint_parts(path_or_sd, dtype=dtype, device=device,
                                                  unet_quant=unet_quant,
-                                                 vae_dtype=vae_dtype_for(dtype)),
+                                                 vae_dtype=vae_dtype_for(dtype),
+                                                 additional_modules=additional_modules),
                            device, dtype, embeddings_dir=embeddings_dir)

@@ -9,8 +9,9 @@ cond and uncond with a shared chunk count → host Philox noise → the
 sampler's step loop on the CFG-batched latent → VAE decode with the NaN
 checks → uint8 images. SDXL's conditioning embeds the image's width and
 height in `y`. Flux adds the distilled-CFG guidance scale to both
-conditionings and samples 16-channel latents; SD3 samples 16-channel
-latents under real CFG; Playground v2.5's latents go through its channel
+conditionings and samples 16-channel latents; Chroma gets the same
+guidance entry, which its network does not read, and samples under real
+CFG with the negative prompt; SD3 samples 16-channel latents under real CFG; Playground v2.5's latents go through its channel
 format. At CFG 1 the uncond branch is skipped, as for every family.
 
 img2img encodes the init images (resized by `resize_mode`) with the VAE and
@@ -98,10 +99,10 @@ batch starts) or `state.skipped` (this batch) is set.
 reference's request (scripts, hooks, hook phases, soft inpainting, ...)
 raises NotImplementedError rather than being ignored, as do combinations the
 reference mixes or fails on: AND or regional branches with the refiner or
-on Flux, regional masks or the base prompt's AND branches under a hires pass
+on Flux and Chroma, regional masks or the base prompt's AND branches under a hires pass
 that changes the latent size's masks or re-encodes the prompt, and `AND` or
 `[from:to:when]` in a prompt the refiner or a hires pass encodes itself. On
-SD2, Playground v2.5 and SD3 the features `UNPORTED_BY_FAMILY` lists raise
+SD2, Playground v2.5, SD3 and Chroma the features `UNPORTED_BY_FAMILY` lists raise
 as well: LoRA, ControlNets, UNet hooks (the IP-Adapter), tiling, the hires
 fix, the refiner, regional prompts and inpainting, and img2img on
 Playground.
@@ -139,10 +140,12 @@ from .taesd import preview_decode, taesd_decoder, taesd_for_family
 
 TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 32
 # the request features that no test holds against the reference on a family: each raises
-# NotImplementedError there (SD2, Playground v2.5 and SD3 take txt2img, SD2 and SD3 img2img)
+# NotImplementedError there (SD2, Playground v2.5, SD3 and Chroma take txt2img, SD2, SD3 and
+# Chroma img2img)
 _COMMON_UNPORTED = ("lora", "controlnets", "unet_hooks", "tiled_diffusion", "enable_hr",
                     "refiner", "regional_prompts", "inpaint_mask")
 UNPORTED_BY_FAMILY = {"sd20": _COMMON_UNPORTED, "sd3": _COMMON_UNPORTED,
+                      "chroma": _COMMON_UNPORTED,
                       "playground": _COMMON_UNPORTED + ("init_images",)}
 
 
@@ -677,10 +680,11 @@ def _conditioning(engine: DiffusionEngine, p: Processing, timings: Dict[str, flo
     finally:
         for name, params in orig_te.items():
             engine.text_engines[name].params = params
-    if engine.family == "flux":
+    if engine.family in ("flux", "chroma"):
         if branches:  # the reference adds the guidance to cond and uncond only
-            raise NotImplementedError("AND and regional prompts on Flux are not ported: the "
-                                      "reference's branches lack the guidance scale")
+            raise NotImplementedError(
+                f"AND and regional prompts on {engine.family} are refused: the reference's "
+                "branches lack the guidance scale (its batched call raises KeyError 'guidance')")
         g = torch.full((p.batch_size,), float(p.distilled_cfg_scale),
                        dtype=torch.float32, device=engine.device)
         cond = dict(cond, guidance=g)

@@ -4,8 +4,12 @@
 Scan the checkpoint directories, keep one live engine, and load again only
 when the loading key (path, VAE, keyword arguments) changes; the refiner and
 hires checkpoints a request names are resolved beside it
-(`processing.ENGINE_RESOLVER`), at most two at a time. Engines load on the
-CUDA card unless the manager was given another device.
+(`processing.ENGINE_RESOLVER`), at most two at a time. The manager installs
+that resolver when it is made and `close()` (or leaving its `with` block)
+puts back the one it replaced. Engines load on the CUDA card unless the
+manager was given another device. `load(name, vae=path)` loads the
+checkpoint with that VAE file in place of its own (core/loader.py
+`additional_modules`).
 """
 
 from __future__ import annotations
@@ -59,7 +63,26 @@ class ModelManager:
         self.refresh()
         from ..pipeline import processing
 
+        self._replaced_resolver = processing.ENGINE_RESOLVER
         processing.ENGINE_RESOLVER = self.resolve_aux
+
+    def close(self):
+        """Put back the `processing.ENGINE_RESOLVER` this manager replaced
+        (if it is still this manager's) and drop its engines."""
+        from ..pipeline import processing
+
+        if processing.ENGINE_RESOLVER == self.resolve_aux:
+            processing.ENGINE_RESOLVER = self._replaced_resolver
+        with self._lock:
+            self._engine = None
+            self._loading_key = None
+            self._aux_engines.clear()
+
+    def __enter__(self) -> "ModelManager":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def _load(self, path: str, **kwargs) -> DiffusionEngine:
         eng = load_engine(path, device=self.device, embeddings_dir=self.embeddings_dir, **kwargs)
@@ -119,9 +142,8 @@ class ModelManager:
 
     def load(self, name_or_path: str, vae: Optional[str] = None, **kwargs) -> DiffusionEngine:
         """The engine of a checkpoint by name or path (load_engine's keyword
-        arguments pass through), loaded again only when its key changes."""
-        if vae:
-            raise NotImplementedError("a separate VAE file is not ported to forge_tpu_torch yet")
+        arguments pass through), loaded again only when its key changes; `vae`,
+        a VAE file, replaces the checkpoint's VAE."""
         info = self.find(name_or_path)
         if info is None:
             raise FileNotFoundError(f"checkpoint {name_or_path!r} not found")
@@ -130,7 +152,8 @@ class ModelManager:
             if key == self._loading_key and self._engine is not None:
                 return self._engine
             self._engine = None  # the old engine's memory goes before the new one loads
-            self._engine = self._load(info.path, **kwargs)
+            self._engine = self._load(info.path, additional_modules={"vae": vae} if vae else None,
+                                      **kwargs)
             # the model's identity for the infotext
             self._engine.checkpoint_name = info.name
             self._engine.checkpoint_hash = info.short_hash()

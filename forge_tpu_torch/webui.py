@@ -66,13 +66,15 @@ def main(argv=None):
     models = ModelManager(checkpoint_dirs=[args.ckpt_dir], embeddings_dir=args.embeddings_dir,
                           device=args.device, lora_dirs=[args.lora_dir])
     print(f"found {len(models.checkpoints)} checkpoints in {args.ckpt_dir}", flush=True)
-    if args.ckpt:
-        print(f"loading {args.ckpt} ...", flush=True)
-        work_queue.run_and_wait(models.load, args.ckpt)
-        opts.set("sd_model_checkpoint", args.ckpt)
-    elif models.checkpoints:
-        opts.set("sd_model_checkpoint", next(iter(models.checkpoints)))
-    serve(models, "0.0.0.0" if args.listen else "127.0.0.1", args.port, api_auth=args.api_auth)
+    with models:  # the refiner/hires resolver is the manager's until the server ends
+        if args.ckpt:
+            print(f"loading {args.ckpt} ...", flush=True)
+            work_queue.run_and_wait(models.load, args.ckpt)
+            opts.set("sd_model_checkpoint", args.ckpt)
+        elif models.checkpoints:
+            opts.set("sd_model_checkpoint", next(iter(models.checkpoints)))
+        serve(models, "0.0.0.0" if args.listen else "127.0.0.1", args.port,
+              api_auth=args.api_auth)
 
 
 if __name__ == "__main__":

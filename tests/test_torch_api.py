@@ -107,6 +107,7 @@ def servers():
     for srv in (jsrv, tsrv):
         srv.shutdown()
         srv.server_close()
+    tmm.close()
 
 
 @pytest.fixture(scope="module")
@@ -302,6 +303,7 @@ def test_model_manager_routes(tmp_path, monkeypatch):
         opts.set("sd_model_checkpoint", None)
         srv.shutdown()
         srv.server_close()
+        mm.close()
 
 
 def test_launcher_flags():

@@ -84,7 +84,7 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(forge_tpu_torch.__path__, "
         "'forge_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 62, mods\n"
+        "assert len(mods) >= 63, mods\n"
         "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors',"
         " 'transformers', 'psutil') or m.startswith(('jax.', 'forge_tpu.', 'PIL.',"
         " 'safetensors.', 'transformers.', 'psutil.'))]\n"
@@ -96,7 +96,7 @@ def test_port_imports_no_jax():
         "assert {'forge_tpu_torch.runtime.options', 'forge_tpu_torch.sampling.brownian'} <= set(mods)\n"
         "assert {'forge_tpu_torch.text.textual_inversion', 'forge_tpu_torch.runtime.styles',"
         " 'forge_tpu_torch.pipeline.infotext', 'forge_tpu_torch.core.device',"
-        " 'forge_tpu_torch.models.mmdit'} <= set(mods)\n"
+        " 'forge_tpu_torch.models.mmdit', 'forge_tpu_torch.models.chroma'} <= set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
