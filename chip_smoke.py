@@ -2,7 +2,9 @@
 img2img-inpaint path with a LoRA and a ControlNet, its batched SDXL serving with an
 IP-Adapter and a MultiDiffusion upscale, its SDXL hires fix and refiner, one
 sampler of each group and the prompt surface on SDXL, its REST API on SDXL with
-the tiled VAE, SD2.1-768-v, SD3-medium and Playground v2.5, and the rest of the Flux
+the tiled VAE, the extension hook layers on SDXL (FreeU, PAG, SAG, dynamic
+thresholding, latent modifier, a hypernetwork, StyleAlign, ControlLLLite),
+SD2.1-768-v, SD3-medium and Playground v2.5, and the rest of the Flux
 family (a bitsandbytes NF4 file with separate VAE and text-encoder files, fp8 storage and
 Chroma), on one NVIDIA GPU.
 
@@ -11,6 +13,7 @@ Chroma), on one NVIDIA GPU.
     python3 chip_smoke.py --families   # phase 1, phase 2's rows for phase 13, phase 13; no result
     python3 chip_smoke.py --api        # phase 1, phase 2's VAE tile rows, phase 14; no result
     python3 chip_smoke.py --flux-family  # phase 1, phase 2's rows for phase 15, phase 15; no result
+    python3 chip_smoke.py --extensions   # phase 1, phase 2's StyleAlign rows, phase 16; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -183,6 +186,29 @@ Phases:
      0 dequant), one profiled, one forward at CFG batch 2 against plain
      (≥ 40 dB). Phase 2 holds flash at Chroma's q(2,24,4608,128).
 
+ 16. the extension hook layers on the SDXL engine, after phase 14 and before
+     phase 13 frees it (`--extensions`: on an engine of its own): 1024²,
+     DPM++ 2M Karras, 10 steps (bench config 2's 30 cut to fit the run's
+     limit; the widths are not cut), CFG 7, batch 1: a witness request at
+     seed 1; FreeU at the SDXL values its authors publish (b1 1.3, b2 1.4,
+     s1 0.9, s2 0.2) at seeds 1, 2, 1 (seed 1 twice byte-identical); at seed
+     1, PAG (scale 3), SAG (scale 0.75, blur σ 2), dynamic thresholding
+     (mimic 7, percentile 1.0, the request at CFG 15), the latent modifier
+     (reinhard tonemap 3, Gaussian sharpness 10), a hypernetwork made on the
+     card (SDXL's 2048-wide context, layers 1, 2, 1, relu, LayerNorm,
+     strength 1), StyleAlign (strength 1, batch 2) and ControlLLLite made on
+     the card (cond_emb_dim 32, mlp_dim 64 on every transformer block's attn1
+     q, k, v and attn2 q) with a canny hint: each image differs from the
+     witness's, its launches exact by body, its latency and timings beside
+     the witness's; the CFG'd model_fn call of step 5 (its σ, the
+     request's own latent there, recorded by a post-CFG hook that launches
+     nothing) with the witness's and each extension's hooks, and one UNet
+     forward at (2,4,128,128) with the five block slots, through the kernels
+     and the plain versions (≥ 40 dB; SAG's plain run takes the kernels'
+     recorded q and k, so both apply one mask, and the run with its own
+     mask and the mask tokens that flipped are printed). Phase 2 holds flash
+     at StyleAlign's joined q(2,10,8192,64) and q(2,20,2048,64).
+
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
 is printed. The last two lines are the per-kernel JSON summary and
@@ -249,6 +275,10 @@ FLASH_SHAPES += FAMILY_FLASH_SHAPES
 FLUX_FAMILY_FLASH_SHAPES = [((1, 24, 4608, 128), 4608, True), ((2, 24, 4608, 128), 4608, True),
                             ((1, 1, 16384, 512), 16384, True)]
 FLASH_SHAPES += FLUX_FAMILY_FLASH_SHAPES[1:2]
+# phase 16: StyleAlign's shared self-attention at SDXL 1024², batch 2 with CFG: each CFG half's
+# two images joined into one sequence (2 × 4096 and 2 × 1024 tokens), one launch of batch 2
+EXTENSIONS_FLASH_SHAPES = [((2, 10, 8192, 64), 8192, True), ((2, 20, 2048, 64), 2048, True)]
+FLASH_SHAPES += EXTENSIONS_FLASH_SHAPES
 FLUX_FAMILY_CONV_SHAPES = [((1, 512, 128, 128), 512), ((1, 128, 1024, 1024), 128)]  # Flux's VAE
 FLASH_SUMMARY_SHAPE = FLASH_SHAPES[0][0]  # the JSON line's flash row (the same shape since the first)
 GN_CONV_SHAPES = [  # (B, C, H, W), O
@@ -456,6 +486,37 @@ CHROMA_PER_REQUEST = {"flash_attention": CHROMA_STEPS * (19 + 38) + 1, "gn_silu_
                       "dequant_matmul": 0}
 FP8_PER_REQUEST = {"flash_attention": FLUX_STEPS * (19 + 38) + 1, "gn_silu_conv3x3": 28,
                    "dequant_matmul": 0}
+# phase 16, the extension hook layers on the SDXL engine (tests/test_torch_cfg_hooks.py and
+# test_torch_block_patches.py hold them against the reference on the CPU): SDXL 1024², DPM++ 2M
+# Karras, CFG 7, batch 1 (StyleAlign batch 2), 10 steps (bench config 2's 30 cut to fit the run's
+# limit: at 20 the whole run took 1110.8 s of its 1200 on an H100 80GB HBM3 at 700 W; the widths
+# are not cut). A plain request: 10 forwards at CFG batch 2 (70 flash, 34 conv each), then the
+# decode (1, 28). FreeU, dynamic thresholding, the latent modifier, the hypernetwork (attn2's 77
+# keys: plain) and ControlLLLite (plain convs and linears) add no launch; StyleAlign joins each
+# CFG half's two images into one launch of batch 2 (70 a forward); PAG's perturbed pass adds a
+# batch-1 forward a step with attn1 the identity (34 conv, no flash); SAG's degraded pass a whole
+# batch-1 forward a step (70 flash, 34 conv)
+EXT_STEPS = 10
+EXT_SIZE = 1024
+EXT_PLAIN = {"flash_attention": EXT_STEPS * 70 + 1, "gn_silu_conv3x3": EXT_STEPS * 34 + 28}
+EXT_PER_REQUEST = {
+    "witness": EXT_PLAIN, "FreeU": EXT_PLAIN, "dynamic thresholding": EXT_PLAIN,
+    "latent modifier": EXT_PLAIN, "hypernetwork": EXT_PLAIN, "StyleAlign": EXT_PLAIN,
+    "ControlLLLite": EXT_PLAIN,
+    "PAG": {"flash_attention": EXT_STEPS * 70 + 1, "gn_silu_conv3x3": EXT_STEPS * 68 + 28},
+    "SAG": {"flash_attention": EXT_STEPS * 140 + 1, "gn_silu_conv3x3": EXT_STEPS * 68 + 28},
+}
+EXT_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
+FREEU_SDXL = dict(b1=1.3, b2=1.4, s1=0.9, s2=0.2)  # the SDXL values FreeU's authors publish
+# ControlLLLite on every SDXL transformer block: (block path, depth, channels, blocks deep);
+# level 1's 64² tokens take a depth-2 embedding (/16 of 1024), level 2's and the middle's 32²
+# a depth-3 one (/32)
+LLLITE_BLOCKS = ([(f"input_blocks_{i}_1", 2, 640, 2) for i in (4, 5)]
+                 + [(f"input_blocks_{i}_1", 3, 1280, 10) for i in (7, 8)]
+                 + [("middle_block_1", 3, 1280, 10)]
+                 + [(f"output_blocks_{i}_1", 3, 1280, 10) for i in (0, 1, 2)]
+                 + [(f"output_blocks_{i}_1", 2, 640, 2) for i in (3, 4, 5)])
+LLLITE_CE, LLLITE_MLP = 32, 64  # cond_emb_dim, mlp_dim
 
 
 def log(*args):
@@ -687,14 +748,16 @@ def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
 
 
 def phase_kernels(gen: torch.Generator, rows: str = "all"):
-    """Phase 2; with rows "families", "api" or "flux_family", the flash and
-    conv rows of the SD2, SD3 and Playground paths, of phase 14's VAE tiles
-    or of phase 15 (with its NF4 dequant rows) alone."""
+    """Phase 2; with rows "families", "api", "flux_family" or "extensions",
+    the flash and conv rows of the SD2, SD3 and Playground paths, of phase
+    14's VAE tiles, of phase 15 (with its NF4 dequant rows) or of phase 16
+    (StyleAlign's two flash rows) alone."""
     summary = {}
     if rows != "all":
         flash, conv = {"families": (FAMILY_FLASH_SHAPES, FAMILY_CONV_SHAPES),
                        "api": (TILE_FLASH_SHAPES, TILE_CONV_SHAPES),
-                       "flux_family": (FLUX_FAMILY_FLASH_SHAPES, FLUX_FAMILY_CONV_SHAPES)}[rows]
+                       "flux_family": (FLUX_FAMILY_FLASH_SHAPES, FLUX_FAMILY_CONV_SHAPES),
+                       "extensions": (EXTENSIONS_FLASH_SHAPES, [])}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
@@ -2335,6 +2398,264 @@ def phase_api(engine, gen: torch.Generator):
 
 
 
+def ext_processing(seed: int = 1, attach=None, **fields):
+    """A phase-16 request (EXT_SIZE², DPM++ 2M Karras, EXT_STEPS steps, CFG 7
+    unless `fields` say otherwise) with `attach(p)` run on it."""
+    from forge_tpu_torch.pipeline.processing import Processing
+
+    p = Processing(**{**dict(prompt=EXT_PROMPT, negative_prompt="blurry", seed=seed,
+                             steps=EXT_STEPS, cfg_scale=7.0, width=EXT_SIZE, height=EXT_SIZE,
+                             sampler_name="DPM++ 2M", scheduler="karras"), **fields})
+    if attach is not None:
+        attach(p)
+    return p
+
+
+def ext_request(engine, label: str, seed: int = 1, attach=None, witness=None, **fields):
+    """One phase-16 request, its launches exact by body → (its first image,
+    the Processed, the latency, the launches, the sampler's latent at its
+    call EXT_STEPS // 2, recorded by a post-CFG hook that returns x0 as it
+    is and launches nothing)."""
+    from forge_tpu_torch.pipeline.processing import process_images
+
+    p = ext_processing(seed, attach, **fields)
+    calls = []
+
+    def record(x0, eps_cond, eps_uncond, x, sigma):
+        calls.append(x.clone() if len(calls) == EXT_STEPS // 2 else None)
+        return x0
+
+    p.post_cfg_hooks = list(p.post_cfg_hooks or ()) + [record]
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    launches = read_counts()
+    for img in res.images:
+        check(img.shape == (EXT_SIZE, EXT_SIZE, 3) and img.dtype == np.uint8 and img.std() > 0,
+              f"extensions {label}: a {EXT_SIZE}²×3 uint8 image, not flat")
+    img = res.images[0]
+    line = (f"extensions {label} seed={seed} batch={p.batch_size}: latency {latency:.4f} s, "
+            "timings " + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+            + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, image mean "
+            f"{img.mean():.3f} std {img.std():.3f}")
+    if witness is not None:
+        w_img, w_res, w_latency = witness[:3]
+        check(not np.array_equal(img, w_img), f"extensions {label}: the image differs from the "
+                                              "witness's")
+        line += (f" | witness latency {w_latency:.4f} s, timings "
+                 + json.dumps({k: round(v, 4) for k, v in w_res.timings.items()})
+                 + f", {latency / w_latency:.3f}x, PSNR vs the witness "
+                 f"{image_psnr(img, w_img):.2f} dB")
+    log(line)
+    check_counts(launches, EXT_PER_REQUEST[label], 1, f"the {label} request")
+    return img, res, latency, launches, calls[EXT_STEPS // 2]
+
+
+def sag_vs_plain(what: str, p, fn, x, sigma: float):
+    """SAG's model_fn through the kernels and the plain versions. Its mask
+    thresholds the middle block's attention at its mean, so a token near the
+    threshold flips on a bf16 difference upstream and moves x0 there by the
+    blur: the plain run is held with the kernels' recorded q and k (the same
+    mask) against the ≥ PSNR_BOUND gate, and the run with its own mask and
+    the tokens that flipped are printed beside it."""
+    from forge_tpu_torch.extensions.sag import attention_mask
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.ops.attention import attention
+
+    replace = p.unet_hooks["attn1_replace"]
+    record = replace[("middle", 0)]
+    seen, mode = {}, {"plain": False, "frozen": False}
+
+    def recorder(q, k, v, extra):
+        seen["plain" if mode["plain"] else "kernels"] = (q, k, extra["n_heads"])
+        if mode["frozen"]:  # SAG records the kernels' q and k; the attention is the plain run's
+            record(*seen["kernels"][:2], v, extra)
+            return attention(q, k, v, heads=extra["n_heads"])
+        return record(q, k, v, extra)
+
+    replace[("middle", 0)] = recorder
+    with torch.no_grad():
+        fused, _ = timed(f"{what}: kernels", lambda: fn(x, sigma))
+        mode["plain"] = True
+        with plain_versions():
+            own, _ = timed(f"{what}: plain versions, their own mask", lambda: fn(x, sigma))
+            mode["frozen"] = True
+            plain, _ = timed(f"{what}: plain versions, the kernels' mask", lambda: fn(x, sigma))
+    masks = [attention_mask(*seen[run], x.shape[0], tuple(x.shape[2:])) for run in
+             ("kernels", "plain")]
+    side = int(math.sqrt(seen["kernels"][0].shape[1]))
+    flips = int((masks[0] != masks[1]).sum().item()) * side * side // masks[0][0, 0].numel()
+    value = psnr(fused, plain)
+    log(f"{what} bf16: kernels vs plain PSNR {value:.2f} dB with the kernels' mask (bound "
+        f"{PSNR_BOUND}); {psnr(fused, own):.2f} dB with each run's own mask, "
+        f"{flips} of {side * side} mask tokens flipped")
+    check(value >= PSNR_BOUND, f"{what} PSNR ≥ {PSNR_BOUND} dB")
+
+
+def synth_lllite_sd(gen: torch.Generator):
+    """A ControlLLLite file's flat keys, made on the card: one module on each
+    SDXL transformer block's attn1 to_q, to_k, to_v and attn2 to_q, cond_emb_dim
+    32, mlp_dim 64 (the layout `split_lllite_modules` reads; torch layout)."""
+    def w(*shape):
+        fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        return torch.randn(shape, generator=gen, device=gen.device) / math.sqrt(fan_in)
+
+    ce, mlp, sd = LLLITE_CE, LLLITE_MLP, {}
+    for blk, depth, width, n in LLLITE_BLOCKS:
+        for i in range(n):
+            for proj in ("attn1_to_q", "attn1_to_k", "attn1_to_v", "attn2_to_q"):
+                pre = f"lllite_unet_{blk}_transformer_blocks_{i}_{proj}."
+                mod = {"conditioning1.0.weight": w(ce // 2, 3, 4, 4),
+                       "conditioning1.0.bias": w(ce // 2) * 0.1}
+                if depth == 2:
+                    mod.update({"conditioning1.2.weight": w(ce, ce // 2, 4, 4),
+                                "conditioning1.2.bias": w(ce) * 0.1})
+                else:
+                    mod.update({"conditioning1.2.weight": w(ce // 2, ce // 2, 4, 4),
+                                "conditioning1.2.bias": w(ce // 2) * 0.1,
+                                "conditioning1.4.weight": w(ce, ce // 2, 2, 2),
+                                "conditioning1.4.bias": w(ce) * 0.1})
+                mod.update({"down.0.weight": w(mlp, width), "down.0.bias": w(mlp) * 0.1,
+                            "mid.0.weight": w(mlp, mlp + ce), "mid.0.bias": w(mlp) * 0.1,
+                            "up.0.weight": w(width, mlp) * 0.5, "up.0.bias": w(width) * 0.1})
+                sd.update({pre + k: v for k, v in mod.items()})
+    return sd
+
+
+def synth_hypernetwork(gen: torch.Generator, width: int):
+    """A hypernetwork's loaded dict, made on the card: one module pair for
+    SDXL's 2048-wide context, layer structure 1, 2, 1 with a LayerNorm
+    (linear.0, linear.1 the norm, linear.2), relu."""
+    dev = gen.device
+
+    def module():
+        return {"linear.0.weight": torch.randn((2 * width, width), generator=gen, device=dev)
+                / math.sqrt(width),
+                "linear.0.bias": torch.zeros(2 * width, device=dev),
+                "linear.1.weight": torch.ones(2 * width, device=dev),
+                "linear.1.bias": torch.zeros(2 * width, device=dev),
+                "linear.2.weight": torch.randn((width, 2 * width), generator=gen, device=dev)
+                / math.sqrt(2 * width) * 0.5,
+                "linear.2.bias": torch.zeros(width, device=dev)}
+
+    return {width: [module(), module()], "activation_func": "relu",
+            "layer_structure": [1, 2, 1], "is_layer_norm": True}
+
+
+def phase_extensions(engine, gen: torch.Generator):
+    """Phase 16: the CFG hook layer and the UNet's block patches with the
+    eight extensions on the SDXL engine (see the docstring)."""
+    from forge_tpu_torch.extensions import (controllllite, dynamic_thresholding, freeu,
+                                            hypernetworks, latent_modifier, pag, sag, stylealign)
+    from forge_tpu_torch.pipeline import processing as proc
+    from forge_tpu_torch.preprocessors.cv import canny
+
+    t_phase = time.perf_counter()
+    unet = engine.loaded.unet
+    model_channels = unet["input_blocks"]["0"]["0"]["weight"].shape[0]  # 320
+    context_dim = unet["middle_block"]["1"]["transformer_blocks"]["0"]["attn2"]["to_k"][
+        "weight"].shape[1]  # 2048
+    cond1 = engine.get_learned_conditioning([EXT_PROMPT], EXT_SIZE, EXT_SIZE)  # PAG's, SAG's
+    hint_src = np.random.default_rng(16).uniform(0, 255, size=(EXT_SIZE, EXT_SIZE, 3))
+    edges = canny(hint_src.astype(np.uint8))
+    hint = np.repeat(edges[..., None], 3, axis=-1).astype(np.float32)
+    hn_dict, _ = timed("extensions: a hypernetwork made on the card",
+                       lambda: synth_hypernetwork(gen, context_dim))
+    hn = hypernetworks.load_hypernetwork(hn_dict, name="chip-smoke-hn", device=engine.device)
+    lllite_sd, _ = timed("extensions: ControlLLLite's modules made on the card",
+                         lambda: synth_lllite_sd(gen))
+
+    def attach_pag(p):
+        p.post_cfg_hooks = [pag.build_pag_post_cfg(engine, cond1, 3.0)]
+
+    def attach_sag(p):
+        p.unet_hooks, post = sag.build_sag(engine, cond1, 0.75, 2.0)
+        p.post_cfg_hooks = [post]
+
+    attaches = {  # label → (attach, the request's own fields)
+        "PAG": (attach_pag, {}),
+        "SAG": (attach_sag, {}),
+        "dynamic thresholding": (lambda p: dynamic_thresholding.attach(
+            p, {"mimic_scale": 7.0, "threshold_percentile": 1.0}), dict(cfg_scale=15.0)),
+        "latent modifier": (lambda p: latent_modifier.attach(
+            p, {"tonemap_multiplier": 3.0, "tonemap_method": "reinhard",
+                "sharpness_multiplier": 10.0, "sharpness_method": "gaussian"}), {}),
+        "hypernetwork": (lambda p: hypernetworks.attach(p, hn, 1.0), {}),
+        "StyleAlign": (lambda p: stylealign.attach(p, {"shared_attention": True,
+                                                       "strength": 1.0}), dict(batch_size=2)),
+        "ControlLLLite": (lambda p: controllllite.attach(
+            p, {"model": "chip-smoke-lllite", "weight": 1.0}, sd=lllite_sd, cond_image=hint,
+            device=engine.device), {}),
+    }
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    witness = ext_request(engine, "witness")
+    add(witness[3])
+    x_mid = {"witness": witness[4]}  # each request's latent at the call of step EXT_STEPS // 2
+    freeu_hooks = freeu.build_freeu_hooks(model_channels=model_channels, **FREEU_SDXL)
+    runs = []
+    for seed in (1, 2, 1):
+        runs.append(ext_request(engine, "FreeU", seed,
+                                lambda p: setattr(p, "unet_hooks", freeu_hooks),
+                                witness=witness if seed == 1 else None))
+        add(runs[-1][3])
+    x_mid["FreeU"] = runs[0][4]
+    check(np.array_equal(runs[0][0], runs[2][0]), "FreeU seed 1 twice gives identical bytes")
+    check(not np.array_equal(runs[0][0], runs[1][0]), "FreeU seeds 1 and 2 differ")
+    log(f"extensions FreeU: latency {runs[0][2]:.4f} / {runs[2][2]:.4f} s against the witness's "
+        f"{witness[2]:.4f} s")
+    for label, (attach, fields) in attaches.items():
+        out = ext_request(engine, label, 1, attach, witness=witness, **fields)
+        add(out[3])
+        x_mid[label] = out[4]
+
+    # the CFG'd model_fn call of the middle step (its σ, the request's own latent there) with
+    # each extension's hooks, and the witness's, through the kernels and the plain versions
+    sigmas = proc.get_sigmas("karras", EXT_STEPS, engine.predictor)
+    mid = EXT_STEPS // 2
+    for label, (attach, fields) in ([("witness", (None, {})),
+                                     ("FreeU", (lambda p: setattr(p, "unet_hooks", freeu_hooks),
+                                                {}))] + list(attaches.items())):
+        p = ext_processing(1, attach, **fields)
+        proc.setup(engine, p)
+        fn = proc.cfg_model_fn(engine, proc.prepare(engine, p, 0, {}))
+        what = f"extensions {label}: model_fn at step {mid}'s σ {sigmas[mid]:.4f}"
+        if label == "SAG":
+            sag_vs_plain(what, p, fn, x_mid[label], float(sigmas[mid]))
+        else:
+            kernels_vs_plain(what, lambda: fn(x_mid[label], float(sigmas[mid])))
+
+    # one UNet forward with the five block slots (a scale, a shift, a swap of the skip's halves)
+    def swap(s):
+        c = s.shape[1] // 2
+        return torch.cat([s[:, c:], s[:, :c]], dim=1)
+
+    block_hooks = {
+        "input_block_patch": (lambda h, bid: h * (1.0 + 0.02 * bid[1]),),
+        "input_block_patch_after_skip": (lambda h, bid: h + 0.01,),
+        "middle_block_patch": (lambda h, bid: h * 1.1 - 0.02,),
+        "output_block_patch": (lambda h, skip, bid: (h * 0.95, swap(skip) * 0.5 + skip * 0.5),),
+        "output_block_patch_after": (lambda h, bid: h - 0.01 * bid[1],),
+    }
+    side = EXT_SIZE // 8
+    x = torch.randn((2, 4, side, side), generator=gen, device=gen.device).to(engine.compute_dtype)
+    ts = torch.tensor([999.0, 400.0], device=engine.device)
+    cond = engine.get_learned_conditioning([EXT_PROMPT, "blurry"], EXT_SIZE, EXT_SIZE)
+    apply = engine.unet_apply_fn(hooks=block_hooks)
+    kernels_vs_plain(f"extensions: sdxl unet {side}x{side} B=2 with the five block slots",
+                     lambda: apply(engine.loaded.unet, x, ts, cond["context"], y=cond["y"]))
+    del x
+    torch.cuda.empty_cache()
+    log(f"extensions phase 16: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
@@ -2424,6 +2745,9 @@ def main():
     ap.add_argument("--flux-family", action="store_true",
                     help="run phase 1, phase 2's rows for phase 15 and phase 15 (bnb NF4 files, "
                          "fp8 storage, Chroma) only, with no result")
+    ap.add_argument("--extensions", action="store_true",
+                    help="run phase 1, phase 2's StyleAlign rows and phase 16 (the extension "
+                         "hook layers on SDXL) only, with no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2459,7 +2783,8 @@ def main():
 
     opts.set("save_write_params_txt", False)  # no params.txt written inside timed requests
     summary = phase_kernels(gen, "families" if args.families else "api" if args.api
-                            else "flux_family" if args.flux_family else "all")
+                            else "flux_family" if args.flux_family
+                            else "extensions" if args.extensions else "all")
     if args.kernels:
         log("kernels only: phases 1-2 passed")
         return
@@ -2470,6 +2795,14 @@ def main():
         log(f"api phase: {time.perf_counter() - t:.2f} s; script so far "
             f"{time.perf_counter() - t_start:.2f} s")
         log("api only: phases 1, 2 (the tile rows) and 14 passed")
+        return
+    if args.extensions:
+        engine = load_sdxl()
+        t = time.perf_counter()
+        phase_extensions(engine, gen)
+        log(f"extensions phase: {time.perf_counter() - t:.2f} s; script so far "
+            f"{time.perf_counter() - t_start:.2f} s")
+        log("extensions only: phases 1, 2 (the StyleAlign rows) and 16 passed")
         return
     if args.flux_family:
         t = time.perf_counter()
@@ -2520,15 +2853,19 @@ def main():
         f"{time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     api_launches = phase_api(engine, gen)  # phase 14, on the SDXL engine before phase 13 frees it
+    log(f"api phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    ext_launches = phase_extensions(engine, gen)  # phase 16, on the same engine
     del engine
     gc.collect()  # phase 14 leaves reference cycles that hold the engine until the collector runs
     torch.cuda.empty_cache()
-    log(f"api phase: {time.perf_counter() - t:.2f} s; script so far "
+    log(f"extensions phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
     paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
              "config3": config3_launches, "config5": config5_launches,
              "config2": config2_launches, "samplers": samplers_launches,
-             "prompts": prompts_launches, "api": api_launches}
+             "prompts": prompts_launches, "api": api_launches, "extensions": ext_launches}
     for name in FAMILIES:
         t = time.perf_counter()
         paths[name] = phase_family(name, gen)

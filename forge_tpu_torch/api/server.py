@@ -97,7 +97,7 @@ def _processing_from_payload(payload: Dict[str, Any]) -> Processing:
     request, the payload's own fields override it; `save_images`, a script or
     an always-on script answers 422 (no sample is saved and scripts are not
     ported)."""
-    from ..pipeline.processing import _FIELDS
+    from ..pipeline.processing import _FIELDS, CFG_HOOK_FIELDS
 
     for key, what in (("save_images", "saving images"), ("script_name", "scripts"),
                       ("alwayson_scripts", "always-on scripts")):
@@ -111,6 +111,11 @@ def _processing_from_payload(payload: Dict[str, Any]) -> Processing:
         field = _API_ALIASES.get(key, key)
         if field in _INERT_FIELDS and value == _INERT_FIELDS[field]:
             continue
+        if field in CFG_HOOK_FIELDS:  # Python callables: an extension's attach sets them
+            raise ApiError(422, f"{key}: CFG hooks cannot come in a JSON payload; the "
+                                "extensions that set them are reached through always-on "
+                                "scripts, not ported to forge_tpu_torch yet (ROADMAP.md "
+                                "queue 1 item 7)")
         if field and (field in _FIELDS or field in _INERT_FIELDS):
             kwargs[field] = value
     if isinstance(kwargs.get("inpainting_fill"), int):

@@ -1,8 +1,9 @@
-# Copied from forge_tpu/core/state_dict.py (the safetensors reader, collapse_bnb_quant, the .gguf route and load_torch_ckpt, here through torch.load).
+# Copied from forge_tpu/core/state_dict.py (the safetensors reader, collapse_bnb_quant, the .gguf route, load_torch_ckpt and load_torch_object, here through torch.load).
 """Checkpoint files → {key: numpy array}.
 
 The safetensors reader, the GGUF route (core/gguf.py) and torch's zip
-pickles (`.pth`, `.pt`, `.ckpt`) are ported: `load_torch_ckpt` reads the
+pickles (`.pth`, `.pt`, `.ckpt`) are ported: `load_torch_ckpt` and
+`load_torch_object` (a nested `.pt` such as a hypernetwork's) read the
 latter with `torch.load(weights_only=True)`, which runs no code from the
 file, as the reference's restricted unpickler does. Unlike the reference's
 reader, it keeps nested dicts of tensors (a `params_ema` wrap) nested rather
@@ -118,6 +119,26 @@ def load_torch_ckpt(path: str) -> Dict[str, np.ndarray]:
     if not isinstance(obj, dict):
         raise ValueError(f"{path}: not a state dict ({type(obj).__name__})")
     return _tensors_to_numpy(obj.get("state_dict", obj))
+
+
+def load_torch_object(path: str):
+    """A torch `.pt` with its whole nested structure (a hypernetwork's: int
+    context widths → [k state, v state], and string metadata), its tensors
+    as numpy arrays (bf16 widened to f32) at any depth of dicts, lists and
+    tuples; everything else as the file holds it."""
+    import torch
+
+    def materialize(node):
+        if isinstance(node, torch.Tensor):
+            node = node.detach().cpu()
+            return (node.float() if node.dtype == torch.bfloat16 else node).numpy()
+        if isinstance(node, dict):
+            return {k: materialize(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(materialize(v) for v in node)
+        return node
+
+    return materialize(torch.load(path, map_location="cpu", weights_only=True))
 
 
 def load_state_dict(path: str) -> Dict[str, Any]:

@@ -8,8 +8,8 @@ and SDXL's linear ones on [B, HW, C], and SDXL's label embedding of the size
 vector `y` added to the timestep embedding. ControlNet residuals come in through
 `control`.
 
-`hooks` is the attention part of the reference's hook manifest (the
-extension ABI): for `which` in attn1 (self) and attn2 (cross),
+`hooks` is the reference's hook manifest (the extension ABI). Its
+attention part, for `which` in attn1 (self) and attn2 (cross):
 `{which}_context_patch` (fn(ctx_k, ctx_v, {"block"}) → (ctx_k, ctx_v), before
 to_k/to_v), `{which}_patch` (fn(q, k, v, extra) → (q, k, v)),
 `{which}_replace` (block id → fn(q, k, v, extra) → out, in place of the
@@ -18,9 +18,20 @@ and `{which}_output_patch` (fn(out, {"block"}) → out, after to_out). q, k and
 v are [B, L, C]. `extra` holds `block` (("input", i), ("middle", 0) or
 ("output", i)), `n_heads`, `block_index` (the transformer block within its
 spatial transformer) and `attn_index`, the transformer block's ordinal in
-one forward (0 … 69 for SDXL), the same on every forward. The block-level
-patches of the reference's manifest are not ported: a key this function does
-not read raises NotImplementedError.
+one forward (0 … 69 for SDXL), the same on every forward.
+
+Its block part, where the reference puts each relative to the ControlNet
+residuals, on NCHW tensors (the reference's hooks see NHWC): `x_concat`
+(fn(x) → extra latent channels [B or 1, C, h, w], resized bilinearly as
+`jax.image.resize` does and tiled to x's batch, concatenated to x before
+the stem), `input_block_patch` (fn(h, id) → h, after input block i and its
+residual, before the skip is saved), `input_block_patch_after_skip` (the
+same after it is saved: the skip does not see it), `middle_block_patch`
+(fn(h, ("middle", 0)) → h, after the middle block's residual),
+`output_block_patch` (fn(h, skip, id) → (h, skip), after the skip's
+residual, before the two are concatenated) and `output_block_patch_after`
+(fn(h, id) → h, after output block i). A key this function does not read
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import torch
 from ..ops import nn
 from ..ops.attention import attention
 from ..ops.fused_gn_conv import group_norm_silu_conv3x3
+from ..ops.resize import resize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +78,12 @@ def resblock(p: Mapping[str, Any], x: torch.Tensor, emb: torch.Tensor) -> torch.
     return x + h
 
 
+BLOCK_HOOK_KEYS = frozenset(("x_concat", "input_block_patch", "input_block_patch_after_skip",
+                             "middle_block_patch", "output_block_patch",
+                             "output_block_patch_after"))
 HOOK_KEYS = frozenset(f"{which}_{kind}" for which in ("attn1", "attn2")
                       for kind in ("context_patch", "patch", "replace", "replace_all",
-                                   "output_patch"))
+                                   "output_patch")) | BLOCK_HOOK_KEYS
 _NO_HOOKS: Mapping[str, Any] = {}
 
 
@@ -154,10 +169,17 @@ def unet_apply(params: Mapping[str, Any], x: torch.Tensor, timesteps: torch.Tens
     """x [B,C_latent,H,W], timesteps [B], context [B,L,context_dim],
     y [B, 2816] (SDXL's size conditioning, required when the tree has a
     label embedding), control (models/controlnet.py `run_controlnets`'
-    residuals), hooks (the attention hook manifest, see the module) → eps
+    residuals), hooks (the hook manifest, see the module) → eps
     [B,C,H,W]."""
     hooks = hooks or _NO_HOOKS
     check_hooks(hooks)
+    for fn in hooks.get("x_concat", ()):  # extra latent channels before the stem conv
+        c = fn(x)
+        if c.shape[2:] != x.shape[2:]:
+            c = resize(c, tuple(x.shape[2:]), "bilinear")
+        if c.shape[0] != x.shape[0]:
+            c = c.repeat(x.shape[0] // c.shape[0], 1, 1, 1)
+        x = torch.cat([x, c.to(x.dtype)], dim=1)
     n_attn = 0  # transformer blocks run so far in this forward: the next attn_index
 
     def transformer(sub, h, block_id):
@@ -192,18 +214,27 @@ def unet_apply(params: Mapping[str, Any], x: torch.Tensor, timesteps: torch.Tens
             elif "weight" in sub:  # input_blocks.0.0 stem conv
                 h = nn.conv2d(h, sub, padding=1)
         h = _apply_control(h, control, "input", i)
+        for fn in hooks.get("input_block_patch", ()):
+            h = fn(h, ("input", i))
         hs.append(h)
+        for fn in hooks.get("input_block_patch_after_skip", ()):
+            h = fn(h, ("input", i))
 
     mid = params["middle_block"]
     h = resblock(mid["0"], h, emb)
     h = transformer(mid["1"], h, ("middle", 0))
     h = resblock(mid["2"], h, emb)
     h = _apply_control(h, control, "middle", 0)
+    for fn in hooks.get("middle_block_patch", ()):
+        h = fn(h, ("middle", 0))
 
     output_blocks = params["output_blocks"]
     for i in range(len(output_blocks)):
         block = output_blocks[str(i)]
-        h = torch.cat([h, _apply_control(hs.pop(), control, "output", i)], dim=1)
+        skip = _apply_control(hs.pop(), control, "output", i)
+        for fn in hooks.get("output_block_patch", ()):
+            h, skip = fn(h, skip, ("output", i))
+        h = torch.cat([h, skip], dim=1)
         for j in range(len(block)):
             sub = block[str(j)]
             if "in_layers" in sub:
@@ -212,6 +243,8 @@ def unet_apply(params: Mapping[str, Any], x: torch.Tensor, timesteps: torch.Tens
                 h = transformer(sub, h, ("output", i))
             elif "conv" in sub:  # upsample
                 h = nn.conv2d(nn.upsample_nearest_2x(h), sub["conv"], padding=1)
+        for fn in hooks.get("output_block_patch_after", ()):
+            h = fn(h, ("output", i))
 
     h = nn.group_norm(h, params["out"]["0"], act="silu")
     return nn.conv2d(h, params["out"]["2"], padding=1)

@@ -248,8 +248,8 @@ class DiffusionEngine:
 
     def unet_apply_fn(self, hooks=None, controlnets=None):
         """The raw network `apply(params, x, t, **cond)` (the reference's
-        `build_apply`). `hooks` is the UNet's attention hook manifest
-        (models/unet.py). With `controlnets` (models/controlnet.py
+        `build_apply`). `hooks` is the UNet's hook manifest, its attention
+        and block slots (models/unet.py). With `controlnets` (models/controlnet.py
         `ControlNetState`s) the UNet's apply also takes `t_host`, the
         timestep as a host float that `sampling/cfg.py` already holds: the
         ControlNets' schedule gate 1 − t/999 is computed from it, so no step

@@ -95,17 +95,33 @@ the step loop ends at the next step boundary once `state.interrupted` (the
 request: the partial latent decodes, no hires pass follows and no further
 batch starts) or `state.skipped` (this batch) is set.
 
+The extension surface: `unet_hooks` is the UNet's hook manifest, its
+attention and block slots (models/unet.py; the port's hooks see NCHW where
+the reference's see NHWC), and `pre_cfg_hooks`, `post_cfg_hooks` and
+`cfg_combine_hook` the CFG hook layer (sampling/cfg.py). A
+`cfg_combine_hook` with a `build(sigmas, predictor=)` method (dynamic
+thresholding's and the latent modifier's specs, extensions/) is built once a
+pass against that pass's σ table and the engine's predictor, as the
+reference builds it. Every pass of a request takes the hooks: the base pass,
+the NGMS tail (its post hooks only) and the hires pass; the refiner's pass
+with the CFG hooks or block-level hooks is refused. The extensions
+(extensions/: FreeU, PAG, SAG, dynamic thresholding, latent modifier,
+hypernetworks, StyleAlign and ControlLLLite) fill these fields through
+their `attach` or `build_*` functions.
+
 `Processing` takes only the fields this port reads. Any other field of the
-reference's request (scripts, hooks, hook phases, soft inpainting, ...)
-raises NotImplementedError rather than being ignored, as do combinations the
-reference mixes or fails on: AND or regional branches with the refiner or
-on Flux and Chroma, regional masks or the base prompt's AND branches under a hires pass
-that changes the latent size's masks or re-encodes the prompt, and `AND` or
-`[from:to:when]` in a prompt the refiner or a hires pass encodes itself. On
-SD2, Playground v2.5, SD3 and Chroma the features `UNPORTED_BY_FAMILY` lists raise
-as well: LoRA, ControlNets, UNet hooks (the IP-Adapter), tiling, the hires
+reference's request (scripts, hook phases, deferred hooks, soft inpainting,
+...) raises NotImplementedError rather than being ignored, as do
+combinations the reference mixes or fails on: AND or regional branches with
+the refiner or on Flux and Chroma, regional masks or the base prompt's AND
+branches under a hires pass that changes the latent size's masks or
+re-encodes the prompt, and `AND` or `[from:to:when]` in a prompt the refiner
+or a hires pass encodes itself. On SD2, Playground v2.5, SD3 and Chroma the
+features `UNPORTED_BY_FAMILY` lists raise as well: LoRA, ControlNets, UNet
+hooks (the IP-Adapter, the extensions), the CFG hooks, tiling, the hires
 fix, the refiner, regional prompts and inpainting, and img2img on
-Playground.
+Playground; on Flux the CFG hooks (and, in the engine, UNet hooks and
+ControlNets).
 """
 
 from __future__ import annotations
@@ -120,6 +136,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.unet import BLOCK_HOOK_KEYS
 from ..ops.image_rng import ImageRNG
 from ..ops.resize import resize
 from ..runtime.memory import Plan, plan_generation, tree_bytes
@@ -142,11 +159,15 @@ TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 3
 # the request features that no test holds against the reference on a family: each raises
 # NotImplementedError there (SD2, Playground v2.5, SD3 and Chroma take txt2img, SD2, SD3 and
 # Chroma img2img)
+CFG_HOOK_FIELDS = ("pre_cfg_hooks", "post_cfg_hooks", "cfg_combine_hook")
 _COMMON_UNPORTED = ("lora", "controlnets", "unet_hooks", "tiled_diffusion", "enable_hr",
-                    "refiner", "regional_prompts", "inpaint_mask")
+                    "refiner", "regional_prompts", "inpaint_mask") + CFG_HOOK_FIELDS
 UNPORTED_BY_FAMILY = {"sd20": _COMMON_UNPORTED, "sd3": _COMMON_UNPORTED,
                       "chroma": _COMMON_UNPORTED,
-                      "playground": _COMMON_UNPORTED + ("init_images",)}
+                      "playground": _COMMON_UNPORTED + ("init_images",),
+                      # the reference's Flux apply drops UNet hooks without a word, so PAG's
+                      # identity pass would be a plain one
+                      "flux": CFG_HOOK_FIELDS}
 
 
 @dataclasses.dataclass
@@ -196,7 +217,10 @@ class Processing:
     inpaint_full_res_padding: int = 32
     inpainting_mask_invert: bool = False
     controlnets: Optional[List[Any]] = None  # models.controlnet.ControlNetState
-    unet_hooks: Optional[Dict[str, Any]] = None  # models/unet.py's attention hook manifest
+    unet_hooks: Optional[Dict[str, Any]] = None  # models/unet.py's hook manifest
+    pre_cfg_hooks: Optional[List[Any]] = None  # fn(eps_c, eps_u, x, σ) → (eps_c, eps_u)
+    post_cfg_hooks: Optional[List[Any]] = None  # fn(x0, eps_c, eps_u, x, σ) → x0
+    cfg_combine_hook: Optional[Any] = None  # replaces the CFG combine; or a spec with .build
     tiled_diffusion: Optional[Dict[str, int]] = None  # MultiDiffusion {"tile", "overlap"}
     # hires fix (txt2img)
     enable_hr: bool = False
@@ -369,7 +393,8 @@ def _refuse_for_family(engine: DiffusionEngine, p: Processing) -> None:
         "refiner": bool(p.refiner_checkpoint or getattr(p, "_refiner_engine", None) is not None)
         and 0.0 < p.refiner_switch_at < 1.0,
         **{name: bool(getattr(p, name)) for name in
-           ("controlnets", "unet_hooks", "tiled_diffusion", "enable_hr", "regional_prompts")},
+           ("controlnets", "unet_hooks", "tiled_diffusion", "enable_hr", "regional_prompts",
+            *CFG_HOOK_FIELDS)},
         "inpaint_mask": p.inpaint_mask is not None,
         "init_images": p.init_images is not None,
     }
@@ -489,6 +514,19 @@ def _auto_schedule(sampler_name: str, scheduler: str) -> str:
     if scheduler and scheduler != "automatic":
         return scheduler
     return "karras" if "Karras" in sampler_name else "normal"
+
+
+def _merge_hooks(base: Optional[Dict[str, Any]], extra: Dict[str, Any]) -> Dict[str, Any]:
+    """Two hook manifests merged: a slot that is a tuple in both chains,
+    any other slot of `extra` (an attention replace) takes the place of
+    `base`'s."""
+    merged = dict(base or {})
+    for k, v in extra.items():
+        if k in merged and isinstance(v, tuple) and isinstance(merged[k], tuple):
+            merged[k] = merged[k] + v
+        else:
+            merged[k] = v
+    return merged
 
 
 def _add_time(timings: Dict[str, float], key: str, since: float) -> None:
@@ -868,9 +906,10 @@ def _tiled(apply_model: Callable, spec: Dict[str, int], x: torch.Tensor) -> Call
                             overlap=int(spec.get("overlap", 32)))
 
 
-def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
-    """The denoise stage: the sampler's step loop from job.x over its σ,
-    enqueued on the engine's device (no wait for the card) → the latent."""
+def cfg_model_fn(engine: DiffusionEngine, job: Job) -> Callable:
+    """The model_fn(x, σ) a job's pass integrates: the UNet with the
+    request's hooks and ControlNets, its tiles, CFG with the branches and
+    the CFG hooks, and the inpaint composite."""
     p = job.p
     info = get_sampler(p.sampler_name)
     net = engine.unet_apply_fn(hooks=p.unet_hooks, controlnets=p.controlnets)
@@ -880,16 +919,28 @@ def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
         apply_model = _tiled(apply_model, p.tiled_diffusion, job.x)
         p.extra_generation_params.setdefault(
             "Tiled Diffusion", f"MultiDiffusion tile {p.tiled_diffusion.get('tile', 96)}")
+    combine = p.cfg_combine_hook
+    if hasattr(combine, "build"):  # a spec: built against this pass's σ, as the reference does
+        combine = combine.build(np.asarray(job.sigmas, np.float32), predictor=engine.predictor)
     model_fn = cfg_mod.make_cfg_model_fn(
         apply_model, job.cond, None if p.cfg_scale == 1.0 else job.uncond,
         p.cfg_scale * info.cfg_multiplier, cfg_rescale=p.cfg_rescale,
         sigmas_np=job.sigmas if job.sigma_table is None else job.sigma_table,
         cond_branches=job.branches, branch_weights=job.weights, branch_masks=job.masks,
-        return_uncond=info.needs_uncond)
+        return_uncond=info.needs_uncond, pre_cfg_hooks=tuple(p.pre_cfg_hooks or ()),
+        post_cfg_hooks=tuple(p.post_cfg_hooks or ()), cfg_combine_fn=combine)
     if job.mask is not None:
         masked = cfg_mod.make_masked_pair_fn if info.needs_uncond else cfg_mod.make_masked_model_fn
         model_fn = masked(model_fn, job.mask, job.init_latent)
-    inner = model_fn
+    return model_fn
+
+
+def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
+    """The denoise stage: the sampler's step loop from job.x over its σ,
+    enqueued on the engine's device (no wait for the card) → the latent."""
+    p = job.p
+    info = get_sampler(p.sampler_name)
+    inner = cfg_model_fn(engine, job)
 
     def ticking(x, sigma):
         out = inner(x, sigma)
@@ -968,6 +1019,11 @@ def _refuse_mixed(p: Processing, job: Job) -> None:
     hr_reencode = p.enable_hr and bool(p.hr_prompt or p.hr_negative_prompt
                                        or p.hr_checkpoint_name
                                        or getattr(p, "_hr_engine", None) is not None)
+    if refiner and (any(getattr(p, name) for name in CFG_HOOK_FIELDS)
+                    or set(p.unet_hooks or ()) & BLOCK_HOOK_KEYS):
+        raise NotImplementedError("the CFG hooks and the UNet's block-level hooks with the "
+                                  "refiner are not ported: no test holds the reference's "
+                                  "refiner pass with them")
     if job.branches and refiner:
         raise NotImplementedError("AND or regional prompts with the refiner are not ported: "
                                   "the reference joins the refiner's conds with the base's "

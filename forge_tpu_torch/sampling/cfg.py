@@ -1,12 +1,16 @@
 """CFG executor: builds the `model_fn(x, σ) → denoised` the samplers integrate
 (port of forge_tpu/sampling/cfg.py: per-step conds for prompt editing, AND
-and regional branches, CFG rescale, the CFG++ pair and the inpainting latent
-composite).
+and regional branches, CFG rescale, the CFG hook layer, the CFG++ pair and
+the inpainting latent composite).
 
 cond, its branches and the uncond are fused into ONE model call by batch
 concatenation, and the uncond branch is skipped entirely when it is None
-(cfg == 1, the NGMS tail). The pre/post-CFG hooks and `cfg_combine_fn` come
-with the extension surface.
+(cfg == 1, the NGMS tail). The CFG hook layer, in the reference's order:
+`pre_cfg_hooks` fn(eps_c, eps_u, x, σ) → (eps_c, eps_u), then
+`cfg_combine_fn` fn(eps_c, eps_u, x, σ, cfg) → x0 in place of the CFG
+combine, then the rescale, then `post_cfg_hooks` fn(x0, eps_c, eps_u, x, σ)
+→ x0. The "eps" are the branches' x0 predictions (NCHW) and σ is a host
+float. Without an uncond only the post hooks run, on (x0, eps, eps).
 """
 
 from __future__ import annotations
@@ -49,17 +53,23 @@ class PerStep:
         self.array = array
 
 
+def step_index(sigmas_np, sigma) -> int:
+    """The step of a pass whose σ interval holds σ: searchsorted on −σ in
+    float32, side "right", less 1, clipped to [0, len(σ) − 2], as the
+    reference finds it on the card. σ and the table are host values: this
+    waits on nothing."""
+    table = -np.asarray(sigmas_np[:-1], np.float32)
+    return int(np.clip(np.searchsorted(table, -np.float32(sigma), side="right") - 1,
+                       0, len(sigmas_np) - 2))
+
+
 def _select_cond(cond: Mapping[str, Any], sigma, sigmas_np) -> Dict[str, torch.Tensor]:
-    """The cond for the call at σ: a PerStep value's row for the step whose
-    σ interval holds σ (searchsorted on −σ in float32, side "right", less 1,
-    clipped to [0, len(σ) − 2]), clamped to its last row as
-    `jax.lax.dynamic_index_in_dim` clamps; row 0 without a σ table. σ and the
-    table are host values: selecting waits on nothing."""
+    """The cond for the call at σ: a PerStep value's row for σ's
+    `step_index`, clamped to its last row as `jax.lax.dynamic_index_in_dim`
+    clamps; row 0 without a σ table."""
     if sigmas_np is None or not any(isinstance(v, PerStep) for v in cond.values()):
         return {k: (v.array[0] if isinstance(v, PerStep) else v) for k, v in cond.items()}
-    table = -np.asarray(sigmas_np[:-1], np.float32)
-    idx = int(np.clip(np.searchsorted(table, -np.float32(sigma), side="right") - 1,
-                      0, len(sigmas_np) - 2))
+    idx = step_index(sigmas_np, sigma)
     return {k: (v.array[min(idx, v.array.shape[0] - 1)] if isinstance(v, PerStep) else v)
             for k, v in cond.items()}
 
@@ -80,7 +90,9 @@ def make_cfg_model_fn(apply_model: Callable, cond: Mapping[str, Any],
                       cond_branches: Optional[Sequence[Mapping[str, Any]]] = None,
                       branch_weights: Optional[Sequence[float]] = None,
                       branch_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
-                      return_uncond: bool = False) -> Callable:
+                      return_uncond: bool = False, pre_cfg_hooks: Sequence[Callable] = (),
+                      post_cfg_hooks: Sequence[Callable] = (),
+                      cfg_combine_fn: Optional[Callable] = None) -> Callable:
     """model_fn(x, σ) for the samplers; uncond=None skips the uncond branch.
     With `return_uncond` (the CFG++ samplers) it returns the pair (x0, the
     uncond's x0), and (x0, x0) where the uncond is skipped. Values of the
@@ -89,7 +101,10 @@ def make_cfg_model_fn(apply_model: Callable, cond: Mapping[str, Any],
     uncond + cfg·Σ wᵢ(condᵢ − uncond), or with regional `branch_masks`
     (multiplier maps [1, 1, h, w], None for a full-canvas branch) the
     branches blended by mask·weight over their sum, then CFG against the
-    uncond. `cfg_rescale` > 0 rescales the CFG result (not without an uncond)."""
+    uncond. `cfg_rescale` > 0 rescales the CFG result (not without an uncond).
+    The hooks run on the plain and the branched paths alike (see the module);
+    without an uncond the pair is (x0, the unhooked x0) on the plain path and
+    (x0, x0) on the branched one, as in the reference."""
     branches = [cond] + list(cond_branches or [])
     weights = list(branch_weights or [1.0] * len(branches))
     conds = branches + ([uncond] if uncond is not None else [])
@@ -127,11 +142,21 @@ def make_cfg_model_fn(apply_model: Callable, cond: Mapping[str, Any],
             total = sum(weights)
             eps_eff = sum((w / total) * e for w, e in zip(weights, outs))
         if uncond is None:
-            return (eps_eff, eps_eff) if return_uncond else eps_eff
+            x0 = eps_eff
+            for hook in post_cfg_hooks:
+                x0 = hook(x0, eps_eff, eps_eff, x, sigma)
+            return (x0, eps_eff if single else x0) if return_uncond else x0
         eps_un = outs[-1]
-        x0 = eps_un + cfg_scale * (eps_eff - eps_un)
+        for hook in pre_cfg_hooks:
+            eps_eff, eps_un = hook(eps_eff, eps_un, x, sigma)
+        if cfg_combine_fn is not None:
+            x0 = cfg_combine_fn(eps_eff, eps_un, x, sigma, cfg_scale)
+        else:
+            x0 = eps_un + cfg_scale * (eps_eff - eps_un)
         if cfg_rescale > 0.0:
             x0 = _rescale(x0, eps_eff, cfg_rescale)
+        for hook in post_cfg_hooks:
+            x0 = hook(x0, eps_eff, eps_un, x, sigma)
         return (x0, eps_un) if return_uncond else x0
 
     return model_fn

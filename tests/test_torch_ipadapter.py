@@ -172,7 +172,7 @@ def test_unported_hook_keys_raise(unet_trees):
 
     tree = unet_trees[1]
     x, t, ctx, y = (torch.from_numpy(a) for a in _unet_inputs())
-    for key in ("input_block_patch", "x_concat", "attn3_patch"):
+    for key in ("block_modifiers", "input_block_patcher", "attn3_patch"):
         with pytest.raises(NotImplementedError, match=key):
             unet_apply(tree, x, t, ctx, y=y, hooks={key: []})
 

@@ -72,7 +72,7 @@ def test_processing_refuses_unported_fields():
     with pytest.raises(NotImplementedError, match="soft_inpainting"):
         p.soft_inpainting = {"mask_blend_power": 1.0}
     for name, value in (("hook_phases", [(0.5, {})]), ("cond_transform", lambda c: c),
-                        ("pre_cfg_hooks", [lambda *a: a]), ("cfg_combine_hook", object())):
+                        ("deferred_hooks", [lambda *a: a]), ("reference_state", object())):
         with pytest.raises(NotImplementedError, match=name):
             Processing(prompt="x", **{name: value})
 
@@ -84,7 +84,7 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(forge_tpu_torch.__path__, "
         "'forge_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 63, mods\n"
+        "assert len(mods) >= 72, mods\n"
         "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors',"
         " 'transformers', 'psutil') or m.startswith(('jax.', 'forge_tpu.', 'PIL.',"
         " 'safetensors.', 'transformers.', 'psutil.'))]\n"
@@ -97,6 +97,9 @@ def test_port_imports_no_jax():
         "assert {'forge_tpu_torch.text.textual_inversion', 'forge_tpu_torch.runtime.styles',"
         " 'forge_tpu_torch.pipeline.infotext', 'forge_tpu_torch.core.device',"
         " 'forge_tpu_torch.models.mmdit', 'forge_tpu_torch.models.chroma'} <= set(mods)\n"
+        "assert {'forge_tpu_torch.extensions.' + m for m in ('freeu', 'pag', 'sag',"
+        " 'dynamic_thresholding', 'latent_modifier', 'hypernetworks', 'stylealign',"
+        " 'controllllite')} <= set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
