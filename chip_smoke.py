@@ -4,9 +4,11 @@ IP-Adapter and a MultiDiffusion upscale, its SDXL hires fix and refiner, one
 sampler of each group and the prompt surface on SDXL, its REST API on SDXL with
 the tiled VAE, the extension hook layers on SDXL (FreeU, PAG, SAG, dynamic
 thresholding, latent modifier, a hypernetwork, StyleAlign, ControlLLLite),
-SD2.1-768-v, SD3-medium and Playground v2.5, and the rest of the Flux
+SD2.1-768-v, SD3-medium and Playground v2.5, the rest of the Flux
 family (a bitsandbytes NF4 file with separate VAE and text-encoder files, fp8 storage and
-Chroma), on one NVIDIA GPU.
+Chroma), and hook phases and deferred hooks on SDXL (Deep Shrink, Fooocus inpaint, a
+T2I-Adapter, a Control-LoRA, ControlNet inpaint_only, the latent modifier's extra noise), on
+one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -14,6 +16,8 @@ Chroma), on one NVIDIA GPU.
     python3 chip_smoke.py --api        # phase 1, phase 2's VAE tile rows, phase 14; no result
     python3 chip_smoke.py --flux-family  # phase 1, phase 2's rows for phase 15, phase 15; no result
     python3 chip_smoke.py --extensions   # phase 1, phase 2's StyleAlign rows, phase 16; no result
+    python3 chip_smoke.py --controls     # phase 1, phase 2's Deep Shrink rows, phase 17 at 20
+                                         # steps; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -208,6 +212,32 @@ Phases:
      recorded q and k, so both apply one mask, and the run with its own
      mask and the mask tokens that flipped are printed). Phase 2 holds flash
      at StyleAlign's joined q(2,10,8192,64) and q(2,20,2048,64).
+ 17. hook phases and deferred hooks on the SDXL engine, after phase 16
+     (`--controls`: on an engine of its own, at 20 steps): DPM++ 2M Karras,
+     10 steps, CFG 7, seed 1, every weight made on the card from a seed.
+     (a) Deep Shrink at 2048² (Kohya HRFix at Forge's defaults: block 3, ×2,
+     bicubic down and up, after the skip, until 0.35 of the steps) twice,
+     beside the same request without it: seed 1 twice byte-identical, each
+     segment's flash launches counted by shape as they launch; (b) Fooocus
+     inpaint on config 3's init image and mask at strength 1.0, with a patch
+     of a uint8 diff for every UNet weight of two or more dimensions and a
+     5→320 head (the dict passed to `attach`; the weights' build timed),
+     beside the inpaint without it; (c) a T2I-Adapter "canny" unit (SDXL's
+     layout: 768 channels in, (320, 640, 1280, 1280), two resblocks a stage,
+     stage 2 downsampling), (d) a rank-128 Control-LoRA "canny" unit
+     (assembled onto the live UNet, timed, held against base + up·down
+     computed in f32 on the host within 2e-2) and (f) the latent modifier
+     with gaussian extra noise, each on txt2img 1024² beside one witness,
+     the units' canny on a 512² source; (e) ControlNet inpaint_only with a
+     cldm of config 3's topology on config 3's inpaint request (strength
+     0.6) beside it without the unit, every pixel 17 px past the mask the
+     init's. Each request's image finite and unlike its witness's, its
+     launches exact by body, its latency and peak memory printed; each
+     path's CFG'd model_fn at one call (its σ, the request's own latent
+     there; Deep Shrink one shrunk call and one not) through the kernels
+     and the plain versions (≥ 40 dB). Phase 2's rows hold flash at Deep
+     Shrink's four shapes and the fused conv at its sizes; `--controls`
+     runs those rows alone.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -517,6 +547,49 @@ LLLITE_BLOCKS = ([(f"input_blocks_{i}_1", 2, 640, 2) for i in (4, 5)]
                  + [(f"output_blocks_{i}_1", 3, 1280, 10) for i in (0, 1, 2)]
                  + [(f"output_blocks_{i}_1", 2, 640, 2) for i in (3, 4, 5)])
 LLLITE_CE, LLLITE_MLP = 32, 64  # cond_emb_dim, mlp_dim
+# phase 17: hook phases and deferred hooks on the SDXL engine (DPM++ 2M Karras, CFG 7). Counts
+# by call site: a forward 70 flash / 34 conv at any size (Deep Shrink moves the shapes, not the
+# count), a ControlNet beside it (cldm or Control-LoRA) 34 / 16, a VAE encode 1 / 20, a decode
+# 1 / 28; the T2I-Adapter's and the Fooocus head's convs are plain F.conv2d (no kernel)
+CONTROLS_STEPS = 10  # 20 under --controls
+CONTROLS_SHRINK = dict(block_number=3, downscale_factor=2.0, downscale_after_skip=True,
+                       downscale_method="bicubic", upscale_method="bicubic", end_percent=0.35)
+CONTROLS_SHRINK_SIZE = 2048  # twice SDXL's trained size
+CONTROLS_INPAINT_STRENGTH = 0.6  # config 3's
+CONTROLS_T2I_CHANNELS = (320, 640, 1280, 1280)  # SDXL adapters': two resblocks a stage
+CONTROLS_LORA_RANK = 128  # control-lora-canny-rank128's
+CONTROLS_EXTRA_NOISE = dict(tonemap_multiplier=3.0, tonemap_method="reinhard",
+                            sharpness_multiplier=10.0, sharpness_method="gaussian",
+                            extra_noise_type="gaussian", extra_noise_method="add",
+                            extra_noise_multiplier=50.0, seed=17)
+# Deep Shrink's flash calls a step by shape: shrunk after input block 3 (skip saved at 128²
+# first), levels 1 and 2 run at 1024²'s 64² and 32², but output block 5 grows back to meet that
+# 128² skip, so its two transformer blocks run at 16384 tokens; unshrunk, config 2 (a)'s shapes
+CONTROLS_SHRUNK_SHAPES = {(2, 10, 4096, 64): 8, (2, 10, 16384, 64): 2, (2, 20, 1024, 64): 60}
+CONTROLS_FULL_SHAPES = {(2, 10, 16384, 64): 10, (2, 20, 4096, 64): 60}
+CONTROLS_FLASH_SHAPES = [((2, 10, 16384, 64), 16384, True), ((2, 20, 4096, 64), 4096, True),
+                         ((2, 10, 4096, 64), 4096, True), ((2, 20, 1024, 64), 1024, True)]
+CONTROLS_CONV_SHAPES = [((2, 320, 256, 256), 320), ((2, 960, 128, 128), 640),
+                        ((2, 640, 64, 64), 640)]  # Deep Shrink's levels 0, 1 (grown back), 1
+
+
+def controls_counts(steps: int):
+    """Phase 17's launches a request by label, and Deep Shrink's shrunk steps."""
+    shrunk = int(round(CONTROLS_SHRINK["end_percent"] * steps))  # _run_phased's k_end
+    calls = min(int(CONTROLS_INPAINT_STRENGTH * steps), steps - 1) + 1  # config 3's t_enc + 1
+
+    def count(forwards, cn_forwards=0, encodes=0):
+        return {"flash_attention": 70 * forwards + 34 * cn_forwards + encodes + 1,
+                "gn_silu_conv3x3": 34 * forwards + 16 * cn_forwards + 20 * encodes + 28,
+                "dequant_matmul": 0}
+
+    return shrunk, {
+        "shrink witness": count(steps), "Deep Shrink": count(steps),
+        "txt2img witness": count(steps), "T2I-Adapter": count(steps),
+        "Control-LoRA": count(steps, steps), "latent modifier": count(steps),
+        "inpaint witness": count(steps, encodes=1), "Fooocus inpaint": count(steps, encodes=2),
+        "config 3 witness": count(calls, encodes=1),
+        "inpaint_only": count(calls, calls, encodes=2)}
 
 
 def log(*args):
@@ -748,16 +821,18 @@ def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
 
 
 def phase_kernels(gen: torch.Generator, rows: str = "all"):
-    """Phase 2; with rows "families", "api", "flux_family" or "extensions",
-    the flash and conv rows of the SD2, SD3 and Playground paths, of phase
-    14's VAE tiles, of phase 15 (with its NF4 dequant rows) or of phase 16
-    (StyleAlign's two flash rows) alone."""
+    """Phase 2; with rows "families", "api", "flux_family", "extensions" or
+    "controls", the flash and conv rows of the SD2, SD3 and Playground paths,
+    of phase 14's VAE tiles, of phase 15 (with its NF4 dequant rows), of
+    phase 16 (StyleAlign's two flash rows) or of phase 17 (Deep Shrink's
+    four flash shapes and three conv shapes) alone."""
     summary = {}
     if rows != "all":
         flash, conv = {"families": (FAMILY_FLASH_SHAPES, FAMILY_CONV_SHAPES),
                        "api": (TILE_FLASH_SHAPES, TILE_CONV_SHAPES),
                        "flux_family": (FLUX_FAMILY_FLASH_SHAPES, FLUX_FAMILY_CONV_SHAPES),
-                       "extensions": (EXTENSIONS_FLASH_SHAPES, [])}[rows]
+                       "extensions": (EXTENSIONS_FLASH_SHAPES, []),
+                       "controls": (CONTROLS_FLASH_SHAPES, CONTROLS_CONV_SHAPES)}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
@@ -2656,6 +2731,295 @@ def phase_extensions(engine, gen: torch.Generator):
     return total
 
 
+def controls_request(engine, label: str, per_request, steps: int, record_at=(), witness=None,
+                     seed: int = 1, size: int = EXT_SIZE, attach=None, **fields):
+    """One phase-17 request (size², DPM++ 2M Karras, `steps` steps, CFG 7
+    unless `fields` say otherwise, `attach(p)` run on it), its launches
+    exact by body → (its first image, the Processed, the latency, the
+    launches, {call: (the sampler's latent, σ) at that model call},
+    recorded by a post-CFG hook that launches nothing, the request)."""
+    from forge_tpu_torch.pipeline.processing import Processing, process_images
+
+    p = Processing(**{**dict(prompt=EXT_PROMPT, negative_prompt="blurry", seed=seed, steps=steps,
+                             cfg_scale=7.0, width=size, height=size, sampler_name="DPM++ 2M",
+                             scheduler="karras"), **fields})
+    if attach is not None:
+        attach(p)
+    calls, kept = [0], {}
+
+    def record(x0, eps_cond, eps_uncond, x, sigma):
+        if calls[0] in record_at:
+            kept[calls[0]] = (x.clone(), float(sigma))
+        calls[0] += 1
+        return x0
+
+    p.post_cfg_hooks = [record]
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = process_images(engine, p)
+    latency = time.perf_counter() - t
+    launches = read_counts()
+    img = res.images[0]
+    check(img.shape == (size, size, 3) and img.dtype == np.uint8 and img.std() > 0,
+          f"controls {label}: a {size}²×3 uint8 image, not flat")
+    line = (f"controls {label} seed={seed}: latency {latency:.4f} s, {calls[0]} model calls, "
+            "timings " + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+            + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, image mean "
+            f"{img.mean():.3f} std {img.std():.3f}")
+    if witness is not None:
+        w_img, _, w_latency = witness[:3]
+        check(not np.array_equal(img, w_img), f"controls {label}: the image differs from the "
+                                              "witness's")
+        line += (f" | witness latency {w_latency:.4f} s, {latency / w_latency:.3f}x, PSNR vs "
+                 f"the witness {image_psnr(img, w_img):.2f} dB")
+    log(line)
+    check_counts(launches, per_request, 1, f"the {label} request")
+    return img, res, latency, launches, kept, p
+
+
+def synth_fooocus_patch(unet, gen: torch.Generator):
+    """A Fooocus patch made on the card: a [uint8 diff, min, max] group for
+    every UNet weight of two or more dimensions (inpaint_v26's layout), the
+    diff decoding to within ±0.002, and the 5→320 head."""
+    from forge_tpu_torch.core.convert import flatten
+
+    dev = gen.device
+    lo, hi = torch.tensor(-0.002, device=dev), torch.tensor(0.002, device=dev)
+    patch = {"diffusion_model." + key: [torch.randint(0, 256, tuple(w.shape), generator=gen,
+                                                      device=dev, dtype=torch.uint8), lo, hi]
+             for key, w in flatten(unet).items() if w.dim() >= 2}
+    head = torch.randn((320, 5, 3, 3), generator=gen, device=dev) * 0.05
+    return patch, head
+
+
+def synth_t2i_xl_sd(gen: torch.Generator):
+    """An SDXL T2I-Adapter made on the card: conv_in over the 16×
+    pixel-unshuffled hint (3·16² = 768 channels), channels (320, 640, 1280,
+    1280), two resblocks a stage (block1 3×3, block2 1×1, a 1×1 in_conv
+    where the channels change), the stride-2 down_opt at stage 2 only."""
+    dev, sd = gen.device, {}
+
+    def conv(key, o, i, k):
+        sd[key + ".weight"] = torch.randn((o, i, k, k), generator=gen, device=dev) / math.sqrt(
+            i * k * k)
+        sd[key + ".bias"] = torch.zeros(o, device=dev)
+
+    conv("conv_in", CONTROLS_T2I_CHANNELS[0], 3 * 16 * 16, 3)
+    prev = CONTROLS_T2I_CHANNELS[0]
+    for stage, ch in enumerate(CONTROLS_T2I_CHANNELS):
+        for j in range(2):
+            idx = 2 * stage + j
+            if j == 0 and stage == 2:
+                conv(f"body.{idx}.down_opt.op", prev, prev, 3)
+            if ch != prev:
+                conv(f"body.{idx}.in_conv", ch, prev, 1)
+            conv(f"body.{idx}.block1", ch, ch, 3)
+            conv(f"body.{idx}.block2", ch, ch, 1)
+            prev = ch
+    return sd
+
+
+def synth_control_lora_sd(unet, gen: torch.Generator):
+    """A Control-LoRA made on the card in stabilityai/control-lora's layout:
+    the marker, a cldm's hint block, zero convs and middle_block_out, and a
+    rank-128 `.up`/`.down` pair on every trunk weight of two or more
+    dimensions."""
+    from forge_tpu_torch.core.convert import flatten
+    from forge_tpu_torch.core.synth import DeviceFill, synth_controlnet_sd
+
+    dev = gen.device
+    cldm = synth_controlnet_sd(fill=DeviceFill(dev, seed=3))
+    sd = {k: v.materialize() for k, v in cldm.items()
+          if k.startswith(("zero_convs", "middle_block_out", "input_hint_block"))}
+    sd["lora_controlnet"] = torch.zeros((), device=dev)
+    for key, w in flatten(unet).items():
+        if key.split(".")[0] not in ("input_blocks", "middle_block", "time_embed", "label_emb") \
+                or w.dim() < 2:
+            continue
+        fan_in = int(np.prod(w.shape[1:]))
+        rank = min(CONTROLS_LORA_RANK, w.shape[0], fan_in)
+        base = key[:-len(".weight")]
+        sd[base + ".up"] = torch.randn((w.shape[0], rank) + (1, 1) * (w.dim() == 4),
+                                       generator=gen, device=dev) * (0.02 / math.sqrt(rank))
+        sd[base + ".down"] = torch.randn((rank,) + tuple(w.shape[1:]), generator=gen,
+                                         device=dev) * 0.25
+    return sd
+
+
+def phase_controls(engine, gen: torch.Generator, steps: int = CONTROLS_STEPS):
+    """Phase 17: hook phases and deferred hooks on the SDXL engine, with Deep
+    Shrink, Fooocus inpaint, a T2I-Adapter unit, a Control-LoRA unit,
+    ControlNet inpaint_only and the latent modifier's extra noise (see the
+    docstring)."""
+    from collections import Counter
+
+    from forge_tpu_torch.core.convert import flatten
+    from forge_tpu_torch.core.patches import apply_patches
+    from forge_tpu_torch.core.synth import DeviceFill, synth_controlnet_sd
+    from forge_tpu_torch.extensions import controlnet as cn_ext
+    from forge_tpu_torch.extensions import fooocus_inpaint, kohya_hrfix, latent_modifier
+    from forge_tpu_torch.ops import attention as attention_mod
+    from forge_tpu_torch.pipeline import processing as proc
+
+    t_phase = time.perf_counter()
+    shrunk, per_request = controls_counts(steps)
+    mid, total = steps // 2, {}
+
+    def add(out):
+        for k, v in out[3].items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    def request(label, **kw):
+        return add(controls_request(engine, label, per_request[label], steps, **kw))
+
+    def forward_vs_plain(label, out, call, hooks=None):
+        """The CFG'd model_fn at `call` (its σ, the request's own latent
+        there) through the kernels and the plain versions; `hooks` are the
+        segment's when the request ran in hook phases."""
+        p = out[5]
+        q = proc._derive(p, post_cfg_hooks=None, hook_phases=None, deferred_hooks=None,
+                         unet_hooks=p.unet_hooks if hooks is None else hooks)
+        job = proc.prepare(engine, q, 0, {})
+        fn = proc.cfg_model_fn(engine, job)
+        x, sigma = out[4][call]
+        kernels_vs_plain(f"controls {label}: model_fn at call {call}'s σ {sigma:.4f}",
+                         lambda: fn(x, sigma))
+
+    # (a) Deep Shrink at 2048²: the flash shapes of each segment, recorded as they launch
+    shapes, segments = [], []
+    flash, denoise = attention_mod.flash_attention, proc.denoise
+
+    def recording_flash(q, *args, **kwargs):
+        shapes.append(tuple(q.shape))
+        return flash(q, *args, **kwargs)
+
+    def segment_denoise(eng, job):
+        start = len(shapes)
+        out = denoise(eng, job)
+        segments.append((len(job.sigmas) - 1, Counter(shapes[start:])))
+        return out
+
+    def attach_shrink(p):
+        kohya_hrfix.attach(p, CONTROLS_SHRINK)
+
+    attention_mod.flash_attention, proc.denoise = recording_flash, segment_denoise
+    try:
+        shrink_witness = request("shrink witness", size=CONTROLS_SHRINK_SIZE)
+        check(segments == [(steps, Counter({k: v * steps for k, v in
+                                            CONTROLS_FULL_SHAPES.items()}))],
+              "the 2048² witness: every step at config 2 (a)'s shapes")
+        runs = []
+        for _ in range(2):
+            segments.clear()
+            runs.append(request("Deep Shrink", size=CONTROLS_SHRINK_SIZE, attach=attach_shrink,
+                                witness=shrink_witness, record_at=(shrunk // 2, mid + 1)))
+            want = [(shrunk, Counter({k: v * shrunk for k, v in CONTROLS_SHRUNK_SHAPES.items()})),
+                    (steps - shrunk, Counter({k: v * (steps - shrunk)
+                                              for k, v in CONTROLS_FULL_SHAPES.items()}))]
+            log(f"controls Deep Shrink segments: {[(n, dict(c)) for n, c in segments]}")
+            check(segments == want, f"Deep Shrink: {shrunk} shrunk steps at their shapes, then "
+                                    f"{steps - shrunk} at config 2 (a)'s")
+    finally:
+        attention_mod.flash_attention, proc.denoise = flash, denoise
+    check(np.array_equal(runs[0][0], runs[1][0]), "Deep Shrink seed 1 twice gives identical bytes")
+    kohya = runs[0][5].hook_phases[0][1]
+    forward_vs_plain("Deep Shrink, shrunk", runs[0], shrunk // 2,
+                     hooks=proc._merge_hooks(runs[0][5].unet_hooks, kohya))
+    forward_vs_plain("Deep Shrink, unshrunk", runs[0], mid + 1)
+    del runs, shrink_witness
+
+    # (b) Fooocus inpaint on config 3's init image and mask at strength 1.0
+    rng = np.random.default_rng(0)  # config 3's init image (bench_lora's generator)
+    init = rng.uniform(0, 255, size=(1024, 1024, 3)).astype(np.uint8)
+    mask = np.zeros((1024, 1024), np.float32)
+    mask[256:768, 256:768] = 1.0
+    inpaint = dict(init_images=[init], inpaint_mask=mask, denoising_strength=1.0)
+    (patch, head), _ = timed("controls: a Fooocus patch made on the card",
+                             lambda: synth_fooocus_patch(engine.loaded.unet, gen))
+    log(f"controls: the Fooocus patch holds {len(patch)} uint8 diffs, "
+        f"{sum(v[0].numel() for v in patch.values()) / 1e9:.3f} G values")
+    patches, _ = fooocus_inpaint.load_fooocus_patches(patch, 1.0, device=engine.device)
+    timed("controls: the Fooocus weights built (a per-request copy, decoded tensor by tensor)",
+          lambda: apply_patches(engine.loaded.unet, [(patches, 1.0)]))
+    del patches
+    witness = request("inpaint witness", record_at=(mid,), **inpaint)
+    out = request("Fooocus inpaint", witness=witness, record_at=(mid,), attach=lambda p:
+                  fooocus_inpaint.attach(p, {}, patch_sd=patch, head_weight=head), **inpaint)
+    forward_vs_plain("Fooocus inpaint", out, mid)
+    del patch, head, out, witness
+    torch.cuda.empty_cache()
+
+    # (c), (d), (f) on txt2img 1024² beside one witness; the units' canny source is a 512² image
+    witness = request("txt2img witness")
+    source = init[:512, :512]
+    t2i_sd, _ = timed("controls: an SDXL T2I-Adapter made on the card",
+                      lambda: synth_t2i_xl_sd(gen))
+    unit = {"module": "canny", "model": t2i_sd, "image": source, "weight": 1.0}
+    out = request("T2I-Adapter", witness=witness, record_at=(mid,),
+                  attach=lambda p: cn_ext.attach_units(p, [unit]))
+    forward_vs_plain("T2I-Adapter", out, mid)
+    del t2i_sd, unit, out
+
+    lora_sd, _ = timed("controls: a rank-128 Control-LoRA made on the card",
+                       lambda: synth_control_lora_sd(engine.loaded.unet, gen))
+    kind, raw, _, digest = cn_ext.load_control_model(lora_sd)
+    check(kind == "control_lora", "the Control-LoRA is told apart by its keys")
+    (tree, _), seconds = timed("controls: the Control-LoRA assembled onto the live UNet",
+                               lambda: cn_ext.assemble_control_lora(engine, raw, digest))
+    worst = 0.0
+    base, got = flatten(engine.loaded.unet), flatten(tree)
+    for key in ("input_blocks.1.0.in_layers.2.weight", "input_blocks.4.1.proj_in.weight",
+                "input_blocks.7.1.transformer_blocks.3.attn1.to_q.weight",
+                "middle_block.2.out_layers.3.weight", "label_emb.0.0.weight"):
+        stem = key[:-len(".weight")]
+        up, down = (lora_sd[stem + s].float().cpu().numpy() for s in (".up", ".down"))
+        want = (base[key].float().cpu().numpy()
+                + (up.reshape(up.shape[0], -1) @ down.reshape(down.shape[0], -1)
+                   ).reshape(base[key].shape))
+        err = np.abs(got[key].float().cpu().numpy() - want).max() / np.abs(want).max()
+        worst = max(worst, float(err))
+    log(f"controls Control-LoRA: assembled weights within {worst:.3e} of base + up·down "
+        f"computed in f32 on the host (bound 2e-2), {len(got)} tensors, built in {seconds:.4f} s")
+    check(worst <= 2e-2, "the Control-LoRA's assembled weights within bf16's 2e-2")
+    check(got["input_blocks.1.0.in_layers.2.weight"].is_contiguous(
+        memory_format=torch.channels_last), "an assembled fused-conv weight keeps channels_last")
+    unit = {"module": "canny", "model": lora_sd, "image": source, "weight": 1.0}
+    out = request("Control-LoRA", witness=witness, record_at=(mid,),
+                  attach=lambda p: cn_ext.attach_units(p, [unit]))
+    forward_vs_plain("Control-LoRA", out, mid)
+    del lora_sd, raw, tree, base, got, unit, out
+    engine.__dict__.pop("_control_lora_cache", None)
+    torch.cuda.empty_cache()
+
+    out = request("latent modifier", witness=witness, record_at=(mid,),
+                  attach=lambda p: latent_modifier.attach(p, CONTROLS_EXTRA_NOISE))
+    forward_vs_plain("latent modifier with extra noise", out, mid)
+    del out, witness
+
+    # (e) inpaint_only with a cldm of config 3's topology on config 3's inpaint request
+    cldm, _ = timed("controls: an SDXL cldm made on the card",
+                    lambda: synth_controlnet_sd(fill=DeviceFill("cuda", seed=0)))
+    config3 = dict(init_images=[init], inpaint_mask=mask,
+                   denoising_strength=CONTROLS_INPAINT_STRENGTH, prompt="a castle")
+    calls = min(int(CONTROLS_INPAINT_STRENGTH * steps), steps - 1) + 1
+    witness = request("config 3 witness", **config3)
+    unit = {"module": "inpaint_only", "model": cldm, "image": init,
+            "mask": (mask * 255).astype(np.uint8), "weight": 1.0}
+    out = request("inpaint_only", witness=witness, record_at=(calls // 2,),
+                  attach=lambda p: cn_ext.attach_units(p, [unit]), **config3)
+    far = np.ones((1024, 1024), bool)  # the inpaint blur's support ends 16 px past the square
+    far[256 - 17:768 + 17, 256 - 17:768 + 17] = False
+    check(np.array_equal(out[0][far], init[far]), "inpaint_only: every pixel 17 px past the "
+                                                  "mask is the init's")
+    forward_vs_plain("inpaint_only", out, calls // 2)
+    del cldm, unit, out, witness
+    torch.cuda.empty_cache()
+    log(f"controls phase 17 at {steps} steps: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
@@ -2748,6 +3112,9 @@ def main():
     ap.add_argument("--extensions", action="store_true",
                     help="run phase 1, phase 2's StyleAlign rows and phase 16 (the extension "
                          "hook layers on SDXL) only, with no result")
+    ap.add_argument("--controls", action="store_true",
+                    help="run phase 1, phase 2's Deep Shrink rows and phase 17 (hook phases and "
+                         "deferred hooks on SDXL) at 20 steps only, with no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2784,7 +3151,8 @@ def main():
     opts.set("save_write_params_txt", False)  # no params.txt written inside timed requests
     summary = phase_kernels(gen, "families" if args.families else "api" if args.api
                             else "flux_family" if args.flux_family
-                            else "extensions" if args.extensions else "all")
+                            else "extensions" if args.extensions
+                            else "controls" if args.controls else "all")
     if args.kernels:
         log("kernels only: phases 1-2 passed")
         return
@@ -2803,6 +3171,14 @@ def main():
         log(f"extensions phase: {time.perf_counter() - t:.2f} s; script so far "
             f"{time.perf_counter() - t_start:.2f} s")
         log("extensions only: phases 1, 2 (the StyleAlign rows) and 16 passed")
+        return
+    if args.controls:
+        engine = load_sdxl()
+        t = time.perf_counter()
+        phase_controls(engine, gen, steps=2 * CONTROLS_STEPS)
+        log(f"controls phase: {time.perf_counter() - t:.2f} s; script so far "
+            f"{time.perf_counter() - t_start:.2f} s")
+        log("controls only: phases 1, 2 (the Deep Shrink rows) and 17 passed")
         return
     if args.flux_family:
         t = time.perf_counter()
@@ -2857,15 +3233,20 @@ def main():
         f"{time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     ext_launches = phase_extensions(engine, gen)  # phase 16, on the same engine
+    log(f"extensions phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    controls_launches = phase_controls(engine, gen)  # phase 17, on the same engine
     del engine
     gc.collect()  # phase 14 leaves reference cycles that hold the engine until the collector runs
     torch.cuda.empty_cache()
-    log(f"extensions phase: {time.perf_counter() - t:.2f} s; script so far "
+    log(f"controls phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
     paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
              "config3": config3_launches, "config5": config5_launches,
              "config2": config2_launches, "samplers": samplers_launches,
-             "prompts": prompts_launches, "api": api_launches, "extensions": ext_launches}
+             "prompts": prompts_launches, "api": api_launches, "extensions": ext_launches,
+             "controls": controls_launches}
     for name in FAMILIES:
         t = time.perf_counter()
         paths[name] = phase_family(name, gen)

@@ -111,8 +111,9 @@ def _processing_from_payload(payload: Dict[str, Any]) -> Processing:
         field = _API_ALIASES.get(key, key)
         if field in _INERT_FIELDS and value == _INERT_FIELDS[field]:
             continue
-        if field in CFG_HOOK_FIELDS:  # Python callables: an extension's attach sets them
-            raise ApiError(422, f"{key}: CFG hooks cannot come in a JSON payload; the "
+        if field in CFG_HOOK_FIELDS + ("hook_phases", "deferred_hooks"):
+            # Python callables: an extension's attach sets them
+            raise ApiError(422, f"{key}: hooks cannot come in a JSON payload; the "
                                 "extensions that set them are reached through always-on "
                                 "scripts, not ported to forge_tpu_torch yet (ROADMAP.md "
                                 "queue 1 item 7)")

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.quant import QuantLeaf, dequantize
+from .synth import LazyTensor
 
 
 @dataclasses.dataclass
@@ -133,6 +134,12 @@ def _make_patch(t: Dict[str, np.ndarray]) -> Patch:
 
 
 def _f32(a, device) -> torch.Tensor:
+    """A patch tensor (numpy, torch, or a `LazyTensor` made when first
+    needed) as f32 on `device`."""
+    if isinstance(a, LazyTensor):
+        a = a.materialize()
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
     return torch.tensor(np.asarray(a, np.float32), device=device)
 
 

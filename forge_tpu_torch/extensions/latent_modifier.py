@@ -8,10 +8,13 @@ step's place in the σ table without one).
 NCHW: channels are dim 1. The statistics are the reference's: ddof-0 std,
 the median as the mean of the two middle values (`torch.quantile` at 0.5),
 linear quantiles. "subtract_channels" centres latent channel 0, where the
-reference's raises (see `_center_0channel`). The reference's extra noise draws from JAX's threefry
-PRNG, which has no counterpart here: a spec with `extra_noise_multiplier`
-raises NotImplementedError, as the reference refuses the noise types it
-does not port (perlin, pink, green) with ValueError.
+reference's raises (see `_center_0channel`). The extra noise ("gaussian" or
+"uniform", "add" or "speckle") is the reference's JAX threefry draw from
+fold_in(PRNGKey(seed), step), made on the host by ops/threefry.py in the
+reference's NHWC shape [B, H, W, C] and then taken to NCHW; the step is the
+call's `step_index` in the host σ table, so no step waits on the card. The
+noise types the reference does not port (perlin, pink, green) raise
+ValueError, as there.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import threefry
 from ..sampling.cfg import step_index
 from .sag import gaussian_blur_2d
 
@@ -87,10 +91,6 @@ class LatentModifierSpec:
         if self.extra_noise_multiplier and self.extra_noise_type not in ("gaussian", "uniform"):
             raise ValueError(f"extra noise type {self.extra_noise_type!r} not ported "
                              "(perlin/pink/green need host RNG)")
-        if self.extra_noise_multiplier:
-            raise NotImplementedError("the latent modifier's extra noise is not ported to "
-                                      "forge_tpu_torch: the reference draws it from JAX's "
-                                      "threefry PRNG")
 
     def build(self, sigmas_np, predictor=None) -> Callable:
         return build_latent_modifier_cfg_fn(self, sigmas_np, predictor)
@@ -100,6 +100,19 @@ def build_latent_modifier_cfg_fn(spec: LatentModifierSpec,
                                  sigmas_np: Optional[np.ndarray] = None,
                                  predictor=None) -> Callable:
     """→ cfg_combine_fn(x0_cond, x0_uncond, x, σ, cfg_scale)."""
+    key0 = threefry.prng_key(spec.seed)
+
+    def extra_noise(shape, sigma, device) -> torch.Tensor:
+        """The step's draw, [B, C, H, W] from the reference's NHWC layout."""
+        b, c, h, w = shape
+        key = threefry.fold_in(key0, step_index(sigmas_np, sigma) if sigmas_np is not None else 0)
+        if spec.extra_noise_type == "gaussian":
+            noise = threefry.normal(key, (b, h, w, c))
+        else:  # uniform
+            noise = ((threefry.uniform(key, (b, h, w, c)) - np.float32(0.5)) * np.float32(2)
+                     * np.float32(1.73))
+        return torch.from_numpy(np.ascontiguousarray(noise.transpose(0, 3, 1, 2))).to(device)
+
     def step_t(sigma) -> float:
         if predictor is not None:
             return float(np.clip(np.float32(predictor.timestep(np.float32(sigma)))
@@ -113,6 +126,15 @@ def build_latent_modifier_cfg_fn(spec: LatentModifierSpec,
         cond = x0_cond.float()
         uncond = x0_uncond.float()
         alpha_t = 1.0 - step_t(sigma)  # low at high noise (sampler_mega_modifier.py:963)
+        if spec.extra_noise_multiplier:
+            noise = extra_noise(tuple(cond.shape), sigma, cond.device)
+            a = alpha_t * 0.001 * spec.extra_noise_multiplier
+            if spec.extra_noise_method == "speckle":
+                cond = cond + cond * noise * a
+                uncond = uncond - uncond * noise * a
+            else:  # add
+                cond = cond + noise * a
+                uncond = uncond - noise * a
         if spec.sharpness_multiplier:
             if spec.sharpness_method == "cas":
                 degraded = _cas(cond, float(np.clip(np.float32(sigma), 0.0, 1.0)))

@@ -23,6 +23,7 @@ import torch
 
 from ..ops import nn
 from ..ops.resize import resize
+from .t2i_adapter import T2IAdapterState
 from .unet import UNetConfig, resblock, spatial_transformer
 
 
@@ -110,13 +111,15 @@ class ControlNetState:
     block_weights: Optional[Sequence[float]] = None
 
 
-def run_controlnets(states: Sequence[ControlNetState], x: torch.Tensor,
+def run_controlnets(states: Sequence[Any], x: torch.Tensor,
                     timesteps: torch.Tensor, sigma_frac: float, context: torch.Tensor,
                     y: Optional[torch.Tensor] = None) -> Optional[Dict[str, List[torch.Tensor]]]:
-    """Run the attached ControlNets and sum their gated residuals.
-    `sigma_frac` is the host float 1 − t/999, the fraction of the schedule
-    gone. A net outside [start_percent, end_percent] adds nothing, so it is
-    not run (the reference runs it and multiplies its residuals by 0)."""
+    """Run the attached ControlNets (and T2I-Adapters: their features,
+    computed once a state, models/t2i_adapter.py) and sum their gated,
+    weighted residuals, each broadcast to the CFG batch. `sigma_frac` is
+    the host float 1 − t/999, the fraction of the schedule gone. A net
+    outside [start_percent, end_percent] adds nothing, so it is not run (the
+    reference runs it and multiplies its residuals by 0)."""
     if not states:
         return None
     merged: Dict[str, List[Optional[torch.Tensor]]] = {}
@@ -124,13 +127,18 @@ def run_controlnets(states: Sequence[ControlNetState], x: torch.Tensor,
     for st in states:
         if not (frac >= np.float32(st.start_percent) and frac <= np.float32(st.end_percent)):
             continue
-        out = controlnet_apply(st.params, x, st.hint, timesteps, context, y=y, cfg=st.cfg)
+        if isinstance(st, T2IAdapterState):
+            out = st.features(x.dtype)
+        else:
+            out = controlnet_apply(st.params, x, st.hint, timesteps, context, y=y, cfg=st.cfg)
         bw = st.block_weights
         for kind, residuals in out.items():
             tgt = merged.setdefault(kind, [None] * len(residuals))
             if len(tgt) < len(residuals):
                 tgt.extend([None] * (len(residuals) - len(tgt)))
             for i, r in enumerate(residuals):
+                if r is None:  # a T2I-Adapter's empty slot
+                    continue
                 w = np.float32(st.strength)
                 if bw is not None:
                     w = w * np.float32(bw[i] if i < len(bw) else 1.0)

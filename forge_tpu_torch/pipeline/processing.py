@@ -106,22 +106,37 @@ reference builds it. Every pass of a request takes the hooks: the base pass,
 the NGMS tail (its post hooks only) and the hires pass; the refiner's pass
 with the CFG hooks or block-level hooks is refused. The extensions
 (extensions/: FreeU, PAG, SAG, dynamic thresholding, latent modifier,
-hypernetworks, StyleAlign and ControlLLLite) fill these fields through
-their `attach` or `build_*` functions.
+hypernetworks, StyleAlign, ControlLLLite, Kohya HRFix, Fooocus inpaint and
+the ControlNet units) fill these fields through their `attach` or `build_*`
+functions.
+
+`hook_phases` [(end fraction, extra hooks)] splits a txt2img request's step
+loop into segments (`_run_phased`, as the reference's), each with the base
+`unet_hooks` merged with its phase's; NGMS does not split such a request,
+the hires pass runs with the base hooks, and the refiner or img2img with
+hook phases is refused (the reference drops the phases there).
+`deferred_hooks` are functions fn(engine, p, cond, uncond) run once a
+request, after the first batch's conds are encoded and before its starting
+latent is made; they may leave `p._unet_param_override`, a per-request
+copy-on-write of the UNet's weights (Fooocus inpaint's patch), and
+`p._cn_inpaint`, ControlNet inpaint_only's state: its latent composite on
+each pass at its latent's size that has no inpaint mask of its own, and
+its final composite before the inpaint paste (after it, for "only masked";
+pipeline/cn_inpaint.py).
 
 `Processing` takes only the fields this port reads. Any other field of the
-reference's request (scripts, hook phases, deferred hooks, soft inpainting,
-...) raises NotImplementedError rather than being ignored, as do
+reference's request (scripts, soft inpainting, a cond transform, ...)
+raises NotImplementedError rather than being ignored, as do
 combinations the reference mixes or fails on: AND or regional branches with
 the refiner or on Flux and Chroma, regional masks or the base prompt's AND
 branches under a hires pass that changes the latent size's masks or
 re-encodes the prompt, and `AND` or `[from:to:when]` in a prompt the refiner
 or a hires pass encodes itself. On SD2, Playground v2.5, SD3 and Chroma the
 features `UNPORTED_BY_FAMILY` lists raise as well: LoRA, ControlNets, UNet
-hooks (the IP-Adapter, the extensions), the CFG hooks, tiling, the hires
-fix, the refiner, regional prompts and inpainting, and img2img on
-Playground; on Flux the CFG hooks (and, in the engine, UNet hooks and
-ControlNets).
+hooks (the IP-Adapter, the extensions), the CFG hooks, hook phases,
+deferred hooks, tiling, the hires fix, the refiner, regional prompts and
+inpainting, and img2img on Playground; on Flux the CFG hooks and hook
+phases (and, in the engine, UNet hooks and ControlNets).
 """
 
 from __future__ import annotations
@@ -150,6 +165,7 @@ from ..sampling.tiled import make_tiled_apply
 from ..text.schedule import get_schedule, split_composable
 from .engine import DiffusionEngine
 from .extra_networks import activate, parse_prompt
+from .cn_inpaint import composite_final
 from .images import bilinear_resize, resize_init_image
 from .infotext import create_infotext, write_params_txt
 from .masking import expand_crop_region, get_crop_region, resize_image
@@ -161,13 +177,14 @@ TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 3
 # Chroma img2img)
 CFG_HOOK_FIELDS = ("pre_cfg_hooks", "post_cfg_hooks", "cfg_combine_hook")
 _COMMON_UNPORTED = ("lora", "controlnets", "unet_hooks", "tiled_diffusion", "enable_hr",
-                    "refiner", "regional_prompts", "inpaint_mask") + CFG_HOOK_FIELDS
+                    "refiner", "regional_prompts", "inpaint_mask", "hook_phases",
+                    "deferred_hooks") + CFG_HOOK_FIELDS
 UNPORTED_BY_FAMILY = {"sd20": _COMMON_UNPORTED, "sd3": _COMMON_UNPORTED,
                       "chroma": _COMMON_UNPORTED,
                       "playground": _COMMON_UNPORTED + ("init_images",),
                       # the reference's Flux apply drops UNet hooks without a word, so PAG's
                       # identity pass would be a plain one
-                      "flux": CFG_HOOK_FIELDS}
+                      "flux": CFG_HOOK_FIELDS + ("hook_phases",)}
 
 
 @dataclasses.dataclass
@@ -237,6 +254,10 @@ class Processing:
     # the SDXL refiner's two-pass switch (txt2img)
     refiner_checkpoint: Optional[str] = None
     refiner_switch_at: float = 0.0
+    # fn(engine, p, cond, uncond), each run once a request after the first batch's cond encode
+    deferred_hooks: Optional[List[Any]] = None
+    # [(end fraction, extra unet_hooks)]: the txt2img step loop split into segments
+    hook_phases: Optional[List[Tuple[float, Dict[str, Any]]]] = None
 
     def __setattr__(self, name, value):
         if name not in _FIELDS and name not in _INTERNAL_ATTRS:
@@ -255,9 +276,12 @@ class Processing:
 
 
 _FIELDS = frozenset(f.name for f in dataclasses.fields(Processing))
-# engines a caller (or a test) hands the request directly, ahead of ENGINE_RESOLVER, and
-# the engine's family, which the infotext reads
-_INTERNAL_ATTRS = frozenset(("_hr_engine", "_refiner_engine", "_engine_family", "_plan"))
+# engines a caller (or a test) hands the request directly, ahead of ENGINE_RESOLVER;
+# the engine's family, which the infotext reads; and what deferred hooks leave: a per-request
+# copy-on-write of the UNet's weights (fn(params) → params) and the ControlNet inpaint_only
+# state (pipeline/cn_inpaint.py)
+_INTERNAL_ATTRS = frozenset(("_hr_engine", "_refiner_engine", "_engine_family", "_plan",
+                             "_unet_param_override", "_cn_inpaint"))
 
 
 @dataclasses.dataclass
@@ -394,7 +418,7 @@ def _refuse_for_family(engine: DiffusionEngine, p: Processing) -> None:
         and 0.0 < p.refiner_switch_at < 1.0,
         **{name: bool(getattr(p, name)) for name in
            ("controlnets", "unet_hooks", "tiled_diffusion", "enable_hr", "regional_prompts",
-            *CFG_HOOK_FIELDS)},
+            "hook_phases", "deferred_hooks", *CFG_HOOK_FIELDS)},
         "inpaint_mask": p.inpaint_mask is not None,
         "init_images": p.init_images is not None,
     }
@@ -823,7 +847,8 @@ def _prep_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
               init_latent=init_latent)
     if p.inpaint_mask is not None:
         inits = p.init_images
-        job.paste = lambda batch: [_composite_inpaint(p, batch[b], inits[min(b, len(inits) - 1)])
+        job.paste = lambda batch: [_composite_inpaint(p, composite_final(p, batch[b]),
+                                                      inits[min(b, len(inits) - 1)])
                                    for b in range(len(batch))]
     return job
 
@@ -839,7 +864,7 @@ def _prep_inpaint_full_res(engine: DiffusionEngine, p: Processing, seeds, subsee
     ih, iw = orig.shape[:2]
     region = get_crop_region((mask > 0.5).astype(np.float32), p.inpaint_full_res_padding)
     if region is None:
-        q = dataclasses.replace(p, inpaint_full_res=False)
+        q = _derive(p, inpaint_full_res=False)
         return _prep_img2img(engine, q, seeds, subseeds, cond, uncond, unet_params, timings)
     x1, y1, x2, y2 = expand_crop_region(region, p.width, p.height, iw, ih)
     crop_mask = mask[y1:y2, x1:x2]
@@ -859,11 +884,20 @@ def _prep_inpaint_full_res(engine: DiffusionEngine, p: Processing, seeds, subsee
             gen = resize_image(batch[b], x2 - x1, y2 - y1)
             full = orig.astype(np.float32).copy()
             full[y1:y2, x1:x2] = full[y1:y2, x1:x2] * (1 - m) + gen.astype(np.float32) * m
-            results.append(np.clip(full, 0, 255).astype(np.uint8))
+            results.append(composite_final(p, np.clip(full, 0, 255).astype(np.uint8)))
         return results
 
     job.paste = paste
     return job
+
+
+def _derive(p: Processing, **changes) -> Processing:
+    """`dataclasses.replace` that keeps the request's internal attributes."""
+    q = dataclasses.replace(p, **changes)
+    for name in _INTERNAL_ATTRS:
+        if hasattr(p, name):
+            setattr(q, name, getattr(p, name))
+    return q
 
 
 def _composite_inpaint(p: Processing, generated: np.ndarray, original) -> np.ndarray:
@@ -879,12 +913,19 @@ def _composite_inpaint(p: Processing, generated: np.ndarray, original) -> np.nda
 def prepare(engine: DiffusionEngine, p: Processing, it: int,
             timings: Dict[str, float]) -> Job:
     """The prep stage of batch `it` of a request whose seeds are resolved:
-    LoRA activation, cond and uncond, then the starting latent (noise, or
-    the encoded init images under noise)."""
+    LoRA activation, cond and uncond, the deferred hooks (batch 0 only) and
+    the per-request weight override they may leave, then the starting
+    latent (noise, or the encoded init images under noise)."""
     seeds = p.all_seeds[it * p.batch_size:(it + 1) * p.batch_size]
     subseeds = p.all_subseeds[it * p.batch_size:(it + 1) * p.batch_size]
     engine.set_clip_skip(p.clip_skip)
     cond, uncond, unet_params, branches, weights, masks = _conditioning(engine, p, timings)
+    if it == 0:  # the conds come from the prompts, the same in every batch
+        for build in p.deferred_hooks or ():
+            build(engine, p, cond, uncond)
+    override = getattr(p, "_unet_param_override", None)
+    if override is not None:  # a copy on write: the engine's weights stay as they are
+        unet_params = override(unet_params)
     args = (engine, p, seeds, subseeds, cond, uncond, unet_params, timings)
     if p.init_images is None:
         job = _prep_txt2img(*args)
@@ -929,9 +970,14 @@ def cfg_model_fn(engine: DiffusionEngine, job: Job) -> Callable:
         cond_branches=job.branches, branch_weights=job.weights, branch_masks=job.masks,
         return_uncond=info.needs_uncond, pre_cfg_hooks=tuple(p.pre_cfg_hooks or ()),
         post_cfg_hooks=tuple(p.post_cfg_hooks or ()), cfg_combine_fn=combine)
-    if job.mask is not None:
+    mask, init_latent = job.mask, job.init_latent
+    cn = getattr(p, "_cn_inpaint", None)
+    if mask is None and cn is not None and cn["latent"].shape[2:] == job.x.shape[2:]:
+        # ControlNet inpaint_only: its composite, on a pass at its latent's size
+        mask, init_latent = cn["latent_mask"], cn["latent"]
+    if mask is not None:
         masked = cfg_mod.make_masked_pair_fn if info.needs_uncond else cfg_mod.make_masked_model_fn
-        model_fn = masked(model_fn, job.mask, job.init_latent)
+        model_fn = masked(model_fn, mask, init_latent)
     return model_fn
 
 
@@ -957,8 +1003,12 @@ def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
 
 
 def finish(job: Job, batch: np.ndarray) -> List[np.ndarray]:
-    """The finish stage: decoded uint8 [B,H,W,3] → the request's images."""
-    return job.paste(batch) if job.paste is not None else list(batch)
+    """The finish stage: decoded uint8 [B,H,W,3] → the request's images,
+    through ControlNet inpaint_only's final composite and the inpaint paste
+    in the reference's order (the paste functions hold both)."""
+    if job.paste is not None:
+        return job.paste(batch)
+    return [composite_final(job.p, img) for img in batch]
 
 
 # checkpoint name → DiffusionEngine, installed by whoever holds the engines;
@@ -1014,8 +1064,15 @@ def _refuse_mixed(p: Processing, job: Job) -> None:
     """The combinations the reference mixes or fails on raise, before the
     first denoise."""
     if p.init_images is not None:
+        if p.hook_phases:
+            raise NotImplementedError(
+                "hook_phases on img2img are not ported: the reference's img2img never reads "
+                "them (a Fooocus inpaint window short of 0-1 loses its head there)")
         return
     refiner = _refiner_step(p, len(job.sigmas) - 1) is not None
+    if refiner and p.hook_phases:
+        raise NotImplementedError("hook_phases with the refiner are not ported: the reference "
+                                  "drops the phases without a word")
     hr_reencode = p.enable_hr and bool(p.hr_prompt or p.hr_negative_prompt
                                        or p.hr_checkpoint_name
                                        or getattr(p, "_hr_engine", None) is not None)
@@ -1047,13 +1104,47 @@ def _refuse_mixed(p: Processing, job: Job) -> None:
                 "conds is not ported: the reference encodes it as literal text")
 
 
+def _run_phased(engine: DiffusionEngine, job: Job) -> torch.Tensor:
+    """`hook_phases`: the step loop as consecutive `denoise` segments, each
+    over σ[k_prev:k_end + 1] with its step noise and the base `unet_hooks`
+    merged with its phase's (tuple slots chain, others replace), k_end =
+    max(min(round(end·n), n), k_prev); an empty segment is skipped, steps
+    past the last phase's end are not run, and the multistep history starts
+    afresh at each seam, as in the reference. Per-step conds take their row
+    from the whole pass's σ table. The loop ends between segments on an
+    interrupt or skip; `p.unet_hooks` is restored after."""
+    p = job.p
+    n = len(job.sigmas) - 1
+    noise = job.step_noise
+    base = p.unet_hooks
+    latent, k_prev = job.x, 0
+    try:
+        for end_frac, extra in p.hook_phases:
+            k_end = max(min(int(round(end_frac * n)), n), k_prev)
+            if k_end == k_prev:
+                continue
+            p.unet_hooks = _merge_hooks(base, extra) if extra else base
+            latent = denoise(engine, dataclasses.replace(
+                job, x=latent, sigmas=job.sigmas[k_prev:k_end + 1], sigma_table=job.sigmas,
+                step_noise=None if noise is None else noise[k_prev:k_end]))
+            k_prev = k_end
+            if _stop_requested():
+                break
+    finally:
+        p.unet_hooks = base
+    return latent
+
+
 def sample(engine: DiffusionEngine, job: Job, timings: Dict[str, float]):
-    """`denoise`, with the refiner's two-pass switch or the NGMS split where
-    a txt2img request asks for it → (latent, the engine that decodes it)."""
+    """`denoise`, with the refiner's two-pass switch, the hook phases or the
+    NGMS split (not under hook phases, as in the reference) where a txt2img
+    request asks for it → (latent, the engine that decodes it)."""
     p = job.p
     _refuse_mixed(p, job)
     k = _refiner_step(p, len(job.sigmas) - 1) if p.init_images is None else None
     noise = job.step_noise
+    if k is None and p.hook_phases:
+        return _run_phased(engine, job), engine
     if k is None:
         k = _ngms_split(p, job) if p.init_images is None else None
         if k is None:
@@ -1150,7 +1241,7 @@ def hires_pass(engine: DiffusionEngine, job: Job, latent: torch.Tensor,
     noise0 = torch.from_numpy(rng.next()).to(hr_engine.device)
     step_noise = _prepare_noise(p, rng, info, sigmas, job.seeds, hr_engine.device)
     x = hr_engine.predictor.noise_scaling(float(np.float32(sigmas[0])), noise0, latent.float())
-    q = dataclasses.replace(p, cfg_scale=p.hr_cfg_scale or p.cfg_scale)
+    q = _derive(p, cfg_scale=p.hr_cfg_scale or p.cfg_scale)
     latent = denoise(hr_engine, Job(q, x, sigmas, step_noise, cond, uncond, unet_params,
                                     branches=job.branches, weights=job.weights))
     if latent.is_cuda:

@@ -1,11 +1,52 @@
-# Copied from forge_tpu/preprocessors/cv.py (`canny` and its helpers); numpy only.
-"""Pure-numpy Canny edges for the ControlNet-canny hint (the reference leans
-on cv2; a numpy reimplementation needs no other package on the card's
-machine). Runs on the host once a request."""
+# Copied from forge_tpu/preprocessors/cv.py (`resize_image`, `bilinear_resize`, `canny` and its
+# helpers); numpy only.
+"""Pure-numpy image helpers for the ControlNet hints: the preprocessors'
+bilinear resize (`resize_image`: the short side to a resolution, both sides
+multiples of 8) and Canny edges (the reference leans on cv2; a numpy
+reimplementation needs no other package on the card's machine). Runs on the
+host once a request."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def resize_image(img: np.ndarray, res: int) -> np.ndarray:
+    """Resize so the SHORT side == res (reference HWC3+resize semantics),
+    rounding dims to multiples of 8. Bilinear, channel-last."""
+    h, w = img.shape[:2]
+    if res <= 0:
+        return img
+    k = res / min(h, w)
+    nh = int(np.round(h * k / 8.0)) * 8
+    nw = int(np.round(w * k / 8.0)) * 8
+    return bilinear_resize(img, max(nh, 8), max(nw, 8))
+
+
+def bilinear_resize(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    if (h, w) == (nh, nw):
+        return img
+    dtype = img.dtype
+    arr = img.astype(np.float32)
+    squeeze = arr.ndim == 2
+    if squeeze:
+        arr = arr[..., None]
+    ys = (np.arange(nh) + 0.5) * h / nh - 0.5
+    xs = (np.arange(nw) + 0.5) * w / nw - 0.5
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, h - 1)
+    x0 = np.clip(np.floor(xs).astype(np.int64), 0, w - 1)
+    y1 = np.clip(y0 + 1, 0, h - 1)
+    x1 = np.clip(x0 + 1, 0, w - 1)
+    wy = np.clip(ys - y0, 0, 1)[:, None, None]
+    wx = np.clip(xs - x0, 0, 1)[None, :, None]
+    out = (arr[y0][:, x0] * (1 - wy) * (1 - wx) + arr[y0][:, x1] * (1 - wy) * wx
+           + arr[y1][:, x0] * wy * (1 - wx) + arr[y1][:, x1] * wy * wx)
+    if squeeze:
+        out = out[..., 0]
+    if np.issubdtype(dtype, np.integer):
+        out = np.clip(np.round(out), 0, 255)
+    return out.astype(dtype)
 
 
 def to_gray(img: np.ndarray) -> np.ndarray:

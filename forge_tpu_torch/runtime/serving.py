@@ -23,8 +23,8 @@ A failed stage fails its request's future with the exception and the
 pipeline goes on with the next request. Requests with init images
 (img2img), the hires fix, a refiner or `n_iter` > 1 are refused, as the
 reference's serving takes plain txt2img requests, and so are the CFG hooks
-(`pre_cfg_hooks`, `post_cfg_hooks`, `cfg_combine_hook`), which no test holds
-against the reference's serving. The prep stage makes the
+(`pre_cfg_hooks`, `post_cfg_hooks`, `cfg_combine_hook`), `hook_phases` and
+`deferred_hooks`, which no test holds against the reference's serving. The prep stage makes the
 request's memory plan as `process_images` does (`plan`), without chunking
 the batch, as the reference's serving makes it: a tiled plan, TAESD or the
 `vae_always_tiled` option pick the decode (`decode_dispatch`).
@@ -125,7 +125,8 @@ class ServingPipeline:
             raise NotImplementedError("serving takes plain txt2img requests of one batch "
                                       "(no init_images, hires fix or refiner; n_iter 1); "
                                       "use process_images")
-        asked = [name for name in proc.CFG_HOOK_FIELDS if getattr(p, name)]
+        asked = [name for name in proc.CFG_HOOK_FIELDS + ("hook_phases", "deferred_hooks")
+                 if getattr(p, name)]
         if asked:
             raise NotImplementedError(f"serving with {', '.join(asked)} is not ported: no test "
                                       "holds it against the reference's serving; use "

@@ -14,6 +14,7 @@ manager's routes, basic auth and CORS answer as forge_tpu's do, and the
 launcher leaves server-stop off unless `--api-server-stop` is passed.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import base64
 import functools
 import io

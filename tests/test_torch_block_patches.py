@@ -17,6 +17,7 @@ in transposes. The tiny txt2img slices with these extensions are
 tests/test_torch_block_patches_slice.py.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

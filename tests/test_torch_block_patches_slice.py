@@ -8,6 +8,7 @@ and the block slots are held one by one in tests/test_torch_block_patches.py,
 whose weights these slices share.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

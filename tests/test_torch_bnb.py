@@ -14,6 +14,7 @@ read by both packages' `load_state_dict`:
   load rather than being dequantized.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -1,5 +1,6 @@
 """The kernel build step forms the right nvcc command (nothing is compiled here)."""
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import os
 
 import pytest

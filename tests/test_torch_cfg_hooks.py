@@ -17,6 +17,7 @@ refiner and in a REST payload. The tiny txt2img slices with these
 extensions are tests/test_torch_cfg_hooks_slice.py.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 
@@ -282,18 +283,16 @@ def test_latent_modifier_subtract_channels_from_both_sides():
 
 def test_latent_modifier_refusals():
     """The noise types the reference refuses raise ValueError on both sides;
-    its gaussian and uniform extra noise (JAX's threefry PRNG) raise
-    NotImplementedError in the port."""
+    its gaussian and uniform extra noise build on both (the draws are held
+    in tests/test_torch_threefry.py)."""
     from forge_tpu.extensions.latent_modifier import LatentModifierSpec as JSpec
     from forge_tpu_torch.extensions.latent_modifier import LatentModifierSpec
 
     for spec in (JSpec, LatentModifierSpec):
         with pytest.raises(ValueError, match="perlin"):
             spec(extra_noise_multiplier=1.0, extra_noise_type="perlin")
-    JSpec(extra_noise_multiplier=1.0, extra_noise_type="uniform").build(None)
-    for kind in ("gaussian", "uniform"):
-        with pytest.raises(NotImplementedError, match="threefry"):
-            LatentModifierSpec(extra_noise_multiplier=1.0, extra_noise_type=kind)
+        for kind in ("gaussian", "uniform"):
+            spec(extra_noise_multiplier=1.0, extra_noise_type=kind).build(None)
 
 
 def test_latent_modifier_attach_writes_the_reference_keys():

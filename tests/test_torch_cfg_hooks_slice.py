@@ -8,6 +8,7 @@ middle-block grid is not square. The modules are held one by one in
 tests/test_torch_cfg_hooks.py.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@
   guidance; the port refuses AND and regional prompts on Chroma.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import os
 
 import numpy as np

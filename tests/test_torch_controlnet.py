@@ -10,6 +10,7 @@ the 1024² VAE encode on the meta device, as the SDXL dispatch tests trace
 txt2img.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

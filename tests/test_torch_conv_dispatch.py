@@ -2,6 +2,7 @@
 the wrapper's argument checks that hold on any device (nothing here needs a
 card)."""
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

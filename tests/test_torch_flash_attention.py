@@ -7,6 +7,7 @@ softmax attention and differ only in summation order and blocking (outputs
 are O(1) averages of unit-normal values).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

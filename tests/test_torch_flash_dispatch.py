@@ -1,6 +1,7 @@
 """Which body of the flash-attention kernel a call takes, and the wrapper's
 argument checks that hold on any device (nothing here needs a card)."""
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import functools
 
 import numpy as np

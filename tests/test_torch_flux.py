@@ -13,6 +13,7 @@
   image PSNR ≥ 40 dB, dense and quantized.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import os
 
 import numpy as np

@@ -13,6 +13,7 @@
   too) and gives the image of the same values stored in f32.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

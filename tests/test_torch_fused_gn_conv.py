@@ -8,6 +8,7 @@ HWIO ↔ OIHW. Tolerance 5e-4 absolute, the bound tests/test_fused_gn_conv.py
 holds the Pallas kernel to: the 9·C-term f32 dot products differ in order.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

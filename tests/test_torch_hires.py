@@ -16,6 +16,7 @@ tests/test_torch_hires_fields.py holds the port's own checks of the same
 fields.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import pytest
 
 torch = pytest.importorskip("torch")

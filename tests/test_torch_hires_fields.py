@@ -7,6 +7,7 @@ The tiny SD1.5 of tests/test_torch_hires.py (tests/fixtures.py
 requests against forge_tpu.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

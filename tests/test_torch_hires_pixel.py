@@ -2,6 +2,7 @@
 checkpoint for the second pass (split from tests/test_torch_hires.py, which
 holds the latent modes; the cases and their check are
 tests/torch_hires_cases.py's): Lanczos, a tiny ESRGAN (tests/test_torch_upscalers.py's,
+import torch_threads  # noqa: F401  (one torch thread a test process)
 from each package's registry) on the tiny SD1.5 and the tiny SDXL with an
 explicit target, and `_hr_engine` with `hr_prompt` and `hr_cfg_scale`.
 The uint8 images must reach PSNR ≥ 40 dB against each other.

@@ -8,6 +8,7 @@ Pillow's (the reference's resizer); the crop regions and Canny exactly; the
 latent mask to 1e-5.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -5,6 +5,7 @@ tests/torch_img2img_cases.py's), then the port's own checks: "only masked"
 with an inverted mask, and prompt features with a LoRA tag on img2img.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@ tests/test_torch_img2img_inpaint.py the "latent noise" fill and "only
 masked"; the request, fixtures and check are tests/torch_img2img_cases.py's.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import pytest
 
 torch = pytest.importorskip("torch")

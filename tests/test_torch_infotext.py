@@ -10,6 +10,7 @@ extract on the reference's cases, and a `StyleDatabase` CSV (legacy `text`
 column, a glob of files) loaded, applied, extracted and saved by both.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import os
 
 import numpy as np

@@ -12,6 +12,7 @@ reference-side faults are shown from both sides: CLIP-ViT-H's heads and
 activation, and the IP layer counter across forwards.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -12,6 +12,7 @@ only summation order differs), bf16 2e-2 (a bf16 ulp of max |plain| is 2^-8
 to 2^-7 of it; the two round at different points).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import pytest
 
 torch = pytest.importorskip("torch")

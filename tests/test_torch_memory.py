@@ -12,6 +12,7 @@ tiled decode, and serving gives its bytes; a chunked plan keeps the seeds'
 layout.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import functools
 
 import numpy as np

@@ -11,6 +11,7 @@ golden `tests/golden/mmdit_tiny.npz` (the upstream torch MMDiTX's output)
 is held at PSNR ≥ 40 dB as tests/test_golden_parity.py holds forge_tpu's.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import os
 
 import numpy as np

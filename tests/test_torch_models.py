@@ -8,6 +8,7 @@ only summation order differs). The golden fixtures (reference torch nets,
 NCHW) are held to PSNR ≥ 40 dB, the bar tests/test_golden_parity.py uses.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import os
 
 import numpy as np

@@ -13,6 +13,7 @@
   ValueError naming it; forge_tpu merges it and collects nothing from it.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -5,6 +5,7 @@ OIHW (torch) ↔ HWIO (JAX). Tolerance: 1e-5 absolute on O(1) values — both
 sides compute in f32, so only summation order differs.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -7,6 +7,7 @@ reading, setting or overriding any other key raises KeyError.
 the same latent (the tiny SD1.5 checkpoint of tests/fixtures.py).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

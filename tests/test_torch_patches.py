@@ -9,6 +9,7 @@ kept through a merge, and online LoRA on a quantized leaf against the
 offline merge.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

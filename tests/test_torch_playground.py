@@ -12,6 +12,7 @@ dB). The last test traces the published request (1024², 50 steps) at full
 width on the meta device.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

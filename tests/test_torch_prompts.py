@@ -14,6 +14,7 @@ bit-equal to forge_tpu's (Pillow's BILINEAR for masks). `get_schedule` and
 key, hit and size, the `emphasis` option, and the loader's device.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@ the meta device: SDXL at 1024², DPM++ 2M Karras, 20 steps, with the UNet's
 batch 2 (editing), 3 (AND), 4 (two regions), 2 then 1 (NGMS).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@ tests/test_torch_prompts_mixed.py holds the combinations forge_tpu mixes and
 the prompts phase's launch counts.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -10,6 +10,7 @@
 - GGUF: a file written here reads back the same through both packages.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import struct
 
 import numpy as np

@@ -19,6 +19,7 @@ mode, and of a refiner request, each call on its body, as chip_smoke.py
 counts them on the card.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

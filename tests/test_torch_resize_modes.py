@@ -11,6 +11,7 @@ not upstream Forge's `F.interpolate` modes (bicubic's a is −0.5 against
 torch's −0.75, and "nearest" is torch's "nearest-exact").
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -12,6 +12,7 @@ against each other, the bar of tests/test_golden_parity.py, and the port's
 must repeat byte for byte.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

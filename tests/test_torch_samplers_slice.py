@@ -17,6 +17,7 @@ the meta device: the SDXL engine at 1024², CFG 7, with "DPM++ SDE" and
 Karras baseline (20 calls), each then decoded.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@ The Brownian-tree noise is bit-identical to forge_tpu's, and the port's
 per-request sampler noise is the reference's NHWC noise in NCHW.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import inspect
 import os
 

@@ -12,6 +12,7 @@ are shown. The last test traces SD2.1-768-v at full width on the meta
 device: the kernels' launches a 768² request.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

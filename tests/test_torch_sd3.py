@@ -13,6 +13,7 @@ bit-equal). The last tests trace SD3-medium at full width on the meta
 device (no memory): the kernels' launches a request.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

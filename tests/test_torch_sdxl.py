@@ -12,6 +12,7 @@ tests/test_golden_parity.py. The positional embeddings carry an offset of
 a mean far from 0.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

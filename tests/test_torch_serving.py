@@ -14,6 +14,7 @@ hooks) and a MultiDiffusion 2048² upscale (9 tiles of 96 latent pixels, 3
 model calls, the VAE encode and decode at 2048²).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import sys
 import threading
 

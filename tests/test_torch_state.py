@@ -17,6 +17,7 @@ codec is held both ways against Pillow, each of the five row filters on
 its own rows too, and refuses what Pillow refuses as decompression bombs.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import io
 import struct
 import threading

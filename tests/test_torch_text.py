@@ -5,6 +5,7 @@ give the same ids with neither transformers nor `regex`. The text engine's
 cond is compared in f32 on the tiny CLIP fixture (1e-5 of the output scale).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

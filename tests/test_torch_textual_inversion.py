@@ -24,6 +24,7 @@ one, as on SDXL's CLIP-G for an embedding with no `clip_g` vectors (its
 file from both packages.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import os
 
 import numpy as np

@@ -10,6 +10,7 @@ every tile's forward applies the adapter in the port; in forge_tpu only the
 first tile's does (its layer counter runs on past the first forward).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -12,6 +12,7 @@ its key conversion raises IndexError on an old-layout conv_body, and its
 empty.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 
