@@ -6,9 +6,10 @@ the tiled VAE, the extension hook layers on SDXL (FreeU, PAG, SAG, dynamic
 thresholding, latent modifier, a hypernetwork, StyleAlign, ControlLLLite),
 SD2.1-768-v, SD3-medium and Playground v2.5, the rest of the Flux
 family (a bitsandbytes NF4 file with separate VAE and text-encoder files, fp8 storage and
-Chroma), and hook phases and deferred hooks on SDXL (Deep Shrink, Fooocus inpaint, a
-T2I-Adapter, a Control-LoRA, ControlNet inpaint_only, the latent modifier's extra noise), on
-one NVIDIA GPU.
+Chroma), hook phases and deferred hooks on SDXL (Deep Shrink, Fooocus inpaint, a
+T2I-Adapter, a Control-LoRA, ControlNet inpaint_only, the latent modifier's extra noise), and
+the image-prompt family on SDXL (reference-only, FaceID, FaceID-Plus, InstantID, Revision,
+PhotoMaker, and the REST API's always-on scripts), on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -18,6 +19,8 @@ one NVIDIA GPU.
     python3 chip_smoke.py --extensions   # phase 1, phase 2's StyleAlign rows, phase 16; no result
     python3 chip_smoke.py --controls     # phase 1, phase 2's Deep Shrink rows, phase 17 at 20
                                          # steps; no result
+    python3 chip_smoke.py --image-prompts  # phase 1, phase 2's joined-key flash rows, phase 18
+                                           # at 20 steps; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -238,6 +241,28 @@ Phases:
      and the plain versions (≥ 40 dB). Phase 2's rows hold flash at Deep
      Shrink's four shapes and the fused conv at its sizes; `--controls`
      runs those rows alone.
+ 18. the image-prompt family on the SDXL engine, after phase 17
+     (`--image-prompts`: on an engine of its own, at 20 steps): 1024², DPM++
+     2M Karras, 4 steps, CFG 7, seed 1, every weight made on the card from a
+     seed at its published shapes, each request beside a witness without
+     it: reference_only, reference_adain and reference_adain+attn
+     ControlNet units (weight 1.0, style fidelity 0.5) on a reference image;
+     IP-Adapter FaceID SDXL (the MLP 512 → 1024 → 4 × 2048, a LayerNorm)
+     and FaceID-Plus v2 (the same MLP and a face perceiver 2048 wide, 4
+     layers, 32 heads, over CLIP-ViT-H/14) through `attach` with a face
+     embedding; InstantID (a Resampler 1280 wide, 4 layers, 20 heads, 16
+     queries, 512 → 2048) with config 3's cldm reading its tokens on a
+     keypoint hint; Revision through a unit with CLIP-ViT-bigG/14 (1664, 48
+     layers, projection 1280); PhotoMaker (a ViT-L/14 id encoder, the fuse
+     at 2048) beside its own witness; and one API txt2img whose
+     `alwayson_scripts` carry a reference_only unit and a FaceID adapter
+     written to a file, its PNG's pixels and text equal to `process_images`'
+     image and infotext. Each request's image finite and unlike its
+     witness's, its launches exact by body, its latency and peak memory
+     printed, its CFG'd model_fn at the middle call (reference-only's both
+     passes) through the kernels and the plain versions (≥ 40 dB). Phase 2
+     holds flash at reference-only's joined keys, q(1,10,4096,64) against
+     8192 and q(1,20,1024,64) against 2048.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -573,6 +598,39 @@ CONTROLS_CONV_SHAPES = [((2, 320, 256, 256), 320), ((2, 960, 128, 128), 640),
                         ((2, 640, 64, 64), 640)]  # Deep Shrink's levels 0, 1 (grown back), 1
 
 
+# phase 18: the image-prompt family on the SDXL engine (tests/test_torch_image_prompts*.py and
+# test_torch_reference_only_slice.py hold it against the reference on the CPU;
+# tests/test_torch_image_prompts_trace.py traces these counts on the meta device): 1024², DPM++
+# 2M Karras, CFG 7, seed 1, 4 steps in the whole run (20 under --image-prompts). A forward is 70
+# flash / 34 conv at any batch; reference-only's in-window step adds a batch-1 recording forward
+# and runs each of its CFG forward's 70 self-attentions three times (the cond rows over the
+# joined keys, q(1,·,L,64) against 2L, the uncond rows over their own and over the joined keys),
+# and the reference image's VAE encode adds 1 / 20; InstantID's cldm (config 3's) 34 / 16 a call.
+# FaceID's 4 and InstantID's 16 IP tokens, CLIP vision's 257 tokens and PhotoMaker's fuse are
+# plain: no kernel
+IMAGE_PROMPT_STEPS = 4  # 20 under --image-prompts
+IMAGE_PROMPT_FLASH_SHAPES = [((1, 10, 4096, 64), 8192, True), ((1, 20, 1024, 64), 2048, True)]
+FLASH_SHAPES += IMAGE_PROMPT_FLASH_SHAPES
+PHOTOMAKER_PROMPT = "a photograph of a man img riding a horse, (detailed:1.2)"
+IMAGE_PROMPT_REFERENCE = dict(weight=1.0, threshold_a=0.5)  # style fidelity 0.5 (cubed: 0.125)
+IMAGE_PROMPT_FACE = dict(weight=0.8)
+IMAGE_PROMPT_DIR = "logs/chip_smoke_image_prompts"
+
+
+def image_prompt_counts(steps: int):
+    """Phase 18's launches a request by label."""
+    def count(flash, conv, encodes=0):
+        return {"flash_attention": steps * flash + encodes + 1,
+                "gn_silu_conv3x3": steps * conv + 20 * encodes + 28, "dequant_matmul": 0}
+
+    plain, two_pass = count(70, 34), count(70 + 3 * 70, 2 * 34, encodes=1)
+    return {"witness": plain, "FaceID": plain, "FaceID-Plus v2": plain, "Revision": plain,
+            "PhotoMaker witness": plain, "PhotoMaker": plain, "InstantID": count(70 + 34, 34 + 16),
+            "reference_only": two_pass, "reference_adain+attn": two_pass,
+            "reference_adain": count(2 * 70, 2 * 34, encodes=1), "API": two_pass,
+            "API twin": two_pass}
+
+
 def controls_counts(steps: int):
     """Phase 17's launches a request by label, and Deep Shrink's shrunk steps."""
     shrunk = int(round(CONTROLS_SHRINK["end_percent"] * steps))  # _run_phased's k_end
@@ -822,17 +880,19 @@ def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
 
 def phase_kernels(gen: torch.Generator, rows: str = "all"):
     """Phase 2; with rows "families", "api", "flux_family", "extensions" or
-    "controls", the flash and conv rows of the SD2, SD3 and Playground paths,
-    of phase 14's VAE tiles, of phase 15 (with its NF4 dequant rows), of
-    phase 16 (StyleAlign's two flash rows) or of phase 17 (Deep Shrink's
-    four flash shapes and three conv shapes) alone."""
+    "controls" or "image_prompts", the flash and conv rows of the SD2, SD3
+    and Playground paths, of phase 14's VAE tiles, of phase 15 (with its NF4
+    dequant rows), of phase 16 (StyleAlign's two flash rows), of phase 17
+    (Deep Shrink's four flash shapes and three conv shapes) or of phase 18
+    (reference-only's two joined-key flash shapes) alone."""
     summary = {}
     if rows != "all":
         flash, conv = {"families": (FAMILY_FLASH_SHAPES, FAMILY_CONV_SHAPES),
                        "api": (TILE_FLASH_SHAPES, TILE_CONV_SHAPES),
                        "flux_family": (FLUX_FAMILY_FLASH_SHAPES, FLUX_FAMILY_CONV_SHAPES),
                        "extensions": (EXTENSIONS_FLASH_SHAPES, []),
-                       "controls": (CONTROLS_FLASH_SHAPES, CONTROLS_CONV_SHAPES)}[rows]
+                       "controls": (CONTROLS_FLASH_SHAPES, CONTROLS_CONV_SHAPES),
+                       "image_prompts": (IMAGE_PROMPT_FLASH_SHAPES, [])}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
@@ -2732,12 +2792,14 @@ def phase_extensions(engine, gen: torch.Generator):
 
 
 def controls_request(engine, label: str, per_request, steps: int, record_at=(), witness=None,
-                     seed: int = 1, size: int = EXT_SIZE, attach=None, **fields):
-    """One phase-17 request (size², DPM++ 2M Karras, `steps` steps, CFG 7
-    unless `fields` say otherwise, `attach(p)` run on it), its launches
-    exact by body → (its first image, the Processed, the latency, the
-    launches, {call: (the sampler's latent, σ) at that model call},
-    recorded by a post-CFG hook that launches nothing, the request)."""
+                     seed: int = 1, size: int = EXT_SIZE, attach=None, phase: str = "controls",
+                     **fields):
+    """One phase-17 or phase-18 request (size², DPM++ 2M Karras, `steps`
+    steps, CFG 7 unless `fields` say otherwise, `attach(p)` run on it), its
+    launches exact by body → (its first image, the Processed, the latency,
+    the launches, {call: (the sampler's latent, σ) at that model call},
+    recorded by a post-CFG hook that launches nothing, the request).
+    `phase` begins its log lines."""
     from forge_tpu_torch.pipeline.processing import Processing, process_images
 
     p = Processing(**{**dict(prompt=EXT_PROMPT, negative_prompt="blurry", seed=seed, steps=steps,
@@ -2762,14 +2824,14 @@ def controls_request(engine, label: str, per_request, steps: int, record_at=(), 
     launches = read_counts()
     img = res.images[0]
     check(img.shape == (size, size, 3) and img.dtype == np.uint8 and img.std() > 0,
-          f"controls {label}: a {size}²×3 uint8 image, not flat")
-    line = (f"controls {label} seed={seed}: latency {latency:.4f} s, {calls[0]} model calls, "
+          f"{phase} {label}: a {size}²×3 uint8 image, not flat")
+    line = (f"{phase} {label} seed={seed}: latency {latency:.4f} s, {calls[0]} model calls, "
             "timings " + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
             + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, image mean "
             f"{img.mean():.3f} std {img.std():.3f}")
     if witness is not None:
         w_img, _, w_latency = witness[:3]
-        check(not np.array_equal(img, w_img), f"controls {label}: the image differs from the "
+        check(not np.array_equal(img, w_img), f"{phase} {label}: the image differs from the "
                                               "witness's")
         line += (f" | witness latency {w_latency:.4f} s, {latency / w_latency:.3f}x, PSNR vs "
                  f"the witness {image_psnr(img, w_img):.2f} dB")
@@ -3020,6 +3082,194 @@ def phase_controls(engine, gen: torch.Generator, steps: int = CONTROLS_STEPS):
     return total
 
 
+def keypoint_hint(gen: torch.Generator, size: int = 1024) -> torch.Tensor:
+    """InstantID's keypoint hint made from a seed: five face keypoints
+    (eyes, nose, mouth corners) as discs of radius 12 in the colours its
+    drawing uses, on black, [1, 3, size, size] in [0, 1] on the card."""
+    dev = gen.device
+    points = torch.rand((5, 2), generator=gen, device=dev) * (size / 2) + size / 4
+    yy, xx = torch.meshgrid(torch.arange(size, device=dev), torch.arange(size, device=dev),
+                            indexing="ij")
+    colours = torch.tensor([[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0], [1.0, 1.0, 0], [1.0, 0, 1.0]],
+                           device=dev)
+    hint = torch.zeros((1, 3, size, size), device=dev)
+    for (x, y), colour in zip(points, colours):
+        disc = (xx - x) ** 2 + (yy - y) ** 2 <= 144
+        hint[0] = torch.where(disc, colour[:, None, None], hint[0])
+    return hint
+
+
+def phase_image_prompts(engine, gen: torch.Generator, steps: int = IMAGE_PROMPT_STEPS,
+                        size: int = EXT_SIZE):
+    """Phase 18: the image-prompt family on the SDXL engine at size² (see the docstring)."""
+    import base64
+    import shutil
+    import threading
+
+    from forge_tpu_torch.api.server import _apply_alwayson_scripts, create_server
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.core.synth import (DeviceFill, synth_clip_vision_sd, synth_controlnet_sd,
+                                            synth_faceid_sd, synth_instantid_sd,
+                                            synth_photomaker_sd)
+    from forge_tpu_torch.extensions import controlnet as cn_ext
+    from forge_tpu_torch.models.controlnet import ControlNetState
+    from forge_tpu_torch.pipeline import ipadapter, photomaker
+    from forge_tpu_torch.pipeline import processing as proc
+    from forge_tpu_torch.pipeline.images import decode_png, encode_png
+    from forge_tpu_torch.pipeline.revision import revise
+    from forge_tpu_torch.runtime.models import ModelManager
+
+    t_phase = time.perf_counter()
+    per_request = image_prompt_counts(steps)
+    mid, total = steps // 2, {}
+
+    def request(label, **kw):
+        out = controls_request(engine, label, per_request[label], steps, record_at=(mid,),
+                               size=size, phase="image prompts", **kw)
+        add_counts(total, out[3])
+        return out
+
+    def forward_vs_plain(label, out):
+        """The CFG'd model_fn at the middle call (its σ, the request's own
+        latent there) through the kernels and the plain versions; for
+        reference-only both passes of that in-window step."""
+        p = out[5]
+        q = proc._derive(p, post_cfg_hooks=None, deferred_hooks=None)
+        job = proc.prepare(engine, q, 0, {})
+        if getattr(q, "_revision", None) is not None:  # the deferred hook's rewrite
+            revise(q, job.cond, job.uncond)
+        fn = proc.cfg_model_fn(engine, job)
+        x, sigma = out[4][mid]
+        passes = ", recording and CFG passes" if q.reference_state is not None else ""
+        kernels_vs_plain(f"image prompts {label}: model_fn at call {mid}'s σ {sigma:.4f}{passes}",
+                         lambda: fn(x, sigma))
+
+    def made(label, make):
+        out, _ = timed(f"image prompts: {label} made on the card", make)
+        return out
+
+    rng = np.random.default_rng(18)
+    ref_image = rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+    face_photo = rng.integers(0, 256, size=(512, 512, 3), dtype=np.uint8)
+    face = torch.randn((512,), generator=gen, device=gen.device).cpu().numpy()
+
+    witness = request("witness")
+    forward_vs_plain("witness", witness)
+    for module in ("reference_only", "reference_adain", "reference_adain+attn"):
+        unit = {"module": module, "image": ref_image, **IMAGE_PROMPT_REFERENCE}
+        out = request(module, witness=witness,
+                      attach=lambda p, u=unit: cn_ext.attach_units(p, [u], engine.device))
+        check(out[5].reference_state.use_attn == (module != "reference_adain"),
+              f"{module}: its ReferenceState")
+        forward_vs_plain(module, out)
+        del out
+    torch.cuda.empty_cache()
+
+    fid_sd = made("IP-Adapter FaceID SDXL", lambda: {
+        k: v.materialize().to(torch.bfloat16)
+        for k, v in synth_faceid_sd(fill=DeviceFill("cuda", seed=181)).items()})
+    out = request("FaceID", witness=witness, attach=lambda p: ipadapter.attach(
+        p, {"adapter_path": fid_sd, "face_embeds": face, **IMAGE_PROMPT_FACE}, engine.device))
+    forward_vs_plain("FaceID", out)
+    plus_sd = made("FaceID-Plus v2 SDXL", lambda: synth_faceid_sd(
+        plus=True, fill=DeviceFill("cuda", seed=182)))
+    vit_h = made("CLIP-ViT-H/14", lambda: synth_clip_vision_sd(fill=DeviceFill("cuda", seed=183)))
+    out = request("FaceID-Plus v2", witness=witness, attach=lambda p: ipadapter.attach(
+        p, {"adapter_path": plus_sd, "face_embeds": face, "image": face_photo,
+            "clip_vision_path": vit_h, "faceid_v2": True, "weight_v2": 1.0,
+            **IMAGE_PROMPT_FACE}, engine.device))
+    forward_vs_plain("FaceID-Plus v2", out)
+    del plus_sd, vit_h, out
+
+    iid = made("InstantID's adapter", lambda: ipadapter.load_ip_adapter(
+        synth_instantid_sd(fill=DeviceFill("cuda", seed=184)), engine.device))
+    kind, cldm, cldm_cfg, _ = made("InstantID's cldm (config 3's topology)", lambda:
+                                   cn_ext.load_control_model(synth_controlnet_sd(
+                                       fill=DeviceFill("cuda", seed=185)), engine.device))
+    check(kind == "controlnet", "InstantID's ControlNet is a cldm")
+
+    def attach_instantid(p):
+        state = ControlNetState(params=cldm, hint=keypoint_hint(gen, size), cfg=cldm_cfg)
+        p.unet_hooks, state = ipadapter.build_instantid(iid, face, controlnet_state=state)
+        p.controlnets = [state]
+
+    out = request("InstantID", witness=witness, attach=attach_instantid)
+    check(tuple(out[5].controlnets[0].context_override.shape[:2]) == (2, 16),
+          "InstantID: its ControlNet reads the [cond‖uncond] 16 face tokens")
+    forward_vs_plain("InstantID", out)
+    del iid, cldm, out
+    torch.cuda.empty_cache()
+
+    big_g = made("CLIP-ViT-bigG/14", lambda: {
+        k: v.materialize().to(torch.bfloat16) for k, v in synth_clip_vision_sd(
+            width=1664, layers=48, mlp=8192, projection=1280,
+            fill=DeviceFill("cuda", seed=186)).items()})
+    unit = {"module": "revision_clipvision", "image": face_photo, "weight": 1.0,
+            "clip_vision_path": big_g}
+    out = request("Revision", witness=witness,
+                  attach=lambda p: cn_ext.attach_units(p, [unit], engine.device))
+    forward_vs_plain("Revision", out)
+    del big_g, unit, out
+    torch.cuda.empty_cache()
+
+    pm = made("PhotoMaker (ViT-L/14 id encoder, fuse at 2048)", lambda: photomaker.load_photomaker(
+        synth_photomaker_sd(fill=DeviceFill("cuda", seed=187)), engine.device))
+    transform = photomaker.build_cond_transform(engine, pm, PHOTOMAKER_PROMPT,
+                                                id_images=[face_photo])
+    pm_witness = request("PhotoMaker witness", prompt=PHOTOMAKER_PROMPT)
+    out = request("PhotoMaker", witness=pm_witness, prompt=PHOTOMAKER_PROMPT,
+                  attach=lambda p: setattr(p, "cond_transform", transform))
+    forward_vs_plain("PhotoMaker", out)
+    del pm, transform, pm_witness, out
+
+    # one API txt2img with a reference_only unit and a FaceID adapter file, and its twin
+    os.makedirs(IMAGE_PROMPT_DIR, exist_ok=True)
+    path = os.path.join(IMAGE_PROMPT_DIR, "faceid_sdxl.safetensors")
+    timed("image prompts: the FaceID adapter written (bf16)",
+          lambda: save_safetensors(fid_sd, path))
+    scripts = {"controlnet": {"args": [{"module": "reference_only", "image": base64.b64encode(
+        encode_png(ref_image)).decode(), **IMAGE_PROMPT_REFERENCE}]},
+               "IP-Adapter": {"args": [{"adapter_path": path, "face_embeds": face.tolist(),
+                                        **IMAGE_PROMPT_FACE}]}}
+    manager = ModelManager(checkpoint_dirs=[IMAGE_PROMPT_DIR], device=engine.device)
+    manager.set_engine(engine)
+    server = create_server(manager, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        answer = http(base, "/sdapi/v1/txt2img", dict(
+            prompt=EXT_PROMPT, negative_prompt="blurry", seed=1, steps=steps, cfg_scale=7.0,
+            width=size, height=size, sampler_name="DPM++ 2M", scheduler="karras",
+            alwayson_scripts=scripts))
+        wall = time.perf_counter() - t
+        launches = read_counts()
+        add_counts(total, launches)
+        pixels, text = decode_png(base64.b64decode(answer["images"][0]))
+        log(f"image prompts API reference_only + FaceID seed=1: wall {wall:.4f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, image mean {pixels.mean():.3f} "
+            f"std {pixels.std():.3f}")
+        check_counts(launches, per_request["API"], 1, "the API request")
+        twin = request("API twin", attach=lambda p: _apply_alwayson_scripts(
+            p, scripts, engine.device, engine.compute_dtype))
+        check(np.array_equal(pixels, twin[0]), "the API's PNG pixels = process_images' image")
+        check(text == {"parameters": twin[1].infotexts[0]}, "the PNG's parameters = the infotext")
+        check("Reference: reference_only" in text["parameters"], "the infotext names the unit")
+        log(f"image prompts API: wall {wall:.4f} s against process_images {twin[2]:.4f} s")
+        forward_vs_plain("API twin", twin)
+    finally:
+        server.shutdown()
+        server.server_close()
+        manager.close()
+        shutil.rmtree(IMAGE_PROMPT_DIR, ignore_errors=True)
+    del fid_sd, witness
+    torch.cuda.empty_cache()
+    log(f"image prompts phase 18 at {steps} steps: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
@@ -3115,6 +3365,9 @@ def main():
     ap.add_argument("--controls", action="store_true",
                     help="run phase 1, phase 2's Deep Shrink rows and phase 17 (hook phases and "
                          "deferred hooks on SDXL) at 20 steps only, with no result")
+    ap.add_argument("--image-prompts", action="store_true",
+                    help="run phase 1, phase 2's joined-key flash rows and phase 18 (the "
+                         "image-prompt family on SDXL) at 20 steps only, with no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3152,7 +3405,8 @@ def main():
     summary = phase_kernels(gen, "families" if args.families else "api" if args.api
                             else "flux_family" if args.flux_family
                             else "extensions" if args.extensions
-                            else "controls" if args.controls else "all")
+                            else "controls" if args.controls
+                            else "image_prompts" if args.image_prompts else "all")
     if args.kernels:
         log("kernels only: phases 1-2 passed")
         return
@@ -3179,6 +3433,14 @@ def main():
         log(f"controls phase: {time.perf_counter() - t:.2f} s; script so far "
             f"{time.perf_counter() - t_start:.2f} s")
         log("controls only: phases 1, 2 (the Deep Shrink rows) and 17 passed")
+        return
+    if args.image_prompts:
+        engine = load_sdxl()
+        t = time.perf_counter()
+        phase_image_prompts(engine, gen, steps=5 * IMAGE_PROMPT_STEPS)
+        log(f"image prompts phase: {time.perf_counter() - t:.2f} s; script so far "
+            f"{time.perf_counter() - t_start:.2f} s")
+        log("image prompts only: phases 1, 2 (the joined-key rows) and 18 passed")
         return
     if args.flux_family:
         t = time.perf_counter()
@@ -3237,16 +3499,20 @@ def main():
         f"{time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     controls_launches = phase_controls(engine, gen)  # phase 17, on the same engine
+    log(f"controls phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    image_prompt_launches = phase_image_prompts(engine, gen)  # phase 18, on the same engine
     del engine
     gc.collect()  # phase 14 leaves reference cycles that hold the engine until the collector runs
     torch.cuda.empty_cache()
-    log(f"controls phase: {time.perf_counter() - t:.2f} s; script so far "
+    log(f"image prompts phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
     paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
              "config3": config3_launches, "config5": config5_launches,
              "config2": config2_launches, "samplers": samplers_launches,
              "prompts": prompts_launches, "api": api_launches, "extensions": ext_launches,
-             "controls": controls_launches}
+             "controls": controls_launches, "image_prompts": image_prompt_launches}
     for name in FAMILIES:
         t = time.perf_counter()
         paths[name] = phase_family(name, gen)

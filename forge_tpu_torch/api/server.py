@@ -1,4 +1,4 @@
-# Copied from forge_tpu/api/server.py (the route table, _processing_from_payload, _generate, the routes this slice answers, _Handler with basic auth and CORS, create_server); PNG through the port's own codec.
+# Copied from forge_tpu/api/server.py (the route table, _processing_from_payload, _apply_alwayson_scripts, _first_dict, _generate, the routes this slice answers, _Handler with basic auth and CORS, create_server); PNG through the port's own codec.
 """REST API: the reference's `/sdapi/v1/*` contract on the standard
 library's `ThreadingHTTPServer` (routes, JSON bodies, base64 PNG images), so
 webui API clients work unchanged.
@@ -12,8 +12,14 @@ A request field is passed to the port's `Processing`; one it refuses answers
 422 with the refusal's text. The reference's fields the port lacks are
 dropped only at the value that is the port's behaviour (nothing saved, no
 scripts, hooks or face restoration); keys that are no request field at all
-are dropped, as the reference drops them. An image that is not an 8-bit PNG
-answers 415 with its format's name. Routes of the reference's table that
+are dropped, as the reference drops them. `alwayson_scripts` turns the
+extensions on, as the reference's dispatch does: ControlNet units, the
+IP-Adapter (FaceID and InstantID too), FreeU, the latent modifier, Fooocus
+inpaint, ControlLLLite, StyleAlign, dynamic thresholding, Kohya HRFix, SAG
+and PAG; "lora" is accepted and does nothing (LoRAs ride the prompt). Their
+weights load on the engine's device, on the work queue. Soft inpainting and
+an unknown name answer 422, as does what an extension refuses. An image
+that is not an 8-bit PNG answers 415 with its format's name. Routes of the reference's table that
 this port does not answer yet answer 501 with the ROADMAP item that ports
 them; none answers as if it had worked.
 """
@@ -90,20 +96,44 @@ _INERT_FIELDS = {
     "reference_state": None, "hook_phases": None,
 }
 _INPAINTING_FILL = ["fill", "original", "latent_noise", "latent_nothing"]
+# the always-on script names the dispatch takes (lower case) → the extension
+ALWAYSON_SCRIPTS = {
+    "controlnet": "controlnet", "control net": "controlnet",
+    "ipadapter": "ip-adapter", "ip-adapter": "ip-adapter", "ip adapter": "ip-adapter",
+    "freeu": "freeu", "freeu integrated": "freeu",
+    "lora": "lora", "extra networks": "lora",
+    "latent modifier": "latent modifier", "latentmodifier": "latent modifier",
+    "latent mega modifier": "latent modifier",
+    "fooocus inpaint": "fooocus inpaint", "fooocus_inpaint": "fooocus inpaint",
+    "controlllite": "controllllite", "controllllite": "controllllite",
+    "control lllite": "controllllite",
+    "stylealign": "stylealign", "style align": "stylealign", "stylealign integrated": "stylealign",
+    "dynamic thresholding": "dynamic thresholding",
+    "dynamic thresholding (cfg scale fix)": "dynamic thresholding",
+    "dynamicthresholding": "dynamic thresholding",
+    "kohya hrfix": "kohya hrfix", "kohya hrfix integrated": "kohya hrfix",
+    "kohya_hrfix": "kohya hrfix",
+    "sag": "sag", "self attention guidance": "sag", "selfattentionguidance integrated": "sag",
+    "pag": "pag", "perturbed attention": "pag", "perturbed attention guidance": "pag",
+    "perturbedattentionguidance integrated": "pag",
+}
+_SOFT_INPAINTING = ("soft inpainting", "soft_inpainting")
 
 
 def _processing_from_payload(payload: Dict[str, Any]) -> Processing:
     """A txt2img or img2img payload → Processing. An `infotext` field seeds the
-    request, the payload's own fields override it; `save_images`, a script or
-    an always-on script answers 422 (no sample is saved and scripts are not
-    ported)."""
-    from ..pipeline.processing import _FIELDS, CFG_HOOK_FIELDS
+    request, the payload's own fields override it; `save_images` or a script
+    answers 422 (no sample is saved and scripts are not ported), as does an
+    always-on script the dispatch does not take (`_alwayson_kind`); the
+    always-on scripts attach on the work queue (`_apply_alwayson_scripts`)."""
+    from ..pipeline.processing import _FIELDS, CFG_HOOK_FIELDS, IMAGE_PROMPT_FIELDS
 
-    for key, what in (("save_images", "saving images"), ("script_name", "scripts"),
-                      ("alwayson_scripts", "always-on scripts")):
+    for key, what in (("save_images", "saving images"), ("script_name", "scripts")):
         if payload.get(key):
             raise ApiError(422, f"{key}: {what} are not ported to forge_tpu_torch yet "
                                 "(ROADMAP.md queue 1 item 7)")
+    for name in payload.get("alwayson_scripts") or {}:
+        _alwayson_kind(name)
     kwargs: Dict[str, Any] = {}
     if payload.get("infotext"):
         kwargs.update(infotext_to_processing_args(payload["infotext"]))
@@ -111,12 +141,11 @@ def _processing_from_payload(payload: Dict[str, Any]) -> Processing:
         field = _API_ALIASES.get(key, key)
         if field in _INERT_FIELDS and value == _INERT_FIELDS[field]:
             continue
-        if field in CFG_HOOK_FIELDS + ("hook_phases", "deferred_hooks"):
-            # Python callables: an extension's attach sets them
+        if field in CFG_HOOK_FIELDS + IMAGE_PROMPT_FIELDS + ("hook_phases", "deferred_hooks"):
+            # Python objects: an extension's attach sets them
             raise ApiError(422, f"{key}: hooks cannot come in a JSON payload; the "
-                                "extensions that set them are reached through always-on "
-                                "scripts, not ported to forge_tpu_torch yet (ROADMAP.md "
-                                "queue 1 item 7)")
+                                "extensions that set them are reached through "
+                                "alwayson_scripts")
         if field and (field in _FIELDS or field in _INERT_FIELDS):
             kwargs[field] = value
     if isinstance(kwargs.get("inpainting_fill"), int):
@@ -125,6 +154,96 @@ def _processing_from_payload(payload: Dict[str, Any]) -> Processing:
         return Processing(**kwargs)
     except NotImplementedError as e:
         raise ApiError(422, str(e)) from e
+
+
+def _alwayson_kind(name: str) -> str:
+    """An always-on script's name → the extension it turns on; soft
+    inpainting and an unknown name answer 422."""
+    low = name.lower()
+    if low in _SOFT_INPAINTING:
+        raise ApiError(422, f"alwayson_scripts {name!r}: soft inpainting is not ported to "
+                            "forge_tpu_torch yet (ROADMAP.md queue 1 item 6 (e))")
+    if low not in ALWAYSON_SCRIPTS:
+        raise ApiError(422, f"unknown alwayson_scripts {name!r} — supported: "
+                            + ", ".join(sorted(set(ALWAYSON_SCRIPTS.values()))))
+    return ALWAYSON_SCRIPTS[low]
+
+
+def _first_dict(args) -> Dict[str, Any]:
+    if args and isinstance(args[0], dict):
+        return args[0]
+    return {}
+
+
+def _apply_alwayson_scripts(p: Processing, scripts: Dict[str, Any], device=None,
+                            dtype: Optional[torch.dtype] = None) -> None:
+    """The reference's dispatch: each always-on script's `args` attach its
+    extension to `p`, its weights on `device` in `dtype`."""
+    for name, spec in (scripts or {}).items():
+        args = (spec or {}).get("args", [])
+        kind, a = _alwayson_kind(name), _first_dict(args)
+        if kind == "controlnet":
+            from ..extensions.controlnet import attach_units
+
+            attach_units(p, [u for u in args if isinstance(u, dict)], device, dtype)
+        elif kind == "ip-adapter":
+            from ..pipeline.ipadapter import attach
+
+            attach(p, a, device, dtype)
+        elif kind == "freeu":
+            from ..extensions.freeu import build_freeu_hooks
+
+            vals = args if args and isinstance(args[0], (int, float)) else [
+                v for v in args if isinstance(v, (int, float))]
+            hooks = (build_freeu_hooks(320, *[float(v) for v in vals[:4]]) if vals
+                     else build_freeu_hooks())
+            p.unet_hooks = {**(p.unet_hooks or {}), **hooks}
+        elif kind == "latent modifier":
+            from ..extensions.latent_modifier import attach
+
+            attach(p, a)
+        elif kind == "fooocus inpaint":
+            from ..extensions.fooocus_inpaint import attach
+
+            attach(p, a)
+        elif kind == "controllllite":
+            from ..extensions.controllllite import attach
+
+            attach(p, a, device=device)
+        elif kind == "stylealign":
+            from ..extensions.stylealign import attach
+
+            attach(p, a)
+        elif kind == "dynamic thresholding":
+            from ..extensions.dynamic_thresholding import attach
+
+            attach(p, a)
+        elif kind == "kohya hrfix":
+            from ..extensions.kohya_hrfix import attach
+
+            attach(p, a)
+        elif kind == "sag":
+            scale = float(a.get("scale", a.get("sag_scale", 0.75)))
+            blur = float(a.get("blur_sigma", 2.0))
+
+            def attach_sag(engine, pp, cond, uncond, _s=scale, _b=blur):
+                from ..extensions.sag import build_sag
+
+                hooks, post_cfg = build_sag(engine, cond, sag_scale=_s, blur_sigma=_b)
+                pp.unet_hooks = {**(pp.unet_hooks or {}), **hooks}
+                pp.post_cfg_hooks = list(pp.post_cfg_hooks or []) + [post_cfg]
+
+            p.deferred_hooks = list(p.deferred_hooks or []) + [attach_sag]
+        elif kind == "pag":
+            scale = float(a.get("scale", a.get("pag_scale", 3.0)))
+
+            def attach_pag(engine, pp, cond, uncond, _s=scale):
+                from ..extensions.pag import build_pag_post_cfg
+
+                pp.post_cfg_hooks = list(pp.post_cfg_hooks or []) + [
+                    build_pag_post_cfg(engine, cond, pag_scale=_s)]
+
+            p.deferred_hooks = list(p.deferred_hooks or []) + [attach_pag]
 
 
 # the parsed command line (webui.py), as the reference returns vars(cmd_opts)
@@ -253,7 +372,10 @@ class Api:
             with opts.override(overrides):
                 state.begin(kind, job_count=p.n_iter, steps=p.steps)
                 try:
-                    return process_images(self._engine(), p)
+                    engine = self._engine()
+                    _apply_alwayson_scripts(p, body.get("alwayson_scripts"), engine.device,
+                                            engine.compute_dtype)
+                    return process_images(engine, p)
                 finally:
                     state.end()
 

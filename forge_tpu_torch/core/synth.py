@@ -856,6 +856,125 @@ def synth_ip_adapter_sd(
     return sd
 
 
+def _synth_perceiver(sd: Dict[str, object], f, prefix: str, dim: int, depth: int,
+                     in_dim: int, out_dim: int, queries: int = 0, ff_mult: int = 4) -> None:
+    """A perceiver resampler under `prefix` (IPAdapterPlus resampler.py's keys):
+    proj_in in_dim → dim, `depth` layers of (norm1, norm2, to_q, to_kv, to_out;
+    LayerNorm, Linear ×ff_mult, Linear), proj_out dim → out_dim, norm_out;
+    with `queries`, its learned latents [1, queries, dim]."""
+    def norm(key, d):
+        sd[key + ".weight"] = f.ones(d)
+        sd[key + ".bias"] = f.zeros(d)
+
+    if queries:
+        sd[prefix + "latents"] = f.w(1, queries, dim)
+    sd[prefix + "proj_in.weight"], sd[prefix + "proj_in.bias"] = f.w(dim, in_dim), f.zeros(dim)
+    for i in range(depth):
+        b = f"{prefix}layers.{i}."
+        norm(b + "0.norm1", dim)
+        norm(b + "0.norm2", dim)
+        sd[b + "0.to_q.weight"] = f.w(dim, dim)
+        sd[b + "0.to_kv.weight"] = f.w(2 * dim, dim)
+        sd[b + "0.to_out.weight"] = f.w(dim, dim)
+        norm(b + "1.0", dim)
+        sd[b + "1.1.weight"] = f.w(ff_mult * dim, dim)
+        sd[b + "1.3.weight"] = f.w(dim, ff_mult * dim)
+    sd[prefix + "proj_out.weight"] = f.w(out_dim, dim)
+    sd[prefix + "proj_out.bias"] = f.zeros(out_dim)
+    norm(prefix + "norm_out", out_dim)
+
+
+def synth_faceid_sd(
+    id_dim: int = 512,
+    context_dim: int = 2048,
+    n_tokens: int = 4,
+    widths: Sequence[int] = SDXL_ATTN2_WIDTHS,
+    plus: bool = False,
+    clip_dim: int = 1280,
+    depth: int = 4,
+    fill: FillSpec = "zeros",
+    seed: int = 14,
+) -> Dict[str, object]:
+    """An IP-Adapter FaceID state dict; the defaults are h94's
+    ip-adapter-faceid_sdxl: image_proj the MLP id_dim → 2·id_dim → n_tokens ×
+    context and a LayerNorm, then to_k_ip/to_v_ip for each cross-attention,
+    numbered 0, 1, 2, …. `plus` adds FaceID-Plus's face perceiver (dim =
+    context, `depth` layers, heads of 64) over CLIP-ViT-H's hidden states."""
+    f = _fill(fill, seed)
+    sd: Dict[str, object] = {
+        "image_proj.proj.0.weight": f.w(2 * id_dim, id_dim),
+        "image_proj.proj.0.bias": f.zeros(2 * id_dim),
+        "image_proj.proj.2.weight": f.w(n_tokens * context_dim, 2 * id_dim),
+        "image_proj.proj.2.bias": f.zeros(n_tokens * context_dim),
+        "image_proj.norm.weight": f.ones(context_dim),
+        "image_proj.norm.bias": f.zeros(context_dim),
+    }
+    if plus:
+        _synth_perceiver(sd, f, "image_proj.perceiver_resampler.", context_dim, depth, clip_dim,
+                         context_dim)
+    for i, width in enumerate(widths):
+        for name in ("to_k_ip", "to_v_ip"):
+            sd[f"ip_adapter.{i}.{name}.weight"] = f.w(width, context_dim)
+    return sd
+
+
+def synth_instantid_sd(
+    id_dim: int = 512,
+    dim: int = 1280,
+    depth: int = 4,
+    queries: int = 16,
+    context_dim: int = 2048,
+    widths: Sequence[int] = SDXL_ATTN2_WIDTHS,
+    fill: FillSpec = "zeros",
+    seed: int = 15,
+) -> Dict[str, object]:
+    """InstantID's ip-adapter.bin: image_proj a Resampler (dim 1280, depth 4,
+    heads of 64, 16 queries, the 512-d id embedding in, context out), then
+    to_k_ip/to_v_ip for each cross-attention, numbered 1, 3, 5, …"""
+    f = _fill(fill, seed)
+    sd: Dict[str, object] = {}
+    _synth_perceiver(sd, f, "image_proj.", dim, depth, id_dim, context_dim, queries=queries)
+    for i, width in enumerate(widths):
+        for name in ("to_k_ip", "to_v_ip"):
+            sd[f"ip_adapter.{2 * i + 1}.{name}.weight"] = f.w(width, context_dim)
+    return sd
+
+
+def synth_photomaker_sd(
+    width: int = 1024,
+    layers: int = 24,
+    mlp: int = 4096,
+    patch: int = 14,
+    context_dim: int = 2048,
+    qformer_dim: int = 0,
+    qformer_tokens: int = 2,
+    id_dim: int = 512,
+    fill: FillSpec = "zeros",
+    seed: int = 16,
+) -> Dict[str, object]:
+    """A PhotoMaker checkpoint in forge_tpu's layout (pipeline/photomaker.py):
+    the id encoder's CLIP-ViT-L/14 tower under `id_encoder.vision_model.`,
+    `id_encoder.visual_projection` width → context, the fuse module's
+    mlp1 (2·context → context → context), mlp2 and LayerNorm; with
+    `qformer_dim`, a one-layer qformer over the 512-d face embedding."""
+    f = _fill(fill, seed)
+    vision = synth_clip_vision_sd(width=width, layers=layers, mlp=mlp, patch=patch,
+                                  projection=context_dim, fill=fill, seed=seed + 1)
+    sd: Dict[str, object] = {"id_encoder." + k: v for k, v in vision.items()}
+    if qformer_dim:
+        _synth_perceiver(sd, f, "id_encoder.qformer.", qformer_dim, 1, id_dim, context_dim)
+        sd["id_encoder.qformer.latents"] = f.w(qformer_tokens, qformer_dim)
+    fm = "id_encoder.fuse_module."
+    for key, (o, i) in (("mlp1.0", (context_dim, 2 * context_dim)),
+                        ("mlp1.2", (context_dim, context_dim)),
+                        ("mlp2.0", (context_dim, context_dim)),
+                        ("mlp2.2", (context_dim, context_dim))):
+        sd[fm + key + ".weight"], sd[fm + key + ".bias"] = f.w(o, i), f.zeros(o)
+    sd[fm + "layer_norm.weight"], sd[fm + "layer_norm.bias"] = (f.ones(context_dim),
+                                                                f.zeros(context_dim))
+    return sd
+
+
 def synth_esrgan_sd(num_feat: int = 64, num_block: int = 23, num_grow: int = 32,
                     scale: int = 4, old_layout: bool = False, fill: FillSpec = "zeros",
                     seed: int = 13) -> Dict[str, object]:

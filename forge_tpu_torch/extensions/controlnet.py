@@ -16,9 +16,17 @@ stripped): a cldm ControlNet (`input_hint_block.*`), a T2I-Adapter
 the trunk, `assemble_control_lora`). A model is a file in the model
 directories, a path, or a flat state dict. The modules taken: "none",
 "canny", "inpaint_global_harmonious" and "inpaint_only"
-(pipeline/cn_inpaint.py); every other raises NotImplementedError naming its
-ROADMAP item. Images are PNG (base64, through pipeline/images.py) or arrays.
-Weights are OIHW, as the files hold them.
+(pipeline/cn_inpaint.py), and the ones that need no control model: the
+reference modules ("reference_only", "reference_adain",
+"reference_adain+attn": pipeline/reference_only.py, a deferred hook that
+VAE-encodes the unit's image) and Revision ("CLIP-G (Revision)" or
+"revision_clipvision", and the "ignore prompt" pair: pipeline/revision.py,
+a deferred hook that encodes the image with the unit's `clip_vision_path`,
+a file's path or a flat state dict, or the first file under
+models/clip_vision). Every other module raises
+NotImplementedError naming its ROADMAP item. Images are PNG (base64,
+through pipeline/images.py) or arrays. Weights are OIHW, as the files hold
+them.
 """
 
 from __future__ import annotations
@@ -188,18 +196,37 @@ def _canny(img: np.ndarray, res: int, a, b) -> np.ndarray:
 
 PREPROCESSORS: Dict[str, Callable] = {"none": _none, "canny": _canny}
 INPAINT_MODULES = ("inpaint_global_harmonious", "inpaint_only")
+REFERENCE_MODULES = ("reference_only", "reference_adain", "reference_adain+attn")
+# the reference's Revision preprocessors and their aliases → "ignore prompt"
+REVISION_MODULES = {"clip-g (revision)": False, "revision_clipvision": False,
+                    "clip-g (revision ignore prompt)": True, "revision_ignore_prompt": True}
+_CLIP_VISION_DIRS = ("models/clip_vision", "models/ClipVision")
+_WEIGHT_FILES = (".safetensors", ".ckpt", ".pt", ".pth", ".bin")
+
+
+def _find_clip_vision() -> Optional[str]:
+    """The first checkpoint under models/clip_vision (Revision's bigG encoder)."""
+    for d in _CLIP_VISION_DIRS:
+        if os.path.isdir(d):
+            for f in sorted(os.listdir(d)):
+                if f.endswith(_WEIGHT_FILES):
+                    return os.path.join(d, f)
+    return None
 
 
 def _refuse_module(module: str) -> None:
     low = module.lower()
-    if low in PREPROCESSORS or low in INPAINT_MODULES:
+    if (low in PREPROCESSORS or low in INPAINT_MODULES or low in REFERENCE_MODULES
+            or low in REVISION_MODULES):
         return
-    if (low.startswith("reference") or "revision" in low
-            or any(t in low for t in ("ip-adapter", "ipadapter", "insightface", "instant_id",
-                                      "instantid", "faceid"))):
-        raise NotImplementedError(f"ControlNet module {module!r} is not ported to "
-                                  f"forge_tpu_torch yet: {_ROADMAP_6D}")
-    taken = ", ".join(list(PREPROCESSORS) + list(INPAINT_MODULES))
+    if any(t in low for t in ("ip-adapter", "ipadapter", "insightface", "instant_id",
+                              "instantid", "faceid")):
+        raise NotImplementedError(
+            f"ControlNet module {module!r} is not ported to forge_tpu_torch: the IP-Adapter, "
+            f"FaceID and InstantID come through the 'ip-adapter' always-on script "
+            f"({_ROADMAP_6D})")
+    taken = ", ".join(list(PREPROCESSORS) + list(INPAINT_MODULES) + list(REFERENCE_MODULES)
+                      + list(REVISION_MODULES))
     raise NotImplementedError(f"ControlNet module {module!r} is not ported to forge_tpu_torch "
                               f"yet (ported: {taken}): {_ROADMAP_9}")
 
@@ -220,6 +247,34 @@ def build_unit_state(unit: Mapping[str, Any], width: int, height: int, device=No
     img = _decode_image(image)
     extra: List[Callable] = []
     low = module.lower()
+    if low in REFERENCE_MODULES:
+        # no control model and no hint: the image is VAE-encoded for each request
+        def build_reference(engine, p, cond, uncond, _img=img, _module=low, _u=dict(unit)):
+            from ..pipeline.reference_only import attach_reference
+
+            attach_reference(engine, p, _img, _module,
+                             style_fidelity=float(_u.get("threshold_a", 0.5) or 0.5),
+                             weight=float(_u.get("weight", 1.0)),
+                             start=float(_u.get("guidance_start", 0.0)),
+                             end=float(_u.get("guidance_end", 1.0)))
+
+        return build_reference
+    if low in REVISION_MODULES:
+        cv_path = unit.get("clip_vision_path") or _find_clip_vision()
+        if cv_path is None:
+            raise FileNotFoundError("Revision needs CLIP-ViT-bigG weights: pass "
+                                    "clip_vision_path or place a checkpoint under "
+                                    "models/clip_vision")
+
+        def build_revision(engine, p, cond, uncond, _img=img, _w=float(unit.get("weight", 1.0)),
+                           _cv=cv_path, _ignore=REVISION_MODULES[low]):
+            from ..core.loader import load_clip_vision
+            from ..pipeline.revision import apply_revision, encode_revision_embed
+
+            tree = load_clip_vision(_cv, engine.compute_dtype, engine.device)
+            apply_revision(p, cond, uncond, encode_revision_embed(tree, _img, _w), _ignore)
+
+        return build_revision
     if low in INPAINT_MODULES:
         from ..pipeline.cn_inpaint import mix_hint
 

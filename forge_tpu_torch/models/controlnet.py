@@ -98,9 +98,10 @@ def _hint_stack(hb: Mapping[str, Any], hint: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class ControlNetState:
     """One attached ControlNet: its parameter tree, the hint [B or 1,3,H,W] in
-    [0, 1], its strength, the fraction of the schedule it acts in, and
+    [0, 1], its strength, the fraction of the schedule it acts in,
     per-residual weights (weight i scales residual i of each kind; a shorter
-    list pads with 1.0)."""
+    list pads with 1.0) and, for InstantID, the context it reads in place of
+    the text's."""
 
     params: Any
     hint: torch.Tensor
@@ -109,6 +110,9 @@ class ControlNetState:
     end_percent: float = 1.0
     cfg: UNetConfig = UNetConfig()
     block_weights: Optional[Sequence[float]] = None
+    # InstantID's coupling: [cond‖uncond] image-prompt tokens [2B, n, ctx] fed to this
+    # ControlNet in place of the text context (pipeline/ipadapter.py `build_instantid`)
+    context_override: Optional[torch.Tensor] = None
 
 
 def run_controlnets(states: Sequence[Any], x: torch.Tensor,
@@ -130,7 +134,12 @@ def run_controlnets(states: Sequence[Any], x: torch.Tensor,
         if isinstance(st, T2IAdapterState):
             out = st.features(x.dtype)
         else:
-            out = controlnet_apply(st.params, x, st.hint, timesteps, context, y=y, cfg=st.cfg)
+            ctx = context
+            if st.context_override is not None:
+                ctx = st.context_override.to(context.device, context.dtype)
+                if ctx.shape[0] != x.shape[0]:  # skip-uncond (CFG 1): the cond rows only
+                    ctx = ctx[:x.shape[0]]
+            out = controlnet_apply(st.params, x, st.hint, timesteps, ctx, y=y, cfg=st.cfg)
         bw = st.block_weights
         for kind, residuals in out.items():
             tgt = merged.setdefault(kind, [None] * len(residuals))

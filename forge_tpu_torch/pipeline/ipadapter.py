@@ -12,20 +12,39 @@ forward — each step, each MultiDiffusion tile — finds the same layers. The
 reference counts calls in a closure instead, which is right only while one
 JAX trace holds exactly one forward.
 
-FaceID, InstantID and the API's `attach` are not ported yet.
+FaceID projects a precomputed 512-d insightface id embedding through an MLP
+to a few tokens (FaceID-Plus refines them with a face perceiver over the
+CLIP-vision hidden states of the face, v2 adding them back as a shortcut);
+its checkpoints number the cross-attention layers 0, 1, 2, …. InstantID
+takes the id embedding as a one-token sequence through a Resampler to 16
+tokens, which go to the UNet as IP tokens and, through `build_instantid`'s
+`controlnet_state`, to its keypoint ControlNet in place of the text context.
+`attach` is the API's always-on script: it reads a unit dict and adds the
+hooks to the request.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
+from ..core import loader
+from ..core.device import default_device, default_dtype
 from ..models.clipvision import clip_vision_apply, preprocess
 from ..ops import nn
 from ..ops.attention import attention
+
+
+def load_ip_adapter(path_or_sd, device=None, dtype: Optional[torch.dtype] = None):
+    """An IP-Adapter, FaceID or InstantID file (or flat state dict) → its
+    nested tree on `device` (the card unless given) in `dtype` (bf16 on
+    CUDA, f32 on the CPU unless given)."""
+    device = torch.device(device) if device is not None else default_device()
+    return loader.load_ip_adapter(path_or_sd, dtype or default_dtype(device), device)
 
 
 def project_image_embeds(params: Mapping[str, Any], clip_embed: torch.Tensor) -> torch.Tensor:
@@ -140,3 +159,140 @@ def build_ip_adapter_hooks(adapter_params: Any, clip_vision_params: Any, image: 
     tokens = tokens.expand((batch_size,) + tuple(tokens.shape[1:]))
     un = un.expand((batch_size,) + tuple(un.shape[1:]))
     return IPAdapterState(adapter_params, tokens, weight, uncond_tokens=un).build_hooks()
+
+
+def _proj_leaf(params: Mapping[str, Any]) -> torch.Tensor:
+    """A tensor of the adapter's image_proj: its device and dtype are the adapter's."""
+    w = params["image_proj"]
+    while isinstance(w, Mapping):
+        w = next(iter(w.values()))
+    return w
+
+
+def _weights_like(params: Mapping[str, Any], value) -> torch.Tensor:
+    """A host array or tensor on the device and in the dtype of the adapter's projection."""
+    w = _proj_leaf(params)
+    return torch.as_tensor(np.asarray(value, np.float32) if not torch.is_tensor(value)
+                           else value).to(w.device, w.dtype)
+
+
+def project_faceid_embeds(params: Mapping[str, Any], face_embed: torch.Tensor,
+                          clip_embed: Optional[torch.Tensor] = None, scale: float = 1.0,
+                          shortcut: bool = False) -> torch.Tensor:
+    """FaceID's projection: id embed [B, 512] → MLP (Linear, GELU, Linear) →
+    n tokens [B, n, ctx] → LayerNorm; with a face perceiver (FaceID-Plus) and
+    the CLIP-vision hidden states [B, L, D] of the face, the tokens query the
+    projected states, and v2's `shortcut` returns tokens + scale · that."""
+    proj = params["image_proj"]
+    h = nn.linear(nn.gelu(nn.linear(face_embed, proj["proj"]["0"])), proj["proj"]["2"])
+    ctx = proj["norm"]["weight"].shape[0]
+    x = nn.layer_norm(h.reshape(h.shape[0], -1, ctx), proj["norm"])
+    if "perceiver_resampler" in proj and clip_embed is not None:
+        pr = proj["perceiver_resampler"]
+        out = _perceiver_layers(pr, x, nn.linear(clip_embed, pr["proj_in"]))
+        return x + scale * out if shortcut else out
+    return x
+
+
+def is_faceid_adapter(params: Mapping[str, Any]) -> bool:
+    """A FaceID checkpoint: its image_proj is the Sequential MLP (keys proj.0, proj.2)."""
+    proj = params.get("image_proj", {})
+    return "proj" in proj and isinstance(proj["proj"], Mapping) and "0" in proj["proj"]
+
+
+@torch.no_grad()
+def build_faceid_hooks(adapter_params: Any, face_embed: np.ndarray,
+                       clip_vision_params: Any = None, image: Optional[np.ndarray] = None,
+                       weight: float = 1.0, batch_size: int = 1, faceid_v2: bool = False,
+                       weight_v2: float = 1.0) -> Dict[str, Any]:
+    """FaceID and FaceID-Plus → the hook manifest. The id embedding [512] or
+    [B, 512] comes precomputed (the API's `face_embeds`); FaceID-Plus also
+    needs CLIP vision and the face image, whose penultimate hidden states its
+    perceiver reads. The uncond tokens are the zeroed inputs' projection."""
+    fe = _weights_like(adapter_params, face_embed)
+    if fe.dim() == 1:
+        fe = fe[None]
+    clip_embed = None
+    if "perceiver_resampler" in adapter_params["image_proj"]:
+        if clip_vision_params is None or image is None:
+            raise ValueError("FaceID-Plus needs clip_vision weights + face image")
+        pw = clip_vision_params["vision_model"]["embeddings"]["patch_embedding"]["weight"]
+        _, _, clip_embed = clip_vision_apply(clip_vision_params, preprocess(image).to(pw.device))
+        clip_embed = clip_embed.to(fe.dtype)
+    tokens = project_faceid_embeds(adapter_params, fe, clip_embed, scale=weight_v2,
+                                   shortcut=faceid_v2)
+    un = project_faceid_embeds(adapter_params, torch.zeros_like(fe),
+                               None if clip_embed is None else torch.zeros_like(clip_embed),
+                               scale=weight_v2, shortcut=faceid_v2)
+    tokens = tokens.expand((batch_size,) + tuple(tokens.shape[1:]))
+    un = un.expand((batch_size,) + tuple(un.shape[1:]))
+    return IPAdapterState(adapter_params, tokens, weight, uncond_tokens=un).build_hooks()
+
+
+@torch.no_grad()
+def build_instantid(adapter_params: Any, face_embed: np.ndarray, controlnet_state=None,
+                    weight: float = 1.0, batch_size: int = 1):
+    """InstantID → (the hook manifest, the ControlNet state or None): the id
+    embedding as a one-token sequence [B, 1, 512] through the Resampler to
+    its tokens (16), the IP tokens of the UNet; given the keypoint
+    ControlNet's state, a copy of it whose `context_override` is the
+    [cond‖uncond] tokens, which that ControlNet reads in place of the text."""
+    fe = _weights_like(adapter_params, face_embed)
+    if fe.dim() == 1:
+        fe = fe[None]
+    fe = fe[:, None, :]
+    cond = _resampler(adapter_params["image_proj"], fe)
+    uncond = _resampler(adapter_params["image_proj"], torch.zeros_like(fe))
+    cond = cond.expand((batch_size,) + tuple(cond.shape[1:]))
+    uncond = uncond.expand((batch_size,) + tuple(uncond.shape[1:]))
+    hooks = IPAdapterState(adapter_params, cond, weight, uncond_tokens=uncond).build_hooks()
+    if controlnet_state is not None:
+        controlnet_state = dataclasses.replace(controlnet_state,
+                                               context_override=torch.cat([cond, uncond]))
+    return hooks, controlnet_state
+
+
+def _decode_unit_image(img):
+    """A base64 PNG (a data URL too) → uint8 RGB [H,W,3] through the port's
+    codec; arrays and None pass through."""
+    if isinstance(img, str):
+        from .images import decode_png, to_rgb
+
+        return to_rgb(decode_png(base64.b64decode(img.split(",", 1)[-1]))[0])
+    return img
+
+
+def attach(p, unit: Mapping[str, Any], device=None, dtype: Optional[torch.dtype] = None) -> None:
+    """The API's always-on script: a unit dict → the request's `unet_hooks`.
+    Fields: adapter_path, weight and one of image (with clip_vision_path: a
+    simple or "plus" adapter), face_embeds (FaceID: a precomputed id
+    embedding; with image and clip_vision_path for FaceID-Plus; faceid_v2,
+    weight_v2) or instant_id: true with face_embeds (its ControlNet coupling
+    is `build_instantid`'s `controlnet_state`, which this entry leaves
+    alone, as the reference's does). Weights load to `device` (the card
+    unless given) in `dtype`."""
+    params = load_ip_adapter(unit["adapter_path"], device, dtype)
+    weight = float(unit.get("weight", 1.0))
+    batch = getattr(p, "batch_size", 1)
+    face = unit.get("face_embeds")
+
+    def clip_vision():
+        w = _proj_leaf(params)
+        return loader.load_clip_vision(unit["clip_vision_path"], w.dtype, w.device)
+
+    if unit.get("instant_id") and face is not None:
+        hooks, _ = build_instantid(params, np.asarray(face, np.float32), weight=weight,
+                                   batch_size=batch)
+    elif face is not None or is_faceid_adapter(params):
+        if face is None:
+            raise ValueError("FaceID adapter needs precomputed face_embeds")
+        cv = clip_vision() if unit.get("clip_vision_path") else None
+        hooks = build_faceid_hooks(params, np.asarray(face, np.float32), clip_vision_params=cv,
+                                   image=_decode_unit_image(unit.get("image")), weight=weight,
+                                   batch_size=batch, faceid_v2=bool(unit.get("faceid_v2")),
+                                   weight_v2=float(unit.get("weight_v2", 1.0)))
+    else:
+        hooks = build_ip_adapter_hooks(params, clip_vision(),
+                                       _decode_unit_image(unit.get("image")), weight=weight,
+                                       batch_size=batch)
+    p.unet_hooks = {**(p.unet_hooks or {}), **hooks}

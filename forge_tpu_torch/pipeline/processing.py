@@ -124,8 +124,20 @@ each pass at its latent's size that has no inpaint mask of its own, and
 its final composite before the inpaint paste (after it, for "only masked";
 pipeline/cn_inpaint.py).
 
+The image-prompt family: `reference_state` (pipeline/reference_only.py,
+left by a ControlNet reference unit's deferred hook) wraps the UNet apply
+between the request's apply and CFG with the windowed two passes, its
+recording noise drawn in `prepare`; `cond_transform` (PhotoMaker's,
+pipeline/photomaker.py) rewrites each batch's cond after the cond cache,
+which it bypasses; a Revision unit leaves `p._revision`
+(pipeline/revision.py), applied to the conds of every batch, where the
+reference rewrites the first batch's only. These take txt2img on SDXL
+(reference-only on SD1.5 too), not with img2img, the hires fix, the
+refiner, hook phases, AND, regional or prompt-editing conds, tiling or an
+NGMS split (each refused, ROADMAP queue 1 item 6 (d)).
+
 `Processing` takes only the fields this port reads. Any other field of the
-reference's request (scripts, soft inpainting, a cond transform, ...)
+reference's request (scripts, soft inpainting, ...)
 raises NotImplementedError rather than being ignored, as do
 combinations the reference mixes or fails on: AND or regional branches with
 the refiner or on Flux and Chroma, regional masks or the base prompt's AND
@@ -176,15 +188,17 @@ TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 3
 # NotImplementedError there (SD2, Playground v2.5, SD3 and Chroma take txt2img, SD2, SD3 and
 # Chroma img2img)
 CFG_HOOK_FIELDS = ("pre_cfg_hooks", "post_cfg_hooks", "cfg_combine_hook")
+IMAGE_PROMPT_FIELDS = ("reference_state", "cond_transform")
 _COMMON_UNPORTED = ("lora", "controlnets", "unet_hooks", "tiled_diffusion", "enable_hr",
                     "refiner", "regional_prompts", "inpaint_mask", "hook_phases",
-                    "deferred_hooks") + CFG_HOOK_FIELDS
+                    "deferred_hooks") + CFG_HOOK_FIELDS + IMAGE_PROMPT_FIELDS
 UNPORTED_BY_FAMILY = {"sd20": _COMMON_UNPORTED, "sd3": _COMMON_UNPORTED,
                       "chroma": _COMMON_UNPORTED,
                       "playground": _COMMON_UNPORTED + ("init_images",),
                       # the reference's Flux apply drops UNet hooks without a word, so PAG's
                       # identity pass would be a plain one
-                      "flux": CFG_HOOK_FIELDS + ("hook_phases",)}
+                      "flux": CFG_HOOK_FIELDS + ("hook_phases",) + IMAGE_PROMPT_FIELDS}
+_ROADMAP_6D = "ROADMAP queue 1 item 6 (d), the image-prompt family"
 
 
 @dataclasses.dataclass
@@ -258,6 +272,8 @@ class Processing:
     deferred_hooks: Optional[List[Any]] = None
     # [(end fraction, extra unet_hooks)]: the txt2img step loop split into segments
     hook_phases: Optional[List[Tuple[float, Dict[str, Any]]]] = None
+    cond_transform: Optional[Any] = None  # fn(cond) → cond after the cond cache (PhotoMaker)
+    reference_state: Optional[Any] = None  # pipeline/reference_only.py ReferenceState
 
     def __setattr__(self, name, value):
         if name not in _FIELDS and name not in _INTERNAL_ATTRS:
@@ -278,10 +294,10 @@ class Processing:
 _FIELDS = frozenset(f.name for f in dataclasses.fields(Processing))
 # engines a caller (or a test) hands the request directly, ahead of ENGINE_RESOLVER;
 # the engine's family, which the infotext reads; and what deferred hooks leave: a per-request
-# copy-on-write of the UNet's weights (fn(params) → params) and the ControlNet inpaint_only
-# state (pipeline/cn_inpaint.py)
+# copy-on-write of the UNet's weights (fn(params) → params), the ControlNet inpaint_only
+# state (pipeline/cn_inpaint.py) and Revision's (embeds, ignore prompt) (pipeline/revision.py)
 _INTERNAL_ATTRS = frozenset(("_hr_engine", "_refiner_engine", "_engine_family", "_plan",
-                             "_unet_param_override", "_cn_inpaint"))
+                             "_unet_param_override", "_cn_inpaint", "_revision"))
 
 
 @dataclasses.dataclass
@@ -315,6 +331,7 @@ class Job:
     weights: Optional[List[float]] = None  # one a branch, the first cond's first
     masks: Optional[List[Optional[torch.Tensor]]] = None  # regional maps [1, 1, h, w] or None
     sigma_table: Optional[np.ndarray] = None  # the σ the per-step conds select by (None: sigmas)
+    reference_noise: Optional[torch.Tensor] = None  # reference-only's recording noise a step
 
 
 def _resolve_seeds(p: Processing) -> None:
@@ -419,6 +436,7 @@ def _refuse_for_family(engine: DiffusionEngine, p: Processing) -> None:
         **{name: bool(getattr(p, name)) for name in
            ("controlnets", "unet_hooks", "tiled_diffusion", "enable_hr", "regional_prompts",
             "hook_phases", "deferred_hooks", *CFG_HOOK_FIELDS)},
+        **{name: getattr(p, name) is not None for name in IMAGE_PROMPT_FIELDS},
         "inpaint_mask": p.inpaint_mask is not None,
         "init_images": p.init_images is not None,
     }
@@ -626,8 +644,9 @@ def _cond_cache_key(engine: DiffusionEngine, p: Processing, prompts, negs, max_c
     """The cond cache's key: the engine's weights, the prompts (the raw ones
     carry the LoRA tags that patch the text encoders), steps, size, clip
     skip, the chunk count, the emphasis mode and the embeddings' version.
-    Regional prompts carry masks and are not cached."""
-    if p.regional_prompts:
+    Regional prompts carry masks, and a cond transform rewrites the cond: no
+    cache for either."""
+    if p.regional_prompts or p.cond_transform is not None:
         return None
     return (id(engine.loaded), p.prompt, p.negative_prompt, tuple(prompts), tuple(negs), p.steps,
             p.width, p.height, p.clip_skip, max_chunks, opts.get("emphasis"),
@@ -742,6 +761,11 @@ def _conditioning(engine: DiffusionEngine, p: Processing, timings: Dict[str, flo
     finally:
         for name, params in orig_te.items():
             engine.text_engines[name].params = params
+    if p.cond_transform is not None:
+        if branches or any(isinstance(v, cfg_mod.PerStep) for v in cond.values()):
+            raise NotImplementedError("a cond transform (PhotoMaker) with AND, regional or "
+                                      f"prompt-editing conds is not ported: {_ROADMAP_6D}")
+        cond = p.cond_transform(cond)
     if engine.family in ("flux", "chroma"):
         if branches:  # the reference adds the guidance to cond and uncond only
             raise NotImplementedError(
@@ -923,6 +947,10 @@ def prepare(engine: DiffusionEngine, p: Processing, it: int,
     if it == 0:  # the conds come from the prompts, the same in every batch
         for build in p.deferred_hooks or ():
             build(engine, p, cond, uncond)
+    elif getattr(p, "_revision", None) is not None:  # every batch takes Revision
+        from .revision import revise
+
+        revise(p, cond, uncond)
     override = getattr(p, "_unet_param_override", None)
     if override is not None:  # a copy on write: the engine's weights stay as they are
         unet_params = override(unet_params)
@@ -935,6 +963,12 @@ def prepare(engine: DiffusionEngine, p: Processing, it: int,
         job = _prep_img2img(*args)
     job.seeds, job.subseeds = seeds, subseeds
     job.branches, job.weights, job.masks = branches, weights, masks
+    if p.reference_state is not None:
+        from .reference_only import reference_step_noise
+
+        t_noise = time.perf_counter()
+        job.reference_noise = reference_step_noise(p.reference_state, len(job.sigmas) - 1)
+        _add_time(timings, "noise", t_noise)
     return job
 
 
@@ -953,9 +987,19 @@ def cfg_model_fn(engine: DiffusionEngine, job: Job) -> Callable:
     the CFG hooks, and the inpaint composite."""
     p = job.p
     info = get_sampler(p.sampler_name)
-    net = engine.unet_apply_fn(hooks=p.unet_hooks, controlnets=p.controlnets)
-    apply_model = cfg_mod.make_apply_model(net, job.unet_params, engine.predictor,
-                                           engine.compute_dtype)
+
+    def make_apply(hooks):
+        return cfg_mod.make_apply_model(
+            engine.unet_apply_fn(hooks=hooks, controlnets=p.controlnets), job.unet_params,
+            engine.predictor, engine.compute_dtype)
+
+    apply_model = make_apply(p.unet_hooks)
+    if p.reference_state is not None:  # between the request's apply and CFG, as the reference
+        from .reference_only import wrap_reference
+
+        apply_model = wrap_reference(apply_model, make_apply, p, p.reference_state, job.sigmas,
+                                     p.cfg_scale == 1.0 or job.uncond is None,
+                                     job.reference_noise)
     if p.tiled_diffusion:  # inside CFG: every tile's forward sees the CFG batch
         apply_model = _tiled(apply_model, p.tiled_diffusion, job.x)
         p.extra_generation_params.setdefault(
@@ -1104,6 +1148,34 @@ def _refuse_mixed(p: Processing, job: Job) -> None:
                 "conds is not ported: the reference encodes it as literal text")
 
 
+def _refuse_image_prompt(engine: DiffusionEngine, p: Processing, job: Job) -> None:
+    """Reference-only, a cond transform and Revision raise, before the first
+    denoise, in the combinations no test holds against the reference."""
+    asked = [name for name, on in (("reference_state", p.reference_state is not None),
+                                   ("cond_transform", p.cond_transform is not None),
+                                   ("Revision", getattr(p, "_revision", None) is not None))
+             if on]
+    if not asked:
+        return
+    families = ("sd15", "sdxl") if asked == ["reference_state"] else ("sdxl",)
+    combos = {
+        f"the {engine.family} family": engine.family not in families,
+        "img2img": p.init_images is not None,
+        "the hires fix": p.enable_hr,
+        "the refiner": _refiner_step(p, len(job.sigmas) - 1) is not None,
+        "hook phases": bool(p.hook_phases),
+        "AND or regional prompts": bool(job.branches),
+        "prompt editing": any(isinstance(v, cfg_mod.PerStep)
+                              for c in (job.cond, job.uncond) for v in c.values()),
+        "tiled diffusion": bool(p.tiled_diffusion),
+        "an NGMS split": _ngms_split(p, job) is not None,
+    }
+    refused = [name for name, on in combos.items() if on]
+    if refused:
+        raise NotImplementedError(f"{', '.join(asked)} with {', '.join(refused)} is not "
+                                  f"ported: {_ROADMAP_6D}")
+
+
 def _run_phased(engine: DiffusionEngine, job: Job) -> torch.Tensor:
     """`hook_phases`: the step loop as consecutive `denoise` segments, each
     over σ[k_prev:k_end + 1] with its step noise and the base `unet_hooks`
@@ -1140,6 +1212,7 @@ def sample(engine: DiffusionEngine, job: Job, timings: Dict[str, float]):
     NGMS split (not under hook phases, as in the reference) where a txt2img
     request asks for it → (latent, the engine that decodes it)."""
     p = job.p
+    _refuse_image_prompt(engine, p, job)
     _refuse_mixed(p, job)
     k = _refiner_step(p, len(job.sigmas) - 1) if p.init_images is None else None
     noise = job.step_noise

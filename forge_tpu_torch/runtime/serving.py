@@ -125,8 +125,8 @@ class ServingPipeline:
             raise NotImplementedError("serving takes plain txt2img requests of one batch "
                                       "(no init_images, hires fix or refiner; n_iter 1); "
                                       "use process_images")
-        asked = [name for name in proc.CFG_HOOK_FIELDS + ("hook_phases", "deferred_hooks")
-                 if getattr(p, name)]
+        asked = [name for name in proc.CFG_HOOK_FIELDS + proc.IMAGE_PROMPT_FIELDS
+                 + ("hook_phases", "deferred_hooks") if getattr(p, name)]
         if asked:
             raise NotImplementedError(f"serving with {', '.join(asked)} is not ported: no test "
                                       "holds it against the reference's serving; use "

@@ -198,7 +198,7 @@ def test_refusals(servers):
     status, _, _ = _call(tbase, "/sdapi/v1/txt2img", dict(TXT2IMG, steps=1, tiling=False,
                                                           restore_faces=False))
     assert status == 200
-    for key, value in (("script_name", "x/y/z plot"), ("alwayson_scripts", {"freeu": {}}),
+    for key, value in (("script_name", "x/y/z plot"), ("alwayson_scripts", {"soft inpainting": {}}),
                        ("save_images", True)):
         status, body, _ = _call(tbase, "/sdapi/v1/txt2img", dict(TXT2IMG, **{key: value}))
         assert status == 422 and key in body["detail"], (key, body)

@@ -190,8 +190,6 @@ def test_attach_units_matches_forge_tpu(module, tmp_path):
 
 
 REFUSED = {  # module: the ROADMAP item the port names, and what the reference does
-    "reference_only": ("6 \\(d\\)", "returns a deferred hook"),
-    "revision_clipvision": ("6 \\(d\\)", "raises FileNotFoundError (no CLIP-G weights)"),
     "ip-adapter_clip_sdxl": ("6 \\(d\\)", "raises KeyError (no such preprocessor)"),
     "inpaint_only+lama": ("item 9", "runs LaMa"),
     "invert": ("item 9", "builds a ControlNetState"),

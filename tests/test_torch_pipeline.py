@@ -73,8 +73,9 @@ def test_processing_refuses_unported_fields():
     with pytest.raises(NotImplementedError, match="soft_inpainting"):
         p.soft_inpainting = {"mask_blend_power": 1.0}
     for name, value in (("cond_transform", lambda c: c), ("reference_state", object())):
-        with pytest.raises(NotImplementedError, match=name):
-            Processing(prompt="x", **{name: value})
+        assert getattr(Processing(prompt="x", **{name: value}), name) is value  # ported fields
+    with pytest.raises(NotImplementedError, match="restore_faces"):
+        Processing(prompt="x", restore_faces=True)
 
 
 def test_port_imports_no_jax():
@@ -84,7 +85,7 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(forge_tpu_torch.__path__, "
         "'forge_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 72, mods\n"
+        "assert len(mods) >= 75, mods\n"
         "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors',"
         " 'transformers', 'psutil') or m.startswith(('jax.', 'forge_tpu.', 'PIL.',"
         " 'safetensors.', 'transformers.', 'psutil.'))]\n"
