@@ -9,7 +9,9 @@ family (a bitsandbytes NF4 file with separate VAE and text-encoder files, fp8 st
 Chroma), hook phases and deferred hooks on SDXL (Deep Shrink, Fooocus inpaint, a
 T2I-Adapter, a Control-LoRA, ControlNet inpaint_only, the latent modifier's extra noise), and
 the image-prompt family on SDXL (reference-only, FaceID, FaceID-Plus, InstantID, Revision,
-PhotoMaker, and the REST API's always-on scripts), on one NVIDIA GPU.
+PhotoMaker, and the REST API's always-on scripts), and the script surface on SDXL (the script
+runner and its events, the X/Y/Z grid, the selectable scripts, soft inpainting and the img2img
+options, the API's script routes), on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -21,6 +23,8 @@ PhotoMaker, and the REST API's always-on scripts), on one NVIDIA GPU.
                                          # steps; no result
     python3 chip_smoke.py --image-prompts  # phase 1, phase 2's joined-key flash rows, phase 18
                                            # at 20 steps; no result
+    python3 chip_smoke.py --scripts  # phase 1, phase 2's SDXL and outpainting rows, phase 19 at
+                                     # 20 steps; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -103,7 +107,7 @@ Phases:
      the 1024² image, Lanczos to 2048², the VAE encoder at 2048²; then a
      base UNet forward at (2,4,256,256) and a refiner forward at
      (2,4,128,128) through the kernels and the plain versions;
- 11. the samplers on the same engine: 1024², CFG 7, 20 steps, SDXL's prompt,
+ 11. the samplers on the same engine: 1024², CFG 7, 10 steps, SDXL's prompt,
      with "DPM++ 2M" Karras (the baseline, timed in the same phase), "DPM++
      SDE" Karras (second order, Brownian noise with two draws a step),
      "DPM2" Karras (second order, the penultimate σ discarded), "UniPC" and
@@ -195,7 +199,7 @@ Phases:
 
  16. the extension hook layers on the SDXL engine, after phase 14 and before
      phase 13 frees it (`--extensions`: on an engine of its own): 1024²,
-     DPM++ 2M Karras, 10 steps (bench config 2's 30 cut to fit the run's
+     DPM++ 2M Karras, 6 steps (bench config 2's 30 cut to fit the run's
      limit; the widths are not cut), CFG 7, batch 1: a witness request at
      seed 1; FreeU at the SDXL values its authors publish (b1 1.3, b2 1.4,
      s1 0.9, s2 0.2) at seeds 1, 2, 1 (seed 1 twice byte-identical); at seed
@@ -207,7 +211,7 @@ Phases:
      the card (cond_emb_dim 32, mlp_dim 64 on every transformer block's attn1
      q, k, v and attn2 q) with a canny hint: each image differs from the
      witness's, its launches exact by body, its latency and timings beside
-     the witness's; the CFG'd model_fn call of step 5 (its σ, the
+     the witness's; the CFG'd model_fn call of step 3 (its σ, the
      request's own latent there, recorded by a post-CFG hook that launches
      nothing) with the witness's and each extension's hooks, and one UNet
      forward at (2,4,128,128) with the five block slots, through the kernels
@@ -217,7 +221,7 @@ Phases:
      at StyleAlign's joined q(2,10,8192,64) and q(2,20,2048,64).
  17. hook phases and deferred hooks on the SDXL engine, after phase 16
      (`--controls`: on an engine of its own, at 20 steps): DPM++ 2M Karras,
-     10 steps, CFG 7, seed 1, every weight made on the card from a seed.
+     6 steps, CFG 7, seed 1, every weight made on the card from a seed.
      (a) Deep Shrink at 2048² (Kohya HRFix at Forge's defaults: block 3, ×2,
      bicubic down and up, after the skip, until 0.35 of the steps) twice,
      beside the same request without it: seed 1 twice byte-identical, each
@@ -263,6 +267,31 @@ Phases:
      passes) through the kernels and the plain versions (≥ 40 dB). Phase 2
      holds flash at reference-only's joined keys, q(1,10,4096,64) against
      8192 and q(1,20,1024,64) against 2048.
+ 19. the script surface on the SDXL engine, after phase 18 (`--scripts`: on
+     an engine of its own, at 20 steps): 1024², DPM++ 2M Karras, 4 steps,
+     CFG 7, seed 1. After a warm request, a Script recording every hook, with callbacks on the
+     before_process and CFG events, beside its witness (each txt2img hook
+     and event once; the image and infotext the witness's); the X/Y/Z grid
+     (cfg_scale [5, 7] × a prompt S/R of two values); a prompt matrix of
+     three parts (4 images and the grid); prompts from a two-line textbox
+     with --seed and --steps; from the witness's image: loopback (2 loops
+     at denoising 0.5), SD upscale ×2 by Lanczos in 1024² tiles with
+     overlap 64 (9 tiles at 0.4), poor man's outpainting and Outpainting mk2
+     (128 px: a 1280² canvas, the init kept inside the repainted band) and
+     img2img alternative test (decode steps = steps; its uncombined batch-1
+     applies, cond and uncond, at the middle call's σ against plain, ≥ 40 dB;
+     their CFG 7 combination's PSNR printed); config 3's init image, mask and
+     strength with soft inpainting, `img2img_extra_noise` 0.1 and colour
+     correction beside the hard-mask witness (its soft-masked model_fn
+     against plain, ≥ 40 dB; every pixel 17 px past the mask the init's);
+     one API txt2img with script_name "Prompt matrix" and one
+     /sdapi/v1/xyz-grid, their PNGs' pixels (and text) equal to the
+     process_images twins above. Each run's launches exact by body, its
+     latency against the witness's and its peak memory printed; a
+     traceback the runner printed and passed over fails the phase. Phase 2
+     holds flash at the 1280² canvas's 6400 and 1600 tokens and the VAE's
+     25600, and the fused conv at every 1280² UNet and VAE size and the
+     1024² VAE sizes no row held; `--scripts` runs the SDXL rows with them.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -273,7 +302,9 @@ is printed. The last two lines are the per-kernel JSON summary and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -465,15 +496,17 @@ CONFIG2_REFINER_PER_REQUEST = {
     "flash_attention": CONFIG2_K * 70 + (SDXL_STEPS - CONFIG2_K) * 40 + 1,
     "gn_silu_conv3x3": CONFIG2_K * 34 + (SDXL_STEPS - CONFIG2_K) * 44 + 28, "dequant_matmul": 0}
 CONFIG2_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
-# the samplers phase (tests/test_torch_samplers_slice.py traces it): 20 steps, each model call
-# the UNet at CFG batch 2 (70 flash, 34 conv), then the 1024² decode (1, 28). DPM++ 2M, the
-# first-order multistep baseline, one call a step; the second-order samplers two a step but
-# none at σ = 0: 2 · 19 + 1; UniPC one call, then one a step but the peeled last; DDIM CFG++
-# one a step
-SAMPLERS_STEPS = 20
-SAMPLERS_PHASE = {"DPM++ 2M": ("karras", 20),
-                  "DPM++ SDE": ("karras", 2 * 19 + 1), "DPM2": ("karras", 2 * 19 + 1),
-                  "UniPC": ("automatic", 1 + 19), "DDIM CFG++": ("automatic", 20)}
+# the samplers phase (tests/test_torch_samplers_slice.py traces it at 20 steps): 10 steps (20
+# until phase 19 took the whole run past 1080 s), each model call the UNet at CFG batch 2 (70
+# flash, 34 conv), then the 1024² decode (1, 28). DPM++ 2M, the first-order multistep
+# baseline, one call a step; the second-order samplers two a step but none at σ = 0:
+# 2 · (steps − 1) + 1; UniPC one call, then one a step but the peeled last; DDIM CFG++ one a step
+SAMPLERS_STEPS = 10
+SAMPLERS_PHASE = {"DPM++ 2M": ("karras", SAMPLERS_STEPS),
+                  "DPM++ SDE": ("karras", 2 * (SAMPLERS_STEPS - 1) + 1),
+                  "DPM2": ("karras", 2 * (SAMPLERS_STEPS - 1) + 1),
+                  "UniPC": ("automatic", 1 + (SAMPLERS_STEPS - 1)),
+                  "DDIM CFG++": ("automatic", SAMPLERS_STEPS)}
 # the prompts phase (tests/test_torch_prompts_mixed.py traces it): DPM++ 2M Karras, 20 steps,
 # CFG 7, 1024², one model call a step whatever the UNet's batch (2 plain, 3 with one AND part,
 # 4 with two regions; the NGMS tail 1), then the 1024² decode
@@ -543,15 +576,16 @@ FP8_PER_REQUEST = {"flash_attention": FLUX_STEPS * (19 + 38) + 1, "gn_silu_conv3
                    "dequant_matmul": 0}
 # phase 16, the extension hook layers on the SDXL engine (tests/test_torch_cfg_hooks.py and
 # test_torch_block_patches.py hold them against the reference on the CPU): SDXL 1024², DPM++ 2M
-# Karras, CFG 7, batch 1 (StyleAlign batch 2), 10 steps (bench config 2's 30 cut to fit the run's
-# limit: at 20 the whole run took 1110.8 s of its 1200 on an H100 80GB HBM3 at 700 W; the widths
-# are not cut). A plain request: 10 forwards at CFG batch 2 (70 flash, 34 conv each), then the
-# decode (1, 28). FreeU, dynamic thresholding, the latent modifier, the hypernetwork (attn2's 77
-# keys: plain) and ControlLLLite (plain convs and linears) add no launch; StyleAlign joins each
+# Karras, CFG 7, batch 1 (StyleAlign batch 2), 6 steps (bench config 2's 30 cut to fit the run's
+# limit: at 20 the whole run took 1110.8 s of its 1200 on an H100 80GB HBM3 at 700 W, at 10 with
+# phase 19 added 1082.6 s; the widths are not cut). A plain request: 6 forwards at CFG batch 2
+# (70 flash, 34 conv each), then the decode (1, 28). FreeU, dynamic thresholding, the latent
+# modifier, the hypernetwork (attn2's 77 keys: plain) and ControlLLLite (plain convs and
+# linears) add no launch; StyleAlign joins each
 # CFG half's two images into one launch of batch 2 (70 a forward); PAG's perturbed pass adds a
 # batch-1 forward a step with attn1 the identity (34 conv, no flash); SAG's degraded pass a whole
 # batch-1 forward a step (70 flash, 34 conv)
-EXT_STEPS = 10
+EXT_STEPS = 6
 EXT_SIZE = 1024
 EXT_PLAIN = {"flash_attention": EXT_STEPS * 70 + 1, "gn_silu_conv3x3": EXT_STEPS * 34 + 28}
 EXT_PER_REQUEST = {
@@ -576,7 +610,7 @@ LLLITE_CE, LLLITE_MLP = 32, 64  # cond_emb_dim, mlp_dim
 # by call site: a forward 70 flash / 34 conv at any size (Deep Shrink moves the shapes, not the
 # count), a ControlNet beside it (cldm or Control-LoRA) 34 / 16, a VAE encode 1 / 20, a decode
 # 1 / 28; the T2I-Adapter's and the Fooocus head's convs are plain F.conv2d (no kernel)
-CONTROLS_STEPS = 10  # 20 under --controls
+CONTROLS_STEPS = 6  # 20 under --controls (10 in the whole run before phase 19)
 CONTROLS_SHRINK = dict(block_number=3, downscale_factor=2.0, downscale_after_skip=True,
                        downscale_method="bicubic", upscale_method="bicubic", end_percent=0.35)
 CONTROLS_SHRINK_SIZE = 2048  # twice SDXL's trained size
@@ -615,6 +649,70 @@ PHOTOMAKER_PROMPT = "a photograph of a man img riding a horse, (detailed:1.2)"
 IMAGE_PROMPT_REFERENCE = dict(weight=1.0, threshold_a=0.5)  # style fidelity 0.5 (cubed: 0.125)
 IMAGE_PROMPT_FACE = dict(weight=0.8)
 IMAGE_PROMPT_DIR = "logs/chip_smoke_image_prompts"
+
+# phase 19: the script surface on the SDXL engine (tests/test_torch_scripts_*.py,
+# test_torch_selectable_scripts*.py, test_torch_xyz_grid.py and test_torch_soft_inpainting.py hold
+# it against the reference on the CPU; tests/test_torch_scripts_trace.py traces these counts on
+# the meta device): 1024², DPM++ 2M Karras, CFG 7, seed 1, 4 steps in the whole run (20 under
+# --scripts). A UNet forward is 70 flash / 34 conv at batch 1 or 2 and at 1280², a decode 1 / 28,
+# an encode 1 / 20. The outpaintings grow the canvas to 1280²: phase 2 holds their flash at
+# 6400 and 1600 tokens and the VAE's 25600, and every conv of the 1280² UNet and VAE, with the
+# 1024² VAE convs no earlier row held
+SCRIPTS_STEPS = 4  # 20 under --scripts
+SCRIPTS_OUTPAINT = 128  # px on every side: a 1280² canvas
+SCRIPTS_UPSCALE_OVERLAP = 64  # SD upscale's tiles are the request's size, 1024²: 3 × 3 on 2048²
+SCRIPTS_STRENGTH = {"loopback": 0.5, "SD upscale": 0.4, "outpainting": 0.75}
+SCRIPTS_MATRIX_PROMPT = "a photograph of an astronaut riding a horse|on the moon|at night"
+SCRIPTS_ALT_PROMPT = "a photograph of an astronaut riding a zebra, (detailed:1.2)"
+SCRIPTS_FLASH_SHAPES = [((2, 10, 6400, 64), 6400, True), ((2, 20, 1600, 64), 1600, True),
+                        ((1, 1, 25600, 512), 25600, True)]
+SCRIPTS_CONV_SHAPES = (
+    [((2, c, 160 >> level, 160 >> level), o) for c, o, level in SDXL_CONV_PAIRS]
+    + [((1, 512, 160, 160), 512), ((1, 512, 320, 320), 512), ((1, 512, 640, 640), 256),
+       ((1, 256, 640, 640), 256), ((1, 256, 1280, 1280), 128), ((1, 128, 1280, 1280), 128),
+       ((1, 128, 640, 640), 256), ((1, 256, 320, 320), 512),  # the VAE at 1280²
+       ((1, 512, 256, 256), 512), ((1, 512, 512, 512), 256), ((1, 256, 512, 512), 256),
+       ((1, 256, 1024, 1024), 128)])  # the VAE decoder at 1024²
+# the rows --scripts runs: the SDXL rows phase 19's requests take, then its own
+SCRIPTS_ROWS = ([((2, 10, 4096, 64), 4096, True), ((2, 20, 1024, 64), 1024, True),
+                 ((1, 10, 4096, 64), 4096, True), ((1, 20, 1024, 64), 1024, True),
+                 ((1, 1, 16384, 512), 16384, True)] + SCRIPTS_FLASH_SHAPES,
+                [((b, c, 128 >> level, 128 >> level), o) for b in (2, 1)
+                 for c, o, level in SDXL_CONV_PAIRS]
+                + [((1, 512, 128, 128), 512), ((1, 128, 1024, 1024), 128), ((1, 128, 512, 512), 256),
+                   ((1, 256, 256, 256), 512)] + SCRIPTS_CONV_SHAPES)
+FLASH_SHAPES += SCRIPTS_FLASH_SHAPES
+GN_CONV_SHAPES += [shape for shape in SCRIPTS_CONV_SHAPES if shape not in GN_CONV_SHAPES]
+# the hooks the recording Script logs, and the events its callbacks log
+SCRIPTS_HOOKS = ("setup", "before_process", "process", "before_process_batch", "process_batch",
+                 "process_before_every_sampling", "after_extra_networks_activate",
+                 "before_process_init_images", "before_hr", "post_sample", "on_mask_blend",
+                 "postprocess_batch", "postprocess_batch_list", "postprocess_image",
+                 "postprocess_image_after_composite", "postprocess")
+SCRIPTS_EVENTS = ("before_process", "cfg_denoiser", "cfg_denoised", "cfg_after_cfg")
+
+
+def scripts_counts(steps: int):
+    """Phase 19's launches a run by label (a script's run is all its requests)."""
+    def count(forwards, encodes=0, n=1):
+        return {"flash_attention": n * (70 * forwards + encodes + 1),
+                "gn_silu_conv3x3": n * (34 * forwards + 20 * encodes + 28), "dequant_matmul": 0}
+
+    def calls(strength):  # an img2img request's model calls: t_enc + 1
+        return min(int(strength * steps), steps - 1) + 1
+
+    txt = count(steps)
+    textbox = {k: v + count(max(steps // 2, 1))[k] for k, v in txt.items()}
+    inpaint = count(calls(CONFIG3_STRENGTH), encodes=1)
+    return {"script witness": txt, "recording script": txt, "X/Y/Z grid": count(steps, n=4),
+            "prompt matrix": count(steps, n=4), "prompts from textbox": textbox,
+            "loopback": count(calls(SCRIPTS_STRENGTH["loopback"]), encodes=1, n=2),
+            "SD upscale": count(calls(SCRIPTS_STRENGTH["SD upscale"]), encodes=1, n=9),
+            "poor man's outpainting": count(calls(SCRIPTS_STRENGTH["outpainting"]), encodes=2),
+            "outpainting mk2": count(calls(SCRIPTS_STRENGTH["outpainting"]), encodes=1),
+            "img2img alternative test": count(4 * steps, encodes=1),
+            "inpaint witness": inpaint, "soft inpainting": inpaint,
+            "API prompt matrix": count(steps, n=4), "API X/Y/Z grid": count(steps, n=4)}
 
 
 def image_prompt_counts(steps: int):
@@ -659,14 +757,16 @@ def check(ok: bool, what: str):
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, budget_ms: float = 300.0) -> float:
-    """Mean device time of fn() by CUDA events, after a warm-up call."""
+def time_ms(fn, budget_ms: float = 150.0) -> float:
+    """Mean device time of fn() by CUDA events, after a warm-up call: 2 to 50
+    runs, as many as fit in `budget_ms` (300 ms and at least 3 runs until
+    phase 19 took the whole run past 1080 s)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    iters = int(min(50, max(3, budget_ms / max((time.perf_counter() - t0) * 1e3, 1e-3))))
+    iters = int(min(50, max(2, budget_ms / max((time.perf_counter() - t0) * 1e3, 1e-3))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -879,12 +979,13 @@ def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
 
 
 def phase_kernels(gen: torch.Generator, rows: str = "all"):
-    """Phase 2; with rows "families", "api", "flux_family", "extensions" or
-    "controls" or "image_prompts", the flash and conv rows of the SD2, SD3
-    and Playground paths, of phase 14's VAE tiles, of phase 15 (with its NF4
-    dequant rows), of phase 16 (StyleAlign's two flash rows), of phase 17
-    (Deep Shrink's four flash shapes and three conv shapes) or of phase 18
-    (reference-only's two joined-key flash shapes) alone."""
+    """Phase 2; with rows "families", "api", "flux_family", "extensions",
+    "controls", "image_prompts" or "scripts", the flash and conv rows of the
+    SD2, SD3 and Playground paths, of phase 14's VAE tiles, of phase 15 (with
+    its NF4 dequant rows), of phase 16 (StyleAlign's two flash rows), of
+    phase 17 (Deep Shrink's four flash shapes and three conv shapes), of
+    phase 18 (reference-only's two joined-key flash shapes) or of phase 19
+    (the SDXL rows its requests take, and its 1280² and VAE rows) alone."""
     summary = {}
     if rows != "all":
         flash, conv = {"families": (FAMILY_FLASH_SHAPES, FAMILY_CONV_SHAPES),
@@ -892,7 +993,8 @@ def phase_kernels(gen: torch.Generator, rows: str = "all"):
                        "flux_family": (FLUX_FAMILY_FLASH_SHAPES, FLUX_FAMILY_CONV_SHAPES),
                        "extensions": (EXTENSIONS_FLASH_SHAPES, []),
                        "controls": (CONTROLS_FLASH_SHAPES, CONTROLS_CONV_SHAPES),
-                       "image_prompts": (IMAGE_PROMPT_FLASH_SHAPES, [])}[rows]
+                       "image_prompts": (IMAGE_PROMPT_FLASH_SHAPES, []),
+                       "scripts": SCRIPTS_ROWS}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
@@ -3270,6 +3372,270 @@ def phase_image_prompts(engine, gen: torch.Generator, steps: int = IMAGE_PROMPT_
     return total
 
 
+class _Tee(io.TextIOBase):
+    """Writes through to a stream and keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.seen = out, []
+
+    def write(self, text):
+        self.seen.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_scripts(engine, gen: torch.Generator, steps: int = SCRIPTS_STEPS, size: int = EXT_SIZE):
+    """Phase 19: the script surface on the SDXL engine at size² (see the
+    docstring). Everything printed while it runs is kept, and a traceback
+    the script runner or the callback registry printed and passed over
+    ("... failed:") fails the phase."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        total = _phase_scripts(engine, gen, steps, size)
+    swallowed = [line for line in "".join(tee.seen).splitlines() if " failed:" in line]
+    check(not swallowed, f"scripts: no traceback swallowed ({swallowed[:3]})")
+    return total
+
+
+def _phase_scripts(engine, gen: torch.Generator, steps: int, size: int):
+    import base64
+    import collections
+    import threading
+
+    from forge_tpu_torch.api.server import create_server
+    from forge_tpu_torch.extensions.soft_inpainting import attach as attach_soft
+    from forge_tpu_torch.extensions.xyz_grid import Axis, run_xyz_grid
+    from forge_tpu_torch.pipeline import processing as proc
+    from forge_tpu_torch.pipeline import selectable_scripts as sel
+    from forge_tpu_torch.pipeline.images import decode_png
+    from forge_tpu_torch.runtime import scripts as scripts_mod
+    from forge_tpu_torch.runtime.models import ModelManager
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.runtime.options import opts
+    from forge_tpu_torch.sampling import cfg as cfg_mod
+    from forge_tpu_torch.sampling.schedules import get_sigmas
+
+    t_phase = time.perf_counter()
+    per_label, total = scripts_counts(steps), {}
+    fields = dict(prompt=EXT_PROMPT, negative_prompt="blurry", seed=1, steps=steps, cfg_scale=7.0,
+                  width=size, height=size, sampler_name="DPM++ 2M", scheduler="karras")
+
+    def request(**kw):
+        return proc.Processing(**{**fields, **kw})
+
+    def run(label, fn, witness_latency=None, requests=1):
+        """fn() (a script's requests), its launches exact by body → (what it
+        returned, its latency); its images uint8, three channels, not flat."""
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        latency = time.perf_counter() - t
+        launches = read_counts()
+        add_counts(total, launches)
+        images = out.images if hasattr(out, "images") else out
+        for img in images:
+            check(img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3 and img.std() > 0,
+                  f"scripts {label}: uint8 RGB images, not flat")
+        line = (f"scripts {label}: latency {latency:.4f} s over {requests} request(s), "
+                f"{len(images)} image(s) {sorted({im.shape[:2] for im in images})}, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, first image mean "
+                f"{images[0].mean():.3f} std {images[0].std():.3f}")
+        if witness_latency:
+            line += (f" | {latency / requests:.4f} s a request, {latency / requests / witness_latency:.3f}x"
+                     f" the witness's {witness_latency:.4f} s")
+        log(line)
+        check_counts(launches, per_label[label], 1, f"the {label} run")
+        return out, latency
+
+    # (a) a Script recording every hook, with callbacks on the events, beside its witness (after
+    # a warm request: under --scripts the engine's first request pays the first text encode)
+    timed("scripts: a warm request (not counted)",
+          lambda: proc.process_images(engine, request(seed=2)))
+    witness, w_latency = run("script witness", lambda: proc.process_images(engine, request()))
+    log_hooks = []
+
+    class Recording(scripts_mod.Script):
+        name = "recording"
+
+    for hook in SCRIPTS_HOOKS:
+        setattr(Recording, hook, lambda self, p, *a, _h=hook, **k: log_hooks.append(_h))
+    runner = scripts_mod.ScriptRunner()
+    runner.register(Recording())
+    for event in SCRIPTS_EVENTS:
+        scripts_mod.on(event, lambda *a, _e=event: log_hooks.append("event " + _e))
+    try:
+        scripted, _ = run("recording script", lambda: proc.process_images(
+            engine, request(scripts=runner)), w_latency)
+    finally:
+        scripts_mod.clear()
+    once = ("setup", "before_process", "process", "after_extra_networks_activate",
+            "before_process_batch", "process_batch", "process_before_every_sampling",
+            "postprocess_batch", "postprocess_batch_list", "postprocess_image", "postprocess")
+    check(collections.Counter(log_hooks) == collections.Counter(
+        once + tuple("event " + e for e in SCRIPTS_EVENTS)),
+        f"scripts: each txt2img hook and event once ({collections.Counter(log_hooks)})")
+    check(np.array_equal(scripted.images[0], witness.images[0])
+          and scripted.infotexts == witness.infotexts,
+          "scripts: hooks returning None leave the image and infotext as the witness's")
+    log(f"scripts: the recording script's hooks in order: {', '.join(log_hooks)}")
+
+    # (b) the X/Y/Z grid: cfg_scale × a prompt S/R of two values
+    x_axis, y_axis = Axis("cfg_scale", [5.0, 7.0]), Axis("prompt_sr", ["astronaut", "cat"],
+                                                           search="astronaut")
+    grids, _ = run("X/Y/Z grid", lambda: run_xyz_grid(engine, request(), x_axis, y_axis),
+                   w_latency, 4)
+    check(grids[0].shape == (2 * size, 2 * size, 3), "scripts: a 2 × 2 grid")
+
+    # (c) a prompt matrix of three parts, (d) prompts from a two-line textbox
+    matrix_args = [False, False, "positive", "comma", 0]
+    matrix, _ = run("prompt matrix", lambda: sel.get_script("Prompt matrix").run(
+        engine, request(prompt=SCRIPTS_MATRIX_PROMPT), *matrix_args), w_latency, 4)
+    check(len(matrix.images) == 5 and matrix.images[0].shape == (2 * size, 2 * size, 3),
+          "scripts: the matrix's grid and its 4 images")
+    text = (f"{EXT_PROMPT} --seed 2 --steps {steps}\n"
+            f"a photograph of a cat in a spacesuit --seed 3 --steps {max(steps // 2, 1)}")
+    lines, _ = run("prompts from textbox", lambda: sel.get_script(
+        "Prompts from file or textbox").run(engine, request(), prompt_txt=text), w_latency, 2)
+    check(lines.seeds == [2, 3] and f"Steps: {max(steps // 2, 1)}," in lines.infotexts[1],
+          "scripts: each line's --seed and --steps")
+
+    # (e) loopback, (f) SD upscale, (g) the outpaintings, (h) img2img alternative test, each
+    # from the witness's image
+    init = witness.images[0]
+    loop, _ = run("loopback", lambda: sel.get_script("Loopback").run(
+        engine, request(init_images=[init], denoising_strength=SCRIPTS_STRENGTH["loopback"]),
+        loops=2, final_denoising_strength=SCRIPTS_STRENGTH["loopback"]), w_latency, 2)
+    check(loop.seeds == [1, 2], "scripts: loopback's seeds")
+    up, _ = run("SD upscale", lambda: sel.get_script("SD upscale").run(
+        engine, request(init_images=[init], denoising_strength=SCRIPTS_STRENGTH["SD upscale"]),
+        None, SCRIPTS_UPSCALE_OVERLAP, "Lanczos", 2.0), w_latency, 9)
+    check(up.images[0].shape == (2 * size, 2 * size, 3), "scripts: SD upscale ×2")
+    side = size + 2 * SCRIPTS_OUTPAINT
+    for label, name, kw in (("poor man's outpainting", "Poor man's outpainting",
+                             dict(mask_blur=4, inpainting_fill="fill")),
+                            ("outpainting mk2", "Outpainting mk2", dict(mask_blur=8))):
+        out, _ = run(label, lambda: sel.get_script(name).run(
+            engine, request(init_images=[init],
+                            denoising_strength=SCRIPTS_STRENGTH["outpainting"]),
+            pixels=SCRIPTS_OUTPAINT, **kw), w_latency)
+        # the repainted band (2 × mask_blur, at least 8 px), then the blur's reach (4σ)
+        pad = SCRIPTS_OUTPAINT + max(2 * kw["mask_blur"], 8) + 4 * kw["mask_blur"] + 1
+        check(out.images[0].shape == (side, side, 3)
+              and np.array_equal(out.images[0][pad:side - pad, pad:side - pad],
+                                 init[pad - SCRIPTS_OUTPAINT:side - pad - SCRIPTS_OUTPAINT,
+                                      pad - SCRIPTS_OUTPAINT:side - pad - SCRIPTS_OUTPAINT]),
+              f"scripts: {label} {side}², the init image kept inside the band")
+    alt, _ = run("img2img alternative test", lambda: sel.get_script(
+        "img2img alternative test").run(
+        engine, request(init_images=[init], prompt=SCRIPTS_ALT_PROMPT), None, True, EXT_PROMPT,
+        "blurry", True, steps, 0.0), w_latency)
+    check(alt.infotexts == [f"{SCRIPTS_ALT_PROMPT}\nimg2img alternative, decode steps {steps}"],
+          "scripts: img2img alternative test's infotext")
+    cond = engine.get_learned_conditioning([SCRIPTS_ALT_PROMPT], size, size)
+    uncond = engine.get_learned_conditioning(["blurry"], size, size, is_negative=True)
+    x01 = torch.from_numpy(np.ascontiguousarray(init[None].transpose(0, 3, 1, 2))).float()
+    latent = engine.encode_first_stage(x01 / 127.5 - 1.0)
+    sigma = float(get_sigmas("normal", steps, engine.predictor)[steps // 2])  # the middle call's
+    x = latent + torch.randn(latent.shape, generator=gen, device=gen.device) * sigma
+    # the test's new forward: one uncombined batch-1 apply of the UNet, for the cond and the
+    # uncond apart (`_cfg_apply` combines two of them on the host by CFG 7, which scales the two
+    # calls' rounding up; that combination's PSNR is printed beside them)
+    apply = cfg_mod.make_apply_model(engine.unet_apply_fn(), engine.loaded.unet,
+                                     engine.predictor, engine.compute_dtype)
+    label = f"scripts img2img alternative test: the uncombined batch-1 apply at σ {sigma:.4f}"
+    with torch.no_grad():
+        fused = [apply(x, sigma, c) for c in (cond, uncond)]
+        with plain_versions():
+            plain = [apply(x, sigma, c) for c in (cond, uncond)]
+    for which, got, want in zip(("cond", "uncond"), fused, plain):
+        value = psnr(got, want)
+        log(f"{label} ({which}) bf16: kernels vs plain PSNR {value:.2f} dB (bound {PSNR_BOUND})")
+        check(value >= PSNR_BOUND, f"{label} ({which}) PSNR ≥ {PSNR_BOUND} dB")
+    log(f"{label}: its CFG 7 combination, kernels vs plain PSNR "
+        f"{psnr(fused[1] + 7.0 * (fused[0] - fused[1]), plain[1] + 7.0 * (plain[0] - plain[1])):.2f}"
+        " dB (printed, not a gate)")
+    del latent, x, apply, fused, plain
+
+    # (i) config 3's inpaint request with soft inpainting, extra noise and colour correction,
+    # beside the hard-mask witness
+    rng = np.random.default_rng(0)  # config 3's init image (bench_lora's generator) and mask
+    c3_init = rng.uniform(0, 255, size=(size, size, 3)).astype(np.uint8)
+    mask = np.zeros((size, size), np.float32)
+    mask[size // 4:3 * size // 4, size // 4:3 * size // 4] = 1.0
+    inpaint = dict(init_images=[c3_init], inpaint_mask=mask, denoising_strength=CONFIG3_STRENGTH)
+    hard, h_latency = run("inpaint witness", lambda: proc.process_images(engine, request(**inpaint)))
+    options = {"img2img_extra_noise": 0.1, "img2img_color_correction": True}
+
+    def soft_request():
+        p = request(**inpaint)
+        attach_soft(p, {})
+        return p
+
+    with opts.override(options):
+        soft, _ = run("soft inpainting", lambda: proc.process_images(engine, soft_request()),
+                      h_latency)
+        q = soft_request()
+        proc.setup(engine, q)
+        proc.plan(engine, q)
+        job = proc.prepare(engine, q, 0, {})
+    far = np.ones((size, size), bool)
+    far[size // 4 - 17:3 * size // 4 + 17, size // 4 - 17:3 * size // 4 + 17] = False
+    text = soft.infotexts[0]
+    check("Soft inpainting: True" in text and "Extra noise: 0.1" in text,
+          "scripts: the soft request's infotext names soft inpainting and the extra noise")
+    check(not np.array_equal(soft.images[0], hard.images[0])
+          and np.array_equal(soft.images[0][far], c3_init[far]),
+          "scripts: soft inpainting unlike the witness, every pixel 17 px past the mask the init's")
+    log(f"scripts soft inpainting: PSNR vs the hard-mask witness "
+        f"{image_psnr(soft.images[0], hard.images[0]):.2f} dB")
+    fn, sigma0 = proc.cfg_model_fn(engine, job), float(job.sigmas[0])
+    kernels_vs_plain(f"scripts soft inpainting: the soft-masked model_fn at σ {sigma0:.4f}",
+                     lambda: fn(job.x, sigma0))
+    del job, fn, q
+
+    # (j) the API: txt2img with script_name "Prompt matrix", and /sdapi/v1/xyz-grid, each
+    # beside its process_images twin above
+    manager = ModelManager(checkpoint_dirs=[], device=engine.device)
+    manager.set_engine(engine)
+    server = create_server(manager, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    texts = []
+
+    def api(path, body):
+        answer = http(base, path, body)
+        decoded = [decode_png(base64.b64decode(b64)) for b64 in answer["images"]]
+        texts.extend(text.get("parameters") for _, text in decoded)
+        return [pixels for pixels, _ in decoded]
+
+    try:
+        got, _ = run("API prompt matrix", lambda: api("/sdapi/v1/txt2img", dict(
+            fields, prompt=SCRIPTS_MATRIX_PROMPT, script_name="Prompt matrix",
+            script_args=matrix_args)), w_latency, 4)
+        check(len(got) == len(matrix.images)
+              and all(np.array_equal(a, b) for a, b in zip(got, matrix.images))
+              and texts == matrix.infotexts,
+              "scripts: the API's prompt matrix PNGs = process_images' images and infotexts")
+        got, _ = run("API X/Y/Z grid", lambda: api("/sdapi/v1/xyz-grid", dict(
+            fields, x_axis={"field": "cfg_scale", "values": [5.0, 7.0]},
+            y_axis={"field": "prompt_sr", "values": ["astronaut", "cat"],
+                    "search": "astronaut"})), w_latency, 4)
+        check(len(got) == 1 and np.array_equal(got[0], grids[0]),
+              "scripts: the API's X/Y/Z grid = run_xyz_grid's")
+    finally:
+        server.shutdown()
+        server.server_close()
+        manager.close()
+    del witness, scripted, grids, matrix, lines, loop, up, alt, hard, soft
+    torch.cuda.empty_cache()
+    log(f"scripts phase 19 at {steps} steps: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
@@ -3368,6 +3734,9 @@ def main():
     ap.add_argument("--image-prompts", action="store_true",
                     help="run phase 1, phase 2's joined-key flash rows and phase 18 (the "
                          "image-prompt family on SDXL) at 20 steps only, with no result")
+    ap.add_argument("--scripts", action="store_true",
+                    help="run phase 1, phase 2's SDXL and outpainting rows and phase 19 (the "
+                         "script surface on SDXL) at 20 steps only, with no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3406,7 +3775,8 @@ def main():
                             else "flux_family" if args.flux_family
                             else "extensions" if args.extensions
                             else "controls" if args.controls
-                            else "image_prompts" if args.image_prompts else "all")
+                            else "image_prompts" if args.image_prompts
+                            else "scripts" if args.scripts else "all")
     if args.kernels:
         log("kernels only: phases 1-2 passed")
         return
@@ -3429,7 +3799,7 @@ def main():
     if args.controls:
         engine = load_sdxl()
         t = time.perf_counter()
-        phase_controls(engine, gen, steps=2 * CONTROLS_STEPS)
+        phase_controls(engine, gen, steps=20)
         log(f"controls phase: {time.perf_counter() - t:.2f} s; script so far "
             f"{time.perf_counter() - t_start:.2f} s")
         log("controls only: phases 1, 2 (the Deep Shrink rows) and 17 passed")
@@ -3441,6 +3811,14 @@ def main():
         log(f"image prompts phase: {time.perf_counter() - t:.2f} s; script so far "
             f"{time.perf_counter() - t_start:.2f} s")
         log("image prompts only: phases 1, 2 (the joined-key rows) and 18 passed")
+        return
+    if args.scripts:
+        engine = load_sdxl()
+        t = time.perf_counter()
+        phase_scripts(engine, gen, steps=5 * SCRIPTS_STEPS)
+        log(f"scripts phase: {time.perf_counter() - t:.2f} s; script so far "
+            f"{time.perf_counter() - t_start:.2f} s")
+        log("scripts only: phases 1, 2 (the SDXL and outpainting rows) and 19 passed")
         return
     if args.flux_family:
         t = time.perf_counter()
@@ -3503,16 +3881,21 @@ def main():
         f"{time.perf_counter() - t_start:.2f} s")
     t = time.perf_counter()
     image_prompt_launches = phase_image_prompts(engine, gen)  # phase 18, on the same engine
+    log(f"image prompts phase: {time.perf_counter() - t:.2f} s; script so far "
+        f"{time.perf_counter() - t_start:.2f} s")
+    t = time.perf_counter()
+    scripts_launches = phase_scripts(engine, gen)  # phase 19, on the same engine
     del engine
     gc.collect()  # phase 14 leaves reference cycles that hold the engine until the collector runs
     torch.cuda.empty_cache()
-    log(f"image prompts phase: {time.perf_counter() - t:.2f} s; script so far "
+    log(f"scripts phase: {time.perf_counter() - t:.2f} s; script so far "
         f"{time.perf_counter() - t_start:.2f} s")
     paths = {"sd15": launches, "flux": flux_launches, "sdxl": sdxl_launches,
              "config3": config3_launches, "config5": config5_launches,
              "config2": config2_launches, "samplers": samplers_launches,
              "prompts": prompts_launches, "api": api_launches, "extensions": ext_launches,
-             "controls": controls_launches, "image_prompts": image_prompt_launches}
+             "controls": controls_launches, "image_prompts": image_prompt_launches,
+             "scripts": scripts_launches}
     for name in FAMILIES:
         t = time.perf_counter()
         paths[name] = phase_family(name, gen)

@@ -1,4 +1,4 @@
-# Copied from forge_tpu/api/server.py (the route table, _processing_from_payload, _apply_alwayson_scripts, _first_dict, _generate, the routes this slice answers, _Handler with basic auth and CORS, create_server); PNG through the port's own codec.
+# Copied from forge_tpu/api/server.py (the route table, _processing_from_payload, _apply_alwayson_scripts, _first_dict, _generate with its script dispatch, the routes this slice answers, _Handler with basic auth and CORS, create_server with its app_started event); PNG through the port's own codec.
 """REST API: the reference's `/sdapi/v1/*` contract on the standard
 library's `ThreadingHTTPServer` (routes, JSON bodies, base64 PNG images), so
 webui API clients work unchanged.
@@ -10,15 +10,23 @@ Every generation, and every checkpoint load, runs on the single work queue
 
 A request field is passed to the port's `Processing`; one it refuses answers
 422 with the refusal's text. The reference's fields the port lacks are
-dropped only at the value that is the port's behaviour (nothing saved, no
-scripts, hooks or face restoration); keys that are no request field at all
-are dropped, as the reference drops them. `alwayson_scripts` turns the
-extensions on, as the reference's dispatch does: ControlNet units, the
+dropped only at the value that is the port's behaviour (no tiling, hooks or
+face restoration); keys that are no request field at all are dropped, as
+the reference drops them, and `do_not_save_samples` and `do_not_save_grid`
+default to true, as the reference's API sets them. `alwayson_scripts` turns
+the extensions on, as the reference's dispatch does: ControlNet units, the
 IP-Adapter (FaceID and InstantID too), FreeU, the latent modifier, Fooocus
-inpaint, ControlLLLite, StyleAlign, dynamic thresholding, Kohya HRFix, SAG
-and PAG; "lora" is accepted and does nothing (LoRAs ride the prompt). Their
-weights load on the engine's device, on the work queue. Soft inpainting and
-an unknown name answer 422, as does what an extension refuses. An image
+inpaint, ControlLLLite, soft inpainting, StyleAlign, dynamic thresholding,
+Kohya HRFix, SAG and PAG; "lora" is accepted and does nothing (LoRAs ride
+the prompt). Their weights load on the engine's device, on the work queue.
+An unknown name answers 422, as does what an extension refuses.
+`script_name` runs a selectable script (pipeline/selectable_scripts.py)
+with `script_args` in place of `process_images`; an unknown name answers
+422. `/sdapi/v1/scripts` and `/sdapi/v1/script-info` list the always-on and
+selectable scripts and the runners' registered ones, and
+`/sdapi/v1/xyz-grid` runs the X/Y/Z grid (extensions/xyz_grid.py); an axis
+value it refuses answers 422. `create_server` fires the `app_started` event
+and `serve` `script_unloaded` once it stops serving. An image
 that is not an 8-bit PNG answers 415 with its format's name. Routes of the reference's table that
 this port does not answer yet answer 501 with the ROADMAP item that ports
 them; none answers as if it had worked.
@@ -47,6 +55,7 @@ from ..pipeline.processing import Processing, process_images
 from ..runtime.models import ModelManager
 from ..runtime.options import opts
 from ..runtime.queue import work_queue
+from ..runtime.scripts import fire
 from ..runtime.state import state
 from ..sampling.samplers import SAMPLERS
 from ..sampling.schedules import SCHEDULES
@@ -89,8 +98,8 @@ _API_ALIASES = {
 # the reference's request fields (forge_tpu Processing) that the port's lacks, at the value
 # that is the port's behaviour: dropped at it, passed on (and refused) at any other
 _INERT_FIELDS = {
-    "tiling": False, "restore_faces": False, "do_not_save_samples": True,
-    "do_not_save_grid": True, "image_cfg_scale": None, "user": None, "init_img_hash": None,
+    "tiling": False, "restore_faces": False, "image_cfg_scale": None, "user": None,
+    "init_img_hash": None,
     "scripts": None, "pre_cfg_hooks": None, "post_cfg_hooks": None, "cfg_combine_hook": None,
     "deferred_hooks": None, "cond_transform": None, "soft_inpainting": None,
     "reference_state": None, "hook_phases": None,
@@ -116,32 +125,33 @@ ALWAYSON_SCRIPTS = {
     "sag": "sag", "self attention guidance": "sag", "selfattentionguidance integrated": "sag",
     "pag": "pag", "perturbed attention": "pag", "perturbed attention guidance": "pag",
     "perturbedattentionguidance integrated": "pag",
+    "soft inpainting": "soft inpainting", "soft_inpainting": "soft inpainting",
 }
-_SOFT_INPAINTING = ("soft inpainting", "soft_inpainting")
+# Python objects an extension's attach or the caller sets: never from a JSON payload
+_OBJECT_FIELDS = ("hook_phases", "deferred_hooks", "scripts", "soft_inpainting")
 
 
 def _processing_from_payload(payload: Dict[str, Any]) -> Processing:
     """A txt2img or img2img payload → Processing. An `infotext` field seeds the
-    request, the payload's own fields override it; `save_images` or a script
-    answers 422 (no sample is saved and scripts are not ported), as does an
-    always-on script the dispatch does not take (`_alwayson_kind`); the
-    always-on scripts attach on the work queue (`_apply_alwayson_scripts`)."""
+    request, the payload's own fields override it; `save_images` answers 422
+    (no sample is saved), as does an always-on script the dispatch does not
+    take (`_alwayson_kind`); the always-on scripts attach on the work queue
+    (`_apply_alwayson_scripts`)."""
     from ..pipeline.processing import _FIELDS, CFG_HOOK_FIELDS, IMAGE_PROMPT_FIELDS
 
-    for key, what in (("save_images", "saving images"), ("script_name", "scripts")):
-        if payload.get(key):
-            raise ApiError(422, f"{key}: {what} are not ported to forge_tpu_torch yet "
-                                "(ROADMAP.md queue 1 item 7)")
+    if payload.get("save_images"):
+        raise ApiError(422, "save_images: saving images is not ported to forge_tpu_torch yet "
+                            "(ROADMAP.md queue 1 item 7)")
     for name in payload.get("alwayson_scripts") or {}:
         _alwayson_kind(name)
-    kwargs: Dict[str, Any] = {}
+    kwargs: Dict[str, Any] = {"do_not_save_samples": True, "do_not_save_grid": True}
     if payload.get("infotext"):
         kwargs.update(infotext_to_processing_args(payload["infotext"]))
     for key, value in payload.items():
         field = _API_ALIASES.get(key, key)
         if field in _INERT_FIELDS and value == _INERT_FIELDS[field]:
             continue
-        if field in CFG_HOOK_FIELDS + IMAGE_PROMPT_FIELDS + ("hook_phases", "deferred_hooks"):
+        if field in CFG_HOOK_FIELDS + IMAGE_PROMPT_FIELDS + _OBJECT_FIELDS:
             # Python objects: an extension's attach sets them
             raise ApiError(422, f"{key}: hooks cannot come in a JSON payload; the "
                                 "extensions that set them are reached through "
@@ -157,12 +167,9 @@ def _processing_from_payload(payload: Dict[str, Any]) -> Processing:
 
 
 def _alwayson_kind(name: str) -> str:
-    """An always-on script's name → the extension it turns on; soft
-    inpainting and an unknown name answer 422."""
+    """An always-on script's name → the extension it turns on; an unknown
+    name answers 422."""
     low = name.lower()
-    if low in _SOFT_INPAINTING:
-        raise ApiError(422, f"alwayson_scripts {name!r}: soft inpainting is not ported to "
-                            "forge_tpu_torch yet (ROADMAP.md queue 1 item 6 (e))")
     if low not in ALWAYSON_SCRIPTS:
         raise ApiError(422, f"unknown alwayson_scripts {name!r} — supported: "
                             + ", ".join(sorted(set(ALWAYSON_SCRIPTS.values()))))
@@ -210,6 +217,10 @@ def _apply_alwayson_scripts(p: Processing, scripts: Dict[str, Any], device=None,
             from ..extensions.controllllite import attach
 
             attach(p, a, device=device)
+        elif kind == "soft inpainting":
+            from ..extensions.soft_inpainting import attach
+
+            attach(p, a)
         elif kind == "stylealign":
             from ..extensions.stylealign import attach
 
@@ -255,7 +266,6 @@ LATENT_UPSCALE_MODES = ("Latent", "Latent (antialiased)", "Latent (bicubic)",
 
 # the reference's routes this port does not answer yet → the ROADMAP item that ports them
 _ROADMAP_STATIC_UI = "queue 1 item 7: the static web UI"
-_ROADMAP_SCRIPTS = "queue 1 item 7: scripts"
 _ROADMAP_EXTRAS = "queue 1 item 9: extras, upscaling and interrogate"
 _ROADMAP_CONTROLNET = "queue 1 item 6: the ControlNet routes"
 _ROADMAP_SPACES = "queue 1 item 9: spaces"
@@ -264,9 +274,6 @@ UNPORTED_ROUTES = {
     ("GET", "/"): _ROADMAP_STATIC_UI,
     ("GET", "/sdapi/v1/localization"): _ROADMAP_STATIC_UI,
     ("GET", "/sdapi/v1/ui-tabs"): _ROADMAP_STATIC_UI,
-    ("GET", "/sdapi/v1/scripts"): _ROADMAP_SCRIPTS,
-    ("GET", "/sdapi/v1/script-info"): _ROADMAP_SCRIPTS,
-    ("POST", "/sdapi/v1/xyz-grid"): _ROADMAP_SCRIPTS,
     ("POST", "/sdapi/v1/extra-single-image"): _ROADMAP_EXTRAS,
     ("POST", "/sdapi/v1/extra-batch-images"): _ROADMAP_EXTRAS,
     ("POST", "/sdapi/v1/interrogate"): _ROADMAP_EXTRAS,
@@ -338,6 +345,9 @@ class Api:
             ("POST", "/sdapi/v1/server-kill"): self.server_stop,
             ("GET", "/internal/ping"): lambda q, b: {},
             ("GET", "/internal/sysinfo"): self.sysinfo,
+            ("GET", "/sdapi/v1/scripts"): self.list_scripts,
+            ("GET", "/sdapi/v1/script-info"): self.script_info,
+            ("POST", "/sdapi/v1/xyz-grid"): self.xyz_grid,
         }
         for route, item in UNPORTED_ROUTES.items():
             self.routes[route] = self._unported(route, item)
@@ -364,9 +374,20 @@ class Api:
         return eng
 
     def _generate(self, kind: str, p: Processing, body):
-        """process_images on the work queue, between state.begin and state.end,
+        """process_images, or the selectable script the payload's script_name
+        names with its script_args (reference api.py init_script_args →
+        Script.run), on the work queue, between state.begin and state.end,
         under the request's override_settings."""
         overrides = body.get("override_settings") or {}
+        script = None
+        if body.get("script_name"):
+            from ..pipeline.selectable_scripts import get_script
+
+            try:
+                script = get_script(body["script_name"])
+            except KeyError as e:
+                raise ApiError(422, str(e)) from e
+        script_args = body.get("script_args") or []
 
         def run():
             with opts.override(overrides):
@@ -375,6 +396,8 @@ class Api:
                     engine = self._engine()
                     _apply_alwayson_scripts(p, body.get("alwayson_scripts"), engine.device,
                                             engine.compute_dtype)
+                    if script is not None:
+                        return script.run(engine, p, *script_args)
                     return process_images(engine, p)
                 finally:
                     state.end()
@@ -418,6 +441,68 @@ class Api:
             "parameters": body,
             "info": json.dumps({"all_seeds": result.seeds, "infotexts": result.infotexts}),
         }
+
+    # -- scripts ------------------------------------------------------------
+
+    # the always-on script names /sdapi/v1/scripts and /script-info list, the reference's
+    ALWAYSON = ("controlnet", "freeu", "sag", "pag", "stylealign", "dynamic thresholding",
+                "kohya hrfix", "latent modifier", "soft inpainting", "fooocus inpaint",
+                "controlllite")
+
+    def list_scripts(self, query, body):
+        from ..pipeline.selectable_scripts import SELECTABLE
+        from ..runtime.scripts import scripts_img2img, scripts_txt2img
+
+        names = list(self.ALWAYSON)
+        sel_t2i = sorted(s.name for s in SELECTABLE.values() if not s.is_img2img)
+        sel_i2i = sorted(s.name for s in SELECTABLE.values())
+        return {"txt2img": names + sel_t2i + [s.name for s in scripts_txt2img.scripts],
+                "img2img": names + sel_i2i + [s.name for s in scripts_img2img.scripts]}
+
+    def script_info(self, query, body):
+        from ..pipeline.selectable_scripts import SELECTABLE
+
+        out = [{"name": name, "is_alwayson": True, "is_img2img": is_img2img, "args": []}
+               for name in self.ALWAYSON for is_img2img in (False, True)]
+        seen = set()
+        for s in SELECTABLE.values():
+            if s.name not in seen:
+                seen.add(s.name)
+                out.append({"name": s.name, "is_alwayson": False, "is_img2img": s.is_img2img,
+                            "args": s.ui_spec})
+        return out
+
+    def xyz_grid(self, query, body):
+        """X/Y/Z plot: txt2img fields and axes {field or "prompt_sr", values,
+        search?} under x_axis (required), y_axis and z_axis → a grid PNG a Z
+        value."""
+        from ..extensions.xyz_grid import Axis, run_xyz_grid
+
+        body = dict(body or {})
+        specs = [body.pop(k, None) for k in ("x_axis", "y_axis", "z_axis")]
+
+        def axis(spec):
+            if not spec or not spec.get("values"):
+                return None
+            return Axis(field=spec.get("field", "seed"), values=spec["values"],
+                        search=spec.get("search"))
+
+        x = axis(specs[0])
+        if x is None:
+            raise ApiError(422, "x_axis with values is required")
+        p = _processing_from_payload(body)
+
+        def run():
+            engine = self._engine()
+            _apply_alwayson_scripts(p, body.get("alwayson_scripts"), engine.device,
+                                    engine.compute_dtype)
+            return run_xyz_grid(engine, p, x, axis(specs[1]), axis(specs[2]))
+
+        try:
+            grids = work_queue.run_and_wait(run)
+        except ValueError as e:  # an axis value Axis.apply refuses
+            raise ApiError(422, str(e)) from e
+        return {"images": [_image_to_b64(g) for g in grids]}
 
     # -- status -------------------------------------------------------------
 
@@ -750,6 +835,7 @@ def create_server(models: ModelManager, host: str = "127.0.0.1", port: int = 786
     server.daemon_threads = True
     server.api = api
     api._server = server
+    fire("app_started", server)
     return server
 
 
@@ -760,6 +846,7 @@ def serve(models: ModelManager, host: str = "127.0.0.1", port: int = 7860,
     print(f"forge_tpu_torch API listening on http://{host}:{server.server_address[1]}", flush=True)
     try:
         server.serve_forever()
+        fire("script_unloaded")
     finally:
         server.server_close()
         work_queue.stop()

@@ -1,6 +1,8 @@
 """Image resizing for img2img (port of forge_tpu/pipeline/images.py
 `resize_init_image`), CLIP-vision preprocessing, regional prompt masks and
-the simple upscalers, and the PNG codec the API reads and writes images with.
+the simple upscalers, the grid of the selectable scripts (`image_grid`),
+img2img's colour correction, and the PNG codec the API reads and writes
+images with.
 
 The reference resizes with PIL's LANCZOS (init images, the "Lanczos"
 upscaler), BICUBIC (the CLIP-vision input), BILINEAR (regional prompts'
@@ -29,13 +31,20 @@ before its data is inflated, the data is inflated no further than the
 image's rows, and a compressed text no further than 1 MiB. Rows filtered
 Average or Paeth are undone a pixel anti-diagonal at a time. The bytes are
 not Pillow's; the pixels and the text are.
+
+Colour correction without OpenCV: the reference converts uint8 RGB to LAB
+and back with `cv2.cvtColor`, whose 8-bit paths are integer arithmetic over
+tables. `rgb_to_lab` and `lab_to_rgb` compute those tables and that
+arithmetic in numpy and give cv2's bytes for every one of the 2^24 inputs
+(tests/test_torch_scripts_images.py holds both against cv2).
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -168,6 +177,138 @@ def resize_init_image(img: np.ndarray, w: int, h: int, mode: int = 0) -> np.ndar
         top, left = (h - rh) // 2, (w - rw) // 2
         return np.pad(r, ((top, h - rh - top), (left, w - rw - left), (0, 0)), mode="edge")
     return lanczos_resize(img, w, h)
+
+
+def image_grid(images: List[np.ndarray], rows: Optional[int] = None,
+               margin: int = 0) -> np.ndarray:
+    """Cells composited row-major; `margin` px of white between cells
+    (reference images.py image_grid + the grid-margins UI option)."""
+    n = len(images)
+    if rows is None:
+        rows = int(math.sqrt(n)) or 1
+    cols = math.ceil(n / rows)
+    h, w, c = images[0].shape
+    m = max(int(margin), 0)
+    grid = np.full((rows * h + (rows - 1) * m, cols * w + (cols - 1) * m, c), 255, np.uint8)
+    for i, img in enumerate(images):
+        r, cc = divmod(i, cols)
+        y, x = r * (h + m), cc * (w + m)
+        grid[y:y + h, x:x + w] = img
+    return grid
+
+
+# -- colour correction -------------------------------------------------------
+# OpenCV's 8-bit RGB↔LAB (D65): RGB → LAB through the sRGB gamma table (×8,
+# 256 entries), XYZ coefficients scaled by 2^12 over the white point and a
+# cube-root table of 3072 entries scaled by 2^15; LAB → RGB through L → (y,
+# f(y)) and f → x, z tables at 2^14, the inverse coefficients at 2^12 and an
+# inverse gamma table of 4096 entries
+
+_LAB_SHIFT, _LAB_SHIFT2, _LAB_BASE = 12, 15, 1 << 14
+_SRGB_TO_XYZ = np.array([[0.412453, 0.357580, 0.180423], [0.212671, 0.715160, 0.072169],
+                         [0.019334, 0.119193, 0.950227]])
+_XYZ_TO_SRGB = np.array([[3.240479, -1.53715, -0.498535], [-0.969256, 1.875991, 0.041556],
+                         [0.055648, -0.204043, 1.057311]])
+_D65 = np.array([0.950456, 1.0, 1.088754])
+_MIN_AB = -8145  # the least f(x) or f(z) index OpenCV's table holds
+# OpenCV's float cube root rounds these two entries of the cube-root table
+# to the neighbouring integer of the correctly rounded value
+_CBRT_TABLE_FIXES = {49: 9454, 628: 22126}
+_LAB_TABLES: Dict[str, np.ndarray] = {}
+
+
+def _trunc_div(a: np.ndarray, b: int) -> np.ndarray:
+    """C's integer division (toward zero) on int64 arrays."""
+    q = np.abs(a) // abs(b)
+    return np.where((a < 0) != (b < 0), -q, q)
+
+
+def _lab_tables() -> Dict[str, np.ndarray]:
+    if _LAB_TABLES:
+        return _LAB_TABLES
+    f32, base = np.float32, _LAB_BASE
+    x = np.arange(256, dtype=np.float64) / 255.0
+    gamma = np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+    t = _LAB_TABLES
+    t["gamma"] = np.rint(255.0 * 8 * gamma).astype(np.int64)
+    xs = np.arange(256 * 3 // 2 * 8, dtype=np.float64) / (255.0 * 8)
+    cbrt = np.where(xs < 216 / 24389, xs * (841 / 108) + 16 / 116, np.cbrt(xs))
+    t["cbrt"] = np.rint((1 << _LAB_SHIFT2) * cbrt).astype(np.int64)
+    for i, v in _CBRT_TABLE_FIXES.items():
+        t["cbrt"][i] = v
+    t["to_xyz"] = np.rint((1 << _LAB_SHIFT) * _SRGB_TO_XYZ / _D65[:, None]).astype(np.int64)
+    i = np.arange(256)
+    fy = (i * 100 * base).astype(f32) / f32(255 * 116) + f32(16 * base) / f32(116)
+    low = i <= 20  # L ≤ 8
+    t["y"] = np.where(low, np.rint((i * base * 20 * 9).astype(f32) / f32(17 * 29 ** 3)),
+                      np.rint(fy * fy * fy / f32(base * base))).astype(np.int64)
+    t["fy"] = np.where(low, np.rint(f32(base) * (f32(16) / f32(116)
+                                                 + (i * 5).astype(f32) / f32(3 * 17 * 29))),
+                       np.rint(fy)).astype(np.int64)
+    v = np.arange(_MIN_AB, base * 9 // 4 + _MIN_AB, dtype=np.int64)
+    t["xz"] = np.where(v <= 3390, _trunc_div(v * 108, 841) - base * 16 // 116 * 108 // 841,
+                       _trunc_div(_trunc_div(v * v, base) * v, base))
+    t["to_rgb"] = np.rint((1 << _LAB_SHIFT) * _XYZ_TO_SRGB * _D65[None, :]).astype(np.int64)
+    xs = (np.arange(4096).astype(f32) * (f32(1) / f32(4096))).astype(np.float64)
+    inv = np.where(xs <= 0.0031308, xs * 12.92, 1.055 * xs ** (1 / 2.4) - 0.055)
+    t["inv_gamma"] = np.rint(255.0 * inv).astype(np.int64)
+    return t
+
+
+def _descale(v: np.ndarray, shift: int) -> np.ndarray:
+    return (v + (1 << (shift - 1))) >> shift
+
+
+def rgb_to_lab(image: np.ndarray) -> np.ndarray:
+    """uint8 RGB [..., 3] → uint8 LAB, as `cv2.cvtColor(image, cv2.COLOR_RGB2LAB)`."""
+    t = _lab_tables()
+    rgb = t["gamma"][np.asarray(image, np.uint8).astype(np.int64)]
+    f = t["cbrt"][_descale(rgb @ t["to_xyz"].T, _LAB_SHIFT)]
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    lab = np.stack([_descale(296 * fy - 1336934, _LAB_SHIFT2),
+                    _descale(500 * (fx - fy) + (128 << _LAB_SHIFT2), _LAB_SHIFT2),
+                    _descale(200 * (fy - fz) + (128 << _LAB_SHIFT2), _LAB_SHIFT2)], -1)
+    return np.clip(lab, 0, 255).astype(np.uint8)
+
+
+def lab_to_rgb(image: np.ndarray) -> np.ndarray:
+    """uint8 LAB [..., 3] → uint8 RGB, as `cv2.cvtColor(image, cv2.COLOR_LAB2RGB)`."""
+    t, base = _lab_tables(), _LAB_BASE
+    lab = np.asarray(image, np.uint8).astype(np.int64)
+    light, a, b = lab[..., 0], lab[..., 1], lab[..., 2]
+    y, fy = t["y"][light], t["fy"][light]
+    adiv = ((5 * a * 53687 + (1 << 7)) >> 13) - 128 * base // 500
+    bdiv = ((b * 41943 + (1 << 4)) >> 9) - 128 * base // 200 + 1
+    xyz = np.stack([t["xz"][fy + adiv - _MIN_AB], y, t["xz"][fy - bdiv - _MIN_AB]], -1)
+    rgb = np.clip(_descale(xyz @ t["to_rgb"].T, _LAB_SHIFT + 2), 0, 4095)
+    return t["inv_gamma"][rgb].astype(np.uint8)
+
+
+def _match_histogram_channel(src: np.ndarray, tgt: np.ndarray) -> np.ndarray:
+    """CDF histogram matching of one channel (the skimage match_histograms
+    algorithm the reference relies on, done directly in numpy)."""
+    s_values, bin_idx, s_counts = np.unique(src.ravel(), return_inverse=True,
+                                            return_counts=True)
+    t_values, t_counts = np.unique(tgt.ravel(), return_counts=True)
+    s_quantiles = np.cumsum(s_counts) / src.size
+    t_quantiles = np.cumsum(t_counts) / tgt.size
+    mapped = np.interp(s_quantiles, t_quantiles, t_values)
+    return mapped[bin_idx].reshape(src.shape)
+
+
+def setup_color_correction(image: np.ndarray) -> np.ndarray:
+    """Snapshot the init image's LAB histogram target (reference
+    processing.py:745 setup_color_correction)."""
+    return rgb_to_lab(np.asarray(image, np.uint8))
+
+
+def apply_color_correction(correction: np.ndarray, image: np.ndarray) -> np.ndarray:
+    """Histogram-match a generated image to the init image in LAB space
+    (reference processing.py:751 apply_color_correction)."""
+    lab = rgb_to_lab(np.asarray(image, np.uint8))
+    matched = np.stack([_match_histogram_channel(lab[..., c], correction[..., c])
+                        for c in range(3)], axis=-1).astype(np.uint8)
+    return lab_to_rgb(matched)
 
 
 # -- PNG ---------------------------------------------------------------------

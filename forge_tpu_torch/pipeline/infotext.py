@@ -1,4 +1,4 @@
-# Copied from forge_tpu/pipeline/infotext.py; the parser fires no script callbacks (no scripts runtime).
+# Copied from forge_tpu/pipeline/infotext.py; the parser fires the infotext_pasted event (runtime/scripts.py).
 """Infotext: the generation-parameter line embedded in every image.
 
 Reference parity targets:
@@ -220,6 +220,11 @@ def parse_generation_parameters(x: str, skip_fields: Optional[list] = None
     for key in skip_fields or []:
         res.pop(key, None)
 
+    # extensions may rewrite/augment the parsed params (reference
+    # script_callbacks.infotext_pasted_callback, infotext_utils.py paste path)
+    from ..runtime.scripts import fire
+
+    fire("infotext_pasted", x, res)
     return res
 
 

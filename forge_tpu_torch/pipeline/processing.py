@@ -23,8 +23,12 @@ image is pasted into the init image under the blurred mask. `controlnets`
 `unet_hooks` is the UNet's attention hook manifest (models/unet.py; the
 IP-Adapter's, pipeline/ipadapter.py); `tiled_diffusion` ({"tile", "overlap"}
 in latent pixels) denoises the latent tile by tile (sampling/tiled.py).
-The reference's options `img2img_extra_noise` and color correction take
-their defaults (0, off).
+The options `img2img_extra_noise` (noise0 · extra noise added after the
+noise scaling, the "Extra noise" infotext key) and `img2img_color_correction`
+(each image histogram-matched in LAB to its init image in `finish`, before
+the inpaint composite; pipeline/images.py) act as in the reference. With
+`soft_inpainting` (extensions/soft_inpainting.py) the per-step composite is
+the σ-scheduled soft blend instead of the hard one.
 
 Options (runtime/options.py) fill the sampler parameters a request leaves
 at their defaults, as the reference's `_apply_option_defaults` does once the
@@ -136,8 +140,24 @@ reference rewrites the first batch's only. These take txt2img on SDXL
 refiner, hook phases, AND, regional or prompt-editing conds, tiling or an
 NGMS split (each refused, ROADMAP queue 1 item 6 (d)).
 
+The script surface: `scripts` (runtime/scripts.py `ScriptRunner`) has each
+hook fired where forge_tpu fires it: `setup`, `before_process` and `process`
+once the request is set up, then the `before_process` event
+(`process_images`); `after_extra_networks_activate` after the LoRA
+activation, `before_process_batch`, `process_batch` and
+`process_before_every_sampling` once the batch's conds are made, and
+`before_process_init_images` before the init images are read (`prepare`);
+`before_hr` (`hires_pass`); `postprocess_batch`, `postprocess_batch_list`,
+`on_mask_blend`, `postprocess_image_after_composite` and `postprocess_image`
+(`finish`); `postprocess` on the finished `Processed`. The `cfg_denoiser`,
+`cfg_denoised` and `cfg_after_cfg` events fire once a sampling pass
+(`cfg_model_fn`), and what their callbacks append to `CFGHookParams`' pre- and
+post-CFG hooks runs after the request's own at every step of that pass.
+`do_not_save_samples` and `do_not_save_grid` are taken and change nothing:
+the port saves no image.
+
 `Processing` takes only the fields this port reads. Any other field of the
-reference's request (scripts, soft inpainting, ...)
+reference's request (restore_faces, tiling, ...)
 raises NotImplementedError rather than being ignored, as do
 combinations the reference mixes or fails on: AND or regional branches with
 the refiner or on Flux and Chroma, regional masks or the base prompt's AND
@@ -168,6 +188,7 @@ from ..ops.image_rng import ImageRNG
 from ..ops.resize import resize
 from ..runtime.memory import Plan, plan_generation, tree_bytes
 from ..runtime.options import opts
+from ..runtime.scripts import CFGHookParams, callbacks, fire
 from ..runtime.state import state
 from ..sampling import cfg as cfg_mod
 from ..sampling.brownian import brownian_step_noise
@@ -178,7 +199,8 @@ from ..text.schedule import get_schedule, split_composable
 from .engine import DiffusionEngine
 from .extra_networks import activate, parse_prompt
 from .cn_inpaint import composite_final
-from .images import bilinear_resize, resize_init_image
+from .images import (apply_color_correction, bilinear_resize, resize_init_image,
+                     setup_color_correction)
 from .infotext import create_infotext, write_params_txt
 from .masking import expand_crop_region, get_crop_region, resize_image
 from .taesd import preview_decode, taesd_decoder, taesd_for_family
@@ -274,6 +296,10 @@ class Processing:
     hook_phases: Optional[List[Tuple[float, Dict[str, Any]]]] = None
     cond_transform: Optional[Any] = None  # fn(cond) → cond after the cond cache (PhotoMaker)
     reference_state: Optional[Any] = None  # pipeline/reference_only.py ReferenceState
+    scripts: Optional[Any] = None  # runtime/scripts.py ScriptRunner
+    soft_inpainting: Optional[Any] = None  # extensions/soft_inpainting.py SoftInpaintingSettings
+    do_not_save_samples: bool = False  # the port saves no image: taken, changes nothing
+    do_not_save_grid: bool = False
 
     def __setattr__(self, name, value):
         if name not in _FIELDS and name not in _INTERNAL_ATTRS:
@@ -324,7 +350,10 @@ class Job:
     unet_params: Any
     mask: Optional[torch.Tensor] = None  # inpainting: the latent mask, 1 = repaint
     init_latent: Optional[torch.Tensor] = None
-    paste: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None
+    # "only masked": the decoded crops pasted back into the init image, and the request the
+    # crop was made from (its scripts, init images and mask are what `finish` reads)
+    uncrop: Optional[Callable[[np.ndarray], List[np.ndarray]]] = None
+    request: Optional[Processing] = None
     seeds: Optional[List[int]] = None  # the batch's seeds and subseeds (the hires noise)
     subseeds: Optional[List[int]] = None
     branches: Optional[List[Dict[str, Any]]] = None  # AND parts after the first, then regions
@@ -727,13 +756,17 @@ def _attach_regional_conds(engine: DiffusionEngine, p: Processing, branches, wei
     return branches, weights, masks
 
 
-def _conditioning(engine: DiffusionEngine, p: Processing, timings: Dict[str, float]):
-    """LoRA activation, then cond, uncond and the AND and regional branches
-    at a shared chunk count (from the cache where the request repeats) →
-    (cond, uncond, the UNet params the LoRAs patched, branches, weights, masks)."""
+def _conditioning(engine: DiffusionEngine, p: Processing, timings: Dict[str, float],
+                  it: int = 0):
+    """LoRA activation (then the scripts' `after_extra_networks_activate`),
+    then cond, uncond and the AND and regional branches at a shared chunk
+    count (from the cache where the request repeats) → (cond, uncond, the
+    UNet params the LoRAs patched, branches, weights, masks, the prompts)."""
     tl = time.perf_counter()
     prompts, unet_params, patched_tes = activate(engine, [p.prompt] * p.batch_size,
                                                  registry=engine.lora_registry, p=p)
+    if p.scripts is not None:
+        p.scripts.after_extra_networks_activate(p, batch_number=it, prompts=prompts)
     negs = [parse_prompt(p.negative_prompt)[0]] * p.batch_size
     _add_time(timings, "lora", tl)
 
@@ -776,7 +809,7 @@ def _conditioning(engine: DiffusionEngine, p: Processing, timings: Dict[str, flo
         cond = dict(cond, guidance=g)
         uncond = dict(uncond, guidance=g)
     _add_time(timings, "cond", tc)
-    return cond, uncond, unet_params, branches, weights, masks
+    return cond, uncond, unet_params, branches, weights, masks, prompts
 
 
 def _prep_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
@@ -821,6 +854,8 @@ def _encode(engine: DiffusionEngine, images: np.ndarray, tiled: bool = False) ->
 
 def _prep_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond, uncond,
                   unet_params, timings: Dict[str, float]) -> Job:
+    if p.scripts is not None:
+        p.scripts.before_process_init_images(p)
     t_encode = time.perf_counter()
     info = get_sampler(p.sampler_name)
     lc = engine.latent_format.latent_channels
@@ -866,15 +901,13 @@ def _prep_img2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
     if p.initial_noise_multiplier != 1.0:
         noise0 = noise0 * p.initial_noise_multiplier
     x = engine.predictor.noise_scaling(float(np.float32(sigmas[0])), noise0, init_latent)
+    extra_noise = float(opts.get("img2img_extra_noise"))
+    if extra_noise > 0:  # unscaled noise on top of the noised latent (sd_samplers_kdiffusion.py:148)
+        p.extra_generation_params["Extra noise"] = extra_noise
+        x = x + noise0 * extra_noise
     _add_time(timings, "noise", t_noise)
-    job = Job(p, x, sigmas, step_noise, cond, uncond, unet_params, mask=mask_latent,
-              init_latent=init_latent)
-    if p.inpaint_mask is not None:
-        inits = p.init_images
-        job.paste = lambda batch: [_composite_inpaint(p, composite_final(p, batch[b]),
-                                                      inits[min(b, len(inits) - 1)])
-                                   for b in range(len(batch))]
-    return job
+    return Job(p, x, sigmas, step_noise, cond, uncond, unet_params, mask=mask_latent,
+               init_latent=init_latent)
 
 
 def _prep_inpaint_full_res(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
@@ -902,16 +935,16 @@ def _prep_inpaint_full_res(engine: DiffusionEngine, p: Processing, seeds, subsee
     job = _prep_img2img(engine, q, seeds, subseeds, cond, uncond, unet_params, timings)
     m = np.clip(_gaussian_blur(crop_mask, p.mask_blur), 0, 1)[..., None]
 
-    def paste(batch: np.ndarray) -> List[np.ndarray]:
+    def uncrop(batch: np.ndarray) -> List[np.ndarray]:
         results = []
         for b in range(batch.shape[0]):
             gen = resize_image(batch[b], x2 - x1, y2 - y1)
             full = orig.astype(np.float32).copy()
             full[y1:y2, x1:x2] = full[y1:y2, x1:x2] * (1 - m) + gen.astype(np.float32) * m
-            results.append(composite_final(p, np.clip(full, 0, 255).astype(np.uint8)))
-        return results
+            results.append(np.clip(full, 0, 255).astype(np.uint8))
+        return np.stack(results)
 
-    job.paste = paste
+    job.uncrop, job.request = uncrop, p
     return job
 
 
@@ -943,7 +976,8 @@ def prepare(engine: DiffusionEngine, p: Processing, it: int,
     seeds = p.all_seeds[it * p.batch_size:(it + 1) * p.batch_size]
     subseeds = p.all_subseeds[it * p.batch_size:(it + 1) * p.batch_size]
     engine.set_clip_skip(p.clip_skip)
-    cond, uncond, unet_params, branches, weights, masks = _conditioning(engine, p, timings)
+    cond, uncond, unet_params, branches, weights, masks, prompts = _conditioning(engine, p,
+                                                                                timings, it)
     if it == 0:  # the conds come from the prompts, the same in every batch
         for build in p.deferred_hooks or ():
             build(engine, p, cond, uncond)
@@ -954,6 +988,11 @@ def prepare(engine: DiffusionEngine, p: Processing, it: int,
     override = getattr(p, "_unet_param_override", None)
     if override is not None:  # a copy on write: the engine's weights stay as they are
         unet_params = override(unet_params)
+    runner = p.scripts
+    if runner is not None:
+        runner.before_process_batch(p, batch_number=it, prompts=prompts, seeds=seeds)
+        runner.process_batch(p, batch_number=it, prompts=prompts, seeds=seeds)
+        runner.process_before_every_sampling(p, cond=cond, uncond=uncond)
     args = (engine, p, seeds, subseeds, cond, uncond, unet_params, timings)
     if p.init_images is None:
         job = _prep_txt2img(*args)
@@ -981,12 +1020,29 @@ def _tiled(apply_model: Callable, spec: Dict[str, int], x: torch.Tensor) -> Call
                             overlap=int(spec.get("overlap", 32)))
 
 
+CFG_EVENTS = ("cfg_denoiser", "cfg_denoised", "cfg_after_cfg")
+
+
+def _event_cfg_hooks(p: Processing, sigmas: np.ndarray):
+    """The CFG events, fired once for a pass over `sigmas` where a callback
+    is registered → (the pre-CFG hooks, the post-CFG hooks) their callbacks
+    appended."""
+    if not any(callbacks(event) for event in CFG_EVENTS):
+        return (), ()
+    hp = CFGHookParams(p, np.asarray(sigmas, np.float32), len(sigmas) - 1)
+    for event in CFG_EVENTS:
+        fire(event, hp)
+    return tuple(hp.pre_cfg_hooks), tuple(hp.post_cfg_hooks)
+
+
 def cfg_model_fn(engine: DiffusionEngine, job: Job) -> Callable:
     """The model_fn(x, σ) a job's pass integrates: the UNet with the
     request's hooks and ControlNets, its tiles, CFG with the branches and
-    the CFG hooks, and the inpaint composite."""
+    the CFG hooks (the request's, then those the CFG events add), and the
+    inpaint composite, hard or soft."""
     p = job.p
     info = get_sampler(p.sampler_name)
+    event_pre, event_post = _event_cfg_hooks(p, job.sigmas)
 
     def make_apply(hooks):
         return cfg_mod.make_apply_model(
@@ -1012,14 +1068,18 @@ def cfg_model_fn(engine: DiffusionEngine, job: Job) -> Callable:
         p.cfg_scale * info.cfg_multiplier, cfg_rescale=p.cfg_rescale,
         sigmas_np=job.sigmas if job.sigma_table is None else job.sigma_table,
         cond_branches=job.branches, branch_weights=job.weights, branch_masks=job.masks,
-        return_uncond=info.needs_uncond, pre_cfg_hooks=tuple(p.pre_cfg_hooks or ()),
-        post_cfg_hooks=tuple(p.post_cfg_hooks or ()), cfg_combine_fn=combine)
+        return_uncond=info.needs_uncond, pre_cfg_hooks=tuple(p.pre_cfg_hooks or ()) + event_pre,
+        post_cfg_hooks=tuple(p.post_cfg_hooks or ()) + event_post, cfg_combine_fn=combine)
     mask, init_latent = job.mask, job.init_latent
     cn = getattr(p, "_cn_inpaint", None)
     if mask is None and cn is not None and cn["latent"].shape[2:] == job.x.shape[2:]:
         # ControlNet inpaint_only: its composite, on a pass at its latent's size
         mask, init_latent = cn["latent_mask"], cn["latent"]
-    if mask is not None:
+    if mask is not None and p.soft_inpainting is not None:
+        from ..extensions.soft_inpainting import make_soft_masked_model_fn
+
+        model_fn = make_soft_masked_model_fn(model_fn, mask, init_latent, p.soft_inpainting)
+    elif mask is not None:
         masked = cfg_mod.make_masked_pair_fn if info.needs_uncond else cfg_mod.make_masked_model_fn
         model_fn = masked(model_fn, mask, init_latent)
     return model_fn
@@ -1046,13 +1106,46 @@ def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
         return info.fn(ticking, job.x, job.sigmas, job.step_noise, **kwargs)
 
 
-def finish(job: Job, batch: np.ndarray) -> List[np.ndarray]:
-    """The finish stage: decoded uint8 [B,H,W,3] → the request's images,
-    through ControlNet inpaint_only's final composite and the inpaint paste
-    in the reference's order (the paste functions hold both)."""
-    if job.paste is not None:
-        return job.paste(batch)
-    return [composite_final(job.p, img) for img in batch]
+def finish(job: Job, batch: np.ndarray, batch_number: int = 0) -> List[np.ndarray]:
+    """The finish stage: decoded uint8 [B,H,W,3] → the request's images, in
+    the reference's order: "only masked" crops pasted back, the scripts'
+    `postprocess_batch` and `postprocess_batch_list`, then each image's
+    colour correction (img2img under the option), ControlNet inpaint_only's
+    final composite, the inpaint paste with `on_mask_blend` and
+    `postprocess_image_after_composite` (not for "only masked", whose paste
+    is done, as the reference's), and `postprocess_image`."""
+    p = job.request if job.request is not None else job.p
+    runner = p.scripts
+    if job.uncrop is not None:
+        batch = job.uncrop(batch)
+    if runner is not None:
+        batch = runner.postprocess_batch(p, batch, batch_number=batch_number)
+        listed = runner.postprocess_batch_list(p, [batch[i] for i in range(len(batch))],
+                                               batch_number=batch_number)
+        if listed is not None:
+            batch = listed
+    is_img2img = p.init_images is not None
+    correct = is_img2img and bool(opts.get("img2img_color_correction"))
+    images = []
+    for b in range(len(batch)):
+        img = batch[b]
+        init = p.init_images[min(b, len(p.init_images) - 1)] if is_img2img else None
+        if correct:
+            img = apply_color_correction(setup_color_correction(init), img)
+        img = composite_final(p, img)
+        if is_img2img and p.inpaint_mask is not None and job.uncrop is None:
+            img = _composite_inpaint(p, img, init)
+            if runner is not None:
+                blended = runner.on_mask_blend(p, img, index=b)
+                if blended is not None:
+                    img = blended
+                after = runner.postprocess_image_after_composite(p, img, index=b)
+                if after is not None:
+                    img = after
+        if runner is not None:
+            img = runner.postprocess_image(p, img, index=b)
+        images.append(img)
+    return images
 
 
 # checkpoint name → DiffusionEngine, installed by whoever holds the engines;
@@ -1266,6 +1359,8 @@ def hires_pass(engine: DiffusionEngine, job: Job, latent: torch.Tensor,
     """The hires fix's second pass over the first pass's latent → (latent,
     the engine that sampled it and decodes it)."""
     p = job.p
+    if p.scripts is not None:
+        p.scripts.before_hr(p)
     hr_engine, cond, uncond, unet_params = engine, job.cond, job.uncond, job.unet_params
     reencode = bool(p.hr_prompt or p.hr_negative_prompt)
     if p.hr_checkpoint_name or getattr(p, "_hr_engine", None) is not None:
@@ -1327,6 +1422,12 @@ def hires_pass(engine: DiffusionEngine, job: Job, latent: torch.Tensor,
 def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
     t0 = time.perf_counter()
     setup(engine, p)
+    runner = p.scripts
+    if runner is not None:
+        runner.setup(p)
+        runner.before_process(p)
+        runner.process(p)
+    fire("before_process", p)
     plan(engine, p)
     timings: Dict[str, float] = {}
     images: List[np.ndarray] = []
@@ -1348,12 +1449,18 @@ def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
         batch = out_engine.decode_finish(handle)
         _add_time(timings, "decode", t2)
         methods.append(method)
-        images.extend(finish(job, batch))
-        texts.extend(infotexts(p, job.seeds, job.subseeds))
+        done = finish(job, batch, it)
+        images.extend(done)
+        last = len(job.seeds) - 1  # a script may have added images to the batch
+        texts.extend(infotexts(p, [job.seeds[min(b, last)] for b in range(len(done))],
+                               [job.subseeds[min(b, last)] for b in range(len(done))]))
         state.skipped = False  # a skip ends one batch
     timings["total"] = time.perf_counter() - t0
+    processed = Processed(images=images, seeds=list(p.all_seeds), subseeds=list(p.all_subseeds),
+                          infotexts=texts, params=_simple_params(p), timings=timings,
+                          decode_method=", ".join(dict.fromkeys(methods)))
+    if runner is not None:
+        runner.postprocess(p, processed)
     if texts and opts.get("save_write_params_txt"):
         write_params_txt(texts[0])
-    return Processed(images=images, seeds=list(p.all_seeds), subseeds=list(p.all_subseeds),
-                     infotexts=texts, params=_simple_params(p), timings=timings,
-                     decode_method=", ".join(dict.fromkeys(methods)))
+    return processed

@@ -9,7 +9,8 @@ that resolver when it is made and `close()` (or leaving its `with` block)
 puts back the one it replaced. Engines load on the CUDA card unless the
 manager was given another device. `load(name, vae=path)` loads the
 checkpoint with that VAE file in place of its own (core/loader.py
-`additional_modules`).
+`additional_modules`). A loaded or set engine fires the `model_loaded` event
+(runtime/scripts.py) outside the manager's lock.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional
 
 from ..pipeline.engine import DiffusionEngine, load_engine
 from ..pipeline.extra_networks import LoraRegistry
+from .scripts import fire
 
 _EXTS = (".safetensors", ".ckpt", ".sft", ".pt")
 
@@ -139,6 +141,7 @@ class ModelManager:
         with self._lock:
             self._engine = engine
             self._loading_key = ("external",)
+        fire("model_loaded", engine)
 
     def load(self, name_or_path: str, vae: Optional[str] = None, **kwargs) -> DiffusionEngine:
         """The engine of a checkpoint by name or path (load_engine's keyword
@@ -158,6 +161,8 @@ class ModelManager:
             self._engine.checkpoint_name = info.name
             self._engine.checkpoint_hash = info.short_hash()
             self._loading_key = key
+        fire("model_loaded", self._engine)
+        with self._lock:
             return self._engine
 
     def unload(self):

@@ -103,6 +103,9 @@ _DEFAULTS = {
     "vae_dtype": OptionInfo("auto", "VAE compute dtype (--no-half-vae sets float32)", "vae",
                             ["auto", "bfloat16", "float32"]),
     "initial_noise_multiplier": OptionInfo(1.0, "img2img noise multiplier", "img2img"),
+    "img2img_extra_noise": OptionInfo(0.0, "img2img extra noise", "img2img"),
+    "img2img_color_correction": OptionInfo(False, "Color-correct img2img to init image",
+                                           "img2img"),
     "disable_nan_check": OptionInfo(False, "Skip NaN checks after UNet/VAE", "compat"),
     "eta_ddim": OptionInfo(0.0, "Eta for DDIM", "sampler"),
     "eta_ancestral": OptionInfo(1.0, "Eta for ancestral samplers", "sampler"),

@@ -24,7 +24,11 @@ pipeline goes on with the next request. Requests with init images
 (img2img), the hires fix, a refiner or `n_iter` > 1 are refused, as the
 reference's serving takes plain txt2img requests, and so are the CFG hooks
 (`pre_cfg_hooks`, `post_cfg_hooks`, `cfg_combine_hook`), `hook_phases` and
-`deferred_hooks`, which no test holds against the reference's serving. The prep stage makes the
+`deferred_hooks`, which no test holds against the reference's serving, and
+`scripts`, whose request-level hooks (`setup`, `postprocess`, ...) the
+stages do not run (the reference's serving drops them). The CFG events fire
+on the denoise thread, once a request, as the reference's serving fires
+them. The prep stage makes the
 request's memory plan as `process_images` does (`plan`), without chunking
 the batch, as the reference's serving makes it: a tiled plan, TAESD or the
 `vae_always_tiled` option pick the decode (`decode_dispatch`).
@@ -124,6 +128,10 @@ class ServingPipeline:
                 or proc._refiner_step(p, max(p.steps, 2)) is not None):
             raise NotImplementedError("serving takes plain txt2img requests of one batch "
                                       "(no init_images, hires fix or refiner; n_iter 1); "
+                                      "use process_images")
+        if p.scripts is not None:
+            raise NotImplementedError("serving with scripts is not ported: its threads do not "
+                                      "run the request-level hooks (ROADMAP.md queue 1 item 7); "
                                       "use process_images")
         asked = [name for name in proc.CFG_HOOK_FIELDS + proc.IMAGE_PROMPT_FIELDS
                  + ("hook_phases", "deferred_hooks") if getattr(p, name)]

@@ -188,8 +188,9 @@ def test_listings_match_forge_tpu(servers, route):
 
 def test_refusals(servers):
     """An unported field 422 with Processing's text; a field of the reference
-    the port lacks passes at the port's behaviour (tiling off); scripts and
-    saving 422; an unported route 501 naming its ROADMAP item; a JPEG 415, a
+    the port lacks passes at the port's behaviour (tiling off); saving and an
+    unknown script 422 (a known one and soft inpainting are answered,
+    tests/test_torch_scripts_api.py); an unported route 501 naming its ROADMAP item; a JPEG 415, a
     PNG past the reader's pixel limit 413 and a truncated one 422; an
     unknown route 404; an unported option 422."""
     _, tbase = servers
@@ -198,10 +199,11 @@ def test_refusals(servers):
     status, _, _ = _call(tbase, "/sdapi/v1/txt2img", dict(TXT2IMG, steps=1, tiling=False,
                                                           restore_faces=False))
     assert status == 200
-    for key, value in (("script_name", "x/y/z plot"), ("alwayson_scripts", {"soft inpainting": {}}),
-                       ("save_images", True)):
+    for key, value, detail in (("script_name", "x/y/z plot", "unknown script 'x/y/z plot'"),
+                               ("alwayson_scripts", {"soft inpainting x": {}}, "alwayson_scripts"),
+                               ("save_images", True, "save_images")):
         status, body, _ = _call(tbase, "/sdapi/v1/txt2img", dict(TXT2IMG, **{key: value}))
-        assert status == 422 and key in body["detail"], (key, body)
+        assert status == 422 and detail in body["detail"], (key, body)
     status, body, _ = _call(tbase, "/sdapi/v1/extra-single-image", {"image": ""})
     assert status == 501 and "ROADMAP.md queue 1 item 9" in body["detail"]
     for method_path in (("GET", "/"), ("POST", "/sdapi/v1/interrogate")):

@@ -12,8 +12,8 @@ scripts (FreeU's: the dispatch fixes its model channels at SDXL's 320, which
 the tiny UNet's 32 never match, so it acts on neither side). The two
 together show the IP layer counter's fault from both sides; the port's PNG
 is its own `process_images` image, pixel for pixel, with its infotext as
-"parameters". Soft inpainting, an unknown script and what an extension
-refuses answer 422.
+"parameters". An unknown always-on script (a selectable script's name too)
+and what an extension refuses answer 422.
 """
 
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -175,8 +175,8 @@ def test_lora_script_is_accepted(servers, plain):
 
 
 @pytest.mark.parametrize("scripts,detail", [
-    ({"soft inpainting": {"args": [{}]}}, "6 \\(e\\)"),
-    ({"Soft Inpainting": {"args": []}}, "soft inpainting"),
+    ({"x/y/z plot": {"args": [{}]}}, "unknown alwayson_scripts 'x/y/z plot'"),
+    ({"Prompt matrix": {"args": []}}, "unknown alwayson_scripts 'Prompt matrix'"),
     ({"no such script": {"args": []}}, "unknown alwayson_scripts.*supported:.* controlnet,"),
     ({"controlnet": {"args": [{"module": "ip-adapter_clip_sdxl", "image": "x"}]}},
      "'ip-adapter' always-on script"),

@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 from fixtures import make_sd15_checkpoint  # noqa: E402
 
 KEYS = ("eta_ancestral", "eta_ddim", "s_churn", "s_noise", "eta_noise_seed_delta",
-        "CLIP_stop_at_last_layers", "initial_noise_multiplier", "beta_dist_alpha",
+        "CLIP_stop_at_last_layers", "initial_noise_multiplier", "img2img_extra_noise",
+        "img2img_color_correction", "beta_dist_alpha",
         "beta_dist_beta", "disable_nan_check", "vae_dtype", "emphasis", "s_min_uncond",
         "save_write_params_txt", "add_model_name_to_info",
         "add_model_hash_to_info", "add_version_to_infotext", "infotext_styles",

@@ -67,12 +67,14 @@ def test_load_engine_without_a_device_does_not_fall_back_to_the_cpu():
 def test_processing_refuses_unported_fields():
     from forge_tpu_torch.pipeline.processing import Processing
 
-    with pytest.raises(NotImplementedError, match="scripts"):
-        Processing(prompt="x", scripts=object())
+    with pytest.raises(NotImplementedError, match="tiling"):
+        Processing(prompt="x", tiling=True)
     p = Processing()
-    with pytest.raises(NotImplementedError, match="soft_inpainting"):
-        p.soft_inpainting = {"mask_blend_power": 1.0}
-    for name, value in (("cond_transform", lambda c: c), ("reference_state", object())):
+    with pytest.raises(NotImplementedError, match="image_cfg_scale"):
+        p.image_cfg_scale = 1.5
+    for name, value in (("cond_transform", lambda c: c), ("reference_state", object()),
+                        ("scripts", object()), ("soft_inpainting", object()),
+                        ("do_not_save_grid", True)):
         assert getattr(Processing(prompt="x", **{name: value}), name) is value  # ported fields
     with pytest.raises(NotImplementedError, match="restore_faces"):
         Processing(prompt="x", restore_faces=True)
@@ -86,8 +88,8 @@ def test_port_imports_no_jax():
         "'forge_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 75, mods\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'safetensors',"
-        " 'transformers', 'psutil') or m.startswith(('jax.', 'forge_tpu.', 'PIL.',"
+        "bad = [m for m in sys.modules if m in ('jax', 'forge_tpu', 'PIL', 'cv2', 'safetensors',"
+        " 'transformers', 'psutil') or m.startswith(('jax.', 'forge_tpu.', 'PIL.', 'cv2.',"
         " 'safetensors.', 'transformers.', 'psutil.'))]\n"
         "assert {'forge_tpu_torch.api.server', 'forge_tpu_torch.webui',"
         " 'forge_tpu_torch.runtime.memory', 'forge_tpu_torch.runtime.state',"
@@ -100,7 +102,9 @@ def test_port_imports_no_jax():
         " 'forge_tpu_torch.models.mmdit', 'forge_tpu_torch.models.chroma'} <= set(mods)\n"
         "assert {'forge_tpu_torch.extensions.' + m for m in ('freeu', 'pag', 'sag',"
         " 'dynamic_thresholding', 'latent_modifier', 'hypernetworks', 'stylealign',"
-        " 'controllllite')} <= set(mods)\n"
+        " 'controllllite', 'soft_inpainting', 'xyz_grid')} <= set(mods)\n"
+        "assert {'forge_tpu_torch.runtime.scripts',"
+        " 'forge_tpu_torch.pipeline.selectable_scripts'} <= set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
