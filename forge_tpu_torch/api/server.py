@@ -10,8 +10,8 @@ Every generation, and every checkpoint load, runs on the single work queue
 
 A request field is passed to the port's `Processing`; one it refuses answers
 422 with the refusal's text. The reference's fields the port lacks are
-dropped only at the value that is the port's behaviour (no tiling, hooks or
-face restoration); keys that are no request field at all are dropped, as
+dropped only at the value that is the port's behaviour (no tiling or
+hooks); keys that are no request field at all are dropped, as
 the reference drops them, and `do_not_save_samples` and `do_not_save_grid`
 default to true, as the reference's API sets them. `alwayson_scripts` turns
 the extensions on, as the reference's dispatch does: ControlNet units, the
@@ -25,7 +25,11 @@ with `script_args` in place of `process_images`; an unknown name answers
 422. `/sdapi/v1/scripts` and `/sdapi/v1/script-info` list the always-on and
 selectable scripts and the runners' registered ones, and
 `/sdapi/v1/xyz-grid` runs the X/Y/Z grid (extensions/xyz_grid.py); an axis
-value it refuses answers 422. `create_server` fires the `app_started` event
+value it refuses answers 422. `/sdapi/v1/extra-single-image` and
+`/sdapi/v1/extra-batch-images` restore faces and upscale uploaded images as
+the reference's `_upscale_one` does (the registry of pipeline/upscalers.py,
+the restorer postprocessing/faces.py picks); `restore_faces` without a
+restorer checkpoint answers 422. `create_server` fires the `app_started` event
 and `serve` `script_unloaded` once it stops serving. An image
 that is not an 8-bit PNG answers 415 with its format's name. Routes of the reference's table that
 this port does not answer yet answer 501 with the ROADMAP item that ports
@@ -52,6 +56,7 @@ import torch
 from ..pipeline import images as images_mod
 from ..pipeline.infotext import infotext_to_processing_args, parse_generation_parameters
 from ..pipeline.processing import Processing, process_images
+from ..postprocessing.faces import RestorerMissing
 from ..runtime.models import ModelManager
 from ..runtime.options import opts
 from ..runtime.queue import work_queue
@@ -98,7 +103,7 @@ _API_ALIASES = {
 # the reference's request fields (forge_tpu Processing) that the port's lacks, at the value
 # that is the port's behaviour: dropped at it, passed on (and refused) at any other
 _INERT_FIELDS = {
-    "tiling": False, "restore_faces": False, "image_cfg_scale": None, "user": None,
+    "tiling": False, "image_cfg_scale": None, "user": None,
     "init_img_hash": None,
     "scripts": None, "pre_cfg_hooks": None, "post_cfg_hooks": None, "cfg_combine_hook": None,
     "deferred_hooks": None, "cond_transform": None, "soft_inpainting": None,
@@ -266,7 +271,7 @@ LATENT_UPSCALE_MODES = ("Latent", "Latent (antialiased)", "Latent (bicubic)",
 
 # the reference's routes this port does not answer yet → the ROADMAP item that ports them
 _ROADMAP_STATIC_UI = "queue 1 item 7: the static web UI"
-_ROADMAP_EXTRAS = "queue 1 item 9: extras, upscaling and interrogate"
+_ROADMAP_EXTRAS = "queue 1 item 9: interrogate (BLIP, deepbooru, the CLIP interrogator)"
 _ROADMAP_CONTROLNET = "queue 1 item 6: the ControlNet routes"
 _ROADMAP_SPACES = "queue 1 item 9: spaces"
 _ROADMAP_MANAGE = "queue 1 item 7: extensions, merging, embeddings and the extra-networks pages"
@@ -274,8 +279,6 @@ UNPORTED_ROUTES = {
     ("GET", "/"): _ROADMAP_STATIC_UI,
     ("GET", "/sdapi/v1/localization"): _ROADMAP_STATIC_UI,
     ("GET", "/sdapi/v1/ui-tabs"): _ROADMAP_STATIC_UI,
-    ("POST", "/sdapi/v1/extra-single-image"): _ROADMAP_EXTRAS,
-    ("POST", "/sdapi/v1/extra-batch-images"): _ROADMAP_EXTRAS,
     ("POST", "/sdapi/v1/interrogate"): _ROADMAP_EXTRAS,
     ("GET", "/controlnet/model_list"): _ROADMAP_CONTROLNET,
     ("GET", "/controlnet/module_list"): _ROADMAP_CONTROLNET,
@@ -348,6 +351,8 @@ class Api:
             ("GET", "/sdapi/v1/scripts"): self.list_scripts,
             ("GET", "/sdapi/v1/script-info"): self.script_info,
             ("POST", "/sdapi/v1/xyz-grid"): self.xyz_grid,
+            ("POST", "/sdapi/v1/extra-single-image"): self.extra_single,
+            ("POST", "/sdapi/v1/extra-batch-images"): self.extra_batch,
         }
         for route, item in UNPORTED_ROUTES.items():
             self.routes[route] = self._unported(route, item)
@@ -554,12 +559,87 @@ class Api:
     def get_sd_modules(self, query, body):
         return [{"name": os.path.basename(v), "filename": v} for v in self.models.list_vaes()]
 
-    def get_upscalers(self, query, body):
+    def _upscalers(self):
         from ..pipeline.upscalers import get_default_registry
 
+        return get_default_registry(self.models.device)
+
+    def get_upscalers(self, query, body):
         return [{"name": n, "model_name": None, "model_path": None, "model_url": None,
                  "scale": u.scale}
-                for n, u in get_default_registry().upscalers.items()]
+                for n, u in self._upscalers().upscalers.items()]
+
+    # -- extras -----------------------------------------------------------------
+
+    def _upscale_one(self, img_b64: str, body) -> str:
+        """One extras image (reference postprocessing order): face restoration
+        blended by max(codeformer_visibility, gfpgan_visibility), the upscale
+        (resize_mode 0: `upscaling_resize`; 1: the scale that covers, or with
+        `upscaling_crop` off fits, `upscaling_resize_w`×`_h`), `upscaler_2`
+        on the undecorated input blended by `extras_upscaler_2_visibility`,
+        then for mode 1 the centre crop (zero past the edge, as Pillow's
+        crop) and a Lanczos resize to the exact size. Each network step runs
+        on the work queue. `focal_crop_enabled` answers 422; a restorer
+        without its checkpoint too, where the reference skips it."""
+        if body.get("focal_crop_enabled"):
+            raise ApiError(422, "focal_crop_enabled is not ported to forge_tpu_torch yet "
+                                "(ROADMAP.md queue 1 item 9: focal crop)")
+        img = _b64_to_image(img_b64)
+        cf_vis = float(body.get("codeformer_visibility", 0) or 0)
+        gf_vis = float(body.get("gfpgan_visibility", 0) or 0)
+        if cf_vis > 0 or gf_vis > 0:
+            from ..postprocessing.faces import get_face_restorer
+
+            restorer = get_face_restorer(self.models.device)
+            if not restorer.available:  # the reference skips without a word
+                raise ApiError(422, f"face restoration: no {restorer.name} checkpoint under "
+                                    f"{restorer.model_dir}")
+            w = float(body.get("codeformer_weight", 0.5))
+            restored = work_queue.run_and_wait(restorer.restore, img, w)
+            vis = max(cf_vis, gf_vis)
+            img = (restored.astype(np.float32) * vis
+                   + img.astype(np.float32) * (1 - vis) + 0.5).astype(np.uint8)
+        registry = self._upscalers()
+        name = body.get("upscaler_1", "Lanczos")
+        if int(body.get("resize_mode", 0) or 0) == 1:
+            tw = int(body.get("upscaling_resize_w", 512) or 512)
+            th = int(body.get("upscaling_resize_h", 512) or 512)
+            h, w = img.shape[:2]
+            crop = body.get("upscaling_crop", True)
+            scale = max(tw / w, th / h) if crop else min(tw / w, th / h)
+        else:
+            tw = th = None
+            scale = float(body.get("upscaling_resize", 2))
+        if name and name != "None" and scale != 1:
+            img = work_queue.run_and_wait(registry.get(name).upscale, img, scale)
+            name2 = body.get("upscaler_2", "None")
+            vis2 = float(body.get("extras_upscaler_2_visibility", 0) or 0)
+            if name2 and name2 != "None" and vis2 > 0:
+                img2 = work_queue.run_and_wait(registry.get(name2).upscale,
+                                               _b64_to_image(img_b64), scale)
+                if img2.shape == img.shape:
+                    img = (img2.astype(np.float32) * vis2
+                           + img.astype(np.float32) * (1 - vis2) + 0.5).astype(np.uint8)
+        if tw is not None:
+            h, w = img.shape[:2]
+            if body.get("upscaling_crop", True) and (w, h) != (tw, th):
+                left, top = max(0, (w - tw) // 2), max(0, (h - th) // 2)
+                cropped = np.zeros((th, tw) + img.shape[2:], np.uint8)
+                part = img[top:top + th, left:left + tw]
+                cropped[:part.shape[0], :part.shape[1]] = part
+                img = cropped
+            if img.shape[:2] != (th, tw):
+                img = images_mod.lanczos_resize(img, tw, th)
+        return _image_to_b64(img)
+
+    def extra_single(self, query, body):
+        return {"image": self._upscale_one(body.get("image", ""), body), "html_info": ""}
+
+    def extra_batch(self, query, body):
+        images = body.get("imageList", []) or body.get("images", [])
+        return {"images": [self._upscale_one(item.get("data", item) if isinstance(item, dict)
+                                             else item, body) for item in images],
+                "html_info": ""}
 
     def get_prompt_styles(self, query, body):
         from ..runtime.styles import prompt_styles
@@ -808,6 +888,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(422, {"detail": str(e)})
         except KeyError as e:  # an unported option, an unknown sampler or upscaler
             self._reply(422, {"detail": str(e.args[0]) if e.args else str(e)})
+        except RestorerMissing as e:  # restore_faces with no checkpoint
+            self._reply(422, {"detail": str(e)})
         except FileNotFoundError as e:
             self._reply(404, {"detail": str(e)})
         except Exception as e:  # noqa: BLE001

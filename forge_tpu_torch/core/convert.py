@@ -53,6 +53,21 @@ def to_tensor(value) -> torch.Tensor:
     return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
 
+def tree_to(tree: Mapping[str, Any], device, dtype) -> Dict[str, Any]:
+    """A nested tree (numpy arrays or tensors) on `device`: floating leaves in
+    `dtype`, integer leaves (index buffers) as they are. (core/loader.py's
+    `to_device_tree` takes a checkpoint's flat dict and stores the fused
+    convs' weights channels_last on the card; this keeps every layout.)"""
+    out: Dict[str, Any] = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out[key] = tree_to(value, device, dtype)
+        else:
+            t = to_tensor(value)
+            out[key] = t.to(device, dtype) if t.is_floating_point() else t.to(device)
+    return out
+
+
 def is_quant_dict(value) -> bool:
     """A quantized leaf in forge_tpu's dict form (or its QuantTensor)."""
     return hasattr(value, "get") and value.get("kind") is not None and (
@@ -79,19 +94,26 @@ def quant_leaf(value) -> QuantLeaf:
                      block=value.get("block") or 0)
 
 
+def _not_a_kernel(key: str) -> bool:
+    return key.endswith(".bias") or "noises." in key or "constant_input." in key
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
     """forge_tpu nested parameter tree → flat torch state dict.
 
-    Leaves may be numpy or JAX arrays (anything `np.asarray` reads). Every
-    4-d leaf is a conv kernel that forge_tpu transposed OIHW → HWIO at load
-    (`transform_for_jax`); it is transposed back with axes (3, 2, 0, 1)."""
+    Leaves may be numpy or JAX arrays (anything `np.asarray` reads). A 4-d
+    leaf is a conv kernel that forge_tpu transposed OIHW → HWIO at load
+    (`transform_for_jax`, a transposed conv's [I,O,k,k] alike); it is
+    transposed back with axes (3, 2, 0, 1). GFPGAN's 4-d leaves that are
+    no kernel stay as they are: a bias ([1, O, 1, 1]), the StyleGAN
+    decoder's `noises` and `constant_input`. Nothing else is reordered."""
     out: Dict[str, torch.Tensor] = {}
     for key, leaf in flatten(tree).items():
         if is_quant_dict(leaf):
             out[key] = quant_leaf(leaf)
             continue
         arr = np.asarray(leaf)
-        if arr.ndim == 4:
+        if arr.ndim == 4 and not _not_a_kernel(key):
             arr = np.transpose(arr, (3, 2, 0, 1))
         out[key] = to_tensor(np.ascontiguousarray(arr))
     return out

@@ -32,10 +32,11 @@ class _Fill:
         self.rng = np.random.default_rng(seed)
         self.scale = scale
 
-    def w(self, *shape):
+    def w(self, *shape, scale: Optional[float] = None):
         if self.mode == "zeros":
             return np.zeros(shape, np.float32)
-        return (self.rng.standard_normal(shape) * self.scale).astype(np.float32)
+        return (self.rng.standard_normal(shape) * (self.scale if scale is None else scale)
+                ).astype(np.float32)
 
     def ones(self, *shape):
         return np.ones(shape, np.float32)
@@ -80,9 +81,10 @@ class DeviceFill:
     def seeded(self, seed: int) -> "DeviceFill":
         return DeviceFill(self.device, self.seed * 1_000_003 + seed, self.scale)
 
-    def w(self, *shape):
+    def w(self, *shape, scale: Optional[float] = None):
         index, self._count = self._count, self._count + 1
-        dev, scale, seed = self.device, self.scale, self.seed * 100_003 + index
+        dev, seed = self.device, self.seed * 100_003 + index
+        scale = self.scale if scale is None else scale
 
         def make():
             gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1041,3 +1043,418 @@ def synth_taesd_sd(latent_channels: int = 4, fill: FillSpec = "zeros",
         conv(f"encoder.{i}", 64, 64, bias=False)
     conv("encoder.14", latent_channels, 64)
     return sd
+
+
+# -- restoration networks: upscalers and face restorers, in their released files' key spaces.
+# Weights are N(0, (gain/√fan_in)²) (`_Net.w`), so activations keep their scale through the
+# residual stacks; attention bias tables N(0, 0.02²); norms at weight 1, bias 0.
+
+
+class _Net:
+    """A state dict under construction with fan-in scaled weights."""
+
+    def __init__(self, fill: FillSpec, seed: int, gain: float = 1.0):
+        self.f = _fill(fill, seed)
+        self.gain = gain
+        self.sd: Dict[str, object] = {}
+
+    def w(self, *shape):
+        return self.f.w(*shape, scale=self.gain / float(np.sqrt(np.prod(shape[1:]))))
+
+    def conv(self, key, o, i, k=3, bias=True):
+        self.sd[key + ".weight"] = self.w(o, i, k, k)
+        if bias:
+            self.sd[key + ".bias"] = self.f.zeros(o)
+
+    def linear(self, key, o, i, bias=True):
+        self.sd[key + ".weight"] = self.w(o, i)
+        if bias:
+            self.sd[key + ".bias"] = self.f.zeros(o)
+
+    def norm(self, key, c):
+        self.sd[key + ".weight"], self.sd[key + ".bias"] = self.f.ones(c), self.f.zeros(c)
+
+    def bn(self, key, c):
+        self.norm(key, c)
+        self.sd[key + ".running_mean"], self.sd[key + ".running_var"] = (self.f.zeros(c),
+                                                                           self.f.ones(c))
+
+    def table(self, key, *shape, scale=0.02):
+        self.sd[key] = self.f.w(*shape, scale=scale)
+
+
+def _swin_index(ws: int) -> np.ndarray:
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij")).reshape(2, -1)
+    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0) + (ws - 1)
+    return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).astype(np.int64)
+
+
+def _swin_attn_mask(img_size: int, ws: int) -> np.ndarray:
+    img = np.zeros((img_size, img_size), np.float32)
+    cnt, shift = 0, ws // 2
+    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+            img[hs, wsl] = cnt
+            cnt += 1
+    win = img.reshape(img_size // ws, ws, img_size // ws, ws).transpose(0, 2, 1, 3)
+    win = win.reshape(-1, ws * ws)
+    return np.where(win[:, None, :] != win[:, :, None], -100.0, 0.0).astype(np.float32)
+
+
+def _upsample_tail(n: _Net, embed: int, num_feat: int, scale: int, upsampler: str) -> None:
+    n.conv("conv_after_body", embed, embed)
+    if upsampler == "nearest+conv":
+        n.conv("conv_before_upsample.0", num_feat, embed)
+        for key in ("conv_up1", "conv_up2")[: 2 if scale == 4 else 1]:
+            n.conv(key, num_feat, num_feat)
+        n.conv("conv_hr", num_feat, num_feat)
+    else:  # pixelshuffle: a conv to 4·num_feat and a ×2 shuffle, twice for ×4
+        n.conv("conv_before_upsample.0", num_feat, embed)
+        for i in range({2: 1, 4: 2, 8: 3}[scale]):
+            n.conv(f"upsample.{2 * i}", 4 * num_feat, num_feat)
+    n.conv("conv_last", 3, num_feat)
+
+
+def synth_swinir_sd(embed: int = 180, depths: Sequence[int] = (6,) * 6, heads: int = 6,
+                    window: int = 8, mlp_ratio: float = 2.0, num_feat: int = 64, scale: int = 4,
+                    upsampler: str = "nearest+conv", resi_connection: str = "1conv",
+                    img_size: int = 64, fill: FillSpec = "random", seed: int = 20) -> Dict[str, object]:
+    """SwinIR (network_swinir.py) as its released files hold it; the defaults
+    are 003_realSR_BSRGAN_DFO_s64w8_SwinIR-M_x4_GAN's (embed 180, six RSTBs
+    of six blocks, six heads, window 8, MLP ×2, "nearest+conv", 1conv), with
+    the `relative_position_index` and shifted blocks' `attn_mask` buffers
+    (at `img_size`, as upstream registers them)."""
+    n = _Net(fill, seed)
+    hidden = int(embed * mlp_ratio)
+    n.conv("conv_first", embed, 3)
+    n.norm("patch_embed.norm", embed)
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            b = f"layers.{i}.residual_group.blocks.{j}."
+            n.norm(b + "norm1", embed)
+            n.table(b + "attn.relative_position_bias_table", (2 * window - 1) ** 2, heads)
+            n.sd[b + "attn.relative_position_index"] = _swin_index(window)
+            n.linear(b + "attn.qkv", 3 * embed, embed)
+            n.linear(b + "attn.proj", embed, embed)
+            n.norm(b + "norm2", embed)
+            n.linear(b + "mlp.fc1", hidden, embed)
+            n.linear(b + "mlp.fc2", embed, hidden)
+            if j % 2:
+                n.sd[b + "attn_mask"] = _swin_attn_mask(img_size, window)
+        if resi_connection == "1conv":
+            n.conv(f"layers.{i}.conv", embed, embed)
+        else:  # 3conv: conv 3×3 to embed/4, 1×1, 3×3 back
+            n.conv(f"layers.{i}.conv.0", embed // 4, embed)
+            n.conv(f"layers.{i}.conv.2", embed // 4, embed // 4, k=1)
+            n.conv(f"layers.{i}.conv.4", embed, embed // 4)
+    n.norm("norm", embed)
+    _upsample_tail(n, embed, num_feat, scale, upsampler)
+    return n.sd
+
+
+def synth_hat_sd(embed: int = 180, depths: Sequence[int] = (6,) * 6, heads: int = 6,
+                 window: int = 16, overlap_ratio: float = 0.5, compress_ratio: int = 3,
+                 squeeze_factor: int = 30, mlp_ratio: float = 2.0, num_feat: int = 64,
+                 scale: int = 4, fill: FillSpec = "random", seed: int = 21) -> Dict[str, object]:
+    """HAT (hat_arch.py); the defaults are HAT_SRx4's (embed 180, six RHAGs
+    of six blocks, six heads, window 16, overlap 0.5, compress 3, squeeze
+    30, pixelshuffle ×4), with its top-level index buffers."""
+    n = _Net(fill, seed)
+    hidden = int(embed * mlp_ratio)
+    owin = int(overlap_ratio * window) + window
+    cab, sq = embed // compress_ratio, embed // squeeze_factor
+    n.conv("conv_first", embed, 3)
+    n.norm("patch_embed.norm", embed)
+    n.sd["relative_position_index_SA"] = _swin_index(window)
+    co = np.stack(np.meshgrid(np.arange(window), np.arange(window), indexing="ij")).reshape(2, -1)
+    ce = np.stack(np.meshgrid(np.arange(owin), np.arange(owin), indexing="ij")).reshape(2, -1)
+    rel = (ce[:, None, :] - co[:, :, None]).transpose(1, 2, 0) + (window - 1)
+    n.sd["relative_position_index_OCA"] = (rel[..., 0] * (window + owin - 1)
+                                           + rel[..., 1]).astype(np.int64)
+    for i, depth in enumerate(depths):
+        g = f"layers.{i}.residual_group."
+        for j in range(depth):
+            b = g + f"blocks.{j}."
+            n.norm(b + "norm1", embed)
+            n.table(b + "attn.relative_position_bias_table", (2 * window - 1) ** 2, heads)
+            n.linear(b + "attn.qkv", 3 * embed, embed)
+            n.linear(b + "attn.proj", embed, embed)
+            n.conv(b + "conv_block.cab.0", cab, embed)
+            n.conv(b + "conv_block.cab.2", embed, cab)
+            n.conv(b + "conv_block.cab.3.attention.1", sq, embed, k=1)
+            n.conv(b + "conv_block.cab.3.attention.3", embed, sq, k=1)
+            n.norm(b + "norm2", embed)
+            n.linear(b + "mlp.fc1", hidden, embed)
+            n.linear(b + "mlp.fc2", embed, hidden)
+        o = g + "overlap_attn."
+        n.norm(o + "norm1", embed)
+        n.linear(o + "qkv", 3 * embed, embed)
+        n.table(o + "relative_position_bias_table", (window + owin - 1) ** 2, heads)
+        n.linear(o + "proj", embed, embed)
+        n.norm(o + "norm2", embed)
+        n.linear(o + "mlp.fc1", hidden, embed)
+        n.linear(o + "mlp.fc2", embed, hidden)
+        n.conv(f"layers.{i}.conv", embed, embed)
+    n.norm("norm", embed)
+    _upsample_tail(n, embed, num_feat, scale, "pixelshuffle")
+    return n.sd
+
+
+def synth_dat_sd(embed: int = 180, depths: Sequence[int] = (6,) * 6, heads: int = 6,
+                 expansion: float = 4.0, num_feat: int = 64, scale: int = 4,
+                 fill: FillSpec = "random", seed: int = 22) -> Dict[str, object]:
+    """DAT (dat_arch.py); the defaults are DAT_x4's (embed 180, six groups of
+    six blocks, six heads, split 8 × 32, expansion 4, pixelshuffle ×4).
+    Even blocks are spatial (two axial branches, each with its dynamic
+    position bias MLP of width embed/2/4/4), odd ones channel attention."""
+    n = _Net(fill, seed)
+    hidden = int(embed * expansion)
+    pos = (embed // 2 // 4) // 4
+    n.conv("conv_first", embed, 3)
+    n.norm("before_RG.1", embed)
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            b = f"layers.{i}.blocks.{j}."
+            n.norm(b + "norm1", embed)
+            n.linear(b + "attn.qkv", 3 * embed, embed)
+            n.linear(b + "attn.proj", embed, embed)
+            if j % 2:
+                n.sd[b + "attn.temperature"] = n.f.ones(heads, 1, 1)
+            else:
+                for a in (0, 1):
+                    p = b + f"attn.attns.{a}.pos."
+                    n.linear(p + "pos_proj", pos, 2)
+                    for stage in ("pos1", "pos2", "pos3"):
+                        n.norm(p + stage + ".0", pos)
+                        n.linear(p + stage + ".2", heads // 2 if stage == "pos3" else pos, pos)
+            n.conv(b + "attn.dwconv.0", embed, 1)
+            n.bn(b + "attn.dwconv.1", embed)
+            n.conv(b + "attn.channel_interaction.1", embed // 8, embed, k=1)
+            n.bn(b + "attn.channel_interaction.2", embed // 8)
+            n.conv(b + "attn.channel_interaction.4", embed, embed // 8, k=1)
+            n.conv(b + "attn.spatial_interaction.0", embed // 16, embed, k=1)
+            n.bn(b + "attn.spatial_interaction.1", embed // 16)
+            n.conv(b + "attn.spatial_interaction.3", 1, embed // 16, k=1)
+            n.norm(b + "norm2", embed)
+            n.linear(b + "ffn.fc1", hidden, embed)
+            n.norm(b + "ffn.sg.norm", hidden // 2)
+            n.conv(b + "ffn.sg.conv", hidden // 2, 1)
+            n.linear(b + "ffn.fc2", embed, hidden // 2)
+        n.conv(f"layers.{i}.conv", embed, embed)
+    n.norm("norm", embed)
+    _upsample_tail(n, embed, num_feat, scale, "pixelshuffle")
+    return n.sd
+
+
+def synth_scunet_sd(dim: int = 64, config: Sequence[int] = (4,) * 7, head_dim: int = 32,
+                    window: int = 8, fill: FillSpec = "random", seed: int = 23) -> Dict[str, object]:
+    """SCUNet (network_scunet.py); the defaults are scunet_color_real_psnr's
+    (dim 64, config [4]×7, head dim 32, window 8). `relative_position_params`
+    is written [(2·window−1)², heads], the layout the reference reads
+    (upstream's files hold it [heads, 2·window−1, 2·window−1]). Its conv
+    branches have no norm: weights at half the gain keep the UNet's output
+    in range."""
+    n = _Net(fill, seed, gain=0.5)
+
+    def blocks(stage, channels, count, first):
+        half = channels // 2
+        for k in range(first, first + count):
+            b = f"{stage}.{k}."
+            n.conv(b + "conv1_1", channels, channels, k=1)
+            n.conv(b + "conv1_2", channels, channels, k=1)
+            n.conv(b + "conv_block.0", half, half, bias=False)
+            n.conv(b + "conv_block.2", half, half, bias=False)
+            n.norm(b + "trans_block.ln1", half)
+            n.linear(b + "trans_block.msa.embedding_layer", 3 * half, half)
+            n.table(b + "trans_block.msa.relative_position_params", (2 * window - 1) ** 2,
+                    half // head_dim)
+            n.linear(b + "trans_block.msa.linear", half, half)
+            n.norm(b + "trans_block.ln2", half)
+            n.linear(b + "trans_block.mlp.0", 4 * half, half)
+            n.linear(b + "trans_block.mlp.2", half, 4 * half)
+
+    n.conv("m_head.0", dim, 3, bias=False)
+    for s, (stage, mult) in enumerate((("m_down1", 1), ("m_down2", 2), ("m_down3", 4))):
+        blocks(stage, dim * mult, config[s], 0)
+        n.conv(f"{stage}.{config[s]}", 2 * dim * mult, dim * mult, k=2, bias=False)
+    blocks("m_body", 8 * dim, config[3], 0)
+    for s, (stage, mult) in enumerate((("m_up3", 4), ("m_up2", 2), ("m_up1", 1))):
+        n.sd[f"{stage}.0.weight"] = n.w(2 * dim * mult, dim * mult, 2, 2)  # transposed [I,O,k,k]
+        blocks(stage, dim * mult, config[4 + s], 1)
+    n.conv("m_tail.0", 3, dim, bias=False)
+    return n.sd
+
+
+def synth_codeformer_sd(nf: int = 64, ch_mult: Sequence[int] = (1, 2, 2, 4, 4, 8),
+                        res_blocks: int = 2, emb_dim: int = 256, codebook: int = 1024,
+                        dim_embd: int = 512, n_layers: int = 9, img_size: int = 512,
+                        connect: Sequence[int] = (32, 64, 128, 256),
+                        fill: FillSpec = "random", seed: int = 24) -> Dict[str, object]:
+    """CodeFormer (codeformer_arch.py, vqgan_arch.py); the defaults are
+    codeformer-v0.1.0's: a VQGAN of nf 64, ch_mult [1,2,2,4,4,8], two res
+    blocks a level and attention at 16², a 1024 × 256 codebook, a 9-layer
+    transformer 512 wide (MLP 1024) over the 16² latent, and the SFT fuse
+    blocks at 32, 64, 128 and 256 (channels as `fuse_convs_dict` has them)."""
+    n = _Net(fill, seed)
+    levels = len(ch_mult)
+    attn_res = img_size // 2 ** (levels - 1)
+
+    def res(key, cin, cout):
+        n.norm(key + ".norm1", cin)
+        n.conv(key + ".conv1", cout, cin)
+        n.norm(key + ".norm2", cout)
+        n.conv(key + ".conv2", cout, cout)
+        if cin != cout:
+            n.conv(key + ".conv_out", cout, cin, k=1)
+
+    def attn(key, c):
+        n.norm(key + ".norm", c)
+        for name in ("q", "k", "v", "proj_out"):
+            n.conv(f"{key}.{name}", c, c, k=1)
+
+    size = img_size
+    enc = "encoder.blocks."
+    n.conv(enc + "0", nf, 3)
+    i, cin = 1, nf
+    ins = (1,) + tuple(ch_mult)
+    channels_at = {}
+    for lvl in range(levels):
+        cin, cout = nf * ins[lvl], nf * ch_mult[lvl]
+        for _ in range(res_blocks):
+            res(enc + str(i), cin, cout)
+            cin, i = cout, i + 1
+            if size == attn_res:
+                attn(enc + str(i), cin)
+                i += 1
+        channels_at[size] = cin
+        if lvl != levels - 1:
+            n.conv(enc + f"{i}.conv", cin, cin)
+            i, size = i + 1, size // 2
+    res(enc + str(i), cin, cin)
+    attn(enc + str(i + 1), cin)
+    res(enc + str(i + 2), cin, cin)
+    n.norm(enc + str(i + 3), cin)
+    n.conv(enc + str(i + 4), emb_dim, cin)
+
+    gen = "generator.blocks."
+    cin = nf * ch_mult[-1]
+    n.conv(gen + "0", cin, emb_dim)
+    res(gen + "1", cin, cin)
+    attn(gen + "2", cin)
+    res(gen + "3", cin, cin)
+    i, size = 4, attn_res
+    for lvl in reversed(range(levels)):
+        cout = nf * ch_mult[lvl]
+        for _ in range(res_blocks):
+            res(gen + str(i), cin, cout)
+            cin, i = cout, i + 1
+            if size == attn_res:
+                attn(gen + str(i), cin)
+                i += 1
+        if lvl != 0:
+            n.conv(gen + f"{i}.conv", cin, cin)
+            i, size = i + 1, size * 2
+    n.norm(gen + str(i), cin)
+    n.conv(gen + str(i + 1), 3, cin)
+
+    n.sd["quantize.embedding.weight"] = n.f.w(codebook, emb_dim, scale=1.0)
+    n.table("position_emb", attn_res * attn_res, dim_embd)
+    n.linear("feat_emb", dim_embd, emb_dim)
+    for layer in range(n_layers):
+        b = f"ft_layers.{layer}."
+        n.sd[b + "self_attn.in_proj_weight"] = n.w(3 * dim_embd, dim_embd)
+        n.sd[b + "self_attn.in_proj_bias"] = n.f.zeros(3 * dim_embd)
+        n.linear(b + "self_attn.out_proj", dim_embd, dim_embd)
+        n.linear(b + "linear1", 2 * dim_embd, dim_embd)
+        n.linear(b + "linear2", dim_embd, 2 * dim_embd)
+        n.norm(b + "norm1", dim_embd)
+        n.norm(b + "norm2", dim_embd)
+    n.norm("idx_pred_layer.0", dim_embd)
+    n.linear("idx_pred_layer.1", codebook, dim_embd, bias=False)
+    for size in connect:
+        c = channels_at[size]
+        b = f"fuse_convs_dict.{size}."
+        res(b + "encode_enc", 2 * c, c)
+        for branch in ("scale", "shift"):
+            n.conv(b + branch + ".0", c, c)
+            n.conv(b + branch + ".2", c, c)
+    return n.sd
+
+
+def synth_gfpgan_sd(out_size: int = 512, num_style_feat: int = 512, channel_multiplier: int = 2,
+                    narrow: float = 1.0, num_mlp: int = 8, fill: FillSpec = "random",
+                    seed: int = 25) -> Dict[str, object]:
+    """GFPGANv1Clean (gfpganv1_clean_arch.py) with its StyleGAN2 clean decoder
+    (stylegan2_clean_arch.py, SFT on half the channels); the defaults are
+    GFPGANv1.4's (512², 512 style features, channel multiplier 2): the
+    U-Net at half the decoder's width, the W+ code of 16 × 512 from a
+    4·4·256 bottleneck, modulated convs [1, O, I, k, k], the stored noises."""
+    n = _Net(fill, seed)
+    log_size = int(np.log2(out_size))
+
+    def unet_ch(res):
+        half = narrow * 0.5
+        return {4: 512, 8: 512, 16: 512, 32: 512, 64: 256 * channel_multiplier,
+                128: 128 * channel_multiplier, 256: 64 * channel_multiplier,
+                512: 32 * channel_multiplier, 1024: 16 * channel_multiplier}[res] * half
+
+    def dec_ch(res):
+        return int({4: 512, 8: 512, 16: 512, 32: 512, 64: 256 * channel_multiplier,
+                    128: 128 * channel_multiplier, 256: 64 * channel_multiplier,
+                    512: 32 * channel_multiplier, 1024: 16 * channel_multiplier}[res] * narrow)
+
+    def resblock(key, cin, cout):
+        n.conv(key + ".conv1", cin, cin)
+        n.conv(key + ".conv2", cout, cin)
+        n.conv(key + ".skip", cout, cin, k=1, bias=False)
+
+    cin = int(unet_ch(out_size))
+    n.conv("conv_body_first", cin, 3, k=1)
+    for k, i in enumerate(range(log_size, 2, -1)):
+        cout = int(unet_ch(2 ** (i - 1)))
+        resblock(f"conv_body_down.{k}", cin, cout)
+        cin = cout
+    n.conv("final_conv", int(unet_ch(4)), cin)
+    cin = int(unet_ch(4))
+    for k, i in enumerate(range(3, log_size + 1)):
+        cout = int(unet_ch(2 ** i))
+        resblock(f"conv_body_up.{k}", cin, cout)
+        cin = cout
+        n.conv(f"toRGB.{k}", 3, cout, k=1)
+        for which in ("condition_scale", "condition_shift"):
+            n.conv(f"{which}.{k}.0", cout, cout)
+            n.conv(f"{which}.{k}.2", cout, cout)
+    n.linear("final_linear", (2 * log_size - 2) * num_style_feat, int(unet_ch(4)) * 16)
+
+    d = "stylegan_decoder."
+    for k in range(num_mlp):
+        n.linear(d + f"style_mlp.{2 * k + 1}", num_style_feat, num_style_feat)
+    n.sd[d + "constant_input.weight"] = n.f.w(1, dec_ch(4), 4, 4, scale=1.0)
+
+    def modulated(key, cout, cin, k):  # upstream's init: randn/√fan_in, modulation bias 1
+        n.sd[key + ".weight"] = n.f.w(1, cout, cin, k, k, scale=1 / float(np.sqrt(cin * k * k)))
+        n.linear(key + ".modulation", cin, num_style_feat)
+        n.sd[key + ".modulation.bias"] = n.f.ones(cin)
+
+    def style_conv(key, cin, cout):
+        modulated(key + ".modulated_conv", cout, cin, 3)
+        n.sd[key + ".weight"] = n.f.zeros(1)
+        n.sd[key + ".bias"] = n.f.zeros(1, cout, 1, 1)
+
+    def to_rgb(key, cin):
+        modulated(key + ".modulated_conv", 3, cin, 1)
+        n.sd[key + ".bias"] = n.f.zeros(1, 3, 1, 1)
+
+    cin = dec_ch(4)
+    style_conv(d + "style_conv1", cin, cin)
+    to_rgb(d + "to_rgb1", cin)
+    n.sd[d + "noises.noise0"] = n.f.w(1, 1, 4, 4, scale=1.0)
+    for k, i in enumerate(range(3, log_size + 1)):
+        cout = dec_ch(2 ** i)
+        style_conv(d + f"style_convs.{2 * k}", cin, cout)
+        style_conv(d + f"style_convs.{2 * k + 1}", cout, cout)
+        to_rgb(d + f"to_rgbs.{k}", cout)
+        for j in (2 * k + 1, 2 * k + 2):
+            n.sd[d + f"noises.noise{j}"] = n.f.w(1, 1, 2 ** i, 2 ** i, scale=1.0)
+        cin = cout
+    return n.sd

@@ -33,12 +33,12 @@ def linear(x: torch.Tensor, p: Mapping[str, Any]) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, p: Mapping[str, Any], stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
+           padding: int = 0, groups: int = 1) -> torch.Tensor:
     """NCHW conv with an OIHW kernel (an fp8 kernel upcast to x's dtype, as in `linear`)."""
     bias = p.get("bias")
     return F.conv2d(x, p["weight"].to(x.dtype),
                     None if bias is None else bias.to(x.dtype),
-                    stride=stride, padding=padding)
+                    stride=stride, padding=padding, groups=groups)
 
 
 def group_stats(x: torch.Tensor, num_groups: int, eps: float):

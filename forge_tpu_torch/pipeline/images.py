@@ -37,6 +37,11 @@ and back with `cv2.cvtColor`, whose 8-bit paths are integer arithmetic over
 tables. `rgb_to_lab` and `lab_to_rgb` compute those tables and that
 arithmetic in numpy and give cv2's bytes for every one of the 2^24 inputs
 (tests/test_torch_scripts_images.py holds both against cv2).
+
+Face restoration resizes its crops with `cv2.resize(..., INTER_LINEAR)` in
+the reference; `cv2_linear_resize` computes OpenCV's fixed-point result for
+uint8 and its float result for float32 (tests/test_torch_faces.py holds it
+against cv2).
 """
 
 from __future__ import annotations
@@ -100,15 +105,23 @@ def _coefficients(n_in: int, n_out: int, kind: str):
 
 
 def _resample_axis(img: np.ndarray, n_out: int, axis: int, kind: str) -> np.ndarray:
-    """One 8-bit pass of Pillow's resampler along `axis` of a uint8 array."""
+    """One 8-bit pass of Pillow's resampler along `axis` of a uint8 array.
+    The sums are exact integers: in int32 where 255 times a row's absolute
+    taps (which bounds every partial sum) fits, as for every Lanczos, bicubic
+    and bilinear row in practice, else int64; one buffer is reused a tap."""
     n_in = img.shape[axis]
     xmin, k = _coefficients(n_in, n_out, kind)
-    src = np.moveaxis(img, axis, 0).astype(np.int64)
-    acc = np.full((n_out,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
-    extra = (1,) * (src.ndim - 1)
+    half = 1 << (_PRECISION_BITS - 1)
+    dtype = np.int32 if 255 * int(np.abs(k).sum(axis=1).max()) + half < 2**31 else np.int64
+    src = np.ascontiguousarray(np.moveaxis(img, axis, 0)).astype(dtype)
+    acc = np.full((n_out,) + src.shape[1:], half, dtype)
+    buf = np.empty_like(acc)
+    taps = k.astype(dtype).reshape(k.shape + (1,) * (src.ndim - 1))
     for t in range(k.shape[1]):
-        idx = np.minimum(xmin + t, n_in - 1)  # a zero tap past the edge reads any pixel
-        acc += k[:, t].reshape((n_out,) + extra) * src[idx]
+        # a zero tap past the edge reads any pixel
+        np.take(src, np.minimum(xmin + t, n_in - 1), axis=0, out=buf)
+        buf *= taps[:, t]
+        acc += buf
     out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
     return np.moveaxis(out, 0, axis)
 
@@ -309,6 +322,73 @@ def apply_color_correction(correction: np.ndarray, image: np.ndarray) -> np.ndar
     matched = np.stack([_match_histogram_channel(lab[..., c], correction[..., c])
                         for c in range(3)], axis=-1).astype(np.uint8)
     return lab_to_rgb(matched)
+
+
+# -- OpenCV's INTER_LINEAR ---------------------------------------------------
+
+_CV_COEF_SCALE = 2048  # OpenCV's INTER_RESIZE_COEF_SCALE: 11-bit fixed-point weights
+
+
+def _cv_linear_taps(n_in: int, n_out: int, single: bool):
+    """Source index and fraction of each output along one axis: the centre
+    (i + 0.5)·n_in/n_out − 0.5, its floor and the remainder, in float32
+    (`single`) or float64."""
+    f = (np.arange(n_out, dtype=np.float64) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    if single:
+        f = f.astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    return s, (f - s.astype(f.dtype)).astype(np.float32)
+
+
+def _cv_fixed(v: np.ndarray) -> np.ndarray:
+    return np.rint(v * np.float32(_CV_COEF_SCALE)).astype(np.int64)
+
+
+def cv2_linear_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 or float32 [H,W] or [H,W,C] → [h,w(,C)], as `cv2.resize(img,
+    (w, h), interpolation=cv2.INTER_LINEAR)` gives it.
+
+    The same size is a copy. uint8 halved on both axes is OpenCV's fast
+    area path, (a + b + c + d + 2) >> 2. Otherwise: per output pixel the two
+    taps at the centre above (clamped at the edges), the horizontal pass
+    first. uint8 rounds the weights to 11 bits, sums the row products
+    exactly and combines two rows as OpenCV's vector code does:
+    ((r0 >> 4)·β0 >> 16) + ((r1 >> 4)·β1 >> 16), + 2, >> 2. float32 keeps
+    float weights (computed in float64, as OpenCV's optimized path does for
+    images of two rows or more)."""
+    a = np.asarray(img)
+    if a.dtype not in (np.uint8, np.float32):
+        raise ValueError(f"cv2_linear_resize takes uint8 or float32, not {a.dtype}")
+    src_h, src_w = a.shape[:2]
+    if (src_w, src_h) == (w, h):
+        return a.copy()
+    u8 = a.dtype == np.uint8
+    if u8 and (src_w, src_h) == (2 * w, 2 * h):
+        s = a.astype(np.int32)
+        return ((s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2] + 2)
+                >> 2).astype(np.uint8)
+    sx, fx = _cv_linear_taps(src_w, w, u8)
+    edge = (sx < 0) | (sx >= src_w - 1)
+    fx = np.where(edge, np.float32(0), fx)
+    sx = np.clip(sx, 0, src_w - 1)
+    x1 = np.minimum(sx + 1, src_w - 1)
+    sy, fy = _cv_linear_taps(src_h, h, u8)
+    y0, y1 = np.clip(sy, 0, src_h - 1), np.clip(sy + 1, 0, src_h - 1)
+    src = a.reshape(src_h, src_w, -1)
+    if u8:
+        src = src.astype(np.int64)
+        rows = (src[:, sx] * _cv_fixed(np.float32(1) - fx)[None, :, None]
+                + src[:, x1] * _cv_fixed(fx)[None, :, None])
+        b0 = _cv_fixed(np.float32(1) - fy)[:, None, None]
+        b1 = _cv_fixed(fy)[:, None, None]
+        out = ((((rows[y0] >> 4) * b0) >> 16) + (((rows[y1] >> 4) * b1) >> 16) + 2) >> 2
+        out = np.clip(out, 0, 255).astype(np.uint8)
+    else:
+        rows = (src[:, sx] * (np.float32(1) - fx)[None, :, None]
+                + src[:, x1] * fx[None, :, None])
+        out = (rows[y0] * (np.float32(1) - fy)[:, None, None]
+               + rows[y1] * fy[:, None, None])
+    return out.reshape((h, w) + a.shape[2:])
 
 
 # -- PNG ---------------------------------------------------------------------

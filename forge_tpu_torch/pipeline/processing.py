@@ -156,8 +156,14 @@ post-CFG hooks runs after the request's own at every step of that pass.
 `do_not_save_samples` and `do_not_save_grid` are taken and change nothing:
 the port saves no image.
 
+`restore_faces` (or the `face_restoration` option) restores each image in
+`finish` with the restorer `face_restoration_model` names
+(postprocessing/faces.py, gfpgan.py); with no checkpoint it raises
+`RestorerMissing` (a FileNotFoundError) where the reference prints and
+skips.
+
 `Processing` takes only the fields this port reads. Any other field of the
-reference's request (restore_faces, tiling, ...)
+reference's request (tiling, image_cfg_scale, ...)
 raises NotImplementedError rather than being ignored, as do
 combinations the reference mixes or fails on: AND or regional branches with
 the refiner or on Flux and Chroma, regional masks or the base prompt's AND
@@ -300,6 +306,7 @@ class Processing:
     soft_inpainting: Optional[Any] = None  # extensions/soft_inpainting.py SoftInpaintingSettings
     do_not_save_samples: bool = False  # the port saves no image: taken, changes nothing
     do_not_save_grid: bool = False
+    restore_faces: bool = False  # postprocessing/faces.py, in `finish`
 
     def __setattr__(self, name, value):
         if name not in _FIELDS and name not in _INTERNAL_ATTRS:
@@ -1106,14 +1113,16 @@ def denoise(engine: DiffusionEngine, job: Job) -> torch.Tensor:
         return info.fn(ticking, job.x, job.sigmas, job.step_noise, **kwargs)
 
 
-def finish(job: Job, batch: np.ndarray, batch_number: int = 0) -> List[np.ndarray]:
+def finish(job: Job, batch: np.ndarray, batch_number: int = 0,
+           device: Optional[torch.device] = None) -> List[np.ndarray]:
     """The finish stage: decoded uint8 [B,H,W,3] → the request's images, in
     the reference's order: "only masked" crops pasted back, the scripts'
     `postprocess_batch` and `postprocess_batch_list`, then each image's
-    colour correction (img2img under the option), ControlNet inpaint_only's
-    final composite, the inpaint paste with `on_mask_blend` and
-    `postprocess_image_after_composite` (not for "only masked", whose paste
-    is done, as the reference's), and `postprocess_image`."""
+    face restoration (`restore_faces` or the `face_restoration` option, on
+    `device`), colour correction (img2img under the option), ControlNet
+    inpaint_only's final composite, the inpaint paste with `on_mask_blend`
+    and `postprocess_image_after_composite` (not for "only masked", whose
+    paste is done, as the reference's), and `postprocess_image`."""
     p = job.request if job.request is not None else job.p
     runner = p.scripts
     if job.uncrop is not None:
@@ -1124,12 +1133,23 @@ def finish(job: Job, batch: np.ndarray, batch_number: int = 0) -> List[np.ndarra
                                                batch_number=batch_number)
         if listed is not None:
             batch = listed
+    restorer = None
+    if p.restore_faces or opts.get("face_restoration"):
+        from ..postprocessing.faces import RestorerMissing, get_face_restorer
+
+        restorer = get_face_restorer(device)
+        if not restorer.available:  # the reference prints and skips (processing.py:788-789)
+            raise RestorerMissing(f"restore_faces: no {restorer.name} checkpoint under "
+                                  f"{restorer.model_dir}")
+        p.restore_faces = True  # the infotext's "Face restoration"
     is_img2img = p.init_images is not None
     correct = is_img2img and bool(opts.get("img2img_color_correction"))
     images = []
     for b in range(len(batch)):
         img = batch[b]
         init = p.init_images[min(b, len(p.init_images) - 1)] if is_img2img else None
+        if restorer is not None:
+            img = restorer.restore(img)
         if correct:
             img = apply_color_correction(setup_color_correction(init), img)
         img = composite_final(p, img)
@@ -1449,7 +1469,7 @@ def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
         batch = out_engine.decode_finish(handle)
         _add_time(timings, "decode", t2)
         methods.append(method)
-        done = finish(job, batch, it)
+        done = finish(job, batch, it, device=out_engine.device)
         images.extend(done)
         last = len(job.seeds) - 1  # a script may have added images to the batch
         texts.extend(infotexts(p, [job.seeds[min(b, last)] for b in range(len(done))],

@@ -1,5 +1,5 @@
-# Copied from forge_tpu/pipeline/upscalers.py (the simple resizers, RRDBNet, the key conversion, the tiled upscale and the registry), in PyTorch and numpy.
-"""Upscalers: the resize-mode algorithms and tiled GAN upscaling (ESRGAN family).
+# Copied from forge_tpu/pipeline/upscalers.py (the simple resizers, RRDBNet, the key conversion, the tiled upscale and the registry with its architecture sniffing and tile options), in PyTorch and numpy.
+"""Upscalers: the resize-mode algorithms and tiled GAN upscaling.
 
 `upscale_pil` is the reference's Pillow resize (Lanczos or Nearest) in numpy
 (pipeline/images.py: the card's machine has no Pillow). `rrdbnet_apply` is
@@ -9,11 +9,14 @@ serialization to RRDBNet's names; `tiled_upscale` runs a model tile by tile
 with feathered seams (reference upscaler_utils.py:91-164). The registry
 holds "None", "Lanczos" and "Nearest" and discovers model files
 (`.safetensors`, `.pth`) in its directories; a `params_ema` or `params` wrap
-is unwrapped. A GAN runs on the registry's device (the CUDA card unless one
-is given; without one this raises) in its dtype (bf16 on CUDA, f32 on the
-CPU). HAT, SwinIR, DAT and SCUNet checkpoints are recognised by their keys
-and raise NotImplementedError. The tile and overlap are the reference's
-option defaults (192 and 8), as attributes.
+is unwrapped, and the network is sniffed from the keys as the reference
+does (`sniff_architecture`): HAT, SwinIR, DAT, SCUNet (scale 1) or RRDBNet
+(models/hat.py, swinir.py, dat.py, scunet.py). A network runs on the
+registry's device (the CUDA card unless one is given; without one this
+raises) in its dtype (bf16 on CUDA, f32 on the CPU). The tiles follow the
+options of the file's directory kind, as the reference's: `SWIN_tile` for
+"SwinIR", `DAT_tile` for "DAT", `ESRGAN_tile` for any other (a HAT file in
+models/HAT too), each with its overlap; a tile of 0 becomes 192.
 
 Two faults of the reference are not kept: its `convert_esrgan_keys` indexes
 past the end of `model.1.sub.{nb}.weight` (the conv_body of every old-layout
@@ -30,12 +33,12 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..core.convert import nest, to_tensor
+from ..core.convert import nest, tree_to
 from ..core.state_dict import load_state_dict
 from ..ops import nn
 from .images import lanczos_resize, nearest_resize
 
-ESRGAN_TILE, ESRGAN_TILE_OVERLAP = 192, 8  # the reference's option defaults
+ESRGAN_TILE, ESRGAN_TILE_OVERLAP = 192, 8  # the reference's tile options' defaults
 
 
 def upscale_pil(img: np.ndarray, scale: float, mode: str = "Lanczos") -> np.ndarray:
@@ -144,14 +147,6 @@ def tiled_upscale(img: np.ndarray, fn: Callable[[torch.Tensor], torch.Tensor], s
 
 # -- registry
 
-# architectures the reference's registry also runs, by a key each checkpoint carries
-_UNPORTED_ARCHS = (("HAT", lambda keys: any("overlap_attn" in k for k in keys)),
-                   ("SwinIR", lambda keys: any("residual_group" in k for k in keys)),
-                   ("DAT", lambda keys: any("spatial_interaction" in k for k in keys)
-                    and any(k.startswith("before_RG") for k in keys)),
-                   ("SCUNet", lambda keys: any("trans_block.msa" in k for k in keys)))
-
-
 class Upscaler:
     def __init__(self, name: str, fn: Callable[[np.ndarray, float], np.ndarray], scale: int = 4):
         self.name = name
@@ -166,11 +161,79 @@ def _identity(img, scale):
     return img
 
 
+def sniff_architecture(keys) -> str:
+    """The network a checkpoint holds, by its keys (the reference's order):
+    HAT (`overlap_attn`), SwinIR (`residual_group`), DAT
+    (`spatial_interaction` and `before_RG`), SCUNet (`trans_block.msa`),
+    else ESRGAN's RRDBNet."""
+    keys = list(keys)
+    if any("overlap_attn" in k for k in keys):
+        return "HAT"
+    if any("residual_group" in k for k in keys):
+        return "SwinIR"
+    if (any("spatial_interaction" in k for k in keys)
+            and any(k.startswith("before_RG") for k in keys)):
+        return "DAT"
+    if any("trans_block.msa" in k for k in keys):
+        return "SCUNet"
+    return "ESRGAN"
+
+
+def build_network(raw: Mapping[str, Any], device, dtype):
+    """An unwrapped checkpoint → (apply_fn [B,3,t,t] → [B,3,st,st] on
+    `device` in `dtype`, model scale)."""
+    arch = sniff_architecture(raw)
+    if arch == "HAT":
+        from ..models.hat import hat_apply, infer_hat_meta, load_hat
+
+        params = tree_to(load_hat(raw), device, dtype)
+        meta = infer_hat_meta(params)
+        return lambda t: hat_apply(params, t, **meta), meta["scale"]
+    if arch == "SwinIR":
+        from ..models.swinir import infer_swinir_meta, load_swinir, swinir_apply
+
+        params = tree_to(load_swinir(raw), device, dtype)
+        meta = infer_swinir_meta(params)
+        return lambda t: swinir_apply(params, t, **meta), meta["scale"]
+    if arch == "DAT":
+        from ..models.dat import dat_apply, infer_dat_meta, load_dat
+
+        params = tree_to(load_dat(raw), device, dtype)
+        meta = infer_dat_meta(params)
+        return lambda t: dat_apply(params, t, **meta), meta["scale"]
+    if arch == "SCUNet":
+        from ..models.scunet import infer_scunet_meta, load_scunet, scunet_apply
+
+        params = tree_to(load_scunet(raw), device, dtype)
+        meta = infer_scunet_meta(params)
+        return lambda t: scunet_apply(params, t, **meta), 1  # a denoiser: scale 1
+    params = tree_to(nest(convert_esrgan_keys(raw)), device, dtype)
+    return lambda t: rrdbnet_apply(params, t, 4), 4
+
+
+# a model directory's kind → the options its tiles read (the reference's: any other kind,
+# HAT's included, reads ESRGAN's)
+TILE_OPTIONS = {"SwinIR": "SWIN", "DAT": "DAT"}
+
+
+def tile_options(kind: str):
+    """(tile, overlap) from the options of `kind`'s directory: a tile of 0
+    becomes 192 and an overlap below 1 becomes 1, as in the reference."""
+    from ..runtime.options import opts
+
+    key = TILE_OPTIONS.get(kind, "ESRGAN")
+    return int(opts.get(f"{key}_tile")) or ESRGAN_TILE, max(int(opts.get(f"{key}_tile_overlap")), 1)
+
+
 class UpscalerRegistry:
-    def __init__(self, model_dirs: Optional[Dict[str, str]] = None, device=None):
+    """Upscalers by name. A network runs on `device` (the card unless given)
+    in `dtype` (the device's compute dtype unless given)."""
+
+    def __init__(self, model_dirs: Optional[Dict[str, str]] = None, device=None,
+                 dtype: Optional[torch.dtype] = None):
         self.model_dirs = model_dirs or {}
         self.device = device
-        self.tile, self.overlap = ESRGAN_TILE, ESRGAN_TILE_OVERLAP
+        self.dtype = dtype
         self._gan_cache: Dict[str, Any] = {}
         self.upscalers: Dict[str, Upscaler] = {
             "None": Upscaler("None", _identity, 1),
@@ -180,11 +243,13 @@ class UpscalerRegistry:
         self.discover()
 
     def discover(self):
-        for d in self.model_dirs.values():
+        """Each directory's `.safetensors` then `.pth` files, by name; the
+        listing says 4 for every file, as the reference's does."""
+        for kind, d in self.model_dirs.items():
             for path in sorted(glob.glob(os.path.join(d, "*.safetensors"))
                                + glob.glob(os.path.join(d, "*.pth"))):
                 name = os.path.splitext(os.path.basename(path))[0]
-                self.upscalers[name] = Upscaler(name, self._make_gan_fn(path), 4)
+                self.upscalers[name] = Upscaler(name, self._make_gan_fn(path, kind), 4)
 
     def _load_model(self, path: str):
         """→ (apply_fn [1,3,t,t] → [1,3,st,st], scale), loaded once a path."""
@@ -198,33 +263,26 @@ class UpscalerRegistry:
             if isinstance(raw.get(wrap), dict):
                 raw = raw[wrap]
                 break
-        for arch, matches in _UNPORTED_ARCHS:
-            if matches(list(raw)):
-                raise NotImplementedError(
-                    f"{path}: {arch} upscalers are not ported to forge_tpu_torch yet "
-                    "(ROADMAP.md, queue 1; ported: ESRGAN/RealESRGAN RRDBNet)")
         device = torch.device(self.device) if self.device is not None else default_device()
-        dtype = default_dtype(device)
-        params = nest({k: to_tensor(v).to(device, dtype)
-                       for k, v in convert_esrgan_keys(raw).items()})
-        model_scale = 4
+        dtype = self.dtype or default_dtype(device)
+        net, model_scale = build_network(raw, device, dtype)
 
         def apply_fn(t: torch.Tensor) -> torch.Tensor:
             with torch.no_grad():
-                return rrdbnet_apply(params, t.to(device, dtype), model_scale)
+                return net(t.to(device, dtype))
 
         self._gan_cache[path] = (apply_fn, model_scale)
         return self._gan_cache[path]
 
-    def _make_gan_fn(self, path: str):
+    def _make_gan_fn(self, path: str, kind: str = "ESRGAN"):
         def fn(img: np.ndarray, scale: float) -> np.ndarray:
             apply_fn, model_scale = self._load_model(path)
             x = np.asarray(img, np.float32)
             if x.max() > 1.5:
                 x = x / 255.0
-            out = tiled_upscale(x, apply_fn, model_scale, tile_size=self.tile or ESRGAN_TILE,
-                                overlap=max(self.overlap, 1))
-            out = np.clip(out, 0, 1)
+            tile, overlap = tile_options(kind)
+            out = np.clip(tiled_upscale(x, apply_fn, model_scale, tile_size=tile,
+                                        overlap=overlap), 0, 1)
             if abs(scale - model_scale) > 1e-6:
                 out = upscale_pil((out * 255).astype(np.uint8), scale / model_scale) / 255.0
             return (out * 255).astype(np.uint8)
@@ -245,13 +303,14 @@ class UpscalerRegistry:
 _DEFAULT_REGISTRY = None
 
 
-def get_default_registry() -> UpscalerRegistry:
+def get_default_registry(device=None) -> UpscalerRegistry:
     """One registry over the standard models/ directories, shared by the
-    callers that do not bring their own (the hires fix)."""
+    callers that do not bring their own (the hires fix, the API's extras),
+    made once a process on `device` (the card unless given)."""
     global _DEFAULT_REGISTRY
     if _DEFAULT_REGISTRY is None:
         _DEFAULT_REGISTRY = UpscalerRegistry(model_dirs={
             "ESRGAN": "models/ESRGAN", "RealESRGAN": "models/RealESRGAN",
             "SwinIR": "models/SwinIR", "DAT": "models/DAT", "HAT": "models/HAT",
-        })
+        }, device=device)
     return _DEFAULT_REGISTRY

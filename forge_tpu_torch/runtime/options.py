@@ -131,6 +131,16 @@ _DEFAULTS = {
                                               "live_previews"),
     "show_progress_type": OptionInfo("Approx cheap", "Live preview method", "live_previews",
                                      ["Full", "Approx NN", "Approx cheap", "TAESD"]),
+    "ESRGAN_tile": OptionInfo(192, "ESRGAN tile size (0 = no tiling)", "upscaling"),
+    "ESRGAN_tile_overlap": OptionInfo(8, "ESRGAN tile overlap", "upscaling"),
+    "DAT_tile": OptionInfo(192, "DAT tile size", "upscaling"),
+    "DAT_tile_overlap": OptionInfo(8, "DAT tile overlap", "upscaling"),
+    "SWIN_tile": OptionInfo(192, "SwinIR tile size", "upscaling"),
+    "SWIN_tile_overlap": OptionInfo(8, "SwinIR tile overlap", "upscaling"),
+    "face_restoration": OptionInfo(False, "Restore faces on all images", "face"),
+    "face_restoration_model": OptionInfo("CodeFormer", "Face restoration model", "face",
+                                         ["CodeFormer", "GFPGAN"]),
+    "code_former_weight": OptionInfo(0.5, "CodeFormer weight (0 = max effect)", "face"),
 }
 for _k, _v in _DEFAULTS.items():
     opts.add(_k, _v)

@@ -26,7 +26,9 @@ reference's serving takes plain txt2img requests, and so are the CFG hooks
 (`pre_cfg_hooks`, `post_cfg_hooks`, `cfg_combine_hook`), `hook_phases` and
 `deferred_hooks`, which no test holds against the reference's serving, and
 `scripts`, whose request-level hooks (`setup`, `postprocess`, ...) the
-stages do not run (the reference's serving drops them). The CFG events fire
+stages do not run (the reference's serving drops them), and face
+restoration (`restore_faces` or the `face_restoration` option), which the
+reference's serving never runs. The CFG events fire
 on the denoise thread, once a request, as the reference's serving fires
 them. The prep stage makes the
 request's memory plan as `process_images` does (`plan`), without chunking
@@ -45,6 +47,7 @@ from typing import List
 import torch
 
 from ..pipeline import processing as proc
+from ..runtime.options import opts
 
 _STOP = object()  # the pill close() sends through the three queues
 
@@ -133,6 +136,11 @@ class ServingPipeline:
             raise NotImplementedError("serving with scripts is not ported: its threads do not "
                                       "run the request-level hooks (ROADMAP.md queue 1 item 7); "
                                       "use process_images")
+        if p.restore_faces or opts.get("face_restoration"):
+            raise NotImplementedError("serving with restore_faces (or the face_restoration "
+                                      "option) is not ported: the reference's serving never "
+                                      "restores (ROADMAP.md queue 1 item 7, serving); use "
+                                      "process_images")
         asked = [name for name in proc.CFG_HOOK_FIELDS + proc.IMAGE_PROMPT_FIELDS
                  + ("hook_phases", "deferred_hooks") if getattr(p, name)]
         if asked:

@@ -204,9 +204,9 @@ def test_refusals(servers):
                                ("save_images", True, "save_images")):
         status, body, _ = _call(tbase, "/sdapi/v1/txt2img", dict(TXT2IMG, **{key: value}))
         assert status == 422 and detail in body["detail"], (key, body)
-    status, body, _ = _call(tbase, "/sdapi/v1/extra-single-image", {"image": ""})
+    status, body, _ = _call(tbase, "/sdapi/v1/interrogate", {"image": ""})
     assert status == 501 and "ROADMAP.md queue 1 item 9" in body["detail"]
-    for method_path in (("GET", "/"), ("POST", "/sdapi/v1/interrogate")):
+    for method_path in (("GET", "/"), ("POST", "/sdapi/v1/spaces/launch")):
         status, _, _ = _call(tbase, method_path[1], {} if method_path[0] == "POST" else None)
         assert status == 501
     buf = io.BytesIO()

@@ -22,7 +22,9 @@ KEYS = ("eta_ancestral", "eta_ddim", "s_churn", "s_noise", "eta_noise_seed_delta
         "save_write_params_txt", "add_model_name_to_info",
         "add_model_hash_to_info", "add_version_to_infotext", "infotext_styles",
         "sd_model_checkpoint", "sd_vae_decode_method", "vae_always_tiled",
-        "live_previews_enable", "show_progress_every_n_steps", "show_progress_type")
+        "live_previews_enable", "show_progress_every_n_steps", "show_progress_type",
+        "ESRGAN_tile", "ESRGAN_tile_overlap", "DAT_tile", "DAT_tile_overlap", "SWIN_tile",
+        "SWIN_tile_overlap", "face_restoration", "face_restoration_model", "code_former_weight")
 
 
 def test_registered_keys_carry_the_reference_defaults():

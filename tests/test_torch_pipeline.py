@@ -74,10 +74,8 @@ def test_processing_refuses_unported_fields():
         p.image_cfg_scale = 1.5
     for name, value in (("cond_transform", lambda c: c), ("reference_state", object()),
                         ("scripts", object()), ("soft_inpainting", object()),
-                        ("do_not_save_grid", True)):
+                        ("do_not_save_grid", True), ("restore_faces", True)):
         assert getattr(Processing(prompt="x", **{name: value}), name) is value  # ported fields
-    with pytest.raises(NotImplementedError, match="restore_faces"):
-        Processing(prompt="x", restore_faces=True)
 
 
 def test_port_imports_no_jax():

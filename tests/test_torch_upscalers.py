@@ -5,8 +5,8 @@ one numpy state dict through both packages within 1e-5 of the output's
 scale; the old `model.N` key layout; the tiled upscale with its feathered
 seams on a 40² image in 16² tiles at overlap 4 within 1e-5; Lanczos and
 Nearest bit-equal to Pillow's through forge_tpu; the registry's discovery
-of a `.safetensors` and a `.pth` file, and its refusal of the architectures
-not ported. Two faults on the reference's side are shown from both sides:
+of a `.safetensors` and a `.pth` file (the other architectures it runs:
+tests/test_torch_swinir.py, tests/test_torch_upscalers_extra.py). Two faults on the reference's side are shown from both sides:
 its key conversion raises IndexError on an old-layout conv_body, and its
 `.pth` reader loads a `params_ema`-wrapped file (RealESRGAN's own layout)
 empty.
@@ -188,15 +188,3 @@ def test_registry_reads_a_params_ema_pth(model_dir):
     img = np.random.default_rng(5).integers(0, 256, size=(20, 20, 3), dtype=np.uint8)
     assert np.array_equal(reg.get("tiny_ema").upscale(img, 4.0),
                           reg.get("tiny_x4").upscale(img, 4.0))
-
-
-def test_registry_refuses_unported_architectures(tmp_path):
-    from forge_tpu_torch.core.save import save_safetensors
-    from forge_tpu_torch.pipeline.upscalers import UpscalerRegistry
-
-    save_safetensors({"layers.0.residual_group.blocks.0.attn.qkv.weight":
-                      np.zeros((12, 4), np.float32)}, str(tmp_path / "swinir.safetensors"))
-    reg = UpscalerRegistry(model_dirs={"SwinIR": str(tmp_path)}, device="cpu")
-    img = np.zeros((8, 8, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="SwinIR.*ROADMAP"):
-        reg.get("swinir").upscale(img, 4.0)
