@@ -12,8 +12,9 @@ the image-prompt family on SDXL (reference-only, FaceID, FaceID-Plus, InstantID,
 PhotoMaker, and the REST API's always-on scripts), and the script surface on SDXL (the script
 runner and its events, the X/Y/Z grid, the selectable scripts, soft inpainting and the img2img
 options, the API's script routes), and the postprocessing path (the SwinIR, HAT, DAT and SCUNet
-upscalers, CodeFormer and GFPGAN face restoration with restore_faces, the extras routes), on one
-NVIDIA GPU.
+upscalers, CodeFormer and GFPGAN face restoration with restore_faces, the extras routes), and
+the rest of the API surface on SDXL (ControlNetScript, saving images with their events and the
+event log, the ControlNet, embedding, merge and web UI routes), on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -27,6 +28,8 @@ NVIDIA GPU.
                                            # at 20 steps; no result
     python3 chip_smoke.py --scripts  # phase 1, phase 2's SDXL and outpainting rows, phase 19 at
                                      # 20 steps; no result
+    python3 chip_smoke.py --surface  # phase 1, phase 2's SDXL rows, phase 21 at 20 steps
+                                     # with the full-depth merge; no result
     python3 chip_smoke.py --extras   # phase 1, phase 2's SDXL and hires rows, phase 20 at 20
                                      # steps with (d); no result
 
@@ -325,6 +328,31 @@ Phases:
      1 to 1000×700 with the crop), each PNG's pixels equal to the restorer's
      and the registry's result. None of it launches a kernel: (a), (b) and
      (e) are held at 0.
+ 21. the rest of the API surface on the SDXL engine, after phase 20
+     (`--surface`: on an engine of its own, at 20 steps). SDXL 1024², DPM++ 2M
+     Karras, CFG 7, seed 1, 4 steps. Saving is off in every other phase
+     (`samples_save`, `grid_save` and `save_write_params_txt` are turned off
+     at the start, and the event log writes into a temporary directory).
+     (a) a canny unit on a full-width SDXL ControlNet made on the card, once
+     through a ScriptRunner holding ControlNetScript with the unit in
+     `p.controlnet_units` and once through the always-on script dispatch:
+     the two images byte-equal, launches exact (the witness's plus the
+     ControlNet's forward at each step), and a UNet + ControlNet forward
+     against plain (≥ 40 dB); (b) the same request with `samples_save` and
+     `save_write_params_txt` on, into a temporary directory: one PNG whose
+     pixels equal the returned image and whose "parameters" equal the
+     infotext, `before_image_saved` and `image_saved` once each, one row in
+     log.csv, one `generation` line in the event log, params.txt, and the
+     seconds the save adds; (c) the routes through the port's server on
+     port 0: /controlnet/version, /module_list and /model_list;
+     /sdapi/v1/create/embedding, then a txt2img whose prompt uses the
+     embedding (launches exact); /merge-checkpoints of two synth SDXL
+     checkpoints at 0.3 (a spot check of the merged tensors), the merged
+     file loaded through /sdapi/v1/options (its seconds printed) and a
+     txt2img on it with `save_images` true, whose PNG is written (launches
+     exact); GET / answering the web UI. The merged checkpoints have SDXL's
+     widths; the whole run cuts their UNet's transformer depths to (0, 1, 1)
+     and 1 and CLIP-G to 2 layers, `--surface` keeps SDXL's.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -336,6 +364,7 @@ two lines are the per-kernel JSON summary and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import io
@@ -343,8 +372,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -763,6 +794,31 @@ EXTRAS_HIRES_ROWS = ([((2, 10, 16384, 64), 16384, True), ((2, 20, 4096, 64), 409
                         ((1, 256, 512, 512), 512)])
 
 
+# phase 21: the rest of the API surface on the SDXL engine (tests/test_torch_saving*.py,
+# test_torch_controlnet_script.py, test_torch_event_log.py, test_torch_management*.py and
+# test_torch_surface_api.py hold it against the reference on the CPU;
+# tests/test_torch_surface_trace.py traces these counts on the meta device): 1024², DPM++ 2M
+# Karras, CFG 7, seed 1, 4 steps in the whole run (20 under --surface). A ControlNet beside the
+# UNet adds 34 flash / 16 conv a step (guidance 0 to 1); the merged checkpoint's UNet makes one
+# flash launch a transformer block a forward (70 at SDXL's depths, 11 at the whole run's cut)
+SURFACE_STEPS = 4  # 20 under --surface
+SURFACE_DIR = "logs/chip_smoke_surface"
+SURFACE_MERGE = 0.3  # the merge's multiplier: weighted sum a·0.7 + b·0.3
+SURFACE_CUT = dict(transformer_depth=(0, 1, 1), middle_depth=1, clip_g_layers=2)
+SURFACE_EMBEDDING = "chip-smoke-emb"
+
+
+def surface_counts(steps: int, merged_blocks: int = 70):
+    """Phase 21's launches a request by label; `merged_blocks` the merged
+    UNet's transformer blocks."""
+    def count(blocks=70, cn=0):
+        return {"flash_attention": blocks * steps + 34 * cn * steps + 1,
+                "gn_silu_conv3x3": 34 * steps + 16 * cn * steps + 28, "dequant_matmul": 0}
+
+    return {"witness": count(), "ControlNetScript": count(cn=1), "alwayson": count(cn=1),
+            "saving": count(cn=1), "embedding": count(), "merged": count(merged_blocks)}
+
+
 def extras_counts(steps: int):
     """Phase 20's launches by label."""
     txt = {"flash_attention": 70 * steps + 1, "gn_silu_conv3x3": 34 * steps + 28,
@@ -1085,7 +1141,8 @@ def phase_kernels(gen: torch.Generator, rows: str = "all"):
                        "image_prompts": (IMAGE_PROMPT_FLASH_SHAPES, []),
                        "scripts": SCRIPTS_ROWS,
                        "extras": (EXTRAS_ROWS[0] + EXTRAS_HIRES_ROWS[0],
-                                  EXTRAS_ROWS[1] + EXTRAS_HIRES_ROWS[1])}[rows]
+                                  EXTRAS_ROWS[1] + EXTRAS_HIRES_ROWS[1]),
+                       "surface": EXTRAS_ROWS}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
@@ -4003,6 +4060,285 @@ def phase_extras(engine, gen: torch.Generator, steps: int = EXTRAS_STEPS, full: 
     return total
 
 
+def safetensors_tensor(path: str, key: str):
+    """One tensor of a .safetensors file, read alone → (the numpy array, the
+    file's sorted keys)."""
+    import struct
+
+    with open(path, "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        header = json.loads(f.read(n))
+        info = header[key]
+        begin, end = info["data_offsets"]
+        f.seek(8 + n + begin)
+        raw = f.read(end - begin)
+    dtype = {"F16": np.float16, "F32": np.float32}[info["dtype"]]
+    keys = sorted(k for k in header if k != "__metadata__")
+    return np.frombuffer(raw, dtype).reshape(info["shape"]), keys
+
+
+def phase_surface(engine, gen: torch.Generator, steps: int = SURFACE_STEPS, full: bool = False):
+    """Phase 21: the rest of the API surface on the card (see the docstring):
+    (a) ControlNetScript against the always-on dispatch, (b) saving, (c) the
+    routes. `full`: the merged checkpoints at SDXL's depths."""
+    import base64
+    import glob
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from forge_tpu_torch.api.server import CMD_FLAGS, _apply_alwayson_scripts, create_server
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.core.synth import DeviceFill, synth_controlnet_sd, synth_sdxl_checkpoint
+    from forge_tpu_torch.extensions.controlnet import ControlNetScript, list_controlnet_models
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline import images as images_mod
+    from forge_tpu_torch.pipeline import processing as proc
+    from forge_tpu_torch.preprocessors import preprocessor_names
+    from forge_tpu_torch.runtime import logging as event_log
+    from forge_tpu_torch.runtime import scripts as scripts_mod
+    from forge_tpu_torch.runtime.models import ModelManager
+    from forge_tpu_torch.runtime.options import opts
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), SURFACE_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    fields = dict(prompt=EXT_PROMPT, negative_prompt="blurry", seed=1, steps=steps, cfg_scale=7.0,
+                  width=1024, height=1024, sampler_name="DPM++ 2M", scheduler="karras")
+    merged_blocks = 70 if full else 11
+    per_label, total = surface_counts(steps, merged_blocks), {}
+
+    def measured(label, fn):
+        """fn() with its launches read and held to `label`'s count → (its
+        result, its seconds)."""
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = read_counts()
+        add_counts(total, launches)
+        check_counts(launches, per_label[label], 1, f"surface {label}")
+        return out, seconds
+
+    def image_ok(res, label):
+        img = res.images[0]
+        check(len(res.images) == 1 and img.shape == (1024, 1024, 3) and img.dtype == np.uint8
+              and img.std() > 0, f"surface {label}: one 1024²×3 uint8 image, not flat")
+        return img
+
+    # (a) a canny unit through ControlNetScript and through the always-on dispatch
+    cldm, _ = timed("surface (a): a full-width SDXL ControlNet made on the card",
+                    lambda: synth_controlnet_sd(fill=DeviceFill("cuda", seed=21)))
+    source = np.random.default_rng(21).integers(0, 256, (1024, 1024, 3), dtype=np.uint8)
+    unit = {"module": "canny", "model": cldm, "image": source, "weight": 1.0,
+            "guidance_start": 0.0, "guidance_end": 1.0}
+    witness, w_secs = measured("witness", lambda: proc.process_images(
+        engine, proc.Processing(**fields)))
+    runner = scripts_mod.ScriptRunner()
+    runner.register(ControlNetScript(device=engine.device, dtype=engine.compute_dtype))
+    p_script = proc.Processing(**fields, scripts=runner)
+    p_script.controlnet_units = [unit]
+    by_script, s_secs = measured("ControlNetScript", lambda: proc.process_images(engine, p_script))
+
+    def alwayson():
+        p = proc.Processing(**fields)
+        _apply_alwayson_scripts(p, {"controlnet": {"args": [unit]}}, engine.device,
+                                engine.compute_dtype)
+        return proc.process_images(engine, p)
+
+    by_api, a_secs = measured("alwayson", alwayson)
+    img = image_ok(by_script, "(a) ControlNetScript")
+    check(np.array_equal(img, image_ok(by_api, "(a) always-on")),
+          "surface (a): ControlNetScript's image = the always-on dispatch's, byte for byte")
+    check(not np.array_equal(img, image_ok(witness, "(a) witness")),
+          "surface (a): the ControlNet moved the image")
+    check(len(p_script.controlnets or []) == 1, "surface (a): the script attached one state")
+    log(f"surface (a) ControlNetScript {s_secs:.4f} s, always-on {a_secs:.4f} s, witness "
+        f"{w_secs:.4f} s ({s_secs / w_secs:.3f}x); PSNR vs the witness {image_psnr(img, witness.images[0]):.2f} dB")
+    cond = engine.get_learned_conditioning([EXT_PROMPT, "blurry"], 1024, 1024)
+    x = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(engine.compute_dtype)
+    ts = torch.tensor([999.0, 400.0], device="cuda")
+    apply = engine.unet_apply_fn(controlnets=p_script.controlnets)
+    with torch.no_grad():
+        fused = apply(engine.loaded.unet, x, ts, cond["context"], y=cond["y"], t_host=999.0)
+        with plain_versions():
+            plain = apply(engine.loaded.unet, x, ts, cond["context"], y=cond["y"], t_host=999.0)
+    value = psnr(fused, plain)
+    log(f"surface (a) sdxl unet + controlnet 128x128 B=2 bf16: kernels vs plain PSNR {value:.2f} dB "
+        f"(bound {PSNR_BOUND})")
+    check(value >= PSNR_BOUND, f"surface (a): UNet + ControlNet PSNR ≥ {PSNR_BOUND} dB")
+    del x, fused, plain, p_script, by_script, cond
+
+    # (b) the same request with saving on, into a temporary directory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_saving_")
+    events = []
+    saved_log = event_log._PATH
+    event_log.configure(os.path.join(tmp, "events.jsonl"))
+    for name in ("before_image_saved", "image_saved"):
+        scripts_mod.on(name, lambda path, image, text, _n=name: events.append((_n, path, text)))
+    save_seconds = []
+    save_image = proc.save_image
+
+    def timed_save(*args, **kwargs):
+        t = time.perf_counter()
+        out = save_image(*args, **kwargs)
+        save_seconds.append(time.perf_counter() - t)
+        return out
+
+    proc.save_image = timed_save
+    cwd = os.getcwd()
+    os.chdir(tmp)  # params.txt is written in the working directory
+    try:
+        with opts.override({"samples_save": True, "save_write_params_txt": True,
+                            "outdir_txt2img_samples": os.path.join(tmp, "txt2img-images")}):
+            saved_res, b_secs = measured("saving", alwayson)
+    finally:
+        os.chdir(cwd)
+        proc.save_image = save_image
+        for name in ("before_image_saved", "image_saved"):
+            scripts_mod.clear(name)
+        event_log.configure(saved_log)
+    files = sorted(glob.glob(os.path.join(tmp, "txt2img-images", "**", "*.png"), recursive=True))
+    text = saved_res.infotexts[0]
+    check(len(files) == 1, f"surface (b): one PNG written ({len(files)})")
+    with open(files[0], "rb") as f:
+        pixels, chunks = images_mod.decode_png(f.read())
+    check(np.array_equal(pixels, saved_res.images[0]), "surface (b): the file's pixels = the image")
+    check(chunks.get("parameters") == text, "surface (b): the file's parameters = the infotext")
+    check(np.array_equal(saved_res.images[0], img), "surface (b): the image = (a)'s, byte for byte")
+    check([e[0] for e in events] == ["before_image_saved", "image_saved"]
+          and all(e[1] == files[0] and e[2] == text for e in events),
+          "surface (b): before_image_saved and image_saved fired once each with the file")
+    import csv
+
+    with open(os.path.join(os.path.dirname(files[0]), "log.csv"), encoding="utf8",
+              newline="") as f:
+        rows = list(csv.reader(f))
+    check(len(rows) == 2 and rows[1][0] == os.path.basename(files[0])
+          and rows[1][3] == text.replace("\n", " | "),
+          "surface (b): log.csv holds its header and one row")
+    with open(os.path.join(tmp, "events.jsonl"), encoding="utf8") as f:
+        lines = [json.loads(line) for line in f]
+    check([e["event"] for e in lines] == ["generation"] and lines[0]["steps"] == steps,
+          "surface (b): one generation line in the event log")
+    with open(os.path.join(tmp, "params.txt"), encoding="utf8") as f:
+        check(f.read() == text, "surface (b): params.txt holds the infotext")
+    log(f"surface (b) saving: {b_secs:.4f} s against the always-on request's {a_secs:.4f} s; "
+        f"save_image {save_seconds[0]:.4f} s ({os.path.getsize(files[0]) / 2**20:.2f} MiB PNG); "
+        f"the generation line: " + json.dumps({k: v for k, v in lines[0].items()
+                                                if not k.startswith("t_")}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    del cldm, unit, saved_res, by_api
+    torch.cuda.empty_cache()
+
+    # (c) the routes through the port's server on port 0
+    ckpt_dir = os.path.join(work, "Stable-diffusion")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    depth = {} if full else SURFACE_CUT
+    for name, seed in (("sdxl-a", 5), ("sdxl-b", 6)):
+        def write(_seed=seed, _name=name):
+            sd = synth_sdxl_checkpoint(fill=DeviceFill("cuda", seed=_seed), **depth)
+            save_safetensors({k: v.to(torch.float16) for k, v in sd.items()},
+                             os.path.join(ckpt_dir, _name + ".safetensors"))
+            return sum(v.size for v in sd.values())
+
+        n, _ = timed(f"surface (c) {name}: a synth SDXL checkpoint "
+                     f"({'SDXL depths' if full else 'depths cut'}) made on the card and written "
+                     "in fp16", write)
+    log(f"surface (c): each checkpoint {n / 1e9:.3f} B values, "
+        f"{os.path.getsize(os.path.join(ckpt_dir, 'sdxl-a.safetensors')) / 2**30:.3f} GiB")
+    manager = ModelManager(checkpoint_dirs=[ckpt_dir], device=engine.device)
+    manager.set_engine(engine)
+    server = create_server(manager, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    api_dir = tempfile.mkdtemp(prefix="chip_smoke_api_")
+    checkpoint_option = opts.get("sd_model_checkpoint")
+    emb_dir = os.path.join(work, "embeddings")
+    CMD_FLAGS["embeddings_dir"] = emb_dir  # as webui.py --embeddings-dir sets it
+    try:
+        check(http(base, "/controlnet/version") == {"version": 2}, "surface (c): /controlnet/version")
+        check(http(base, "/controlnet/module_list") == {"module_list": preprocessor_names()},
+              "surface (c): /controlnet/module_list = preprocessor_names()")
+        check(http(base, "/controlnet/model_list") == {"model_list": list_controlnet_models()},
+              "surface (c): /controlnet/model_list = list_controlnet_models()")
+        info = http(base, "/sdapi/v1/create/embedding", dict(
+            name=SURFACE_EMBEDDING, num_vectors_per_token=2, init_text="astronaut",
+            out_dir=emb_dir))["info"]
+        emb_path = os.path.join(emb_dir, SURFACE_EMBEDDING + ".safetensors")
+        check(info.endswith(emb_path) and os.path.exists(emb_path),
+              "surface (c): /create/embedding wrote its file")
+        engine.embedding_db.load_dir(emb_dir)
+        prompt = f"a photograph of {SURFACE_EMBEDDING} riding a horse"
+        ids = list(engine.text_engines["clip_l"].tokenizer.ids(prompt))
+        check(any(engine.embedding_db.match(ids, i) for i in range(len(ids))),
+              "surface (c): the prompt's tokens meet the embedding")
+
+        def txt2img(**extra):
+            answer = http(base, "/sdapi/v1/txt2img", dict(fields, **extra))
+            return images_mod.decode_png(base64.b64decode(answer["images"][0]))[0], answer
+
+        (emb_img, _), e_secs = measured("embedding", lambda: txt2img(prompt=prompt))
+        log(f"surface (c) txt2img with the embedding: {e_secs:.4f} s")
+        (merged, m_secs) = timed("surface (c) /merge-checkpoints (weighted sum at 0.3, host "
+                                 "numpy, fp16 out)", lambda: http(
+                                     base, "/sdapi/v1/merge-checkpoints",
+                                     dict(primary="sdxl-a.safetensors",
+                                          secondary="sdxl-b.safetensors",
+                                          multiplier=SURFACE_MERGE, custom_name="merged")))
+        check(os.path.exists(merged["path"]) and "merged.safetensors" in manager.checkpoints,
+              "surface (c): the merged file written and listed")
+        key = "model.diffusion_model.input_blocks.0.0.weight"
+        (a, a_keys), (b, _), (m, m_keys) = (
+            safetensors_tensor(os.path.join(ckpt_dir, f"{n}.safetensors"), key)
+            for n in ("sdxl-a", "sdxl-b", "merged"))
+        want = (a.astype(np.float32) * (1 - SURFACE_MERGE)
+                + b.astype(np.float32) * SURFACE_MERGE).astype(np.float16)
+        check(np.array_equal(m, want) and m_keys == a_keys,
+              "surface (c): a merged tensor = fp16(a·0.7 + b·0.3), every key kept")
+        blocks = sum(1 for k in m_keys if k.startswith("model.diffusion_model.")
+                     and k.endswith(".attn1.to_q.weight"))
+        check(blocks == merged_blocks, f"surface (c): the merged UNet has {merged_blocks} "
+                                       f"transformer blocks ({blocks})")
+        _, l_secs = timed("surface (c) the merged checkpoint loaded through /sdapi/v1/options",
+                          lambda: http(base, "/sdapi/v1/options",
+                                       {"sd_model_checkpoint": "merged.safetensors"}))
+        check(manager.engine is not engine, "surface (c): the merged engine serves")
+        (m_img, answer), r_secs = measured("merged", lambda: txt2img(
+            save_images=True, override_settings={"samples_save": True,
+                                                 "outdir_txt2img_samples": api_dir}))
+        written = glob.glob(os.path.join(api_dir, "**", "*.png"), recursive=True)
+        check(len(written) == 1, "surface (c): txt2img with save_images wrote one PNG")
+        with open(written[0], "rb") as f:
+            check(np.array_equal(images_mod.decode_png(f.read())[0], m_img),
+                  "surface (c): the written PNG = the answered image")
+        check(m_img.std() > 0 and not np.array_equal(m_img, emb_img),
+              "surface (c): the merged engine's image")
+        log(f"surface (c) the merged engine: load {l_secs:.4f} s, txt2img with save_images "
+            f"{r_secs:.4f} s; merge {m_secs:.4f} s")
+        req = urllib.request.Request(base + "/")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            page = r.read()
+            check(r.status == 200 and r.headers["Content-Type"].startswith("text/html")
+                  and page.startswith(b"<!doctype html>"), "surface (c): GET / serves the web UI")
+    finally:
+        server.shutdown()
+        server.server_close()
+        manager.unload()
+        manager.close()
+        opts.set("sd_model_checkpoint", checkpoint_option)
+        CMD_FLAGS.pop("embeddings_dir", None)
+        shutil.rmtree(api_dir, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"surface phase 21 at {steps} steps: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under torch.profiler: device time by kernel, and
     the busy share (kernel time over the request's wall time). Only the
@@ -4110,6 +4446,10 @@ def main():
                     help="run phase 1, phase 2's SDXL and hires rows and phase 20 (the upscalers, "
                          "the face restorers, restore_faces, the hires fix through SwinIR and "
                          "the extras routes on SDXL) at 20 steps only, with no result")
+    ap.add_argument("--surface", action="store_true",
+                    help="run phase 1, phase 2's SDXL rows and phase 21 (ControlNetScript, saving, "
+                         "the event log and the management and web UI routes on SDXL) at 20 steps "
+                         "with the full-depth merge only, with no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -4151,7 +4491,15 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     from forge_tpu_torch.runtime.options import opts
 
-    opts.set("save_write_params_txt", False)  # no params.txt written inside timed requests
+    from forge_tpu_torch.runtime import logging as event_log
+
+    # no image, grid, log.csv or params.txt written by any phase but 21 (b), which writes into a
+    # temporary directory; the event log's lines go to a temporary directory too
+    for key in ("samples_save", "grid_save", "save_write_params_txt"):
+        opts.set(key, False)
+    events_dir = tempfile.mkdtemp(prefix="chip_smoke_events_")
+    atexit.register(shutil.rmtree, events_dir, True)
+    event_log.configure(os.path.join(events_dir, "events.jsonl"))
     t = time.perf_counter()
     summary = phase_kernels(gen, "families" if args.families else "api" if args.api
                             else "flux_family" if args.flux_family
@@ -4159,7 +4507,8 @@ def main():
                             else "controls" if args.controls
                             else "image_prompts" if args.image_prompts
                             else "scripts" if args.scripts
-                            else "extras" if args.extras else "all")
+                            else "extras" if args.extras
+                            else "surface" if args.surface else "all")
     done("kernels (phase 2)", t)
     if args.kernels:
         log("kernels only: phases 1-2 passed")
@@ -4175,7 +4524,10 @@ def main():
                              "phases 1, 2 (the SDXL and outpainting rows) and 19"),
                  "extras": ("extras", lambda e: phase_extras(e, gen, steps=5 * EXTRAS_STEPS,
                                                              full=True),
-                            "phases 1, 2 (the SDXL and hires rows) and 20")}
+                            "phases 1, 2 (the SDXL and hires rows) and 20"),
+                 "surface": ("surface", lambda e: phase_surface(e, gen, steps=5 * SURFACE_STEPS,
+                                                               full=True),
+                             "phases 1, 2 (the SDXL rows) and 21")}
     for flag, (name, run, what) in one_phase.items():
         if getattr(args, flag):
             if flag == "extensions":
@@ -4222,7 +4574,8 @@ def main():
                            ("controls", "controls", phase_controls),
                            ("image prompts", "image_prompts", phase_image_prompts),
                            ("scripts", "scripts", phase_scripts),
-                           ("extras", "extras", phase_extras)):
+                           ("extras", "extras", phase_extras),
+                           ("surface", "surface", phase_surface)):
         t = time.perf_counter()
         paths[key] = run(engine, gen)
         done(name, t)

@@ -1,4 +1,4 @@
-# Copied from forge_tpu/api/server.py (the route table, _processing_from_payload, _apply_alwayson_scripts, _first_dict, _generate with its script dispatch, the routes this slice answers, _Handler with basic auth and CORS, create_server with its app_started event); PNG through the port's own codec.
+# Copied from forge_tpu/api/server.py (the route table, _processing_from_payload, _apply_alwayson_scripts, _first_dict, _generate with its script dispatch, the routes this port answers, _Handler with basic auth, CORS, raw answers and the event log, create_server with its ui_tabs and app_started events, the restart latch); PNG through the port's own codec.
 """REST API: the reference's `/sdapi/v1/*` contract on the standard
 library's `ThreadingHTTPServer` (routes, JSON bodies, base64 PNG images), so
 webui API clients work unchanged.
@@ -13,7 +13,7 @@ A request field is passed to the port's `Processing`; one it refuses answers
 dropped only at the value that is the port's behaviour (no tiling or
 hooks); keys that are no request field at all are dropped, as
 the reference drops them, and `do_not_save_samples` and `do_not_save_grid`
-default to true, as the reference's API sets them. `alwayson_scripts` turns
+default to the negation of `save_images`, as the reference's API sets them. `alwayson_scripts` turns
 the extensions on, as the reference's dispatch does: ControlNet units, the
 IP-Adapter (FaceID and InstantID too), FreeU, the latent modifier, Fooocus
 inpaint, ControlLLLite, soft inpainting, StyleAlign, dynamic thresholding,
@@ -29,11 +29,23 @@ value it refuses answers 422. `/sdapi/v1/extra-single-image` and
 `/sdapi/v1/extra-batch-images` restore faces and upscale uploaded images as
 the reference's `_upscale_one` does (the registry of pipeline/upscalers.py,
 the restorer postprocessing/faces.py picks); `restore_faces` without a
-restorer checkpoint answers 422. `create_server` fires the `app_started` event
-and `serve` `script_unloaded` once it stops serving. An image
+restorer checkpoint answers 422. `/controlnet/model_list`, `/module_list`
+and `/version` list the ControlNet models and preprocessors;
+`/sdapi/v1/create/embedding`, `/merge-checkpoints` (on the work queue, then
+the checkpoint list refreshed), `/extensions*` (install and update answer
+403 without --enable-insecure-extension-access), `/config_states*` and the
+extra-networks `metadata`, `cards` and `preview` routes manage files as the
+reference's do; `GET /` serves the static web UI (404 under --nowebui),
+with `/sdapi/v1/localization` and `/sdapi/v1/ui-tabs` (the `ui_tabs`
+callbacks' tabs, collected by `create_server`). `/sdapi/v1/server-restart`
+latches `restart_requested` once its gate passes and stops the server;
+the launcher's loop starts it again. `create_server` fires the `app_started` event
+and `serve` `script_unloaded` once it stops serving. Every answered
+`/sdapi` route logs an `api_request` event and a server error an
+`api_error` event (runtime/logging.py). An image
 that is not an 8-bit PNG answers 415 with its format's name. Routes of the reference's table that
-this port does not answer yet answer 501 with the ROADMAP item that ports
-them; none answers as if it had worked.
+this port does not answer yet (interrogate and the Spaces) answer 501 with
+the ROADMAP item that ports them; none answers as if it had worked.
 """
 
 from __future__ import annotations
@@ -60,7 +72,8 @@ from ..postprocessing.faces import RestorerMissing
 from ..runtime.models import ModelManager
 from ..runtime.options import opts
 from ..runtime.queue import work_queue
-from ..runtime.scripts import fire
+from ..runtime.logging import log_event
+from ..runtime.scripts import callbacks, fire
 from ..runtime.state import state
 from ..sampling.samplers import SAMPLERS
 from ..sampling.schedules import SCHEDULES
@@ -99,6 +112,7 @@ _API_ALIASES = {
     "sampler_index": "sampler_name",
     "firstphase_width": None,
     "firstphase_height": None,
+    "controlnet_units": None,  # the reference's request has no such field: dropped
 }
 # the reference's request fields (forge_tpu Processing) that the port's lacks, at the value
 # that is the port's behaviour: dropped at it, passed on (and refused) at any other
@@ -138,18 +152,18 @@ _OBJECT_FIELDS = ("hook_phases", "deferred_hooks", "scripts", "soft_inpainting")
 
 def _processing_from_payload(payload: Dict[str, Any]) -> Processing:
     """A txt2img or img2img payload → Processing. An `infotext` field seeds the
-    request, the payload's own fields override it; `save_images` answers 422
-    (no sample is saved), as does an always-on script the dispatch does not
-    take (`_alwayson_kind`); the always-on scripts attach on the work queue
+    request, the payload's own fields override it; images and grids are
+    saved only with `save_images` true (`do_not_save_samples` and
+    `do_not_save_grid` default to its negation, as the reference's API sets
+    them); an always-on script the dispatch does not take answers 422
+    (`_alwayson_kind`); the always-on scripts attach on the work queue
     (`_apply_alwayson_scripts`)."""
     from ..pipeline.processing import _FIELDS, CFG_HOOK_FIELDS, IMAGE_PROMPT_FIELDS
 
-    if payload.get("save_images"):
-        raise ApiError(422, "save_images: saving images is not ported to forge_tpu_torch yet "
-                            "(ROADMAP.md queue 1 item 7)")
     for name in payload.get("alwayson_scripts") or {}:
         _alwayson_kind(name)
-    kwargs: Dict[str, Any] = {"do_not_save_samples": True, "do_not_save_grid": True}
+    no_save = not payload.get("save_images", False)
+    kwargs: Dict[str, Any] = {"do_not_save_samples": no_save, "do_not_save_grid": no_save}
     if payload.get("infotext"):
         kwargs.update(infotext_to_processing_args(payload["infotext"]))
     for key, value in payload.items():
@@ -270,34 +284,13 @@ LATENT_UPSCALE_MODES = ("Latent", "Latent (antialiased)", "Latent (bicubic)",
                         "Latent (nearest-exact)")
 
 # the reference's routes this port does not answer yet → the ROADMAP item that ports them
-_ROADMAP_STATIC_UI = "queue 1 item 7: the static web UI"
 _ROADMAP_EXTRAS = "queue 1 item 9: interrogate (BLIP, deepbooru, the CLIP interrogator)"
-_ROADMAP_CONTROLNET = "queue 1 item 6: the ControlNet routes"
 _ROADMAP_SPACES = "queue 1 item 9: spaces"
-_ROADMAP_MANAGE = "queue 1 item 7: extensions, merging, embeddings and the extra-networks pages"
 UNPORTED_ROUTES = {
-    ("GET", "/"): _ROADMAP_STATIC_UI,
-    ("GET", "/sdapi/v1/localization"): _ROADMAP_STATIC_UI,
-    ("GET", "/sdapi/v1/ui-tabs"): _ROADMAP_STATIC_UI,
     ("POST", "/sdapi/v1/interrogate"): _ROADMAP_EXTRAS,
-    ("GET", "/controlnet/model_list"): _ROADMAP_CONTROLNET,
-    ("GET", "/controlnet/module_list"): _ROADMAP_CONTROLNET,
-    ("GET", "/controlnet/version"): _ROADMAP_CONTROLNET,
     ("GET", "/sdapi/v1/spaces"): _ROADMAP_SPACES,
     ("POST", "/sdapi/v1/spaces/launch"): _ROADMAP_SPACES,
     ("POST", "/sdapi/v1/spaces/terminate"): _ROADMAP_SPACES,
-    ("POST", "/sdapi/v1/create/embedding"): _ROADMAP_MANAGE,
-    ("GET", "/sdapi/v1/extensions"): _ROADMAP_MANAGE,
-    ("POST", "/sdapi/v1/extensions/install"): _ROADMAP_MANAGE,
-    ("POST", "/sdapi/v1/extensions/update"): _ROADMAP_MANAGE,
-    ("POST", "/sdapi/v1/merge-checkpoints"): _ROADMAP_MANAGE,
-    ("GET", "/sdapi/v1/extra-networks/metadata"): _ROADMAP_MANAGE,
-    ("POST", "/sdapi/v1/extra-networks/metadata"): _ROADMAP_MANAGE,
-    ("GET", "/sdapi/v1/extra-networks/cards"): _ROADMAP_MANAGE,
-    ("GET", "/sdapi/v1/extra-networks/preview"): _ROADMAP_MANAGE,
-    ("GET", "/config_states"): _ROADMAP_MANAGE,
-    ("POST", "/config_states/save"): _ROADMAP_MANAGE,
-    ("POST", "/sdapi/v1/server-restart"): _ROADMAP_MANAGE,
 }
 
 
@@ -353,11 +346,30 @@ class Api:
             ("POST", "/sdapi/v1/xyz-grid"): self.xyz_grid,
             ("POST", "/sdapi/v1/extra-single-image"): self.extra_single,
             ("POST", "/sdapi/v1/extra-batch-images"): self.extra_batch,
+            ("GET", "/controlnet/model_list"): self.controlnet_models,
+            ("GET", "/controlnet/module_list"): self.controlnet_modules,
+            ("GET", "/controlnet/version"): lambda q, b: {"version": 2},
+            ("POST", "/sdapi/v1/create/embedding"): self.create_embedding,
+            ("GET", "/sdapi/v1/extensions"): self.list_extensions,
+            ("POST", "/sdapi/v1/extensions/install"): self.extensions_install,
+            ("POST", "/sdapi/v1/extensions/update"): self.extensions_update,
+            ("POST", "/sdapi/v1/merge-checkpoints"): self.merge_checkpoints,
+            ("GET", "/sdapi/v1/extra-networks/metadata"): self.network_metadata_get,
+            ("POST", "/sdapi/v1/extra-networks/metadata"): self.network_metadata_set,
+            ("GET", "/sdapi/v1/extra-networks/cards"): self.network_cards,
+            ("GET", "/sdapi/v1/extra-networks/preview"): self.network_preview,
+            ("GET", "/config_states"): self.config_states,
+            ("POST", "/config_states/save"): self.config_states_save,
+            ("POST", "/sdapi/v1/server-restart"): self.server_restart,
+            ("GET", "/"): self.index,
+            ("GET", "/sdapi/v1/localization"): self.get_localization,
+            ("GET", "/sdapi/v1/ui-tabs"): lambda q, b: self.custom_tabs,
         }
         for route, item in UNPORTED_ROUTES.items():
             self.routes[route] = self._unported(route, item)
         self._server: Optional[ThreadingHTTPServer] = None
         self._standalone_loras = None
+        self.custom_tabs = []  # what the ui_tabs callbacks gave create_server
 
     @staticmethod
     def _unported(route, item):
@@ -641,6 +653,238 @@ class Api:
                                              else item, body) for item in images],
                 "html_info": ""}
 
+    # -- ControlNet ---------------------------------------------------------------
+
+    def controlnet_models(self, query, body):
+        from ..extensions.controlnet import list_controlnet_models
+
+        return {"model_list": list_controlnet_models()}
+
+    def controlnet_modules(self, query, body):
+        from ..preprocessors import preprocessor_names
+
+        return {"module_list": preprocessor_names()}
+
+    # -- management -------------------------------------------------------------
+
+    def create_embedding(self, query, body):
+        """A textual-inversion embedding from the engine's token table
+        (text/textual_inversion.py `create_embedding`), on the work queue →
+        {info: the path}. `out_dir` must lie inside the embeddings folder
+        (422 otherwise: the reference writes wherever the request says)."""
+        from ..text.textual_inversion import create_embedding
+
+        body = body or {}
+        root = os.path.realpath(CMD_FLAGS.get("embeddings_dir") or "embeddings")
+        out_dir = body.get("out_dir") or root
+        if os.path.commonpath([root, os.path.realpath(out_dir)]) != root:
+            raise ApiError(422, f"out_dir {out_dir!r} is outside the embeddings folder {root!r}")
+        path = work_queue.run_and_wait(
+            lambda: create_embedding(
+                self._engine(), name=body.get("name", ""),
+                num_vectors=int(body.get("num_vectors_per_token", body.get("num_vectors", 1))),
+                init_text=body.get("init_text", "*"),
+                overwrite=bool(body.get("overwrite_old", False)),
+                out_dir=out_dir))
+        return {"info": f"create embedding filename: {path}"}
+
+    def list_extensions(self, query, body):
+        from ..runtime.extensions import list_extensions
+
+        return [{"name": e.name, "remote": e.remote, "branch": e.branch,
+                 "commit_hash": e.commit_hash, "version": e.version, "commit_date": "",
+                 "enabled": e.enabled}
+                for e in list_extensions()]
+
+    def _check_extension_access(self):
+        """Install and update run fetched code: 403 without
+        --enable-insecure-extension-access."""
+        if not CMD_FLAGS.get("enable_insecure_extension_access"):
+            raise ApiError(403, "extension install/update requires "
+                                "--enable-insecure-extension-access")
+
+    def extensions_install(self, query, body):
+        from ..runtime.extensions import install_extension
+
+        self._check_extension_access()
+        body = body or {}
+        ext = install_extension(body.get("url", ""), dirname=body.get("dirname", ""),
+                                branch=body.get("branch", ""))
+        return {"name": ext.name, "path": ext.path, "commit_hash": ext.commit_hash}
+
+    def extensions_update(self, query, body):
+        from ..runtime.extensions import (check_extension_updates, list_extensions,
+                                          update_extension)
+
+        self._check_extension_access()
+        body = body or {}
+        name = body.get("name", "")
+        for ext in list_extensions():
+            if ext.name == name or ext.canonical_name == name.lower():
+                if body.get("check_only"):
+                    return {"name": ext.name, "status": check_extension_updates(ext)}
+                return {"name": ext.name, "commit_hash": update_extension(ext)}
+        raise ApiError(404, f"no extension named {name!r}")
+
+    def merge_checkpoints(self, query, body):
+        """pipeline/merger.py `run_modelmerger` over the listed checkpoints
+        (by key, name or title), on the work queue, written beside the
+        primary as `<custom_name or "merged">.safetensors`, the name reduced to
+        a file name as config_states/save reduces its own (the reference
+        joins it as sent, '../' and all); then the checkpoint list is
+        refreshed."""
+        from ..pipeline.merger import run_modelmerger
+
+        body = body or {}
+
+        def resolve(name):
+            c = self.models.checkpoints.get(name)
+            if c is None:
+                c = next((v for v in self.models.checkpoints.values()
+                          if name in (v.name, v.title)), None)
+            if c is None:
+                raise ApiError(422, f"unknown checkpoint {name!r}")
+            return c.path
+
+        primary = resolve(body["primary"])
+        name = re.sub(r"[^\w.-]", "_", os.path.basename(body.get("custom_name") or "merged"))
+        out = os.path.join(os.path.dirname(primary) or ".", f"{name or 'merged'}.safetensors")
+        path = work_queue.run_and_wait(
+            run_modelmerger, primary,
+            resolve(body["secondary"]) if body.get("secondary") else None,
+            tertiary=resolve(body["tertiary"]) if body.get("tertiary") else None,
+            mode=body.get("interp_method", body.get("mode", "weighted_sum")),
+            multiplier=float(body.get("multiplier", 0.3)),
+            bake_in_vae=body.get("bake_in_vae") or None, output_path=out,
+            discard_weights=body.get("discard_weights") or None)
+        self.models.refresh()
+        return {"path": path}
+
+    def _network_paths(self, kind: str) -> Dict[str, str]:
+        """name → file of one extra-network kind: LoRAs, textual-inversion
+        embeddings (embeddings/, models/embeddings/), hypernetworks or
+        checkpoints."""
+        import glob
+
+        def scan(dirs, exts):
+            out = {}
+            for d in dirs:
+                for ext in exts:
+                    for path in sorted(glob.glob(os.path.join(d, f"**/*{ext}"), recursive=True)):
+                        out[os.path.splitext(os.path.basename(path))[0]] = path
+            return out
+
+        kind = (kind or "lora").lower()
+        if kind in ("lora", "lycoris"):
+            return dict(self._lora_registry().available)
+        if kind in ("ti", "embedding", "embeddings", "textual inversion"):
+            return scan(("embeddings", "models/embeddings"), (".safetensors", ".pt", ".bin"))
+        if kind in ("hypernet", "hypernetwork", "hypernetworks"):
+            return scan(("models/hypernetworks",), (".safetensors", ".pt", ".ckpt"))
+        if kind in ("checkpoint", "checkpoints", "model"):
+            return {name: info.path for name, info in sorted(self.models.checkpoints.items())}
+        raise ApiError(422, f"unknown extra-network kind {kind!r}")
+
+    @staticmethod
+    def _preview_path(path: str) -> Optional[str]:
+        stem = os.path.splitext(path)[0]
+        for suffix in (".preview.png", ".preview.jpg", ".png", ".jpg", ".webp"):
+            if stem + suffix != path and os.path.exists(stem + suffix):
+                return stem + suffix
+        return None
+
+    def _network(self, kind: str, name: str) -> str:
+        path = self._network_paths(kind).get(name)
+        if path is None:
+            raise ApiError(404, f"unknown network {name!r}")
+        return path
+
+    def network_cards(self, query, body):
+        """The extra-networks browser's cards of one kind (`search` filters
+        names and paths): name, path, directory, whether a preview exists and
+        the user metadata of the `.json` beside the file."""
+        kind = query.get("kind", ["lora"])[0]
+        search = (query.get("search", [""])[0] or "").lower()
+        cards, dirs = [], set()
+        for name, path in sorted(self._network_paths(kind).items()):
+            if search and search not in name.lower() and search not in path.lower():
+                continue
+            dirs.add(os.path.dirname(path))
+            meta = {}
+            side = os.path.splitext(path)[0] + ".json"
+            if os.path.exists(side):
+                try:
+                    with open(side, encoding="utf8") as f:
+                        meta = json.load(f)
+                except Exception:  # noqa: BLE001 — a corrupt sidecar still lists the card
+                    meta = {}
+            cards.append({"name": name, "path": path, "dir": os.path.dirname(path),
+                          "has_preview": self._preview_path(path) is not None,
+                          "description": meta.get("description", ""),
+                          "activation_text": meta.get("activation text", ""),
+                          "preferred_weight": meta.get("preferred weight", 0) or 0})
+        return {"kind": kind, "cards": cards, "dirs": sorted(dirs)}
+
+    def network_preview(self, query, body):
+        name = query.get("name", [""])[0]
+        prev = self._preview_path(self._network(query.get("kind", ["lora"])[0], name))
+        if prev is None:
+            raise ApiError(404, f"no preview for {name!r}")
+        with open(prev, "rb") as f:
+            data = f.read()
+        ctype = ("image/jpeg" if prev.endswith((".jpg", ".jpeg"))
+                 else "image/webp" if prev.endswith(".webp") else "image/png")
+        return RawResponse(data, ctype)
+
+    def network_metadata_get(self, query, body):
+        """A network's user metadata: the `.json` beside its file, or the
+        empty record."""
+        path = self._network(query.get("kind", ["lora"])[0], query.get("name", [""])[0])
+        side = os.path.splitext(path)[0] + ".json"
+        if os.path.exists(side):
+            with open(side, encoding="utf8") as f:
+                return json.load(f)
+        return {"description": "", "activation text": "", "preferred weight": 0, "notes": ""}
+
+    def network_metadata_set(self, query, body):
+        body = dict(body or {})
+        name, kind = body.pop("name", ""), body.pop("kind", "lora")
+        path = self._network(kind, name)
+        keep = {k: body[k] for k in ("description", "activation text", "preferred weight",
+                                     "negative text", "notes") if k in body}
+        with open(os.path.splitext(path)[0] + ".json", "w", encoding="utf8") as f:
+            json.dump(keep, f, indent=2)
+        return keep
+
+    def config_states(self, query, body):
+        from ..runtime.extensions import list_config_states
+
+        return list_config_states()
+
+    def config_states_save(self, query, body):
+        from ..runtime.extensions import save_config_state
+
+        return {"saved": save_config_state((body or {}).get("name", ""))}
+
+    # -- the web UI -------------------------------------------------------------
+
+    def index(self, query, body):
+        """The single-page web UI (api/webui_static.py); 404 under --nowebui."""
+        if CMD_FLAGS.get("nowebui"):
+            raise ApiError(404, "webui disabled (--nowebui)")
+        from .webui_static import INDEX_HTML
+
+        return RawResponse(INDEX_HTML, "text/html; charset=utf-8")
+
+    def get_localization(self, query, body):
+        """The localization `name` (else the `localization` option) names:
+        {name, available, data}, data the merged replacement dict."""
+        from ..runtime.localization import list_localizations, load_localization
+
+        name = (query.get("name") or [None])[0] or opts.get("localization")
+        return {"name": name or "None", "available": sorted(list_localizations()),
+                "data": {} if name in (None, "", "None") else load_localization(name)}
+
     def get_prompt_styles(self, query, body):
         from ..runtime.styles import prompt_styles
 
@@ -789,9 +1033,19 @@ class Api:
 
     def server_stop(self, query, body):
         if not CMD_FLAGS.get("api_server_stop", True):
-            raise ApiError(404, "server stop disabled (pass --api-server-stop)")
+            raise ApiError(404, "server stop/restart disabled (pass --api-server-stop)")
         threading.Thread(target=self._shutdown, daemon=True).start()
         return {}
+
+    def server_restart(self, query, body):
+        """The server stops with `restart_requested` set, and the launcher's
+        serve loop starts it again (webui.py). The gate is checked first: a
+        refused restart latches nothing."""
+        if not CMD_FLAGS.get("api_server_stop", True):
+            raise ApiError(404, "server stop/restart disabled (pass --api-server-stop)")
+        if self._server is not None:
+            self._server.restart_requested = True
+        return self.server_stop(query, body)
 
     def _shutdown(self):
         time.sleep(0.2)
@@ -808,6 +1062,14 @@ class Api:
             "devices": ([torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
                         if cuda else []),
         }
+
+
+class RawResponse:
+    """A route's answer that is not JSON: the body (str or bytes) as it is."""
+
+    def __init__(self, body, content_type: str):
+        self.body = body
+        self.content_type = content_type
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -880,8 +1142,21 @@ class _Handler(BaseHTTPRequestHandler):
                 except json.JSONDecodeError:
                     self._reply(422, {"detail": "invalid JSON"})
                     return
+        t0 = time.time()
         try:
-            self._reply(200, handler(parse_qs(parsed.query), body))
+            result = handler(parse_qs(parsed.query), body)
+            if parsed.path.startswith("/sdapi"):
+                log_event("api_request", method=method, path=parsed.path, status=200,
+                          duration_s=round(time.time() - t0, 4))
+            if isinstance(result, RawResponse):
+                data = result.body if isinstance(result.body, bytes) else result.body.encode()
+                self.send_response(200)
+                self.send_header("Content-Type", result.content_type)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+                return
+            self._reply(200, result)
         except ApiError as e:
             self._reply(e.status, {"detail": str(e)})
         except NotImplementedError as e:  # a request feature the port refuses
@@ -893,6 +1168,8 @@ class _Handler(BaseHTTPRequestHandler):
         except FileNotFoundError as e:
             self._reply(404, {"detail": str(e)})
         except Exception as e:  # noqa: BLE001
+            log_event("api_error", method=method, path=parsed.path, error=str(e),
+                      duration_s=round(time.time() - t0, 4))
             self._reply(500, {"detail": f"{type(e).__name__}: {e}"})
 
     def do_GET(self):
@@ -906,7 +1183,10 @@ def create_server(models: ModelManager, host: str = "127.0.0.1", port: int = 786
                   api_auth: Optional[str] = None) -> ThreadingHTTPServer:
     """The API's server, not yet serving (run `serve_forever` on a thread);
     port 0 takes a free port, read back from `server.server_address`.
-    `api_auth` "user:pass[,user2:pass2]" turns on HTTP basic auth."""
+    `api_auth` "user:pass[,user2:pass2]" turns on HTTP basic auth. The
+    `ui_tabs` callbacks' tabs ({"id", "title", "html"} dicts) are collected
+    once, for GET /sdapi/v1/ui-tabs; a callback that raises is printed and
+    skipped."""
     api = Api(models)
     creds = None
     if api_auth:
@@ -916,19 +1196,31 @@ def create_server(models: ModelManager, host: str = "127.0.0.1", port: int = 786
     server = ThreadingHTTPServer((host, port), handler)
     server.daemon_threads = True
     server.api = api
+    server.restart_requested = False
     api._server = server
+    for cb in callbacks("ui_tabs"):
+        try:
+            api.custom_tabs.extend(cb() or [])
+        except Exception as e:  # noqa: BLE001 — an extension's error must not stop the start
+            print(f"ui_tabs callback failed: {e}")
     fire("app_started", server)
     return server
 
 
 def serve(models: ModelManager, host: str = "127.0.0.1", port: int = 7860,
-          api_auth: Optional[str] = None):
-    """Serve until /sdapi/v1/server-stop (or an interrupt of the process)."""
+          api_auth: Optional[str] = None) -> bool:
+    """Serve until /sdapi/v1/server-stop or /server-restart (or an interrupt
+    of the process) → whether a restart was asked for. The work queue keeps
+    running across a restart."""
     server = create_server(models, host, port, api_auth=api_auth)
     print(f"forge_tpu_torch API listening on http://{host}:{server.server_address[1]}", flush=True)
+    restart = False
     try:
         server.serve_forever()
         fire("script_unloaded")
+        restart = server.restart_requested
     finally:
         server.server_close()
-        work_queue.stop()
+        if not restart:
+            work_queue.stop()
+    return restart

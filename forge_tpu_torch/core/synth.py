@@ -340,23 +340,27 @@ def synth_sd15_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, 
     return sd
 
 
-def synth_sdxl_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str, object]:
-    """Full-size SDXL base: 320ch UNet mult(1,2,4) depths(0,2,10), dual TEs."""
+def synth_sdxl_checkpoint(fill: FillSpec = "zeros", seed: int = 0,
+                          transformer_depth=(0, 2, 10), middle_depth: int = 10,
+                          clip_g_layers: int = 32) -> Dict[str, object]:
+    """Full-size SDXL base: 320ch UNet mult(1,2,4) depths(0,2,10), dual TEs.
+    The depths and CLIP-G's layer count may be cut; the widths stay."""
     sd: Dict[str, object] = {}
     sd.update(
         synth_unet_sd(
             channel_mult=(1, 2, 4),
-            transformer_depth=(0, 2, 10),
+            transformer_depth=tuple(transformer_depth),
             context_dim=2048,
             adm_in_channels=2816,
-            middle_depth=10,
+            middle_depth=middle_depth,
             fill=fill,
             seed=seed + 1,
         )
     )
     sd.update(synth_vae_sd(fill=fill, seed=seed + 2))
     sd.update(synth_clip_sd(fill=fill, seed=seed + 3, prefix="conditioner.embedders.0.transformer."))
-    sd.update(_open_clip_text_sd(_fill(fill, seed + 4), "conditioner.embedders.1.model."))
+    sd.update(_open_clip_text_sd(_fill(fill, seed + 4), "conditioner.embedders.1.model.",
+                                 layers=clip_g_layers))
     return sd
 
 

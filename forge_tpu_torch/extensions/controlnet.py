@@ -7,23 +7,27 @@ threshold_b, advanced_weighting}. `attach_units` runs each unit's
 preprocessor, loads its control model and appends the state to
 `p.controlnets`; what needs the engine (a Control-LoRA's assembly onto the
 live UNet, inpaint_only's VAE encode) goes to `p.deferred_hooks` as a
-hook fn(engine, p, cond, uncond).
+hook fn(engine, p, cond, uncond). `ControlNetScript`, an always-on script
+for a runtime/scripts.py `ScriptRunner`, attaches its own units or the
+request's `controlnet_units` in its `process` hook; `list_controlnet_models`
+lists the model directories' files.
 
 The control models, told apart by their keys (a `control_model.` prefix
 stripped): a cldm ControlNet (`input_hint_block.*`), a T2I-Adapter
 (`conv_in.*` and `body.*`, models/t2i_adapter.py) and a Control-LoRA
 (`lora_controlnet`: the hint block, zero convs and `.up`/`.down` pairs on
 the trunk, `assemble_control_lora`). A model is a file in the model
-directories, a path, or a flat state dict. The modules taken: "none",
-"canny", "inpaint_global_harmonious" and "inpaint_only"
-(pipeline/cn_inpaint.py), and the ones that need no control model: the
-reference modules ("reference_only", "reference_adain",
-"reference_adain+attn": pipeline/reference_only.py, a deferred hook that
-VAE-encodes the unit's image) and Revision ("CLIP-G (Revision)" or
-"revision_clipvision", and the "ignore prompt" pair: pipeline/revision.py,
-a deferred hook that encodes the image with the unit's `clip_vision_path`,
-a file's path or a flat state dict, or the first file under
-models/clip_vision). Every other module raises
+directories, a path, or a flat state dict. A module is a name or alias of
+the preprocessor registry (preprocessors/__init__.py), which alone decides
+which modules run; its entry's tags pick the path: "none" and "canny" make
+the hint, "Inpaint" (inpaint_global_harmonious, inpaint_only:
+pipeline/cn_inpaint.py) mixes the mask into it, and two need no control
+model: "Reference" (reference_only, reference_adain, reference_adain+attn:
+pipeline/reference_only.py, a deferred hook that VAE-encodes the unit's
+image) and "Revision" (CLIP-G (Revision) and its "ignore prompt" twin:
+pipeline/revision.py, a deferred hook that encodes the image with the
+unit's `clip_vision_path`, a file's path or a flat state dict, or the first
+file under models/clip_vision). A module the registry does not run raises
 NotImplementedError naming its ROADMAP item. Images are PNG (base64,
 through pipeline/images.py) or arrays. Weights are OIHW, as the files hold
 them.
@@ -48,9 +52,12 @@ from ..models.controlnet import ControlNetState
 from ..models.t2i_adapter import T2IAdapterState, detect_adapter_config
 from ..models.unet import UNetConfig
 from ..ops.quant import QuantLeaf, dequantize
-from ..preprocessors.cv import bilinear_resize, canny, resize_image
+from ..preprocessors import PREPROCESSORS, Preprocessor, get_preprocessor, preprocessor_names
+from ..preprocessors.cv import bilinear_resize
+from ..runtime.scripts import Script
 
 _MODEL_DIRS = ["models/ControlNet", "models/controlnet"]
+_WEIGHT_FILES = (".safetensors", ".ckpt", ".pt", ".pth", ".bin")
 _MODEL_CACHE: Dict[Any, Tuple[str, Any, Any, str]] = {}
 _TRUNK = ("input_blocks", "middle_block", "time_embed", "label_emb")
 _ROADMAP_6D = "ROADMAP queue 1 item 6 (d), the image-prompt family"
@@ -60,6 +67,18 @@ _ROADMAP_9 = "ROADMAP queue 1 item 9, the long tail of preprocessors"
 def set_model_dirs(dirs) -> None:
     global _MODEL_DIRS
     _MODEL_DIRS = list(dirs)
+
+
+def list_controlnet_models() -> List[str]:
+    """The model files' names (no extension) in the model directories, each
+    directory's sorted (GET /controlnet/model_list)."""
+    out = []
+    for d in _MODEL_DIRS:
+        if os.path.isdir(d):
+            for f in sorted(os.listdir(d)):
+                if f.endswith(_WEIGHT_FILES):
+                    out.append(os.path.splitext(f)[0])
+    return out
 
 
 def _find_model(name: str) -> Optional[str]:
@@ -185,23 +204,7 @@ def _decode_unit_mask(unit: Mapping[str, Any], image) -> Optional[np.ndarray]:
     return np.asarray(_decode_image(m)[..., 0], np.float32) / 255.0
 
 
-def _none(img: np.ndarray, res: int, a, b) -> np.ndarray:
-    return np.asarray(resize_image(img, res), np.float32) / 255.0
-
-
-def _canny(img: np.ndarray, res: int, a, b) -> np.ndarray:
-    edges = canny(resize_image(img, res), int(a) if a else 100, int(b) if b else 200)
-    return np.repeat(edges[..., None], 3, axis=2)
-
-
-PREPROCESSORS: Dict[str, Callable] = {"none": _none, "canny": _canny}
-INPAINT_MODULES = ("inpaint_global_harmonious", "inpaint_only")
-REFERENCE_MODULES = ("reference_only", "reference_adain", "reference_adain+attn")
-# the reference's Revision preprocessors and their aliases → "ignore prompt"
-REVISION_MODULES = {"clip-g (revision)": False, "revision_clipvision": False,
-                    "clip-g (revision ignore prompt)": True, "revision_ignore_prompt": True}
 _CLIP_VISION_DIRS = ("models/clip_vision", "models/ClipVision")
-_WEIGHT_FILES = (".safetensors", ".ckpt", ".pt", ".pth", ".bin")
 
 
 def _find_clip_vision() -> Optional[str]:
@@ -214,21 +217,25 @@ def _find_clip_vision() -> Optional[str]:
     return None
 
 
-def _refuse_module(module: str) -> None:
+def _preprocessor(module: str) -> Preprocessor:
+    """The registry's entry for `module`; NotImplementedError if it does not
+    run in the port."""
     low = module.lower()
-    if (low in PREPROCESSORS or low in INPAINT_MODULES or low in REFERENCE_MODULES
-            or low in REVISION_MODULES):
-        return
     if any(t in low for t in ("ip-adapter", "ipadapter", "insightface", "instant_id",
                               "instantid", "faceid")):
         raise NotImplementedError(
             f"ControlNet module {module!r} is not ported to forge_tpu_torch: the IP-Adapter, "
             f"FaceID and InstantID come through the 'ip-adapter' always-on script "
             f"({_ROADMAP_6D})")
-    taken = ", ".join(list(PREPROCESSORS) + list(INPAINT_MODULES) + list(REFERENCE_MODULES)
-                      + list(REVISION_MODULES))
-    raise NotImplementedError(f"ControlNet module {module!r} is not ported to forge_tpu_torch "
-                              f"yet (ported: {taken}): {_ROADMAP_9}")
+    try:
+        pre = get_preprocessor(module)
+    except KeyError:
+        pre = None
+    if pre is None or not pre.ported:
+        taken = ", ".join(n for n in preprocessor_names() if PREPROCESSORS[n].ported)
+        raise NotImplementedError(f"ControlNet module {module!r} is not ported to "
+                                  f"forge_tpu_torch yet (ported: {taken}): {_ROADMAP_9}")
+    return pre
 
 
 def build_unit_state(unit: Mapping[str, Any], width: int, height: int, device=None,
@@ -242,14 +249,12 @@ def build_unit_state(unit: Mapping[str, Any], width: int, height: int, device=No
     image = unit.get("image")
     if image is None:
         return None
-    module = unit.get("module", "none") or "none"
-    _refuse_module(module)
+    pre = _preprocessor(unit.get("module", "none") or "none")
     img = _decode_image(image)
     extra: List[Callable] = []
-    low = module.lower()
-    if low in REFERENCE_MODULES:
+    if "Reference" in pre.tags:
         # no control model and no hint: the image is VAE-encoded for each request
-        def build_reference(engine, p, cond, uncond, _img=img, _module=low, _u=dict(unit)):
+        def build_reference(engine, p, cond, uncond, _img=img, _module=pre.name, _u=dict(unit)):
             from ..pipeline.reference_only import attach_reference
 
             attach_reference(engine, p, _img, _module,
@@ -259,7 +264,7 @@ def build_unit_state(unit: Mapping[str, Any], width: int, height: int, device=No
                              end=float(_u.get("guidance_end", 1.0)))
 
         return build_reference
-    if low in REVISION_MODULES:
+    if "Revision" in pre.tags:
         cv_path = unit.get("clip_vision_path") or _find_clip_vision()
         if cv_path is None:
             raise FileNotFoundError("Revision needs CLIP-ViT-bigG weights: pass "
@@ -267,7 +272,7 @@ def build_unit_state(unit: Mapping[str, Any], width: int, height: int, device=No
                                     "models/clip_vision")
 
         def build_revision(engine, p, cond, uncond, _img=img, _w=float(unit.get("weight", 1.0)),
-                           _cv=cv_path, _ignore=REVISION_MODULES[low]):
+                           _cv=cv_path, _ignore="ignore" in pre.name.lower()):
             from ..core.loader import load_clip_vision
             from ..pipeline.revision import apply_revision, encode_revision_embed
 
@@ -275,7 +280,7 @@ def build_unit_state(unit: Mapping[str, Any], width: int, height: int, device=No
             apply_revision(p, cond, uncond, encode_revision_embed(tree, _img, _w), _ignore)
 
         return build_revision
-    if low in INPAINT_MODULES:
+    if "Inpaint" in pre.tags:
         from ..pipeline.cn_inpaint import mix_hint
 
         mask = _decode_unit_mask(unit, image)
@@ -285,7 +290,7 @@ def build_unit_state(unit: Mapping[str, Any], width: int, height: int, device=No
         mask_r = np.clip(bilinear_resize(np.repeat(mask[..., None], 3, 2), height,
                                          width)[..., 0], 0, 1)
         fmap = mix_hint(img_r, mask_r)
-        if low == "inpaint_only":
+        if pre.name == "inpaint_only":
             def build_inpaint(engine, p, cond, uncond, _img=img, _mask=mask):
                 from ..pipeline.cn_inpaint import attach_inpaint_only
 
@@ -294,8 +299,7 @@ def build_unit_state(unit: Mapping[str, Any], width: int, height: int, device=No
             extra.append(build_inpaint)
     else:
         res = int(unit.get("processor_res", 0) or 0) or min(img.shape[:2])
-        fmap = PREPROCESSORS[low](img, res, unit.get("threshold_a", 0) or 0,
-                                  unit.get("threshold_b", 0) or 0)
+        fmap = pre(img, res, unit.get("threshold_a", 0) or 0, unit.get("threshold_b", 0) or 0)
         fmap = np.clip(bilinear_resize(fmap, height, width), 0.0, 1.0)
     hint = torch.from_numpy(np.ascontiguousarray(fmap.transpose(2, 0, 1)[None], np.float32))
 
@@ -344,3 +348,21 @@ def attach_units(p, units, device=None, dtype: Optional[torch.dtype] = None) -> 
     if states:
         p.controlnets = list(p.controlnets or []) + states
     return n
+
+
+class ControlNetScript(Script):
+    """The always-on ControlNet script: its `process` hook attaches its own
+    `units`, else the request's `controlnet_units` (`attach_units`), with
+    the models on `device` in `dtype` (the card unless given)."""
+
+    name = "controlnet"
+    alwayson = True
+
+    def __init__(self, units=None, device=None, dtype: Optional[torch.dtype] = None):
+        self.units = units
+        self.device = device
+        self.dtype = dtype
+
+    def process(self, p):
+        units = self.units if self.units is not None else p.controlnet_units
+        attach_units(p, units, self.device, self.dtype)

@@ -1,8 +1,9 @@
 """Image resizing for img2img (port of forge_tpu/pipeline/images.py
 `resize_init_image`), CLIP-vision preprocessing, regional prompt masks and
 the simple upscalers, the grid of the selectable scripts (`image_grid`),
-img2img's colour correction, and the PNG codec the API reads and writes
-images with.
+img2img's colour correction, the PNG codec the API reads and writes
+images with, and the saving of images (`save_image`, as PNG through that
+codec, with the reference's filename patterns, `log.csv` and events).
 
 The reference resizes with PIL's LANCZOS (init images, the "Lanczos"
 upscaler), BICUBIC (the CLIP-vision input), BILINEAR (regional prompts'
@@ -46,7 +47,10 @@ against cv2).
 
 from __future__ import annotations
 
+import datetime
 import math
+import os
+import re
 import struct
 import zlib
 from typing import Dict, List, Optional, Tuple
@@ -617,3 +621,138 @@ def to_rgb(pixels: np.ndarray) -> np.ndarray:
     if pixels.shape[-1] == 2:
         return np.repeat(pixels[..., :1], 3, axis=-1)
     return np.ascontiguousarray(pixels[..., :3])
+
+
+# -- saving (forge_tpu/pipeline/images.py:33-188) ---------------------------
+
+_ROADMAP_ENCODERS = ("ROADMAP.md queue 1 item 7: the JPEG, WebP, AVIF and GIF encoders (the "
+                     "card's machine has no Pillow)")
+
+
+def save_image(image: np.ndarray, path: Optional[str] = None, outdir: str = "outputs",
+               infotext: Optional[str] = None, file_format: Optional[str] = None,
+               filename_pattern: Optional[str] = None, seed: int = 0, prompt: str = "",
+               quality: Optional[int] = None, **pattern_extra) -> str:
+    """uint8 [H,W,C] → the saved file's path, under the reference's saving
+    options: the `directories_filename_pattern` subdirectory under
+    `save_to_dirs`, the name from `samples_filename_pattern` (or
+    `filename_pattern`, default "[seed]-[prompt_spaces]") with the
+    `save_images_add_number` prefix (the count of the directory's names
+    that start with digits, five wide) and a `-N` suffix on a clash. The
+    `before_image_saved` and `image_saved` events get (path, image,
+    infotext) around the write. A PNG carries the infotext in a
+    "parameters" text chunk under `enable_pnginfo`; `save_txt` writes it
+    beside the image as `.txt`, and `save_write_log_csv` appends a row to
+    the directory's `log.csv`. Another `samples_format` (jpg, webp, avif,
+    gif) raises NotImplementedError before anything is written: the
+    reference writes AVIF and GIF through Pillow and, where Pillow cannot,
+    a PNG without the infotext under the other name's stem."""
+    from ..runtime.options import opts
+    from ..runtime.scripts import fire
+
+    img = np.asarray(image, np.uint8)
+    file_format = (file_format or str(opts.get("samples_format"))).lower()
+    if file_format != "png":
+        raise NotImplementedError(f"saving images as {file_format!r} is not ported to "
+                                  f"forge_tpu_torch yet ({_ROADMAP_ENCODERS})")
+    if path is None:
+        if opts.get("save_to_dirs"):
+            sub = apply_filename_pattern(str(opts.get("directories_filename_pattern"))
+                                         or "[date]", seed=seed, prompt=prompt, **pattern_extra)
+            outdir = os.path.join(outdir, sub)
+        os.makedirs(outdir, exist_ok=True)
+        pattern = filename_pattern or str(opts.get("samples_filename_pattern")
+                                          or "[seed]-[prompt_spaces]")
+        name = apply_filename_pattern(pattern, seed=seed, prompt=prompt, **pattern_extra)
+        if opts.get("save_images_add_number"):
+            existing = len([f for f in os.listdir(outdir) if f.split("-")[0].isdigit()])
+            name = f"{existing:05d}-{name}"
+        base = os.path.join(outdir, name)
+        path = f"{base}.{file_format}"
+        i = 1
+        while os.path.exists(path):
+            path = f"{base}-{i}.{file_format}"
+            i += 1
+
+    fire("before_image_saved", path, img, infotext)
+    text = {"parameters": infotext} if infotext and opts.get("enable_pnginfo") else None
+    data = encode_png(img, text)
+    with open(path, "wb") as f:
+        f.write(data)
+    if infotext and opts.get("save_txt"):
+        with open(os.path.splitext(path)[0] + ".txt", "w", encoding="utf8") as f:
+            f.write(infotext + "\n")
+    if opts.get("save_write_log_csv") and infotext:
+        _append_log_csv(os.path.dirname(path), path, prompt, seed, infotext)
+    fire("image_saved", path, img, infotext)
+    return path
+
+
+def _append_log_csv(dirname: str, path: str, prompt: str, seed: int, infotext: str) -> None:
+    """A row (filename, prompt, seed, infotext with its newlines as " | ") of
+    the `log.csv` beside the saved images, its header first."""
+    import csv
+
+    log = os.path.join(dirname, "log.csv")
+    new = not os.path.exists(log)
+    try:
+        with open(log, "a", newline="", encoding="utf8") as f:
+            w = csv.writer(f)
+            if new:
+                w.writerow(["filename", "prompt", "seed", "infotext"])
+            w.writerow([os.path.basename(path), prompt, seed, infotext.replace("\n", " | ")])
+    except OSError:
+        pass
+
+
+def read_infotext(source) -> Optional[str]:
+    """A PNG file's path or bytes → its "parameters" text, or None."""
+    if isinstance(source, (bytes, bytearray)):
+        data = bytes(source)
+    else:
+        with open(source, "rb") as f:
+            data = f.read()
+    return decode_png(data)[1].get("parameters")
+
+
+_INVALID_FN = re.compile(r'[\\/:*?"<>|\n\r]')
+
+
+def apply_filename_pattern(pattern: str, seed: int = 0, prompt: str = "", **extra) -> str:
+    """The reference's filename tokens replaced in `pattern`: [seed],
+    [seed_first], [prompt_spaces], [prompt], [prompt_no_styles],
+    [prompt_words] (the first `directories_max_prompt_words` words),
+    [prompt_hash], [date], [datetime], [job_timestamp], [width], [height],
+    [model_name], [model_hash], [sampler], [sampler_scheduler], [steps],
+    [cfg], [denoising], [clip_skip], [batch_number], [generation_number],
+    [user], [image_hash], [none] and [styles] (empty); the result stripped of
+    "-", "_" and spaces at its ends, or the seed where nothing is left."""
+    import hashlib
+
+    from ..runtime.options import opts
+
+    now = datetime.datetime.now()
+    words = _INVALID_FN.sub("", prompt)[:120]
+    max_words = int(opts.get("directories_max_prompt_words"))
+    prompt_words = "_".join(words.split()[:max_words]) or "empty"
+    repl = {
+        "[seed]": str(seed),
+        "[seed_first]": str(extra.get("seed_first", seed)),
+        "[prompt_spaces]": words,
+        "[prompt]": words.replace(" ", "_"),
+        "[prompt_no_styles]": words.replace(" ", "_"),
+        "[prompt_words]": prompt_words,
+        "[prompt_hash]": hashlib.sha256(prompt.encode()).hexdigest()[:8],
+        "[date]": now.strftime("%Y-%m-%d"),
+        "[datetime]": now.strftime("%Y%m%d%H%M%S"),
+        "[job_timestamp]": str(extra.get("job_timestamp", now.strftime("%Y%m%d%H%M%S"))),
+    }
+    for token in ("width", "height", "model_name", "model_hash", "sampler", "sampler_scheduler",
+                  "steps", "cfg", "denoising", "clip_skip", "batch_number", "generation_number",
+                  "user", "image_hash"):
+        repl[f"[{token}]"] = str(extra.get(token, ""))
+    repl.update({"[none]": "", "[styles]": ""})
+    out = pattern
+    for k, v in repl.items():
+        out = out.replace(k, v)
+    return out.strip("-_ ") or str(seed)

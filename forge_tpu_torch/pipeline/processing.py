@@ -153,8 +153,19 @@ activation, `before_process_batch`, `process_batch` and
 `cfg_denoised` and `cfg_after_cfg` events fire once a sampling pass
 (`cfg_model_fn`), and what their callbacks append to `CFGHookParams`' pre- and
 post-CFG hooks runs after the request's own at every step of that pass.
-`do_not_save_samples` and `do_not_save_grid` are taken and change nothing:
-the port saves no image.
+`controlnet_units` holds ControlNet unit dicts for a runner's
+`ControlNetScript` (extensions/controlnet.py), which attaches them in its
+`process` hook.
+
+Saving, as the reference's: under `samples_save` (on by default) and not
+`do_not_save_samples`, each finished image is written with its infotext by
+pipeline/images.py `save_image` into `outdir_samples`, else the txt2img or
+img2img directory, firing `before_image_saved` and `image_saved`; with more
+than one image, under `grid_save` and not `do_not_save_grid`, their grid
+goes into the grids directory; an OSError prints and the request goes on.
+The request ends with a `generation` line in the event log
+(runtime/logging.py) and, under `save_write_params_txt`, the first
+infotext in `params.txt`.
 
 `restore_faces` (or the `face_restoration` option) restores each image in
 `finish` with the restorer `face_restoration_model` names
@@ -192,6 +203,7 @@ import torch
 from ..models.unet import BLOCK_HOOK_KEYS
 from ..ops.image_rng import ImageRNG
 from ..ops.resize import resize
+from ..runtime.logging import log_event
 from ..runtime.memory import Plan, plan_generation, tree_bytes
 from ..runtime.options import opts
 from ..runtime.scripts import CFGHookParams, callbacks, fire
@@ -205,8 +217,8 @@ from ..text.schedule import get_schedule, split_composable
 from .engine import DiffusionEngine
 from .extra_networks import activate, parse_prompt
 from .cn_inpaint import composite_final
-from .images import (apply_color_correction, bilinear_resize, resize_init_image,
-                     setup_color_correction)
+from .images import (apply_color_correction, bilinear_resize, image_grid, resize_init_image,
+                     save_image, setup_color_correction)
 from .infotext import create_infotext, write_params_txt
 from .masking import expand_crop_region, get_crop_region, resize_image
 from .taesd import preview_decode, taesd_decoder, taesd_for_family
@@ -304,8 +316,10 @@ class Processing:
     reference_state: Optional[Any] = None  # pipeline/reference_only.py ReferenceState
     scripts: Optional[Any] = None  # runtime/scripts.py ScriptRunner
     soft_inpainting: Optional[Any] = None  # extensions/soft_inpainting.py SoftInpaintingSettings
-    do_not_save_samples: bool = False  # the port saves no image: taken, changes nothing
-    do_not_save_grid: bool = False
+    do_not_save_samples: bool = False  # under `samples_save`: no image saved
+    do_not_save_grid: bool = False  # under `grid_save`: no grid saved
+    # ControlNet unit dicts extensions/controlnet.py `ControlNetScript` attaches
+    controlnet_units: Optional[List[Dict[str, Any]]] = None
     restore_faces: bool = False  # postprocessing/faces.py, in `finish`
 
     def __setattr__(self, name, value):
@@ -573,9 +587,13 @@ def infotexts(p: Processing, seeds: List[int], subseeds: List[int]) -> List[str]
 
 def _simple_params(p: Processing) -> Dict[str, Any]:
     """The request's plain fields (scalars, strings, lists and dicts of
-    them), shallow copies: never a deep copy of arrays or tensors."""
+    them), shallow copies: never a deep copy of arrays or tensors. Not
+    `controlnet_units`, which the reference sets as a plain attribute of its
+    request and so does not record."""
     out: Dict[str, Any] = {}
     for f in dataclasses.fields(p):
+        if f.name == "controlnet_units":
+            continue
         v = getattr(p, f.name)
         if v is None or isinstance(v, (bool, int, float, str)):
             out[f.name] = v
@@ -1168,6 +1186,41 @@ def finish(job: Job, batch: np.ndarray, batch_number: int = 0,
     return images
 
 
+def _outdir(kind: str, is_img2img: bool) -> str:
+    """`outdir_samples` or `outdir_grids` where set, else the txt2img or
+    img2img directory of `kind` ("samples" or "grids")."""
+    return (opts.get(f"outdir_{kind}")
+            or opts.get(f"outdir_{'img2img' if is_img2img else 'txt2img'}_{kind}"))
+
+
+def _save_samples(p: Processing, images: List[np.ndarray], texts: List[str], seeds: List[int],
+                  it: int) -> None:
+    """Each finished image of batch `it` saved with its infotext (an OSError
+    printed, as the reference does, and the request goes on)."""
+    outdir = _outdir("samples", p.init_images is not None)
+    for b, img in enumerate(images):
+        try:
+            save_image(img, outdir=outdir, infotext=texts[b], seed=seeds[b], prompt=p.prompt,
+                       width=p.width, height=p.height, model_name=p.sd_model_name or "",
+                       model_hash=p.sd_model_hash or "", sampler=p.sampler_name, steps=p.steps,
+                       cfg=p.cfg_scale, batch_number=b, generation_number=it * p.batch_size + b)
+        except OSError as e:
+            print(f"image save failed: {e}")
+
+
+def _save_grid(p: Processing, images: List[np.ndarray], text: str) -> None:
+    """The request's images in one grid (`n_rows` rows, or the reference's
+    square-root default), saved under the first image's infotext."""
+    n_rows = int(opts.get("n_rows"))
+    grid = image_grid(images, rows=n_rows if n_rows > 0 else None)
+    try:
+        save_image(grid, outdir=_outdir("grids", p.init_images is not None), infotext=text,
+                   seed=p.all_seeds[0], prompt=p.prompt,
+                   filename_pattern="grid-[seed]-[prompt_words]")
+    except OSError as e:
+        print(f"grid save failed: {e}")
+
+
 # checkpoint name → DiffusionEngine, installed by whoever holds the engines;
 # p._refiner_engine and p._hr_engine take precedence
 ENGINE_RESOLVER: Optional[Callable[[str], DiffusionEngine]] = None
@@ -1472,10 +1525,20 @@ def process_images(engine: DiffusionEngine, p: Processing) -> Processed:
         done = finish(job, batch, it, device=out_engine.device)
         images.extend(done)
         last = len(job.seeds) - 1  # a script may have added images to the batch
-        texts.extend(infotexts(p, [job.seeds[min(b, last)] for b in range(len(done))],
-                               [job.subseeds[min(b, last)] for b in range(len(done))]))
+        seeds = [job.seeds[min(b, last)] for b in range(len(done))]
+        batch_texts = infotexts(p, seeds, [job.subseeds[min(b, last)] for b in range(len(done))])
+        texts.extend(batch_texts)
+        if opts.get("samples_save") and not p.do_not_save_samples:
+            _save_samples(p, done, batch_texts, seeds, it)
         state.skipped = False  # a skip ends one batch
+    if (len(images) > 1 and not p.do_not_save_grid and opts.get("grid_save")
+            and (not opts.get("grid_only_if_multiple") or len(images) > 1)):
+        _save_grid(p, images, texts[0])
     timings["total"] = time.perf_counter() - t0
+    log_event("generation", sampler=p.sampler_name, steps=p.steps, width=p.width,
+              height=p.height, batch_size=p.batch_size, n_iter=p.n_iter, seed=p.seed,
+              is_img2img=p.init_images is not None,
+              **{f"t_{k}": round(v, 4) for k, v in timings.items()})
     processed = Processed(images=images, seeds=list(p.all_seeds), subseeds=list(p.all_subseeds),
                           infotexts=texts, params=_simple_params(p), timings=timings,
                           decode_method=", ".join(dict.fromkeys(methods)))

@@ -118,6 +118,31 @@ _DEFAULTS = {
                            ["None", "Ignore", "Original", "No norm"]),
     "s_min_uncond": OptionInfo(0.0, "NGMS: skip uncond below sigma", "perf"),
     "save_write_params_txt": OptionInfo(True, "Write params.txt after generation", "saving"),
+    # saving images and grids (pipeline/images.py `save_image`, process_images)
+    "samples_save": OptionInfo(True, "Always save generated images", "saving"),
+    "samples_format": OptionInfo("png", "Image format", "saving", ["png", "jpg", "webp"]),
+    "samples_filename_pattern": OptionInfo("", "Images filename pattern", "saving"),
+    "save_images_add_number": OptionInfo(True, "Add number to filename", "saving"),
+    "grid_save": OptionInfo(True, "Always save grids", "saving"),
+    "grid_only_if_multiple": OptionInfo(True, "Only save grid for multiple images", "saving"),
+    "n_rows": OptionInfo(-1, "Grid row count (-1 auto)", "saving"),
+    "save_write_log_csv": OptionInfo(True, "Write log.csv next to saved images", "saving"),
+    "save_txt": OptionInfo(False, "Write .txt infotext next to image", "saving"),
+    "enable_pnginfo": OptionInfo(True, "Write infotext into images", "infotext"),
+    "outdir_samples": OptionInfo("", "Output dir for all images", "paths"),
+    "outdir_txt2img_samples": OptionInfo("outputs/txt2img-images", "txt2img out dir", "paths"),
+    "outdir_img2img_samples": OptionInfo("outputs/img2img-images", "img2img out dir", "paths"),
+    "outdir_grids": OptionInfo("", "Output dir for grids", "paths"),
+    "outdir_txt2img_grids": OptionInfo("outputs/txt2img-grids", "txt2img grid dir", "paths"),
+    "outdir_img2img_grids": OptionInfo("outputs/img2img-grids", "img2img grid dir", "paths"),
+    "save_to_dirs": OptionInfo(True, "Save to date subdirectories", "paths"),
+    "directories_filename_pattern": OptionInfo("[date]", "Directory name pattern", "paths"),
+    "directories_max_prompt_words": OptionInfo(8, "Max prompt words in [prompt_words]", "paths"),
+    # the web UI's localization (GET /sdapi/v1/localization) and the extension list
+    "localization": OptionInfo("None", "Localization", "ui"),
+    "disabled_extensions": OptionInfo([], "Disabled extensions", "extensions"),
+    "disable_all_extensions": OptionInfo("none", "Disable all extensions", "extensions",
+                                         ["none", "extra", "all"]),
     "add_model_name_to_info": OptionInfo(True, "Model name in infotext", "infotext"),
     "add_model_hash_to_info": OptionInfo(True, "Model hash in infotext", "infotext"),
     "add_version_to_infotext": OptionInfo(True, "Version in infotext", "infotext"),

@@ -11,7 +11,10 @@ model function is built from, instead of mutating live modules.
 
 `ScriptRunner._run` and `fire` catch every exception a script or callback
 raises, print its traceback ("... failed:") and go on, as the reference
-does. `Script.post_sample` is defined and, as in the reference, never
+does, except that `_run` lets a refusal (`NotImplementedError`) and a
+missing file (`FileNotFoundError`) reach the caller: a request whose
+script could not run must not answer as if it had (the reference prints
+and returns the image without the script's work). `Script.post_sample` is defined and, as in the reference, never
 called by the pipeline.
 """
 
@@ -129,6 +132,8 @@ class ScriptRunner:
                     result = out
                     if len(args) > 1:
                         args = (args[0], out) + args[2:]
+            except (NotImplementedError, FileNotFoundError):
+                raise
             except Exception:
                 print(f"script {script.name}.{method} failed:\n{traceback.format_exc()}")
         return result

@@ -105,9 +105,15 @@ def create_embedding(engine, name: str, num_vectors: int = 1,
                      init_text: str = "*", overwrite: bool = False,
                      out_dir: str = "embeddings") -> str:
     """Create a textual-inversion embedding initialised from the token
-    embeddings of `init_text` and save it in the `emb_params` safetensors
-    format the loader reads back → the saved path. Only the rows of the
-    init text's tokens leave the engine's device."""
+    embeddings of `init_text` and save it in a safetensors format the
+    loader reads back → the saved path: `emb_params`, from the first of
+    the engine's text encoders in the reference's order (clip_l, clip,
+    open_clip_h, open_clip_g). On an engine with both CLIP-L and CLIP-G
+    (SDXL) the file holds SDXL's `clip_l` and `clip_g` instead, the first
+    the vectors the reference writes as `emb_params`: the reference's
+    CLIP-L vectors alone cannot fill CLIP-G's wider slot, so no SDXL
+    request can use its file. Only the rows of the init text's tokens
+    leave the engine's device."""
     from ..core.save import save_safetensors
 
     safe = "".join(c for c in name if c.isalnum() or c in "._- ").strip()
@@ -117,13 +123,27 @@ def create_embedding(engine, name: str, num_vectors: int = 1,
     if os.path.exists(path) and not overwrite:
         raise FileExistsError(f"{path} exists (pass overwrite)")
 
+    engines = getattr(engine, "text_engines", {})
     te = None
     for cand in ("clip_l", "clip", "open_clip_h", "open_clip_g"):
-        if cand in getattr(engine, "text_engines", {}):
-            te = engine.text_engines[cand]
+        if cand in engines:
+            te = engines[cand]
             break
     if te is None:
-        te = next(iter(engine.text_engines.values()))
+        te = next(iter(engines.values()))
+    vec = _init_vectors(te, num_vectors, init_text)
+    os.makedirs(out_dir, exist_ok=True)
+    if "clip_l" in engines and "clip_g" in engines:
+        save_safetensors({"clip_l": vec, "clip_g": _init_vectors(engines["clip_g"], num_vectors,
+                                                                 init_text)}, path)
+    else:
+        save_safetensors({"emb_params": vec}, path)
+    return path
+
+
+def _init_vectors(te, num_vectors: int, init_text: str) -> np.ndarray:
+    """[max(num_vectors, 1), width] f32: vector i is the token table's row of
+    init text token i·len(ids)//num_vectors (zeros without an init text)."""
     table = _token_table(te.params)
     vec = np.zeros((max(int(num_vectors), 1), table.shape[1]), np.float32)
     if init_text:
@@ -133,9 +153,7 @@ def create_embedding(engine, name: str, num_vectors: int = 1,
             emb = table[rows].float().cpu().numpy()
             for i in range(vec.shape[0]):
                 vec[i] = emb[i * len(ids) // vec.shape[0]]
-    os.makedirs(out_dir, exist_ok=True)
-    save_safetensors({"emb_params": vec}, path)
-    return path
+    return vec
 
 
 def _token_table(params):

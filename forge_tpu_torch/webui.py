@@ -2,11 +2,15 @@
 
     python -m forge_tpu_torch.webui --ckpt model.safetensors --port 7860
 
-The API-only path of the root `webui.py`: find the checkpoints, load one on
-the card (or on the device `--device` names), start the work queue's thread
-and serve `/sdapi/v1/*` (api/server.py) until the process is stopped, or until
-`/sdapi/v1/server-stop` where `--api-server-stop` allows that route. A flag
-this launcher does not read raises with its name.
+The path of the root `webui.py`: find the checkpoints, load one on the
+card (or on the device `--device` names), start the work queue's thread and
+serve `/sdapi/v1/*` and the static web UI at `/` (api/server.py; not under
+`--nowebui`) until the process is stopped, or until `/sdapi/v1/server-stop`
+where `--api-server-stop` allows that route. `/sdapi/v1/server-restart`
+(under the same flag) stops the server and this loop starts it again, the
+engine kept loaded. Extension install and update through the API need
+`--enable-insecure-extension-access`. A flag this launcher does not read
+raises with its name.
 """
 
 from __future__ import annotations
@@ -31,7 +35,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--styles-file", default="styles.csv", help="prompt styles CSV")
     ap.add_argument("--config", default="config.json", help="the options' settings file")
     ap.add_argument("--api-server-stop", action="store_true",
-                    help="let the API stop the server (/sdapi/v1/server-stop, server-kill)")
+                    help="let the API stop or restart the server (/sdapi/v1/server-stop, "
+                         "server-kill, server-restart)")
+    ap.add_argument("--nowebui", action="store_true", help="the API only: GET / answers 404")
+    ap.add_argument("--enable-insecure-extension-access", action="store_true",
+                    help="allow extension install/update through the API (runs fetched code)")
     ap.add_argument("--freeze-settings", action="store_true",
                     help="refuse option changes through the API")
     ap.add_argument("--disable-nan-check", action="store_true",
@@ -73,8 +81,9 @@ def main(argv=None):
             opts.set("sd_model_checkpoint", args.ckpt)
         elif models.checkpoints:
             opts.set("sd_model_checkpoint", next(iter(models.checkpoints)))
-        serve(models, "0.0.0.0" if args.listen else "127.0.0.1", args.port,
-              api_auth=args.api_auth)
+        while serve(models, "0.0.0.0" if args.listen else "127.0.0.1", args.port,
+                    api_auth=args.api_auth):
+            print("restarting the server ...", flush=True)
 
 
 if __name__ == "__main__":

@@ -102,9 +102,10 @@ def servers():
     jmm.set_engine(_small_tiles(make_tiny_engine(0)))
     tmm.set_engine(_small_tiles(teng))
     jsrv, tsrv = jcreate(jmm, "127.0.0.1", 0), create_server(tmm, "127.0.0.1", 0)
+    params_txt = opts.get("save_write_params_txt")
     opts.set("save_write_params_txt", False)
     yield _serve(jsrv), _serve(tsrv)
-    opts.set("save_write_params_txt", True)
+    opts.set("save_write_params_txt", params_txt)
     for srv in (jsrv, tsrv):
         srv.shutdown()
         srv.server_close()
@@ -188,9 +189,10 @@ def test_listings_match_forge_tpu(servers, route):
 
 def test_refusals(servers):
     """An unported field 422 with Processing's text; a field of the reference
-    the port lacks passes at the port's behaviour (tiling off); saving and an
+    the port lacks passes at the port's behaviour (tiling off); an
     unknown script 422 (a known one and soft inpainting are answered,
-    tests/test_torch_scripts_api.py); an unported route 501 naming its ROADMAP item; a JPEG 415, a
+    tests/test_torch_scripts_api.py; `save_images` is answered,
+    tests/test_torch_surface_api.py); an unported route 501 naming its ROADMAP item; a JPEG 415, a
     PNG past the reader's pixel limit 413 and a truncated one 422; an
     unknown route 404; an unported option 422."""
     _, tbase = servers
@@ -200,13 +202,12 @@ def test_refusals(servers):
                                                           restore_faces=False))
     assert status == 200
     for key, value, detail in (("script_name", "x/y/z plot", "unknown script 'x/y/z plot'"),
-                               ("alwayson_scripts", {"soft inpainting x": {}}, "alwayson_scripts"),
-                               ("save_images", True, "save_images")):
+                               ("alwayson_scripts", {"soft inpainting x": {}}, "alwayson_scripts")):
         status, body, _ = _call(tbase, "/sdapi/v1/txt2img", dict(TXT2IMG, **{key: value}))
         assert status == 422 and detail in body["detail"], (key, body)
     status, body, _ = _call(tbase, "/sdapi/v1/interrogate", {"image": ""})
     assert status == 501 and "ROADMAP.md queue 1 item 9" in body["detail"]
-    for method_path in (("GET", "/"), ("POST", "/sdapi/v1/spaces/launch")):
+    for method_path in (("GET", "/sdapi/v1/spaces"), ("POST", "/sdapi/v1/spaces/launch")):
         status, _, _ = _call(tbase, method_path[1], {} if method_path[0] == "POST" else None)
         assert status == 501
     buf = io.BytesIO()

@@ -4,7 +4,8 @@ forge_tpu (CPU, f32): `load_control_model` telling a cldm, a T2I-Adapter
 and a Control-LoRA apart (the `control_model.` prefix stripped),
 `_cn_config`, `_decode_image` and `_decode_unit_mask` (base64 PNG through
 the port's codec), `attach_units` for each module taken ("none", "canny",
-"inpaint_global_harmonious", "inpaint_only": hints, states and deferred hooks),
+"inpaint_global_harmonious", "inpaint_only", and the registry's alias
+"inpaint" and "Canny" in another case: hints, states and deferred hooks),
 the modules refused from both sides, Control-LoRA's assembly onto the live
 UNet (base + up·down in f32; the engine's tree untouched; cached on the
 engine), `mix_hint`, `latent_mask_from_pixels`, inpaint_only's state and
@@ -148,6 +149,8 @@ MODULES = {
     "canny": dict(threshold_a=60, threshold_b=150),
     "inpaint_global_harmonious": {},
     "inpaint_only": {},
+    "inpaint": {},  # the registry's alias of inpaint_global_harmonious
+    "Canny": dict(threshold_a=60, threshold_b=150),  # the registry's lookup ignores case
 }
 
 

@@ -24,7 +24,13 @@ KEYS = ("eta_ancestral", "eta_ddim", "s_churn", "s_noise", "eta_noise_seed_delta
         "sd_model_checkpoint", "sd_vae_decode_method", "vae_always_tiled",
         "live_previews_enable", "show_progress_every_n_steps", "show_progress_type",
         "ESRGAN_tile", "ESRGAN_tile_overlap", "DAT_tile", "DAT_tile_overlap", "SWIN_tile",
-        "SWIN_tile_overlap", "face_restoration", "face_restoration_model", "code_former_weight")
+        "SWIN_tile_overlap", "face_restoration", "face_restoration_model", "code_former_weight",
+        "samples_save", "samples_format", "samples_filename_pattern", "save_images_add_number",
+        "grid_save", "grid_only_if_multiple", "n_rows", "save_write_log_csv", "save_txt",
+        "enable_pnginfo", "outdir_samples", "outdir_txt2img_samples", "outdir_img2img_samples",
+        "outdir_grids", "outdir_txt2img_grids", "outdir_img2img_grids", "save_to_dirs",
+        "directories_filename_pattern", "directories_max_prompt_words", "localization",
+        "disabled_extensions", "disable_all_extensions")
 
 
 def test_registered_keys_carry_the_reference_defaults():

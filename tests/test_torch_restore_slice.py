@@ -5,7 +5,11 @@ The tiny SD1.5 (tests/fixtures.py) at 64², 5 steps, DPM++ 2M Karras, CFG 7,
 seed 1, with both packages' CodeFormer restorer over the same tiny file at
 face size 512 (tests/torch_restoration_cases.py; its position embedding
 at N(0, 1), so that the codes, an argmax, do not flip on the unrestored
-images' one-level difference at one pixel): the restored image
+images' one-level difference at one pixel: float32 noise at a level
+boundary, the decoded value 128.0 in the port and just under 128 in
+forge_tpu's fused decode; tests/test_torch_restore_codes.py holds the
+restore at the synth's own embedding, forge_tpu's finish handed the port's
+decoded image): the restored image
 reaches PSNR ≥ 40 dB against forge_tpu's (the golden bar), the infotexts
 are equal and hold "Face restoration: CodeFormer", and the image is not the
 unrestored one. The `face_restoration` option without the field gives the
@@ -27,9 +31,10 @@ from fixtures import CLIP_HEADS, CLIP_WIDTH, make_sd15_checkpoint, make_tiny_eng
 from test_torch_api import _call, _serve  # noqa: E402
 from torch_restoration_cases import reference_tree, tiny_sd, write  # noqa: E402
 
-# The two packages' unrestored images differ by one level at one pixel; at the synthetic
-# position embedding's N(0, 0.02²) that flips one of the 256 codes the tiny transformer picks
-# (35 dB); at N(0, 1) the codes are the same on both images.
+# The two packages' unrestored images differ by one level at one pixel (float32 noise: the
+# decoded value sits on the 128 boundary, 128.0 in the port and just under in forge_tpu); at
+# the synthetic position embedding's N(0, 0.02²) that flips one of the 256 codes the tiny
+# transformer picks (35 dB); at N(0, 1) the codes are the same on both images.
 POSITION_GAIN = 50.0
 REQUEST = dict(prompt="a portrait of a woman", negative_prompt="blurry", seed=1, steps=5,
                width=64, height=64, cfg_scale=7.0, sampler_name="DPM++ 2M", scheduler="karras")

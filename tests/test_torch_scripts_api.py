@@ -52,9 +52,10 @@ def servers():
     jmm.set_engine(jeng)
     tmm.set_engine(teng)
     jsrv, tsrv = jcreate(jmm, "127.0.0.1", 0), create_server(tmm, "127.0.0.1", 0)
+    params_txt = opts.get("save_write_params_txt")
     opts.set("save_write_params_txt", False)
     yield _serve(jsrv), _serve(tsrv), teng
-    opts.set("save_write_params_txt", True)
+    opts.set("save_write_params_txt", params_txt)
     for srv in (jsrv, tsrv):
         srv.shutdown()
         srv.server_close()

@@ -243,6 +243,32 @@ def test_runner_and_registry_semantics(package, capsys):
     finally:
         mod.clear()
     assert mod.EVENTS == scripts_module("forge_tpu").EVENTS
+
+
+@pytest.mark.parametrize("error", [NotImplementedError, FileNotFoundError])
+def test_runner_lets_refusals_through(error, capsys):
+    """A refusal or a missing file raised in a hook reaches the port's
+    caller, and the scripts after it do not run; the reference's runner
+    prints it and goes on (a reference fault: the request answers as if the
+    script had run)."""
+    for package in PACKAGES:
+        mod = scripts_module(package)
+        ran = []
+
+        def refuse(self, p, _error=error):
+            raise _error("refused")
+
+        runner = mod.ScriptRunner()
+        runner.register(type("Refuses", (mod.Script,), {"name": "refuses", "process": refuse})())
+        runner.register(type("After", (mod.Script,),
+                             {"name": "after", "process": lambda self, p: ran.append(p)})())
+        if package == "forge_tpu_torch":
+            with pytest.raises(error, match="refused"):
+                runner.process(1)
+            assert ran == [] and "failed" not in capsys.readouterr().out
+        else:
+            runner.process(1)
+            assert ran == [1] and "script refuses.process failed:" in capsys.readouterr().out
     assert isinstance(mod.scripts_txt2img, mod.ScriptRunner)
     assert mod.scripts_img2img is not mod.scripts_txt2img
 
