@@ -14,7 +14,9 @@ runner and its events, the X/Y/Z grid, the selectable scripts, soft inpainting a
 options, the API's script routes), and the postprocessing path (the SwinIR, HAT, DAT and SCUNet
 upscalers, CodeFormer and GFPGAN face restoration with restore_faces, the extras routes), and
 the rest of the API surface on SDXL (ControlNetScript, saving images with their events and the
-event log, the ControlNet, embedding, merge and web UI routes), on one NVIDIA GPU.
+event log, the ControlNet, embedding, merge and web UI routes), and the ControlNet annotators
+(MiDaS, Depth Anything V2, OpenPose, HED, PiDiNet, TEED, lineart, manga line, M-LSD, NormalBAE)
+with a depth_anything_v2 unit on SDXL, on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -28,6 +30,8 @@ event log, the ControlNet, embedding, merge and web UI routes), on one NVIDIA GP
                                            # at 20 steps; no result
     python3 chip_smoke.py --scripts  # phase 1, phase 2's SDXL and outpainting rows, phase 19 at
                                      # 20 steps; no result
+    python3 chip_smoke.py --annotators  # phase 1, phase 2's 1370-token flash row and SDXL
+                                        # rows, phase 22 at 20 steps; no result
     python3 chip_smoke.py --surface  # phase 1, phase 2's SDXL rows, phase 21 at 20 steps
                                      # with the full-depth merge; no result
     python3 chip_smoke.py --extras   # phase 1, phase 2's SDXL and hires rows, phase 20 at 20
@@ -353,6 +357,30 @@ Phases:
      exact); GET / answering the web UI. The merged checkpoints have SDXL's
      widths; the whole run cuts their UNet's transformer depths to (0, 1, 1)
      and 1 and CLIP-G to 2 layers, `--surface` keeps SDXL's.
+ 22. the ControlNet annotators on the SDXL engine, after phase 21
+     (`--annotators`: on an engine of its own, at 20 steps). (a) each
+     annotator at its published widths (MiDaS DPT-Large, Depth Anything V2
+     ViT-L/14, OpenPose body, hand and face, HED, PiDiNet, TEED, the three
+     lineart nets, manga line, M-LSD, NormalBAE), its weights made on the
+     card from a seed and written under logs/chip_smoke_annotators/ in its
+     upstream key space (removed at the end), read by its detector's own
+     loader, on a seeded 512² image through the registry: the map finite,
+     512²×3 uint8 levels in [0, 1], a rerun byte-identical, the map in the
+     annotator's dtype against the same code at f32 ≥ 30 dB (bf16 against
+     f32 printed for every one), its seconds on a synchronised rerun, its
+     peak memory (runtime/profiling.py `MemoryMonitor`) and the card's busy
+     share (`trace`, the card alone, on a third detect); the entries sharing those nets once each; OpenPose's hand
+     and face nets on boxes from given keypoints; (b) Depth Anything V2's
+     depth through the flash kernel against plain flash (≥ 40 dB), exactly
+     24 flash launches a detect, and flash at q(1,16,1370,64) with every
+     true score −32 and v = 1 against plain and the exact 1 (a tail key
+     left unmasked would take nearly all the weight);
+     (c) SDXL 1024², DPM++ 2M Karras, CFG 7, seed 1, 4 steps, with a
+     depth_anything_v2 unit on a full-width SDXL ControlNet through
+     ControlNetScript beside a witness: the hint equal to the registry's map
+     at the request's size, launches exact (phase 21's ControlNet request
+     and the annotator's 24 flash), a UNet + ControlNet forward against
+     plain (≥ 40 dB), the latency against the witness's.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -414,6 +442,9 @@ FLASH_SHAPES = [  # (B, H, Lq, D), Lk, a shape of a main path
     ((3, 20, 1024, 64), 1024, True),
     ((1, 10, 4096, 64), 4096, True),
     ((1, 20, 1024, 64), 1024, True),
+    # phase 22: Depth Anything V2's ViT-L/14 on a 518² feed, 37² + 1 tokens (a ragged tail of 26
+    # rows and keys in a 64-wide tile, 90 in a 128-wide one)
+    ((1, 16, 1370, 64), 1370, True),
 ]
 FAMILY_FLASH_SHAPES = [  # SD2.1-768-v, SD3-medium and Playground v2.5 (SDXL's shapes)
     ((2, 24, 4250, 64), 4250, True),    # SD3 joint attention: 77 + 77 text, 4096 image tokens
@@ -808,6 +839,54 @@ SURFACE_CUT = dict(transformer_depth=(0, 1, 1), middle_depth=1, clip_g_layers=2)
 SURFACE_EMBEDDING = "chip-smoke-emb"
 
 
+# phase 22, the ControlNet annotators: each at its published widths, its weights made on the card
+# from a seed and written in its upstream key space under ANNOTATORS_DIR (~3.3 GB of f32 files),
+# read by its detector's own loader, on a seeded 512² image through the registry; then Depth
+# Anything V2 with the flash kernel against plain flash, and an SDXL request (1024², DPM++ 2M
+# Karras, CFG 7, seed 1; 4 steps in the whole run, 20 under --annotators) with a depth_anything_v2
+# unit through ControlNetScript beside phase 21's witness
+ANNOTATORS_STEPS = 4  # 20 under --annotators
+ANNOTATORS_DIR = "logs/chip_smoke_annotators"
+ANNOTATOR_BAR = 30.0  # dB: an annotator's map in its dtype against the same code at f32
+ANNOTATOR_FLASH = 24  # Depth Anything V2 ViT-L/14: one flash launch a block, at q(1,16,1370,64)
+# entry: (the detector's module, its synth functions and files under ANNOTATORS_DIR)
+ANNOTATORS = {
+    "depth_midas": ("depth", [("synth_midas_sd", "midas/dpt_large-midas.safetensors")]),
+    "depth_anything_v2": ("depth_anything", [
+        ("synth_depth_anything_sd", "depth_anything_v2/depth_anything_v2_vitl.safetensors")]),
+    "openpose_full": ("openpose", [
+        ("synth_openpose_body_sd", "openpose/body_pose_model.safetensors"),
+        ("synth_openpose_hand_sd", "openpose/hand_pose_model.safetensors"),
+        ("synth_openpose_face_sd", "openpose/facenet.safetensors")]),
+    "softedge_hed": ("hed", [("synth_hed_sd", "hed/ControlNetHED.safetensors")]),
+    "softedge_pidinet": ("pidinet", [("synth_pidinet_sd", "pidinet/table5_pidinet.pth")]),
+    "softedge_teed": ("teed", [("synth_teed_sd", "TEED/7_model.safetensors")]),
+    "lineart_realistic": ("lineart", [("synth_lineart_sd", "lineart/sk_model.pth")]),
+    "lineart_coarse": ("lineart", [("synth_lineart_sd", "lineart/sk_model2.pth")]),
+    "lineart_anime": ("lineart", [("synth_lineart_anime_sd", "lineart_anime/netG.pth")]),
+    "lineart_anime_denoise": ("manga_line", [("synth_manga_line_sd",
+                                              "manga_line/erika.safetensors")]),
+    "mlsd": ("mlsd", [("synth_mlsd_sd", "mlsd/mlsd_large_512_fp32.safetensors")]),
+    "normalbae": ("normalbae", [("synth_normalbae_sd", "normalbae/scannet.safetensors")]),
+}
+# an entry's sliders where its defaults leave the random net's map empty: M-LSD at the least
+# distance threshold (the slider's 0.01), so that segments are drawn
+ANNOTATOR_ARGS = {"mlsd": (0.1, 0.01)}
+# the entries that share one of the networks above: each run once (finite, in range)
+ANNOTATOR_VARIANTS = ("openpose", "openpose_hand", "openpose_face", "openpose_faceonly",
+                      "softedge_hedsafe", "scribble_hed", "softedge_pidisafe", "scribble_pidinet")
+ANNOTATORS_ROWS = ([((1, 16, 1370, 64), 1370, True)] + EXTRAS_ROWS[0], EXTRAS_ROWS[1])
+
+
+def annotators_counts(steps: int):
+    """Phase 22 (c)'s launches a request: the witness, and the ControlNet request with its
+    annotator's 24 flash launches."""
+    counts = surface_counts(steps)
+    cn = dict(counts["ControlNetScript"])
+    cn["flash_attention"] += ANNOTATOR_FLASH
+    return {"witness": counts["witness"], "ControlNetScript": cn}
+
+
 def surface_counts(steps: int, merged_blocks: int = 70):
     """Phase 21's launches a request by label; `merged_blocks` the merged
     UNet's transformer blocks."""
@@ -1142,7 +1221,7 @@ def phase_kernels(gen: torch.Generator, rows: str = "all"):
                        "scripts": SCRIPTS_ROWS,
                        "extras": (EXTRAS_ROWS[0] + EXTRAS_HIRES_ROWS[0],
                                   EXTRAS_ROWS[1] + EXTRAS_HIRES_ROWS[1]),
-                       "surface": EXTRAS_ROWS}[rows]
+                       "surface": EXTRAS_ROWS, "annotators": ANNOTATORS_ROWS}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
@@ -4339,32 +4418,288 @@ def phase_surface(engine, gen: torch.Generator, steps: int = SURFACE_STEPS, full
     return total
 
 
-def profile_request(label: str, run):
-    """One request, run(), under torch.profiler: device time by kernel, and
-    the busy share (kernel time over the request's wall time). Only the
-    card's activity is traced, and its events are summed straight from the
-    raw trace: `key_averages()` builds an object a launch, and took 42–71 s
-    over the 200,000–362,000 launches of one config-2 request). → run()'s result."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def write_annotator_files(work: str):
+    """Every network of phase 22 at its published widths, made on the card from a seed and
+    written under `work` in its upstream key space; the `.pth` names through torch.save, as
+    their detectors read exactly those names → the bytes written."""
+    from forge_tpu_torch.core import synth_annotators
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.core.synth import DeviceFill, LazyTensor
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+    total = 0
+    for seed, (_, files) in enumerate(ANNOTATORS.values()):
+        for fn, rel in files:
+            path = os.path.join(work, rel)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            if os.path.exists(path):  # lineart's two generators share a function, not a file
+                continue
+            kw = {"n_residual": 3} if rel.endswith("sk_model2.pth") else {}
+            sd = getattr(synth_annotators, fn)(fill=DeviceFill("cuda", seed=220 + seed), **kw)
+            if rel.endswith(".pth"):
+                torch.save({k: (v.materialize() if isinstance(v, LazyTensor) else
+                                torch.as_tensor(v)).cpu() for k, v in sd.items()}, path)
+            else:
+                save_safetensors(sd, path)
+            total += os.path.getsize(path)
+    return total
+
+
+def install_annotators(work: str, dtype=None, device="cuda"):
+    """Detectors reading `work` in each annotator module's global, in `dtype`
+    (each annotator's own where None) → the modules."""
+    import importlib
+
+    mods = {}
+    for entry, (mod, files) in ANNOTATORS.items():
+        m = importlib.import_module(f"forge_tpu_torch.preprocessors.{mod}")
+        mods[mod] = m
+        sub = os.path.join(work, os.path.dirname(files[0][1]))
+        if mod == "lineart":
+            kind = {"lineart_realistic": "realistic", "lineart_coarse": "coarse",
+                    "lineart_anime": "anime"}[entry]
+            m._DETECTORS[kind] = (m.LineartAnimeDetector(model_dir=sub, device=device, dtype=dtype)
+                                  if kind == "anime" else
+                                  m.LineartDetector(coarse=kind == "coarse", model_dir=sub,
+                                                    device=device, dtype=dtype))
+            continue
+        cls = {"depth": "MidasDetector", "depth_anything": "DepthAnythingDetector",
+               "openpose": "OpenposeDetector", "hed": "HedDetector", "pidinet": "PidiDetector",
+               "teed": "TeedDetector", "manga_line": "MangaLineDetector", "mlsd": "MlsdDetector",
+               "normalbae": "NormalBaeDetector"}[mod]
+        m._DETECTOR = getattr(m, cls)(model_dir=sub, device=device, dtype=dtype)
+    return mods
+
+
+def map_psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR of two maps in [0, 1] (inf where equal)."""
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+
+
+def phase_annotators(engine, gen: torch.Generator, steps: int = ANNOTATORS_STEPS,
+                     full: bool = False):
+    """Phase 22: the ControlNet annotators on the card (see the constants above):
+    (a) each at its published widths through the registry, (b) Depth Anything V2's
+    flash path against plain, (c) an SDXL request with a depth_anything_v2 unit.
+    `full`: every annotator in bf16 against f32 too."""
+    import shutil
+
+    from forge_tpu_torch import preprocessors as registry
+    from forge_tpu_torch.core.synth import DeviceFill, synth_controlnet_sd
+    from forge_tpu_torch.extensions.controlnet import ControlNetScript
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from forge_tpu_torch.pipeline import processing as proc
+    from forge_tpu_torch.preprocessors.cv import bilinear_resize
+    from forge_tpu_torch.runtime import profiling
+    from forge_tpu_torch.runtime import scripts as scripts_mod
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), ANNOTATORS_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    saved, total = {}, {}
+    try:
+        nbytes, _ = timed("annotators: the networks made on the card and written",
+                          lambda: write_annotator_files(work))
+        log(f"annotators: {nbytes / 2**30:.3f} GiB of f32 files under {ANNOTATORS_DIR}")
+        import importlib
+
+        for mod in {m for m, _ in ANNOTATORS.values()}:
+            m = importlib.import_module(f"forge_tpu_torch.preprocessors.{mod}")
+            saved[m] = {k: getattr(m, k) for k in ("_DETECTOR", "_DETECTORS") if hasattr(m, k)}
+            if hasattr(m, "_DETECTORS"):
+                saved[m]["_DETECTORS"] = dict(m._DETECTORS)
+        source = np.random.default_rng(22).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+        source = np.asarray(bilinear_resize(bilinear_resize(source, 64, 64), 512, 512), np.uint8)
+
+        # (a) every annotator: f32 maps first, bf16 beside them (under --annotators), then each
+        # in its own dtype: loaded, timed on a rerun under the trace and the memory monitor
+        install_annotators(work, dtype=torch.float32)
+        args = {name: ANNOTATOR_ARGS.get(name, (0, 0)) for name in ANNOTATORS}
+        f32_maps = {name: registry.PREPROCESSORS[name](source, 512, *args[name])
+                    for name in ANNOTATORS}
+        bf16_db = {}
+        if full:
+            install_annotators(work, dtype=torch.bfloat16)
+            bf16_db = {name: map_psnr(registry.PREPROCESSORS[name](source, 512, *args[name]),
+                                      f32_maps[name]) for name in ANNOTATORS}
+        mods = install_annotators(work)
+        for name, (mod, _) in ANNOTATORS.items():
+            entry = registry.PREPROCESSORS[name]
+            check(entry.ported, f"annotators (a): {name} is ported")
+            first = entry(source, 512, *args[name])  # loads the weights
+            mon = profiling.MemoryMonitor(device="cuda")
+            mon.start()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            again = entry(source, 512, *args[name])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            peak = mon.stop()["peak"]
+            # the busy share from a third detect with only the card traced
+            with profiling.trace(os.path.join(work, "traces"), name=name) as tr:
+                third = entry(source, 512, *args[name])
+            det = (mods[mod]._DETECTORS[name.split("_")[-1]] if mod == "lineart"
+                   else mods[mod]._DETECTOR)
+            dtype = (det.body if mod == "openpose" else det).placement()[1]
+            db = map_psnr(again, f32_maps[name])
+            levels = again * 255.0
+            check(again.shape == (512, 512, 3) and again.dtype == np.float32
+                  and np.isfinite(again).all() and again.min() >= 0 and again.max() <= 1
+                  and np.array_equal(levels, np.rint(levels)),
+                  f"annotators (a): {name}'s map is 512²×3, finite, uint8 levels in [0, 1]")
+            check(np.array_equal(first, again) and np.array_equal(first, third),
+                  f"annotators (a): {name} reruns byte-identical")
+            check(db >= ANNOTATOR_BAR, f"annotators (a): {name} in {dtype} against f32 ≥ "
+                                       f"{ANNOTATOR_BAR} dB ({db:.2f})")
+            log(f"annotators (a) {name:22s} dtype {str(dtype)[6:]:8s} {secs:.4f} s, peak "
+                f"{(peak - mon.baseline) / 2**20:.1f} MiB above the {mon.baseline / 2**30:.2f} GiB "
+                f"held (the card's used memory at most {mon.used_peak / 2**30:.2f} GiB); traced "
+                f"card only: {tr.wall_s:.4f} s, busy {100 * tr.busy:.2f} % ({tr.device_events} "
+                f"device events, {tr.device_s * 1e3:.3f} ms); vs f32 {db:.2f} dB"
+                + (f", bf16 vs f32 {bf16_db[name]:.2f} dB" if full else "")
+                + f"; map mean {again.mean():.4f} std {again.std():.4f}")
+            check(again.std() > 0, f"annotators (a): {name}'s map is not flat")
+        for name in ANNOTATOR_VARIANTS:
+            a, secs = timed(f"annotators (a) {name}",
+                            lambda _n=name: registry.PREPROCESSORS[_n](source, 512, 0, 0))
+            check(a.shape == (512, 512, 3) and np.isfinite(a).all() and a.min() >= 0
+                  and a.max() <= 1, f"annotators (a): {name}'s map finite, in range")
+        # the hand and face nets on boxes from given keypoints (the random body net's people
+        # may hold no arm or face)
+        op = mods["openpose"]._DETECTOR
+        kps = [None] * 18
+        kps[0], kps[14], kps[15], kps[16], kps[17] = (256.0, 120.0), (240.0, 104.0), \
+            (272.0, 104.0), (224.0, 112.0), (288.0, 112.0)
+        kps[2], kps[3], kps[4] = (200.0, 220.0), (170.0, 310.0), (150.0, 390.0)
+        kps[5], kps[6], kps[7] = (312.0, 220.0), (342.0, 310.0), (362.0, 390.0)
+        canvas = np.zeros_like(source)
+        _, hs = timed("annotators (a) openpose hands on two given boxes",
+                      lambda: op._detect_hands(source, kps, canvas))
+        _, fs = timed("annotators (a) openpose face on a given box",
+                      lambda: op._detect_face(source, kps, canvas))
+        check(canvas.any(), "annotators (a): the hand and face nets drew")
+
+        # (b) Depth Anything V2 with the flash kernel against plain flash
+        da = mods["depth_anything"]._DETECTOR
+        zero_counts()
+        depth = da.predict(source)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        add_counts(total, launches)
+        with plain_versions():
+            plain = da.predict(source)
+        value = psnr(depth, plain)
+        log(f"annotators (b) depth_anything_v2 {str(da.placement()[1])[6:]}: flash launches "
+            f"{launches['flash_attention']} (wgmma {launches['flash_attention[wgmma]']}, simt "
+            f"{launches['flash_attention[simt]']}); depth {tuple(depth.shape)} kernels vs plain "
+            f"PSNR {value:.2f} dB (bound {PSNR_BOUND})")
+        check(launches["flash_attention"] == ANNOTATOR_FLASH,
+              f"annotators (b): exactly {ANNOTATOR_FLASH} flash launches a detect")
+        check(value >= PSNR_BOUND, f"annotators (b): depth kernels vs plain ≥ {PSNR_BOUND} dB")
+        # the masked tail: every true score is −32 (q = 2, k = −2, d 64, scale 1/8) and v is 1,
+        # so the exact output is 1; a key past 1370 left unmasked would score 0 and take nearly
+        # all the weight (e^32 each), pulling the output toward the padding's value. The wgmma
+        # body (bf16, the detector's) tiles keys by 128 (38 padded keys in the last), the SIMT
+        # body (f32 and bf16) by 16·TN
+        for dtype, body, bound in ((torch.bfloat16, "wgmma", 2e-3), (torch.bfloat16, "simt", 2e-3),
+                                   (torch.float32, "simt", 1e-4)):
+            q = torch.full((1, 16, 1370, 64), 2.0, device="cuda", dtype=dtype)
+            k = torch.full_like(q, -2.0)
+            v = torch.ones_like(q)
+            got = flash_attention(q, k, v, body=body).float()
+            err = (got - flash_attention_plain(q, k, v).float()).abs().max().item()
+            exact = (got - 1.0).abs().max().item()
+            log(f"annotators (b) flash {body} {str(dtype)[6:]} q(1,16,1370,64), every score −32, v = 1: "
+                f"max abs err vs plain {err:.3e}, vs the exact 1 {exact:.3e} (bound {bound:g}; "
+                f"an unmasked tail key would leave under 1e-12 of the weight on the true keys)")
+            check(max(err, exact) < bound,
+                  f"annotators (b): flash's masked tail, {body} body at {dtype}")
+        del depth, plain
+
+        # (c) an SDXL request with a depth_anything_v2 unit through ControlNetScript
+        cldm, _ = timed("annotators (c): a full-width SDXL ControlNet made on the card",
+                        lambda: synth_controlnet_sd(fill=DeviceFill("cuda", seed=22)))
+        image = np.asarray(bilinear_resize(source, 1024, 1024), np.uint8)
+        unit = {"module": "depth_anything_v2", "model": cldm, "image": image, "weight": 1.0,
+                "processor_res": 512}
+        fields = dict(prompt=EXT_PROMPT, negative_prompt="blurry", seed=1, steps=steps,
+                      cfg_scale=7.0, width=1024, height=1024, sampler_name="DPM++ 2M",
+                      scheduler="karras")
+        per_label = annotators_counts(steps)
+
+        def measured(label, fn):
+            zero_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launches = read_counts()
+            add_counts(total, launches)
+            check_counts(launches, per_label[label], 1, f"annotators {label}")
+            return out, secs
+
+        witness, w_secs = measured("witness", lambda: proc.process_images(
+            engine, proc.Processing(**fields)))
+        runner = scripts_mod.ScriptRunner()
+        runner.register(ControlNetScript(device=engine.device, dtype=engine.compute_dtype))
+        p = proc.Processing(**fields, scripts=runner)
+        p.controlnet_units = [unit]
+        res, s_secs = measured("ControlNetScript", lambda: proc.process_images(engine, p))
+        img = res.images[0]
+        check(img.shape == (1024, 1024, 3) and img.dtype == np.uint8 and img.std() > 0
+              and not np.array_equal(img, witness.images[0]),
+              "annotators (c): one 1024² image, moved by the unit")
+        fmap = registry.PREPROCESSORS["depth_anything_v2"](image, 512, 0, 0)
+        want = np.clip(bilinear_resize(fmap, 1024, 1024), 0.0, 1.0)
+        hint = p.controlnets[0].hint[0].float().cpu().numpy().transpose(1, 2, 0)
+        check(np.array_equal(hint, want), "annotators (c): the hint = the registry's map at "
+                                          "the request's size")
+        log(f"annotators (c) depth_anything_v2 unit at {steps} steps: {s_secs:.4f} s against the "
+            f"witness's {w_secs:.4f} s ({s_secs / w_secs:.3f}x); PSNR vs the witness "
+            f"{image_psnr(img, witness.images[0]):.2f} dB")
+        cond = engine.get_learned_conditioning([EXT_PROMPT, "blurry"], 1024, 1024)
+        x = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(engine.compute_dtype)
+        ts = torch.tensor([999.0, 400.0], device="cuda")
+        apply = engine.unet_apply_fn(controlnets=p.controlnets)
+        with torch.no_grad():
+            fused = apply(engine.loaded.unet, x, ts, cond["context"], y=cond["y"], t_host=999.0)
+            with plain_versions():
+                plain = apply(engine.loaded.unet, x, ts, cond["context"], y=cond["y"],
+                              t_host=999.0)
+        value = psnr(fused, plain)
+        log(f"annotators (c) sdxl unet + controlnet (depth hint) 128x128 B=2 bf16: kernels vs "
+            f"plain PSNR {value:.2f} dB (bound {PSNR_BOUND})")
+        check(value >= PSNR_BOUND, f"annotators (c): UNet + ControlNet PSNR ≥ {PSNR_BOUND} dB")
+        del cldm, unit, p, res, witness, x, fused, plain, cond
+    finally:
+        for m, globs in saved.items():
+            for k, v in globs.items():
+                setattr(m, k, v)
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"annotators phase 22 at {steps} steps: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
+def profile_request(label: str, run):
+    """One request, run(), under runtime/profiling.py `trace` (the card
+    alone traced) with no file written: device time by kernel, and the busy
+    share (device time over the request's wall time). → run()'s result."""
+    from forge_tpu_torch.runtime import profiling
+
+    t = time.perf_counter()
+    with profiling.trace(logdir=None) as tr:
         out = run()
-        wall = time.perf_counter() - t
-    by_name = {}  # kernel name → [launches, µs]
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            row = by_name.setdefault(e.name(), [0, 0.0])
-            row[0] += 1
-            row[1] += e.duration_ns() / 1e3
-    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    busy_us = sum(us for _, (_, us) in kernels)
-    log(f"profile {label}: wall {wall:.4f} s, kernel time {busy_us / 1e6:.4f} s "
-        f"({100 * busy_us / 1e6 / wall:.2f} % busy), {sum(n for _, (n, _) in kernels)} kernel "
-        f"launches (the trace summed in {time.perf_counter() - t - wall:.1f} s)")
-    for name, (n, us) in kernels[:10]:
-        log(f"  {n:6d} × {name[:70]:70s} {us / 1e3:10.3f} ms {100 * us / busy_us:6.2f} %")
+    kernels = sorted(tr.kernels.items(), key=lambda kv: -kv[1][1])
+    busy = tr.device_s
+    log(f"profile {label}: wall {tr.wall_s:.4f} s, kernel time {tr.device_s:.4f} s "
+        f"({100 * tr.busy:.2f} % busy), {tr.device_events} kernel launches (the profiler's "
+        f"start, stop and sums {time.perf_counter() - t - tr.wall_s:.1f} s)")
+    for name, (n, secs) in kernels[:10]:
+        log(f"  {n:6d} × {name[:70]:70s} {secs * 1e3:10.3f} ms {100 * secs / busy:6.2f} %")
     groups = {  # every instance of a port kernel, then the library's kernels by kind
         "gn_silu_conv3x3*": ("gn_silu_conv3x3",), "flash_fwd*": ("flash_fwd",),
         "dequant_matmul*": ("dequant_matmul",),
@@ -4373,12 +4708,12 @@ def profile_request(label: str, run):
         "elementwise": ("elementwise",)}
     seen = set()
     for group, marks in groups.items():
-        rows = [(name, n, us) for name, (n, us) in kernels
+        rows = [(name, n, secs) for name, (n, secs) in kernels
                 if name not in seen and any(m in name for m in marks)]
         seen.update(name for name, _, _ in rows)
-        us = sum(us for _, _, us in rows)
+        secs = sum(secs for _, _, secs in rows)
         log(f"  {group}: {sum(n for _, n, _ in rows)} launches, "
-            f"{us / 1e3:.3f} ms, {100 * us / busy_us:.2f} %")
+            f"{secs * 1e3:.3f} ms, {100 * secs / busy:.2f} %")
     return out
 
 
@@ -4446,6 +4781,10 @@ def main():
                     help="run phase 1, phase 2's SDXL and hires rows and phase 20 (the upscalers, "
                          "the face restorers, restore_faces, the hires fix through SwinIR and "
                          "the extras routes on SDXL) at 20 steps only, with no result")
+    ap.add_argument("--annotators", action="store_true",
+                    help="run phase 1, phase 2's Depth Anything and SDXL rows and phase 22 (the "
+                         "ControlNet annotators, Depth Anything V2 against plain flash and a "
+                         "depth_anything_v2 unit on SDXL) at 20 steps only, with no result")
     ap.add_argument("--surface", action="store_true",
                     help="run phase 1, phase 2's SDXL rows and phase 21 (ControlNetScript, saving, "
                          "the event log and the management and web UI routes on SDXL) at 20 steps "
@@ -4508,7 +4847,8 @@ def main():
                             else "image_prompts" if args.image_prompts
                             else "scripts" if args.scripts
                             else "extras" if args.extras
-                            else "surface" if args.surface else "all")
+                            else "surface" if args.surface
+                            else "annotators" if args.annotators else "all")
     done("kernels (phase 2)", t)
     if args.kernels:
         log("kernels only: phases 1-2 passed")
@@ -4527,7 +4867,10 @@ def main():
                             "phases 1, 2 (the SDXL and hires rows) and 20"),
                  "surface": ("surface", lambda e: phase_surface(e, gen, steps=5 * SURFACE_STEPS,
                                                                full=True),
-                             "phases 1, 2 (the SDXL rows) and 21")}
+                             "phases 1, 2 (the SDXL rows) and 21"),
+                 "annotators": ("annotators", lambda e: phase_annotators(
+                     e, gen, steps=5 * ANNOTATORS_STEPS, full=True),
+                     "phases 1, 2 (the Depth Anything and SDXL rows) and 22")}
     for flag, (name, run, what) in one_phase.items():
         if getattr(args, flag):
             if flag == "extensions":
@@ -4575,7 +4918,8 @@ def main():
                            ("image prompts", "image_prompts", phase_image_prompts),
                            ("scripts", "scripts", phase_scripts),
                            ("extras", "extras", phase_extras),
-                           ("surface", "surface", phase_surface)):
+                           ("surface", "surface", phase_surface),
+                           ("annotators", "annotators", phase_annotators)):
         t = time.perf_counter()
         paths[key] = run(engine, gen)
         done(name, t)

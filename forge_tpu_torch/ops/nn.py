@@ -33,12 +33,25 @@ def linear(x: torch.Tensor, p: Mapping[str, Any]) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, p: Mapping[str, Any], stride: int = 1,
-           padding: int = 0, groups: int = 1) -> torch.Tensor:
+           padding: int = 0, groups: int = 1, dilation: int = 1) -> torch.Tensor:
     """NCHW conv with an OIHW kernel (an fp8 kernel upcast to x's dtype, as in `linear`)."""
     bias = p.get("bias")
     return F.conv2d(x, p["weight"].to(x.dtype),
                     None if bias is None else bias.to(x.dtype),
-                    stride=stride, padding=padding, groups=groups)
+                    stride=stride, padding=padding, groups=groups, dilation=dilation)
+
+
+def conv2d_transpose(x: torch.Tensor, p: Mapping[str, Any], stride: int = 2,
+                     padding: int = 0, output_padding: int = 0) -> torch.Tensor:
+    """NCHW transpose conv with the [I, O, kh, kw] kernel torch's
+    ConvTranspose2d stores: out = (H − 1)·stride − 2·padding + kh +
+    output_padding, the output_padding rows and columns at the bottom and
+    right holding the kernel's own contributions (the reference's crop of p
+    from the top and left and p − output_padding from the bottom and right)."""
+    bias = p.get("bias")
+    return F.conv_transpose2d(x, p["weight"].to(x.dtype),
+                              None if bias is None else bias.to(x.dtype),
+                              stride=stride, padding=padding, output_padding=output_padding)
 
 
 def group_stats(x: torch.Tensor, num_groups: int, eps: float):

@@ -64,28 +64,13 @@ from ..models import vae as vae_mod
 from ..models.controlnet import run_controlnets
 from ..ops import nn
 from ..runtime.options import opts
+from ..runtime.profiling import NansException, raise_nans  # noqa: F401  (callers import them here)
 from ..sampling.prediction import (DiscretePrediction, PredictionEDM, PredictionFlow,
                                    PredictionFlux)
 from ..text.engine import ClassicTextEngine, TextEncoderOptions
 from ..text.t5_engine import T5TextEngine
 from ..text.textual_inversion import EmbeddingDatabase
 from ..text.tokenizer import default_tokenizer
-
-_NAN_MESSAGES = {
-    "unet": ("A tensor with NaNs was produced in the UNet. This could be caused by a "
-             "model trained in a different precision, a broken LoRA, or bad "
-             "conditioning. Try float32 compute dtype."),
-    "vae": ("A tensor with NaNs was produced in the VAE. Use a fixed fp16-safe VAE "
-            "or float32 VAE dtype."),
-}
-
-
-class NansException(RuntimeError):
-    pass
-
-
-def raise_nans(where: str):
-    raise NansException(_NAN_MESSAGES[where])
 
 
 @dataclasses.dataclass

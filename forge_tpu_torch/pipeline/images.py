@@ -371,12 +371,22 @@ def cv2_linear_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
         s = a.astype(np.int32)
         return ((s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2] + 2)
                 >> 2).astype(np.uint8)
-    sx, fx = _cv_linear_taps(src_w, w, u8)
+    return cv2_linear_resample(a, w, h, _cv_linear_taps(src_w, w, u8),
+                               _cv_linear_taps(src_h, h, u8))
+
+
+def cv2_linear_resample(a: np.ndarray, w: int, h: int, xtaps, ytaps) -> np.ndarray:
+    """`cv2_linear_resize`'s two-tap pass on given taps: (source index,
+    float32 fraction) a column and a row. OpenCV's INTER_AREA takes it when
+    it upscales, with its own taps."""
+    src_h, src_w = a.shape[:2]
+    u8 = a.dtype == np.uint8
+    sx, fx = xtaps
     edge = (sx < 0) | (sx >= src_w - 1)
     fx = np.where(edge, np.float32(0), fx)
     sx = np.clip(sx, 0, src_w - 1)
     x1 = np.minimum(sx + 1, src_w - 1)
-    sy, fy = _cv_linear_taps(src_h, h, u8)
+    sy, fy = ytaps
     y0, y1 = np.clip(sy, 0, src_h - 1), np.clip(sy + 1, 0, src_h - 1)
     src = a.reshape(src_h, src_w, -1)
     if u8:

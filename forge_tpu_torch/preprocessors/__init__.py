@@ -10,12 +10,20 @@ MediaPipe face, UniFormer, ZoeDepth, Marigold, DensePose, OneFormer).
 `preprocessor_names()` lists each entry once, under its first name
 (GET /controlnet/module_list).
 
-Ported (`Preprocessor.ported`): "none" and "canny" (preprocessors/cv.py);
-the reference, Revision and inpaint entries, which extensions/controlnet.py
-consumes by their tags, pass the image through as the reference's do. This
-registry alone decides which ControlNet modules run: calling any other
-entry raises NotImplementedError naming ROADMAP queue 1 item 9, and a unit
-with such a module is refused before it is built.
+Ported (`Preprocessor.ported`): the pure-CV entries (preprocessors/cv.py,
+their OpenCV calls through preprocessors/cv2_np.py); the reference,
+Revision and inpaint entries, which extensions/controlnet.py consumes by
+their tags and which pass the image through as the reference's do; and the
+model-based annotators depth_midas (depth.py), depth_anything_v2
+(depth_anything.py), the five OpenPose entries (openpose.py), the HED
+(hed.py), PiDiNet (pidinet.py) and TEED (teed.py) soft edges, the three
+lineart nets (lineart.py), lineart_anime_denoise (manga_line.py), mlsd
+(mlsd.py) and normalbae (normalbae.py). Each model-based module is imported
+on the entry's first call; its detector runs on the card unless one made
+on the CPU is installed (`get_*(device=...)`). This registry alone decides
+which ControlNet modules run: calling any other entry raises
+NotImplementedError naming ROADMAP queue 1 item 9, and a unit with such a
+module is refused before it is built.
 
 Contract: __call__(img uint8 [H,W,3], res, threshold_a, threshold_b) →
 float32 map [H,W,3] in [0, 1] at the detect resolution (the caller resizes
@@ -29,7 +37,11 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from .cv import canny, resize_image
+import importlib
+
+from . import cv2_np
+from .cv import (canny, gaussian_blur, lineart_standard, resize_image, scribble_xdog, shuffle_map,
+                 threshold_map)
 
 _ROADMAP_9 = "ROADMAP.md queue 1 item 9: the preprocessors"
 
@@ -83,9 +95,87 @@ def _none(img: np.ndarray, res: int, a, b) -> np.ndarray:
     return np.asarray(resize_image(img, res), np.float32) / 255.0
 
 
+def _to_float(img: np.ndarray) -> np.ndarray:
+    return np.asarray(img, np.float32) / 255.0 if img.dtype == np.uint8 \
+        else np.asarray(img, np.float32)
+
+
+def _gray3(g: np.ndarray) -> np.ndarray:
+    return np.repeat(np.asarray(g, np.float32)[..., None], 3, axis=2)
+
+
 def _canny(img: np.ndarray, res: int, a, b) -> np.ndarray:
     edges = canny(resize_image(img, res), int(a) if a else 100, int(b) if b else 200)
     return np.repeat(edges[..., None], 3, axis=2)
+
+
+def _invert(img, res, a, b):
+    return 1.0 - _to_float(resize_image(img, res))
+
+
+def _blur(img, res, a, b):
+    return gaussian_blur(_to_float(resize_image(img, res)), float(a) if a else 9.0)
+
+
+def _shuffle(img, res, a, b):
+    return shuffle_map(_to_float(resize_image(img, res)), seed=int(b) if b else 0)
+
+
+def _lineart_std(img, res, a, b):
+    return _gray3(lineart_standard(resize_image(img, res), float(a) if a else 6.0))
+
+
+def _xdog(img, res, a, b):
+    return _gray3(scribble_xdog(resize_image(img, res), float(a) if a else 32.0))
+
+
+def _threshold(img, res, a, b):
+    return _gray3(threshold_map(resize_image(img, res), float(a) if a else 127.0))
+
+
+def _recolor_luminance(img, res, a, b):
+    """The LAB L channel to a gamma (the reference applies COLOR_BGR2LAB to
+    the RGB array; kept so)."""
+    lab = cv2_np.bgr_to_lab(resize_image(img, res))
+    return _gray3(np.power(lab[:, :, 0].astype(np.float32) / 255.0, float(a) if a else 1.0))
+
+
+def _recolor_intensity(img, res, a, b):
+    hsv = cv2_np.bgr_to_hsv(resize_image(img, res))
+    return _gray3(np.power(hsv[:, :, 2].astype(np.float32) / 255.0, float(a) if a else 1.0))
+
+
+def _color_grid(img, res, a, b):
+    """T2I color-adapter palette grid: 64× down (cubic), then nearest back up."""
+    img = resize_image(img, res)
+    h, w = img.shape[:2]
+    small = cv2_np.resize(img, (max(w // 64, 1), max(h // 64, 1)), cv2_np.INTER_CUBIC)
+    return _to_float(cv2_np.resize(small, (w, h), cv2_np.INTER_NEAREST))
+
+
+def _binary(img, res, a, b):
+    """Inverted binary threshold; 0 or 255 → Otsu's."""
+    gray = cv2_np.rgb_to_gray(resize_image(img, res))
+    thr = int(a) if a else 0
+    kind = cv2_np.THRESH_BINARY_INV + (cv2_np.THRESH_OTSU if thr in (0, 255) else 0)
+    _, out = cv2_np.threshold(gray, 0 if thr in (0, 255) else thr, 255, kind)
+    return _gray3(out.astype(np.float32) / 255.0)
+
+
+def _tile_resample(img, res, a, b):
+    down = max(float(a), 1.0) if a else 1.0
+    h, w = img.shape[:2]
+    small = resize_image(img, int(min(h, w) / down))
+    return _to_float(resize_image(small, res))
+
+
+def _model(module: str, fn: str) -> Callable:
+    """A model-based entry: `fn` of preprocessors/<module>.py, imported on
+    the first call."""
+    def call(img, res, a, b):
+        return getattr(importlib.import_module(f"{__name__}.{module}"), fn)(img, res, a, b)
+
+    return call
 
 
 def _unported(name: str) -> Callable:
@@ -160,10 +250,35 @@ _ENTRIES = (
     ("seg_ofcoco", (), None, None, ("Segmentation",), True),
 )
 # the entries that run: the image itself for those extensions/controlnet.py consumes
-_PORTED = {"none": _none, "canny": _canny, "reference_only": _none, "reference_adain": _none,
+_PORTED = {"none": _none, "invert": _invert, "canny": _canny, "blur_gaussian": _blur,
+           "shuffle": _shuffle, "lineart_standard": _lineart_std, "scribble_xdog": _xdog,
+           "threshold": _threshold, "tile_resample": _tile_resample,
+           "recolor_luminance": _recolor_luminance, "recolor_intensity": _recolor_intensity,
+           "t2ia_color_grid": _color_grid, "threshold_binary": _binary,
+           "reference_only": _none, "reference_adain": _none,
            "reference_adain+attn": _none, "CLIP-G (Revision)": _none,
            "CLIP-G (Revision ignore prompt)": _none, "inpaint_global_harmonious": _none,
-           "inpaint_only": _none}
+           "inpaint_only": _none,
+           "depth_midas": _model("depth", "depth_midas"),
+           "depth_anything_v2": _model("depth_anything", "depth_anything"),
+           "openpose": _model("openpose", "openpose_body"),
+           "openpose_hand": _model("openpose", "openpose_hand"),
+           "openpose_face": _model("openpose", "openpose_face"),
+           "openpose_faceonly": _model("openpose", "openpose_faceonly"),
+           "openpose_full": _model("openpose", "openpose_full"),
+           "softedge_hed": _model("hed", "softedge_hed"),
+           "softedge_hedsafe": _model("hed", "softedge_hedsafe"),
+           "scribble_hed": _model("hed", "scribble_hed"),
+           "lineart_realistic": _model("lineart", "lineart_realistic"),
+           "lineart_coarse": _model("lineart", "lineart_coarse"),
+           "lineart_anime": _model("lineart", "lineart_anime"),
+           "softedge_pidinet": _model("pidinet", "softedge_pidinet"),
+           "softedge_pidisafe": _model("pidinet", "softedge_pidisafe"),
+           "scribble_pidinet": _model("pidinet", "scribble_pidinet"),
+           "mlsd": _model("mlsd", "mlsd"),
+           "softedge_teed": _model("teed", "softedge_teed"),
+           "lineart_anime_denoise": _model("manga_line", "manga_line"),
+           "normalbae": _model("normalbae", "normalbae")}
 
 for _name, _aliases, _a, _b, _tags, _weights in _ENTRIES:
     register(Preprocessor(_name, _PORTED.get(_name) or _unported(_name), slider_a=_a,

@@ -1,10 +1,10 @@
-# Copied from forge_tpu/preprocessors/cv.py (`resize_image`, `bilinear_resize`, `canny` and its
-# helpers); numpy only.
+# Copied from forge_tpu/preprocessors/cv.py (all of it); numpy only.
 """Pure-numpy image helpers for the ControlNet hints: the preprocessors'
 bilinear resize (`resize_image`: the short side to a resolution, both sides
-multiples of 8) and Canny edges (the reference leans on cv2; a numpy
-reimplementation needs no other package on the card's machine). Runs on the
-host once a request."""
+multiples of 8), Canny edges, the Gaussian blur, standard lineart, XDoG
+scribbles, the binarization and the content shuffle (the reference leans on
+cv2; numpy needs no other package on the card's machine). Runs on the host
+once a request."""
 
 from __future__ import annotations
 
@@ -135,3 +135,43 @@ def canny(img: np.ndarray, low: int = 100, high: int = 200) -> np.ndarray:
         edges |= new
         frontier = new
     return edges.astype(np.float32)
+
+
+def lineart_standard(img: np.ndarray, sigma: float = 6.0) -> np.ndarray:
+    """'lineart_standard (from white bg & black line)': intensity minus its
+    gaussian blur, inverted — extracts dark lines from light backgrounds."""
+    g = to_gray(img)
+    blurred = gaussian_blur(g, sigma)
+    lines = np.clip(blurred - g, 0, 1)
+    mx = lines.max()
+    return lines / mx if mx > 1e-6 else lines
+
+
+def scribble_xdog(img: np.ndarray, threshold: float = 32.0) -> np.ndarray:
+    """XDoG scribble: difference-of-gaussians, thresholded."""
+    g = to_gray(img) * 255.0
+    g1 = gaussian_blur(g, 0.5)
+    g2 = gaussian_blur(g, 5.0)
+    dog = (1 + 0.98) * g1 - 0.98 * g2
+    return (dog > threshold).astype(np.float32)
+
+
+def threshold_map(img: np.ndarray, thr: float = 127.0) -> np.ndarray:
+    return (to_gray(img) * 255.0 > thr).astype(np.float32)
+
+
+def shuffle_map(img: np.ndarray, seed: int = 0) -> np.ndarray:
+    """Content shuffle: smooth random flow-field warp (reference
+    content shuffle annotator)."""
+    h, w = img.shape[:2]
+    r = np.random.default_rng(seed)
+    fx = gaussian_blur(r.standard_normal((h, w)).astype(np.float32), 12.0)
+    fy = gaussian_blur(r.standard_normal((h, w)).astype(np.float32), 12.0)
+    scale = 0.25 * min(h, w)
+    for f in (fx, fy):
+        mx = np.abs(f).max()
+        if mx > 1e-6:
+            f *= scale / mx
+    ys = np.clip(np.arange(h)[:, None] + fy, 0, h - 1).astype(np.int64)
+    xs = np.clip(np.arange(w)[None, :] + fx, 0, w - 1).astype(np.int64)
+    return img[ys, xs].astype(np.float32)

@@ -195,8 +195,8 @@ def test_attach_units_matches_forge_tpu(module, tmp_path):
 REFUSED = {  # module: the ROADMAP item the port names, and what the reference does
     "ip-adapter_clip_sdxl": ("6 \\(d\\)", "raises KeyError (no such preprocessor)"),
     "inpaint_only+lama": ("item 9", "runs LaMa"),
-    "invert": ("item 9", "builds a ControlNetState"),
-    "blur_gaussian": ("item 9", "builds a ControlNetState"),
+    "depth_leres": ("item 9", "raises RuntimeError (no checkpoint under models/leres)"),
+    "seg_ofcoco": ("item 9", "raises RuntimeError (no checkpoint under models/oneformer)"),
 }
 
 
@@ -216,7 +216,8 @@ def test_refused_modules_from_both_sides(module, tmp_path):
     jcn._MODEL_CACHE.clear()
     try:
         if reference.startswith("raises"):
-            err = FileNotFoundError if "FileNotFound" in reference else KeyError
+            err = {"FileNotFound": FileNotFoundError, "RuntimeError": RuntimeError}.get(
+                reference.split()[1], KeyError)
             with pytest.raises(err):
                 jcn.build_unit_state(unit, 64, 64)
         elif module == "inpaint_only+lama":

@@ -11,9 +11,11 @@ out of `process_images` through the script, where the reference's runner
 prints a missing model's error and answers without the ControlNet.
 `preprocessor_names()`, every key of the registry in order and each entry's
 sliders, tags and resolution equal forge_tpu's; "none" and "canny" give
-forge_tpu's maps; every other entry the port does not run (the model-based
-annotators, the rest of the pure-CV ones) raises NotImplementedError naming
-ROADMAP item 9, as a unit with such a module does. `list_controlnet_models`
+forge_tpu's maps (the other ported entries: tests/test_torch_cv2_np.py and
+tests/test_torch_annotator_entries.py); every entry the port does not run
+(LeReS, DWPose, ZoeDepth, Marigold, the segmenters, DensePose, MediaPipe
+face, LaMa) raises NotImplementedError naming ROADMAP item 9, as a unit
+with such a module does. `list_controlnet_models`
 lists a directory as forge_tpu's does.
 """
 
@@ -106,8 +108,8 @@ def test_controlnet_script_without_units(engines):
 
 
 @pytest.mark.parametrize("module, model, error, match", [
-    ("depth_midas", "cldm_tiny_xl", NotImplementedError, "item 9"),
-    ("lineart_realistic", "cldm_tiny_xl", NotImplementedError, "item 9"),
+    ("depth_leres", "cldm_tiny_xl", NotImplementedError, "item 9"),
+    ("depth_zoe", "cldm_tiny_xl", NotImplementedError, "item 9"),
     ("canny", "no_such_model", FileNotFoundError, "no_such_model")])
 def test_controlnet_script_refusals_reach_the_caller(engines, model_dirs, module, model, error,
                                                      match, capsys):
@@ -148,9 +150,17 @@ def test_preprocessor_registry_matches_reference():
     assert str(got.value) == str(want.value)
 
 
-PORTED = ("none", "canny", "reference_only", "reference_adain", "reference_adain+attn",
-          "CLIP-G (Revision)", "CLIP-G (Revision ignore prompt)", "inpaint_global_harmonious",
-          "inpaint_only")
+PORTED = ("none", "invert", "canny", "blur_gaussian", "shuffle", "lineart_standard",
+          "scribble_xdog", "threshold", "tile_resample", "recolor_luminance",
+          "recolor_intensity", "t2ia_color_grid", "threshold_binary", "reference_only",
+          "reference_adain", "reference_adain+attn", "CLIP-G (Revision)",
+          "CLIP-G (Revision ignore prompt)", "inpaint_global_harmonious", "inpaint_only",
+          "depth_midas", "openpose", "openpose_hand", "openpose_face", "openpose_faceonly",
+          "openpose_full", "softedge_hed", "softedge_hedsafe", "scribble_hed",
+          "lineart_realistic", "lineart_coarse", "lineart_anime", "softedge_pidinet",
+          "softedge_pidisafe", "scribble_pidinet", "mlsd", "depth_anything_v2", "softedge_teed",
+          "lineart_anime_denoise", "normalbae")
+PASS_THROUGH = PORTED[13:20]  # the reference, Revision and inpaint entries
 
 
 @pytest.mark.parametrize("name", ["none", "canny"])
@@ -177,11 +187,11 @@ def test_unported_entries_refused():
     for name in refused:
         with pytest.raises(NotImplementedError, match="item 9"):
             tpre.get_preprocessor(name)(img, 16, 0, 0)
-    for name in PORTED[2:]:  # the image as it is, as the reference's entries give it
+    for name in PASS_THROUGH:  # the image as it is, as the reference's entries give it
         assert np.array_equal(tpre.get_preprocessor(name)(img, 16, 0, 0),
                               tpre.get_preprocessor("none")(img, 16, 0, 0))
     p = processing("forge_tpu_torch").Processing(**SDXL_REQUEST)
-    for module in ("depth_midas", "lineart_standard", "openpose_full"):
+    for module in ("depth_leres", "dw_openpose_full", "seg_ofcoco"):
         with pytest.raises(NotImplementedError, match="item 9"):
             tcn.attach_units(p, [dict(module=module, model="x", image=img)], "cpu")
 
