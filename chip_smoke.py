@@ -16,7 +16,10 @@ upscalers, CodeFormer and GFPGAN face restoration with restore_faces, the extras
 the rest of the API surface on SDXL (ControlNetScript, saving images with their events and the
 event log, the ControlNet, embedding, merge and web UI routes), and the ControlNet annotators
 (MiDaS, Depth Anything V2, OpenPose, HED, PiDiNet, TEED, lineart, manga line, M-LSD, NormalBAE)
-with a depth_anything_v2 unit on SDXL, on one NVIDIA GPU.
+with a depth_anything_v2 unit on SDXL, and interrogation (the CLIP interrogator with BLIP,
+DeepDanbooru, /sdapi/v1/interrogate), the remaining annotators (LeReS, ZoeDepth, Marigold,
+UniFormer, the anime face, LaMa) with a depth_marigold unit on SDXL and the extras route's focal
+crop, on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -36,6 +39,8 @@ with a depth_anything_v2 unit on SDXL, on one NVIDIA GPU.
                                      # with the full-depth merge; no result
     python3 chip_smoke.py --extras   # phase 1, phase 2's SDXL and hires rows, phase 20 at 20
                                      # steps with (d); no result
+    python3 chip_smoke.py --interrogate  # phase 1, phase 2's BLIP, Marigold and SDXL rows,
+                                         # phase 23 at 20 steps; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -381,6 +386,36 @@ Phases:
      at the request's size, launches exact (phase 21's ControlNet request
      and the annotator's 24 flash), a UNet + ControlNet forward against
      plain (≥ 40 dB), the latency against the witness's.
+ 23. interrogation and the remaining annotators on the SDXL engine, after
+     phase 22 (`--interrogate`: on an engine of its own, at 20 steps). Each
+     network at its published widths, its weights made on the card from a
+     seed and written under logs/chip_smoke_interrogate/ in its upstream key
+     space (removed at the end), with four seeded category files of 1,500
+     terms, BLIP's seeded vocab.txt and DeepDanbooru's seeded tag names:
+     (a) CLIP ViT-L/14, BLIP base and DeepDanbooru on a seeded 512² image:
+     the caption ids, each category's top term and the tags above the
+     threshold equal to the same code at f32, BLIP's ViT through the kernels
+     against plain (≥ 40 dB) with exactly 12 flash launches, flash at
+     q(1,12,577,64) with every true score −32 against plain and the exact 1,
+     each call's seconds and busy share (one synchronised call, the card
+     alone traced) and peak memory (BLIP's captions at 20 tokens in the
+     whole run, the options' 48 under --interrogate), and
+     /sdapi/v1/interrogate "clip" and "deepbooru" answering the library's
+     caption and tags (launches exact); (b) LeReS, ZoeDepth, Marigold,
+     UniFormer, the anime face and LaMa through the registry (LaMa's
+     inpaint on a mask): uint8 levels, a rerun byte-identical, against f32
+     ≥ 30 dB (the palettes equal), the rerun's seconds and busy share (the
+     card alone traced) and peak, launches
+     exact (Marigold's 20 DDIM steps), mediapipe_face's RuntimeError;
+     (c) Marigold at 4 DDIM steps (20 under --interrogate): launches exact by
+     body, a UNet forward against plain (≥ 40 dB), its depth against plain
+     in dB; (d) SDXL 1024², DPM++ 2M Karras, CFG 7, seed 1, 4 steps, with a
+     depth_marigold unit through ControlNetScript beside a witness: the hint
+     equal to the registry's map, launches exact (the ControlNet request's
+     and one Marigold detect), UNet + ControlNet against plain (≥ 40 dB),
+     the latency against the witness's; (e) /sdapi/v1/extra-single-image
+     with `focal_crop_enabled` on the image's central 256² to 350×200: the
+     PNG equal to `focal_crop` of the registry's Lanczos upscale.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -878,6 +913,90 @@ ANNOTATOR_VARIANTS = ("openpose", "openpose_hand", "openpose_face", "openpose_fa
 ANNOTATORS_ROWS = ([((1, 16, 1370, 64), 1370, True)] + EXTRAS_ROWS[0], EXTRAS_ROWS[1])
 
 
+# phase 23, interrogation and the remaining annotators: CLIP ViT-L/14 (openai's layout), BLIP's
+# base caption model and DeepDanbooru resnet_custom_v3 with seeded category files, vocabulary and
+# tag names, and LeReS res101, ZoeD_M12_N, Marigold, UniFormer-S with UPerHead, the anime-face
+# UNet and big-lama, each at its published widths, its weights made on the card from a seed and
+# written under INTERROGATE_DIR in its upstream key space; /sdapi/v1/interrogate and the library
+# calls on a seeded 512² image; each annotator through the registry; Marigold at its DDIM steps
+# against plain; an SDXL request (1024², DPM++ 2M Karras, CFG 7, seed 1; 4 steps in the whole
+# run, 20 under --interrogate) with a depth_marigold unit beside its witness; the extras route's
+# focal crop
+INTERROGATE_STEPS = 4  # 20 under --interrogate
+INTERROGATE_DIR = "logs/chip_smoke_interrogate"
+INTERROGATE_TERMS = 1500  # a category file's terms: interrogate_clip_dict_limit's default
+# the whole run's BLIP captions (interrogate_clip_{min,max}_length), cut from the defaults' 48
+# for the phase's time; --interrogate keeps the defaults
+INTERROGATE_CAPTION = {"interrogate_clip_min_length": 12, "interrogate_clip_max_length": 20}
+BLIP_FLASH = 12  # BLIP's ViT-B/16 at 384²: one flash launch a block, at q(1,12,577,64)
+MARIGOLD_UNET = {"flash_attention": 10, "gn_silu_conv3x3": 44}  # a forward at batch 1 on 64²
+MARIGOLD_VAE = {"flash_attention": 2, "gn_silu_conv3x3": 20 + 28}  # the 512² encode and decode
+MARIGOLD_ENTRY_STEPS = 20  # the depth_marigold entry's DDIM steps (the reference's default)
+# (synth function, its file under INTERROGATE_DIR, the file's dtype): Marigold as its published
+# fp16 variant, the others in f32
+INTERROGATE_FILES = [
+    ("synth_clip_interrogator_sd", "interrogate/clip_vit_l_14.safetensors", torch.float32),
+    ("synth_blip_sd", "BLIP/model_base_caption_capfilt_large.safetensors", torch.float32),
+    ("synth_deepbooru_sd", "torch_deepdanbooru/model-resnet_custom_v3.pt", torch.float32),
+    ("synth_leres_sd", "leres/res101.pth", torch.float32),
+    ("synth_zoe_sd", "zoedepth/ZoeD_M12_N.safetensors", torch.float32),
+    ("synth_marigold_sd", "marigold/marigold-v1-0.fp16.safetensors", torch.float16),
+    ("synth_uniformer_sd", "uniformer/upernet_global_small.pth", torch.float32),
+    ("synth_anime_face_sd", "anime_face_segment/UNet.pth", torch.float32),
+    ("synth_lama_sd", "lama/ControlNetLama.pth", torch.float32),
+]
+# registry entry: (its module, the detector's class, its directory under INTERROGATE_DIR)
+INTERROGATE_ANNOTATORS = {
+    "depth_leres": ("leres", "LeresDetector", "leres"),
+    "depth_zoe": ("zoe", "ZoeDetector", "zoedepth"),
+    "depth_marigold": ("marigold", "MarigoldDetector", "marigold"),
+    "seg_ufade20k": ("uniformer", "UniformerDetector", "uniformer"),
+    "seg_anime_face": ("anime_face", "AnimeFaceSegmenter", "anime_face_segment"),
+    "inpaint_only+lama": ("lama", "LamaDetector", "lama"),
+}
+SEGMENTERS = ("seg_ufade20k", "seg_anime_face")  # palettes: bf16 only where equal to f32's
+INTERROGATE_FOCAL = dict(upscaling_resize_w=350, upscaling_resize_h=200)  # (e), from 256²
+INTERROGATE_FLASH_SHAPES = [
+    ((1, 12, 577, 64), 577, True),    # BLIP's ViT at 384²: 24² + 1 tokens, 65 keys in the last 128
+    ((1, 5, 4096, 64), 4096, True),   # Marigold's SD2 UNet at 512²: level 0, batch 1
+    ((1, 10, 1024, 64), 1024, True),  # level 1 (level 2's 256 tokens stay plain)
+]
+# Marigold's UNet at batch 1 on 64², 32², 16² and 8² (SD2's fourteen (C, O, size)), and its VAE
+# at 512²: the shapes no row above holds
+MARIGOLD_CONV_SHAPES = ([((1, c, side, side), o) for c, o, side in
+                         [(320, 320, 64), (640, 320, 64), (960, 320, 64), (320, 640, 32),
+                          (640, 640, 32), (960, 640, 32), (1280, 640, 32), (1920, 640, 32),
+                          (640, 1280, 16), (1280, 1280, 16), (1920, 1280, 16), (2560, 1280, 16),
+                          (1280, 1280, 8), (2560, 1280, 8)]]
+                        + [((1, 128, 512, 512), 128), ((1, 128, 256, 256), 256),
+                           ((1, 256, 256, 256), 256), ((1, 256, 128, 128), 512),
+                           ((1, 512, 128, 128), 512), ((1, 512, 64, 64), 512),
+                           ((1, 256, 512, 512), 128), ((1, 512, 256, 256), 256)])
+INTERROGATE_CONV_SHAPES = [s for s in MARIGOLD_CONV_SHAPES if s not in GN_CONV_SHAPES]
+FLASH_SHAPES += [s for s in INTERROGATE_FLASH_SHAPES if s not in FLASH_SHAPES]
+GN_CONV_SHAPES += INTERROGATE_CONV_SHAPES
+INTERROGATE_ROWS = (INTERROGATE_FLASH_SHAPES + EXTRAS_ROWS[0],
+                    INTERROGATE_CONV_SHAPES + EXTRAS_ROWS[1])
+
+
+def marigold_counts(steps: int):
+    """One Marigold detect's launches at `steps` DDIM steps."""
+    return {name: MARIGOLD_UNET[name] * steps + MARIGOLD_VAE[name] for name in MARIGOLD_UNET}
+
+
+def interrogate_counts(steps: int):
+    """Phase 23's launches by label: (a) a BLIP caption, an API "clip" interrogation (its BLIP
+    caption's ViT) and a "deepbooru" one; (d) the witness and the ControlNet request with one
+    Marigold detect at the entry's 20 steps."""
+    counts = surface_counts(steps)
+    detect = marigold_counts(MARIGOLD_ENTRY_STEPS)
+    cn = {k: v + detect.get(k, 0) for k, v in counts["ControlNetScript"].items()}
+    none = {"flash_attention": 0, "gn_silu_conv3x3": 0, "dequant_matmul": 0}
+    return {"caption": dict(none, flash_attention=BLIP_FLASH),
+            "API clip": dict(none, flash_attention=BLIP_FLASH), "API deepbooru": none,
+            "witness": counts["witness"], "ControlNetScript": cn}
+
+
 def annotators_counts(steps: int):
     """Phase 22 (c)'s launches a request: the witness, and the ControlNet request with its
     annotator's 24 flash launches."""
@@ -1221,7 +1340,8 @@ def phase_kernels(gen: torch.Generator, rows: str = "all"):
                        "scripts": SCRIPTS_ROWS,
                        "extras": (EXTRAS_ROWS[0] + EXTRAS_HIRES_ROWS[0],
                                   EXTRAS_ROWS[1] + EXTRAS_HIRES_ROWS[1]),
-                       "surface": EXTRAS_ROWS, "annotators": ANNOTATORS_ROWS}[rows]
+                       "surface": EXTRAS_ROWS, "annotators": ANNOTATORS_ROWS,
+                       "interrogate": INTERROGATE_ROWS}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
@@ -4684,6 +4804,448 @@ def phase_annotators(engine, gen: torch.Generator, steps: int = ANNOTATORS_STEPS
     return total
 
 
+def write_interrogate_files(work: str):
+    """Every network of phase 23 at its published widths, made on the card from a seed and
+    written under `work` in its upstream key space (the `.pt`/`.pth` files through torch.save,
+    DeepDanbooru's with its tag names), the four category files, BLIP's vocab.txt → bytes."""
+    from forge_tpu_torch.core import synth_annotators
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.core.synth import DeviceFill, LazyTensor
+
+    total = 0
+    for seed, (fn, rel, dtype) in enumerate(INTERROGATE_FILES):
+        path = os.path.join(work, "models", rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        sd = getattr(synth_annotators, fn)(fill=DeviceFill("cuda", seed=230 + seed))
+        if rel.endswith((".pt", ".pth")):
+            obj = {k: (v.materialize() if isinstance(v, LazyTensor) else torch.as_tensor(v)
+                       ).to(dtype).cpu() for k, v in sd.items()}
+            if fn == "synth_deepbooru_sd":
+                obj["tags"] = synth_annotators.synth_deepbooru_tags()
+            torch.save(obj, path)
+        else:
+            save_safetensors({k: v.to(dtype) if isinstance(v, LazyTensor) else v
+                              for k, v in sd.items()}, path)
+        total += os.path.getsize(path)
+    for name, terms in synth_annotators.synth_interrogate_categories(INTERROGATE_TERMS).items():
+        with open(os.path.join(work, "models", "interrogate", f"{name}.txt"), "w") as f:
+            f.write("\n".join(terms) + "\n")
+    with open(os.path.join(work, "models", "BLIP", "vocab.txt"), "w") as f:
+        f.write("\n".join(synth_annotators.synth_wordpieces()) + "\n")
+    return total
+
+
+def cast_tree(tree, dtype):
+    """A nested tree's floating leaves in `dtype` (on their device, their layout kept)."""
+    return {k: cast_tree(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
+
+
+# a network's weights and what rides with them, by the attribute names of its class
+INTERROGATE_WEIGHTS = {"blip": ("params", "wp"), "clip": ("_params", "_tokenizer"),
+                       "deepbooru": ("params", "tags")}
+
+
+def install_interrogate(work: str, dtype=None, base=None):
+    """Phase 23's interrogator, captioner, tagger and detectors reading `work`/models, in
+    `dtype` (each network's own where None), in their modules' globals → {name: the object}.
+    Where `base` (an f32 install) holds a network loaded, its weights are cast on the card
+    instead of read again, or its object taken where the dtype is f32; Marigold is read
+    again. The interrogator's categories are models/interrogate under the working directory."""
+    import importlib
+
+    from forge_tpu_torch.models import blip
+    from forge_tpu_torch.postprocessing import deepbooru, interrogate
+
+    kw = dict(device="cuda", dtype=dtype)
+    models = os.path.join(work, "models")
+    out = {"blip": blip.BlipCaptioner(model_dir=os.path.join(models, "BLIP"), **kw),
+           "clip": interrogate.ClipInterrogator(model_dirs=(os.path.join(models, "interrogate"),),
+                                                **kw),
+           "deepbooru": deepbooru.DeepDanbooru(
+               model_dir=os.path.join(models, "torch_deepdanbooru"), **kw)}
+    mods = {}
+    for entry, (mod, cls, sub) in INTERROGATE_ANNOTATORS.items():
+        mods[entry] = importlib.import_module(f"forge_tpu_torch.preprocessors.{mod}")
+        out[entry] = getattr(mods[entry], cls)(model_dir=os.path.join(models, sub), **kw)
+    for name, obj in list(out.items()) if base is not None else ():
+        weights, *extra = INTERROGATE_WEIGHTS.get(name, ("params",))
+        loaded = getattr(base[name], weights)
+        if loaded is None or name == "depth_marigold":
+            continue
+        target = obj.placement()[1]
+        if target == base[name].placement()[1]:
+            out[name] = base[name]
+            continue
+        setattr(obj, weights, cast_tree(loaded, target))
+        for attr in extra:
+            setattr(obj, attr, getattr(base[name], attr))
+    blip._CAPTIONER, interrogate._INTERROGATOR, deepbooru._MODEL = (
+        out["blip"], out["clip"], out["deepbooru"])
+    for entry, m in mods.items():
+        m._DETECTOR = out[entry]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_interrogate(engine, gen: torch.Generator, steps: int = INTERROGATE_STEPS,
+                      full: bool = False):
+    """Phase 23: (a) interrogation (the library calls and /sdapi/v1/interrogate), (b) the six
+    annotators through the registry and mediapipe_face's error, (c) Marigold at `steps` against
+    plain, (d) an SDXL request with a depth_marigold unit, (e) the extras route's focal crop.
+    `full`: every network that runs in f32 also timed in bf16 against f32."""
+    import base64
+    import importlib
+    import threading
+
+    from forge_tpu_torch import preprocessors as registry
+    from forge_tpu_torch.api.server import create_server
+    from forge_tpu_torch.core.synth import DeviceFill, synth_controlnet_sd
+    from forge_tpu_torch.extensions.controlnet import ControlNetScript
+    from forge_tpu_torch.models import blip as blip_mod
+    from forge_tpu_torch.models.unet import UNetConfig, unet_apply
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from forge_tpu_torch.pipeline import images as images_mod
+    from forge_tpu_torch.pipeline import processing as proc
+    from forge_tpu_torch.pipeline.upscalers import get_default_registry
+    from forge_tpu_torch.postprocessing import deepbooru, interrogate
+    from forge_tpu_torch.postprocessing.focal_crop import focal_crop
+    from forge_tpu_torch.preprocessors.cv import bilinear_resize
+    from forge_tpu_torch.runtime import profiling
+    from forge_tpu_torch.runtime import scripts as scripts_mod
+    from forge_tpu_torch.runtime.models import ModelManager
+    from forge_tpu_torch.runtime.options import opts
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), INTERROGATE_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    per_label, total = interrogate_counts(steps), {}
+    mods = [blip_mod, interrogate, deepbooru] + [
+        importlib.import_module(f"forge_tpu_torch.preprocessors.{m}")
+        for m, _, _ in INTERROGATE_ANNOTATORS.values()]
+    saved = {m: {k: getattr(m, k) for k in ("_CAPTIONER", "_INTERROGATOR", "_MODEL", "_DETECTOR")
+                 if hasattr(m, k)} for m in mods}
+    server = manager = None
+    cwd = os.getcwd()
+    lengths = {k: opts.get(k) for k in INTERROGATE_CAPTION}
+    if not full:  # set, not overridden: the server's handler threads read them too
+        for k, v in INTERROGATE_CAPTION.items():
+            opts.set(k, v)
+    max_length = max(int(opts.get(k)) for k in INTERROGATE_CAPTION)
+
+    def measured(label, fn, counts=None, traced=False):
+        """fn() synchronised: its seconds, its peak memory above the held and the launches it
+        made, held to `counts` (a label of per_label, or a dict); `traced`: with the card
+        alone traced (runtime/profiling.py), its seconds the trace's synchronised window,
+        and its busy share as text in place of the seconds' neighbour → (out, s, peak[, busy])."""
+        zero_counts()
+        mon = profiling.MemoryMonitor(device="cuda")
+        mon.start()
+        with profiling.trace(logdir=None, enabled=traced) as tr:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        peak = mon.stop()["peak"] - mon.baseline
+        launches = read_counts()
+        add_counts(total, launches)
+        want = per_label[counts] if isinstance(counts, str) else counts
+        if want is not None:
+            check_counts(launches, want, 1, f"interrogate {label}")
+        if traced:
+            return out, secs, peak, f"busy {100 * tr.busy:.2f} % ({tr.device_events} device events)"
+        return out, secs, peak
+
+    try:
+        nbytes, _ = timed("interrogate: the networks made on the card and written",
+                          lambda: write_interrogate_files(work))
+        log(f"interrogate: {nbytes / 2**30:.3f} GiB of files under {INTERROGATE_DIR}")
+        os.chdir(work)  # the interrogator reads its categories from models/interrogate
+        source = np.random.default_rng(23).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+        source = np.asarray(bilinear_resize(bilinear_resize(source, 64, 64), 512, 512), np.uint8)
+        mask = np.zeros((512, 512), np.float32)
+        mask[128:384, 160:352] = 1.0
+
+        # (a) interrogation: the same code at f32 first, then in each network's own dtype
+        def discrete(nets):
+            cap = nets["blip"]
+            cap.load()
+            x = (images_mod.bicubic_resize(source, 384, 384).astype(np.float32) / 255.0
+                 - cap.MEAN) / cap.STD
+            x = torch.from_numpy(np.ascontiguousarray(x.transpose(2, 0, 1)[None]))
+            prompt = np.asarray([blip_mod._BOS] + cap.wp.encode("a picture of"), np.int32)
+            ids = blip_mod.blip_caption_ids(cap.params, x.to(*cap.placement()), prompt, max_length)
+            emb = nets["clip"].image_embed(source)
+            cats = interrogate.load_categories()
+            tops = {name: nets["clip"].rank(emb, terms)[0] for name, terms in cats.items()}
+            probs = nets["deepbooru"].probabilities(source)
+            return ids, tops, probs
+
+        nets32 = install_interrogate(work, torch.float32)
+        f32 = discrete(nets32)
+        log(f"interrogate (a) at f32 {time.perf_counter() - t_phase:.2f} s into the phase")
+        bf16 = discrete(install_interrogate(work, torch.bfloat16, nets32)) if full else None
+        nets = install_interrogate(work, base=nets32)
+        del nets32
+        own = discrete(nets)
+        log(f"interrogate (a) in the own dtypes {time.perf_counter() - t_phase:.2f} s into the "
+            f"phase")
+        names = ("blip", "clip", "deepbooru")
+        dtypes = {n: nets[n].placement()[1] for n in names}
+        tags_f32 = set(np.flatnonzero(f32[2] >= 0.5))
+        for label, got in (("own dtype", own),) + ((("bf16", bf16),) if full else ()):
+            tags = set(np.flatnonzero(got[2] >= 0.5))
+            log(f"interrogate (a) {label}: BLIP ids {'=' if np.array_equal(got[0], f32[0]) else '≠'}"
+                f" f32's; top terms " + ", ".join(
+                    f"{k} {'=' if got[1][k][0] == f32[1][k][0] else '≠'}" for k in f32[1])
+                + f"; DeepDanbooru tags ≥ 0.5: {len(tags)} (f32 {len(tags_f32)}, "
+                f"{len(tags ^ tags_f32)} differ), probabilities max abs err "
+                f"{np.abs(got[2] - f32[2]).max():.3e}")
+        log(f"interrogate (a) dtypes: " + ", ".join(f"{n} {str(d)[6:]}" for n, d in dtypes.items())
+            + f"; the caption ids {f32[0][0].tolist()}")
+        check(np.array_equal(own[0], f32[0]), "interrogate (a): BLIP's caption ids = f32's")
+        check(all(own[1][k][0] == f32[1][k][0] for k in f32[1]),
+              "interrogate (a): each category's top term = f32's")
+        check(set(np.flatnonzero(own[2] >= 0.5)) == tags_f32,
+              "interrogate (a): DeepDanbooru's tags above the threshold = f32's")
+
+        cap, clip, db = nets["blip"], nets["clip"], nets["deepbooru"]
+        x = (images_mod.bicubic_resize(source, 384, 384).astype(np.float32) / 255.0
+             - cap.MEAN) / cap.STD
+        x = torch.from_numpy(np.ascontiguousarray(x.transpose(2, 0, 1)[None])).to(*cap.placement())
+        with torch.no_grad():
+            vit, _, _ = measured("BLIP ViT", lambda: blip_mod.vit_encode(
+                cap.params["visual_encoder"], x), {"flash_attention": BLIP_FLASH}
+                if dtypes["blip"] == torch.bfloat16 else None)
+            launches = read_counts()
+            with plain_versions():
+                vit_plain = blip_mod.vit_encode(cap.params["visual_encoder"], x)
+        value = psnr(vit, vit_plain)
+        log(f"interrogate (a) BLIP ViT {tuple(vit.shape)} {str(dtypes['blip'])[6:]}: flash "
+            f"{launches['flash_attention']} (wgmma {launches['flash_attention[wgmma]']}, simt "
+            f"{launches['flash_attention[simt]']}), kernels vs plain PSNR {value:.2f} dB "
+            f"(bound {PSNR_BOUND})")
+        check(launches["flash_attention"] == BLIP_FLASH,
+              f"interrogate (a): exactly {BLIP_FLASH} flash launches a BLIP ViT forward")
+        check(value >= PSNR_BOUND, f"interrogate (a): BLIP's ViT kernels vs plain ≥ {PSNR_BOUND} dB")
+        # the masked tail at 577 keys (65 in the wgmma body's last 128-key tile): every true
+        # score −32 and v = 1, so the exact output is 1
+        for dtype, body, bound_ in ((torch.bfloat16, "wgmma", 2e-3),
+                                    (torch.bfloat16, "simt", 2e-3), (torch.float32, "simt", 1e-4)):
+            q = torch.full((1, 12, 577, 64), 2.0, device="cuda", dtype=dtype)
+            k = torch.full_like(q, -2.0)
+            v = torch.ones_like(q)
+            got = flash_attention(q, k, v, body=body).float()
+            err = (got - flash_attention_plain(q, k, v).float()).abs().max().item()
+            exact = (got - 1.0).abs().max().item()
+            log(f"interrogate (a) flash {body} {str(dtype)[6:]} q(1,12,577,64), every score −32, "
+                f"v = 1: max abs err vs plain {err:.3e}, vs the exact 1 {exact:.3e} "
+                f"(bound {bound_:g})")
+            check(max(err, exact) < bound_, f"interrogate (a): flash's masked tail at 577 keys, "
+                                            f"{body} body at {dtype}")
+        del vit, vit_plain, q, k, v, got
+
+        log(f"interrogate (a) the ViT and tail checks {time.perf_counter() - t_phase:.2f} s into "
+            f"the phase")
+        caption, c_secs, c_peak, c_busy = measured(
+            "caption", lambda: cap.caption(source, max_length=max_length), "caption", traced=True)
+        # the category terms' text embeds were made (and cached) by the comparison above
+        clip_caption, i_secs, i_peak, i_busy = measured(
+            "library clip", lambda: clip.interrogate(source), "caption", traced=True)
+        tag_kw = dict(threshold=float(opts.get("interrogate_deepbooru_score_threshold")),
+                      alpha_sort=bool(opts.get("deepbooru_sort_alpha")),
+                      use_spaces=bool(opts.get("deepbooru_use_spaces")),
+                      use_escape=bool(opts.get("deepbooru_escape")),
+                      filter_tags=str(opts.get("deepbooru_filter_tags")))
+        tags, t_secs, t_peak, t_busy = measured(
+            "library deepbooru", lambda: db.tag(source, **tag_kw), "API deepbooru", traced=True)
+        check(clip_caption.startswith(caption), "interrogate (a): the BLIP caption leads")
+        log(f"interrogate (a) BLIP caption ({max_length} tokens) {c_secs:.4f} s, peak +{c_peak / 2**30:.2f} GiB, "
+            f"{c_busy}: {caption!r}")
+        log(f"interrogate (a) CLIP interrogation ({INTERROGATE_TERMS} terms × 4 categories, "
+            f"their text embeds cached) {i_secs:.4f} s, peak +{i_peak / 2**30:.2f} GiB, "
+            f"{i_busy}: {clip_caption[len(caption):]!r}")
+        log(f"interrogate (a) DeepDanbooru {t_secs:.4f} s, peak +{t_peak / 2**30:.2f} GiB, "
+            f"{t_busy}: {tags.count(', ') + 1} tags")
+        log(f"interrogate (a) the library calls {time.perf_counter() - t_phase:.2f} s into the "
+            f"phase")
+        manager = ModelManager(checkpoint_dirs=[], device=engine.device)
+        server = create_server(manager, "127.0.0.1", 0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        b64 = base64.b64encode(images_mod.encode_png(source)).decode()
+        api_clip, a_secs, _ = measured("API clip", lambda: http(
+            base, "/sdapi/v1/interrogate", {"image": b64, "model": "clip"}), "API clip")
+        api_db, d_secs, _ = measured("API deepbooru", lambda: http(
+            base, "/sdapi/v1/interrogate", {"image": b64, "model": "deepbooru"}), "API deepbooru")
+        log(f"interrogate (a) /sdapi/v1/interrogate clip {a_secs:.4f} s, deepbooru {d_secs:.4f} s")
+        check(api_clip == {"caption": clip_caption},
+              "interrogate (a): /sdapi/v1/interrogate clip = the library's caption")
+        check(api_db == {"caption": tags},
+              "interrogate (a): /sdapi/v1/interrogate deepbooru = the library's tags")
+
+        log(f"interrogate (a) done {time.perf_counter() - t_phase:.2f} s into the phase")
+
+        # (b) the six annotators through the registry: f32 maps first, then each network's dtype
+        def detect(name, nets_):
+            if name == "inpaint_only+lama":  # the entry passes the image; the unit runs LaMa
+                return nets_[name].inpaint(source, mask).astype(np.float32) / 255.0
+            return registry.PREPROCESSORS[name](source, 512, 0, 0)
+
+        nets32 = install_interrogate(work, torch.float32)
+        maps32 = {name: detect(name, nets32) for name in INTERROGATE_ANNOTATORS}
+        log(f"interrogate (b) at f32 {time.perf_counter() - t_phase:.2f} s into the phase")
+        db16 = {}
+        if full:
+            nets16 = install_interrogate(work, torch.bfloat16, nets32)
+            db16 = {name: map_psnr(detect(name, nets16), maps32[name])
+                    for name in INTERROGATE_ANNOTATORS}
+            del nets16
+        nets = install_interrogate(work, base=nets32)
+        del nets32
+        for name in INTERROGATE_ANNOTATORS:
+            check(registry.PREPROCESSORS[name].ported, f"interrogate (b): {name} is ported")
+            first = detect(name, nets)  # loads the weights
+            want = marigold_counts(MARIGOLD_ENTRY_STEPS) if name == "depth_marigold" else \
+                {"flash_attention": 0, "gn_silu_conv3x3": 0, "dequant_matmul": 0}
+            again, secs, peak, share = measured(name, lambda _n=name: detect(_n, nets), want,
+                                                traced=True)
+            dtype = nets[name].placement()[1]
+            db = map_psnr(again, maps32[name])
+            levels = again * 255.0
+            check(again.shape == (512, 512, 3) and again.dtype == np.float32
+                  and np.isfinite(again).all() and again.min() >= 0 and again.max() <= 1
+                  and np.array_equal(levels, np.rint(levels)),
+                  f"interrogate (b): {name}'s map is 512²×3, finite, uint8 levels in [0, 1]")
+            check(np.array_equal(first, again), f"interrogate (b): {name} reruns byte-identical")
+            if name in SEGMENTERS and dtype != torch.float32:
+                check(np.array_equal(again, maps32[name]),
+                      f"interrogate (b): {name}'s palette in {dtype} = f32's")
+            check(db >= ANNOTATOR_BAR, f"interrogate (b): {name} in {dtype} against f32 ≥ "
+                                       f"{ANNOTATOR_BAR} dB ({db:.2f})")
+            check(again.std() > 0, f"interrogate (b): {name}'s map is not flat")
+            log(f"interrogate (b) {name:18s} dtype {str(dtype)[6:]:8s} {secs:.4f} s, peak "
+                f"+{peak / 2**20:.1f} MiB, the card alone traced, {share}; vs f32 {db:.2f} dB"
+                + (f", bf16 vs f32 {db16[name]:.2f} dB" if full else "")
+                + f"; map mean {again.mean():.4f} std {again.std():.4f}")
+        try:
+            registry.PREPROCESSORS["mediapipe_face"](source, 512, 1, 0.5)
+            check(False, "interrogate (b): mediapipe_face raises")
+        except RuntimeError as e:
+            check("mediapipe" in str(e), "interrogate (b): mediapipe_face raises its RuntimeError")
+
+        log(f"interrogate (b) done {time.perf_counter() - t_phase:.2f} s into the phase")
+
+        # (c) Marigold at `steps` DDIM steps: launches by body, a UNet forward and the depth
+        # through the kernels against plain
+        det = nets["depth_marigold"]
+        pipe = det.load()
+        _, m_secs, m_peak = measured(f"Marigold at {steps} steps",
+                                     lambda: det.detect(source, steps=steps), marigold_counts(steps))
+        dtype = pipe.empty_embed.dtype
+        with torch.no_grad():
+            x = torch.randn((1, 8, 64, 64), generator=gen, device="cuda").to(dtype)
+            ts = torch.tensor([501.0], device="cuda")
+            cfg = UNetConfig(context_dim=pipe.empty_embed.shape[-1], head_dim=64)
+            fused = unet_apply(pipe.unet, x, ts, pipe.empty_embed, cfg=cfg)
+            with plain_versions():
+                plain = unet_apply(pipe.unet, x, ts, pipe.empty_embed, cfg=cfg)
+            rgb = torch.from_numpy(np.ascontiguousarray(
+                source.astype(np.float32).transpose(2, 0, 1)[None]) / 127.5 - 1.0).cuda()
+            noise = torch.randn((1, 4, 64, 64), generator=gen, device="cuda")
+            depth = pipe.infer(rgb, noise, steps)
+            with plain_versions():
+                depth_plain = pipe.infer(rgb, noise, steps)
+        value, d_value = psnr(fused, plain), psnr(depth, depth_plain)
+        log(f"interrogate (c) Marigold {str(dtype)[6:]} at {steps} steps: {m_secs:.4f} s, peak "
+            f"+{m_peak / 2**30:.2f} GiB; a UNet forward (1,8,64,64) kernels vs plain PSNR "
+            f"{value:.2f} dB (bound {PSNR_BOUND}); the depth kernels vs plain {d_value:.2f} dB")
+        check(value >= PSNR_BOUND, f"interrogate (c): Marigold's UNet kernels vs plain ≥ "
+                                   f"{PSNR_BOUND} dB")
+        del x, fused, plain, depth, depth_plain
+
+        log(f"interrogate (c) done {time.perf_counter() - t_phase:.2f} s into the phase")
+
+        # (d) an SDXL request with a depth_marigold unit through ControlNetScript
+        cldm, _ = timed("interrogate (d): a full-width SDXL ControlNet made on the card",
+                        lambda: synth_controlnet_sd(fill=DeviceFill("cuda", seed=23)))
+        image = np.asarray(bilinear_resize(source, 1024, 1024), np.uint8)
+        unit = {"module": "depth_marigold", "model": cldm, "image": image, "weight": 1.0,
+                "processor_res": 512}
+        fields = dict(prompt=EXT_PROMPT, negative_prompt="blurry", seed=1, steps=steps,
+                      cfg_scale=7.0, width=1024, height=1024, sampler_name="DPM++ 2M",
+                      scheduler="karras")
+        witness, w_secs, _ = measured("witness", lambda: proc.process_images(
+            engine, proc.Processing(**fields)), "witness")
+        runner = scripts_mod.ScriptRunner()
+        runner.register(ControlNetScript(device=engine.device, dtype=engine.compute_dtype))
+        p = proc.Processing(**fields, scripts=runner)
+        p.controlnet_units = [unit]
+        res, s_secs, _ = measured("ControlNetScript", lambda: proc.process_images(engine, p),
+                                  "ControlNetScript")
+        img = res.images[0]
+        check(img.shape == (1024, 1024, 3) and img.dtype == np.uint8 and img.std() > 0
+              and not np.array_equal(img, witness.images[0]),
+              "interrogate (d): one 1024² image, moved by the unit")
+        fmap = registry.PREPROCESSORS["depth_marigold"](image, 512, 0, 0)
+        want = np.clip(bilinear_resize(fmap, 1024, 1024), 0.0, 1.0)
+        hint = p.controlnets[0].hint[0].float().cpu().numpy().transpose(1, 2, 0)
+        check(np.array_equal(hint, want), "interrogate (d): the hint = the registry's map at the "
+                                          "request's size")
+        log(f"interrogate (d) depth_marigold unit at {steps} steps: {s_secs:.4f} s against the "
+            f"witness's {w_secs:.4f} s ({s_secs / w_secs:.3f}x); PSNR vs the witness "
+            f"{image_psnr(img, witness.images[0]):.2f} dB")
+        cond = engine.get_learned_conditioning([EXT_PROMPT, "blurry"], 1024, 1024)
+        x = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(engine.compute_dtype)
+        ts = torch.tensor([999.0, 400.0], device="cuda")
+        apply = engine.unet_apply_fn(controlnets=p.controlnets)
+        with torch.no_grad():
+            fused = apply(engine.loaded.unet, x, ts, cond["context"], y=cond["y"], t_host=999.0)
+            with plain_versions():
+                plain = apply(engine.loaded.unet, x, ts, cond["context"], y=cond["y"],
+                              t_host=999.0)
+        value = psnr(fused, plain)
+        log(f"interrogate (d) sdxl unet + controlnet (Marigold hint) 128x128 B=2 bf16: kernels "
+            f"vs plain PSNR {value:.2f} dB (bound {PSNR_BOUND})")
+        check(value >= PSNR_BOUND, f"interrogate (d): UNet + ControlNet PSNR ≥ {PSNR_BOUND} dB")
+        del cldm, unit, p, res, witness, x, fused, plain, cond
+
+        log(f"interrogate (d) done {time.perf_counter() - t_phase:.2f} s into the phase")
+
+        # (e) /sdapi/v1/extra-single-image with focal_crop_enabled
+        tw, th = INTERROGATE_FOCAL["upscaling_resize_w"], INTERROGATE_FOCAL["upscaling_resize_h"]
+        quarter = np.ascontiguousarray(source[128:384, 128:384])
+        answer = http(base, "/sdapi/v1/extra-single-image", dict(
+            image=base64.b64encode(images_mod.encode_png(quarter)).decode(), upscaler_1="Lanczos",
+            resize_mode=1, upscaling_crop=True, focal_crop_enabled=True, **INTERROGATE_FOCAL))
+        got = images_mod.decode_png(base64.b64decode(answer["image"]))[0]
+        up = get_default_registry(engine.device).get("Lanczos").upscale(quarter, max(tw, th) / 256)
+        want = focal_crop(up, tw, th, 0.9, 0.15, 0.5)
+        log(f"interrogate (e) /extra-single-image, Lanczos to {up.shape[1]}×{up.shape[0]}, focal "
+            f"crop {tw}×{th}: {got.shape[1]}×{got.shape[0]}")
+        check(got.shape == (th, tw, 3) and np.array_equal(got, want),
+              "interrogate (e): the focal crop's PNG = the library's focal_crop of the upscale")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            manager.close()
+        for m, globs in saved.items():
+            for k, v in globs.items():
+                setattr(m, k, v)
+        for k, v in lengths.items():
+            opts.set(k, v)
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"interrogate phase 23 at {steps} steps: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under runtime/profiling.py `trace` (the card
     alone traced) with no file written: device time by kernel, and the busy
@@ -4785,6 +5347,11 @@ def main():
                     help="run phase 1, phase 2's Depth Anything and SDXL rows and phase 22 (the "
                          "ControlNet annotators, Depth Anything V2 against plain flash and a "
                          "depth_anything_v2 unit on SDXL) at 20 steps only, with no result")
+    ap.add_argument("--interrogate", action="store_true",
+                    help="run phase 1, phase 2's BLIP, Marigold and SDXL rows and phase 23 "
+                         "(interrogation, the remaining annotators, Marigold against plain, a "
+                         "depth_marigold unit on SDXL, the extras route's focal crop) at 20 "
+                         "steps only, with no result")
     ap.add_argument("--surface", action="store_true",
                     help="run phase 1, phase 2's SDXL rows and phase 21 (ControlNetScript, saving, "
                          "the event log and the management and web UI routes on SDXL) at 20 steps "
@@ -4848,7 +5415,8 @@ def main():
                             else "scripts" if args.scripts
                             else "extras" if args.extras
                             else "surface" if args.surface
-                            else "annotators" if args.annotators else "all")
+                            else "annotators" if args.annotators
+                            else "interrogate" if args.interrogate else "all")
     done("kernels (phase 2)", t)
     if args.kernels:
         log("kernels only: phases 1-2 passed")
@@ -4870,7 +5438,10 @@ def main():
                              "phases 1, 2 (the SDXL rows) and 21"),
                  "annotators": ("annotators", lambda e: phase_annotators(
                      e, gen, steps=5 * ANNOTATORS_STEPS, full=True),
-                     "phases 1, 2 (the Depth Anything and SDXL rows) and 22")}
+                     "phases 1, 2 (the Depth Anything and SDXL rows) and 22"),
+                 "interrogate": ("interrogate", lambda e: phase_interrogate(
+                     e, gen, steps=5 * INTERROGATE_STEPS, full=True),
+                     "phases 1, 2 (the BLIP, Marigold and SDXL rows) and 23")}
     for flag, (name, run, what) in one_phase.items():
         if getattr(args, flag):
             if flag == "extensions":
@@ -4919,7 +5490,8 @@ def main():
                            ("scripts", "scripts", phase_scripts),
                            ("extras", "extras", phase_extras),
                            ("surface", "surface", phase_surface),
-                           ("annotators", "annotators", phase_annotators)):
+                           ("annotators", "annotators", phase_annotators),
+                           ("interrogate", "interrogate", phase_interrogate)):
         t = time.perf_counter()
         paths[key] = run(engine, gen)
         done(name, t)

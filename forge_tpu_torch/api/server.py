@@ -44,7 +44,7 @@ and `serve` `script_unloaded` once it stops serving. Every answered
 `/sdapi` route logs an `api_request` event and a server error an
 `api_error` event (runtime/logging.py). An image
 that is not an 8-bit PNG answers 415 with its format's name. Routes of the reference's table that
-this port does not answer yet (interrogate and the Spaces) answer 501 with
+this port does not answer yet (the Spaces) answer 501 with
 the ROADMAP item that ports them; none answers as if it had worked.
 """
 
@@ -284,10 +284,8 @@ LATENT_UPSCALE_MODES = ("Latent", "Latent (antialiased)", "Latent (bicubic)",
                         "Latent (nearest-exact)")
 
 # the reference's routes this port does not answer yet → the ROADMAP item that ports them
-_ROADMAP_EXTRAS = "queue 1 item 9: interrogate (BLIP, deepbooru, the CLIP interrogator)"
 _ROADMAP_SPACES = "queue 1 item 9: spaces"
 UNPORTED_ROUTES = {
-    ("POST", "/sdapi/v1/interrogate"): _ROADMAP_EXTRAS,
     ("GET", "/sdapi/v1/spaces"): _ROADMAP_SPACES,
     ("POST", "/sdapi/v1/spaces/launch"): _ROADMAP_SPACES,
     ("POST", "/sdapi/v1/spaces/terminate"): _ROADMAP_SPACES,
@@ -346,6 +344,7 @@ class Api:
             ("POST", "/sdapi/v1/xyz-grid"): self.xyz_grid,
             ("POST", "/sdapi/v1/extra-single-image"): self.extra_single,
             ("POST", "/sdapi/v1/extra-batch-images"): self.extra_batch,
+            ("POST", "/sdapi/v1/interrogate"): self.interrogate,
             ("GET", "/controlnet/model_list"): self.controlnet_models,
             ("GET", "/controlnet/module_list"): self.controlnet_modules,
             ("GET", "/controlnet/version"): lambda q, b: {"version": 2},
@@ -589,13 +588,13 @@ class Api:
         (resize_mode 0: `upscaling_resize`; 1: the scale that covers, or with
         `upscaling_crop` off fits, `upscaling_resize_w`×`_h`), `upscaler_2`
         on the undecorated input blended by `extras_upscaler_2_visibility`,
-        then for mode 1 the centre crop (zero past the edge, as Pillow's
-        crop) and a Lanczos resize to the exact size. Each network step runs
-        on the work queue. `focal_crop_enabled` answers 422; a restorer
-        without its checkpoint too, where the reference skips it."""
-        if body.get("focal_crop_enabled"):
-            raise ApiError(422, "focal_crop_enabled is not ported to forge_tpu_torch yet "
-                                "(ROADMAP.md queue 1 item 9: focal crop)")
+        then for mode 1 the crop (with `focal_crop_enabled` the window
+        around the focal point, postprocessing/focal_crop.py, weighted by
+        `focal_crop_face_weight`, `_entropy_weight` and `_edges_weight`;
+        otherwise the centre, zero past the edge as Pillow's crop) and a
+        Lanczos resize to the exact size. Each network step runs on the
+        work queue. A restorer without its checkpoint answers 422, where the
+        reference skips it."""
         img = _b64_to_image(img_b64)
         cf_vis = float(body.get("codeformer_visibility", 0) or 0)
         gf_vis = float(body.get("gfpgan_visibility", 0) or 0)
@@ -634,7 +633,15 @@ class Api:
                            + img.astype(np.float32) * (1 - vis2) + 0.5).astype(np.uint8)
         if tw is not None:
             h, w = img.shape[:2]
-            if body.get("upscaling_crop", True) and (w, h) != (tw, th):
+            if body.get("upscaling_crop", True) and (w, h) != (tw, th) \
+                    and body.get("focal_crop_enabled"):
+                from ..postprocessing.focal_crop import focal_crop
+
+                img = focal_crop(img, tw, th,
+                                 face_weight=float(body.get("focal_crop_face_weight", 0.9)),
+                                 entropy_weight=float(body.get("focal_crop_entropy_weight", 0.15)),
+                                 edges_weight=float(body.get("focal_crop_edges_weight", 0.5)))
+            elif body.get("upscaling_crop", True) and (w, h) != (tw, th):
                 left, top = max(0, (w - tw) // 2), max(0, (h - th) // 2)
                 cropped = np.zeros((th, tw) + img.shape[2:], np.uint8)
                 part = img[top:top + th, left:left + tw]
@@ -652,6 +659,37 @@ class Api:
         return {"images": [self._upscale_one(item.get("data", item) if isinstance(item, dict)
                                              else item, body) for item in images],
                 "html_info": ""}
+
+    def interrogate(self, query, body):
+        """The interrogator (reference api.py interrogateapi): `model` "clip"
+        (postprocessing/interrogate.py) or "deepbooru"
+        (postprocessing/deepbooru.py), on the work queue; 404 without an
+        image, and the reference's `detail` without a checkpoint."""
+        img_b64 = (body or {}).get("image", "")
+        if not img_b64:
+            raise ApiError(404, "Image not found")
+        img = _b64_to_image(img_b64)
+        if (body or {}).get("model", "clip") == "deepbooru":
+            from ..postprocessing.deepbooru import get_deepbooru
+
+            db = get_deepbooru(self.models.device)
+            if not db.available:
+                return {"caption": "", "detail": "no deepbooru checkpoint "
+                        "under models/torch_deepdanbooru"}
+            caption = work_queue.run_and_wait(
+                db.tag, img, threshold=float(opts.get("interrogate_deepbooru_score_threshold")),
+                alpha_sort=bool(opts.get("deepbooru_sort_alpha")),
+                use_spaces=bool(opts.get("deepbooru_use_spaces")),
+                use_escape=bool(opts.get("deepbooru_escape")),
+                filter_tags=str(opts.get("deepbooru_filter_tags")))
+            return {"caption": caption}
+        from ..postprocessing.interrogate import get_interrogator
+
+        interrogator = get_interrogator(self.models.device)
+        if not interrogator.available:
+            return {"caption": "", "detail": "no CLIP checkpoint under "
+                    "models/interrogate — install one to enable interrogation"}
+        return {"caption": work_queue.run_and_wait(interrogator.interrogate, img)}
 
     # -- ControlNet ---------------------------------------------------------------
 

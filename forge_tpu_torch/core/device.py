@@ -22,3 +22,11 @@ def default_device() -> torch.device:
 
 def default_dtype(device) -> torch.dtype:
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+
+
+def placement(device=None, dtype=None, card_dtype=torch.float32):
+    """A network's (device, dtype): `device` or the card; `dtype`, else
+    `card_dtype` on the card and f32 on the CPU (the annotators', the
+    interrogator's and the taggers' rule)."""
+    device = torch.device(device) if device is not None else default_device()
+    return device, dtype or (card_dtype if device.type == "cuda" else torch.float32)

@@ -14,13 +14,23 @@ OpenPose's body_pose_model, hand_pose_model and facenet; ControlNetHED
 (Apache-2); PiDiNet table5 (carv4, 60 channels, CDCM 24, CSAM); TEED;
 the lineart Generator(3, 1, 3); lineart_anime's UnetGenerator(3, 1, 8,
 64); manga line's res_skip; MobileV2_MLSD_Large; NormalBAE's NNET on
-tf_efficientnet_b5_ap (width ×1.6, depth ×2.2).
+tf_efficientnet_b5_ap (width ×1.6, depth ×2.2). For interrogation: BLIP's
+base caption model (ViT-B/16 at 384², BERT-base with cross-attention) with
+a seeded 30,522-line `vocab.txt` (`synth_wordpieces`), openai's CLIP
+ViT-L/14 (both towers, projection 768) with seeded category files, and
+DeepDanbooru's resnet_custom_v3 (179 convs, 9176 tags, seeded names some of
+them `rating:`). And LeReS's res101 (ResNeXt101-32x8d), ZoeD_M12_N
+(BEiT-L/16), Marigold (SD2's UNet on 8 channels, its VAE, OpenCLIP-H's
+text tower), UniFormer-S with UPerHead, the anime-face MobileNetV2 UNet
+and big-lama's FFC generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
+
+import numpy as np
 
 from .synth import FillSpec, _Net
 
@@ -436,4 +446,452 @@ def synth_normalbae_sd(width_mult: float = 1.6, depth_mult: float = 2.2,
             n.sd[f"{d}{name}.{2 * j}.weight"] = n.w(cout, cin, 1)
             n.sd[f"{d}{name}.{2 * j}.bias"] = n.f.zeros(cout)
             cin = cout
+    return n.sd
+
+
+# -- interrogation -----------------------------------------------------------------------
+
+
+def synth_wordpieces(n: int = 30522, seed: int = 23) -> List[str]:
+    """A seeded `vocab.txt` in BERT's bert-base-uncased layout: [PAD], 99
+    [unusedN], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103, "a", "picture",
+    "of", then made-up words and "##" continuations, `n` lines in all."""
+    rng = np.random.default_rng(seed)
+    words = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                               "[MASK]", "a", "picture", "of"]
+    letters = np.asarray(list("abcdefghijklmnopqrstuvwxyz"))
+    seen = set(words)
+    while len(words) < n:
+        w = "".join(rng.choice(letters, int(rng.integers(2, 9))))
+        w = "##" + w if rng.random() < 0.2 else w
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    return words
+
+
+def synth_blip_sd(width: int = 768, depth: int = 12, layers: int = 12, mlp: int = 3072,
+                  image: int = 384, patch: int = 16, vocab: int = 30524, positions: int = 512,
+                  fill: FillSpec = "random", seed: int = 40) -> Dict[str, object]:
+    """BLIP's base caption model (model_base_caption_capfilt_large: the
+    ViT-B/16 `visual_encoder` at 384² and the BERT-base `text_decoder` with
+    cross-attention, its vocabulary BERT's 30522 and [DEC], [ENC])."""
+    n = _Net(fill, seed)
+    v = "visual_encoder."
+    n.table(v + "cls_token", 1, 1, width)
+    n.table(v + "pos_embed", 1, (image // patch) ** 2 + 1, width)
+    n.conv(v + "patch_embed.proj", width, 3, k=patch)
+    for i in range(depth):
+        b = v + f"blocks.{i}."
+        n.norm(b + "norm1", width)
+        n.linear(b + "attn.qkv", 3 * width, width)
+        n.linear(b + "attn.proj", width, width)
+        n.norm(b + "norm2", width)
+        n.linear(b + "mlp.fc1", mlp, width)
+        n.linear(b + "mlp.fc2", width, mlp)
+    n.norm(v + "norm", width)
+    t = "text_decoder.bert."
+    n.table(t + "embeddings.word_embeddings.weight", vocab, width, scale=1.0)
+    n.table(t + "embeddings.position_embeddings.weight", positions, width, scale=1.0)
+    n.norm(t + "embeddings.LayerNorm", width)
+    for i in range(layers):
+        b = t + f"encoder.layer.{i}."
+        for att in ("attention.", "crossattention."):
+            for name in ("query", "key", "value"):
+                n.linear(b + att + "self." + name, width, width)
+            n.linear(b + att + "output.dense", width, width)
+            n.norm(b + att + "output.LayerNorm", width)
+        n.linear(b + "intermediate.dense", mlp, width)
+        n.linear(b + "output.dense", width, mlp)
+        n.norm(b + "output.LayerNorm", width)
+    c = "text_decoder.cls.predictions."
+    n.linear(c + "transform.dense", width, width)
+    n.norm(c + "transform.LayerNorm", width)
+    n.linear(c + "decoder", vocab, width, bias=False)
+    n.sd[c + "bias"] = n.f.zeros(vocab)
+    return n.sd
+
+
+def synth_clip_interrogator_sd(text_width: int = 768, text_layers: int = 12,
+                               vision_width: int = 1024, vision_layers: int = 24,
+                               patch: int = 14, image: int = 224, projection: int = 768,
+                               vocab: int = 49408, fill: FillSpec = "random",
+                               seed: int = 41) -> Dict[str, object]:
+    """openai/clip-vit-large-patch14 in HF CLIPModel's keys: the text tower
+    (`text_model.*`, 77 positions), the vision tower (`vision_model.*`, the
+    patch conv without bias, `pre_layrnorm`), `text_projection` and
+    `visual_projection` (no bias)."""
+    n = _Net(fill, seed)
+    tm = "text_model."
+    n.table(tm + "embeddings.token_embedding.weight", vocab, text_width)
+    n.table(tm + "embeddings.position_embedding.weight", 77, text_width, scale=0.01)
+    vm = "vision_model."
+    n.sd[vm + "embeddings.patch_embedding.weight"] = n.w(vision_width, 3, patch, patch)
+    n.table(vm + "embeddings.class_embedding", vision_width)
+    n.table(vm + "embeddings.position_embedding.weight", (image // patch) ** 2 + 1,
+            vision_width)
+    n.norm(vm + "pre_layrnorm", vision_width)
+    for prefix, width, count in ((tm, text_width, text_layers), (vm, vision_width, vision_layers)):
+        for i in range(count):
+            b = f"{prefix}encoder.layers.{i}."
+            for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                n.linear(b + "self_attn." + name, width, width)
+            n.norm(b + "layer_norm1", width)
+            n.norm(b + "layer_norm2", width)
+            n.linear(b + "mlp.fc1", 4 * width, width)
+            n.linear(b + "mlp.fc2", width, 4 * width)
+    n.norm(tm + "final_layer_norm", text_width)
+    n.norm(vm + "post_layernorm", vision_width)
+    n.linear("text_projection", projection, text_width, bias=False)
+    n.linear("visual_projection", projection, vision_width, bias=False)
+    return n.sd
+
+
+def synth_interrogate_categories(terms: int = 1500, seed: int = 42) -> Dict[str, List[str]]:
+    """The four category files of models/interrogate (mediums, artists,
+    movements, flavors), `terms` seeded made-up phrases each."""
+    rng = np.random.default_rng(seed)
+    letters = np.asarray(list("abcdefghijklmnopqrstuvwxyz"))
+    out = {}
+    for name in ("mediums", "artists", "movements", "flavors"):
+        seen, rows = set(), []
+        while len(rows) < terms:
+            t = " ".join("".join(rng.choice(letters, int(rng.integers(3, 9))))
+                         for _ in range(int(rng.integers(1, 4))))
+            if t not in seen:
+                seen.add(t)
+                rows.append(t)
+        out[name] = rows
+    return out
+
+
+# DeepDanbooru resnet_custom_v3's stages: bottleneck width, blocks, and the block (in the stage)
+# that is the mid-stage stride-2 downsample with its projection last (n_Conv_97..100)
+_DEEPBOORU_STAGES = ((64, 3, None), (128, 8, None), (256, 40, 20), (512, 3, None),
+                     (1024, 3, None))
+
+
+def synth_deepbooru_tags(n: int = 9176, seed: int = 43) -> List[str]:
+    """Seeded tag names: the three rating tags first, then made-up
+    underscore-joined words, some with brackets (escaped by `tag`)."""
+    rng = np.random.default_rng(seed)
+    letters = np.asarray(list("abcdefghijklmnopqrstuvwxyz"))
+    tags = ["rating:safe", "rating:questionable", "rating:explicit"]
+    seen = set(tags)
+    while len(tags) < n:
+        t = "_".join("".join(rng.choice(letters, int(rng.integers(2, 8))))
+                     for _ in range(int(rng.integers(1, 4))))
+        if rng.random() < 0.05:
+            t += "_(" + "".join(rng.choice(letters, 5)) + ")"
+        if t not in seen:
+            seen.add(t)
+            tags.append(t)
+    return tags
+
+
+def synth_deepbooru_sd(stages=_DEEPBOORU_STAGES, tags: int = 9176, fill: FillSpec = "random",
+                       seed: int = 44) -> Dict[str, object]:
+    """model-resnet_custom_v3.pt's tensors: `n_Conv_{i}` in the generated
+    graph's order (the 7×7 stem to 64; per stage a projection-first head
+    block, identity bottlenecks of width w to 4w, and in stage 3 one
+    projection-last stride-2 block; the 1×1 head to the tags), 179
+    convs at the published widths."""
+    n = _Net(fill, seed)  # gain 1: no BatchNorm, the residuals add up
+    i = 0
+
+    def conv(o, c, k, bias=True):
+        nonlocal i
+        n.conv(f"n_Conv_{i}", o, c, k=k, bias=bias)
+        i += 1
+
+    conv(64, 3, 7)
+    trunk = 64
+    for width, blocks, mid in stages:
+        out = 4 * width
+        conv(out, trunk, 1)  # the projection, then the bottleneck
+        conv(width, trunk, 1)
+        conv(width, width, 3)
+        conv(out, width, 1)
+        trunk = out
+        for b in range(1, blocks):
+            conv(width, trunk, 1)
+            conv(width, width, 3)
+            conv(out, width, 1)
+            if b == mid:  # the projection last
+                conv(out, trunk, 1)
+    n.conv(f"n_Conv_{i}", tags, trunk, k=1)
+    return n.sd
+
+
+# -- the remaining annotators ----------------------------------------------------------
+
+
+def synth_leres_sd(layers: Sequence[int] = (3, 4, 23, 3), groups: int = 32, group_width: int = 8,
+                   planes: Sequence[int] = (64, 128, 256, 512),
+                   mids: Sequence[int] = (256, 256, 256, 512), stem: int = 64,
+                   fill: FillSpec = "random", seed: int = 45) -> Dict[str, object]:
+    """res101.pth's depth model (flat `depth_model.*` keys): torchvision's
+    ResNeXt101-32x8d and the FTB/FFM/AO decoder (network_auxi.py Decoder:
+    in 256/512/1024/2048, mid 256/256/256/512)."""
+    n = _Net(fill, seed)
+    e = "depth_model.encoder_modules.encoder."
+    n.conv(e + "conv1", stem, 3, k=7, bias=False)
+    n.bn(e + "bn1", stem)
+    inplanes = stem
+    for li, (planes_i, count) in enumerate(zip(planes, layers), start=1):
+        width, out = planes_i * group_width // 64 * groups, planes_i * 4
+        for b in range(count):
+            p = f"{e}layer{li}.{b}."
+            n.conv(p + "conv1", width, inplanes, k=1, bias=False)
+            n.bn(p + "bn1", width)
+            n.sd[p + "conv2.weight"] = n.w(width, width // groups, 3, 3)
+            n.bn(p + "bn2", width)
+            n.conv(p + "conv3", out, width, k=1, bias=False)
+            n.bn(p + "bn3", out)
+            if b == 0:
+                n.conv(p + "downsample.0", out, inplanes, k=1, bias=False)
+                n.bn(p + "downsample.1", out)
+            inplanes = out
+    d = "depth_model.decoder_modules."
+
+    def ftb(key, cin, mid):
+        n.conv(key + "conv1", mid, cin)
+        n.conv(key + "conv_branch.1", mid, mid)
+        n.bn(key + "conv_branch.2", mid)
+        n.conv(key + "conv_branch.4", mid, mid)
+
+    ftb(d + "conv.", 4 * planes[3], mids[3])
+    n.conv(d + "conv1", mids[2], mids[3])
+    for j, name in ((2, "ffm2"), (1, "ffm1"), (0, "ffm0")):
+        ftb(f"{d}{name}.ftb1.", 4 * planes[j], mids[j])
+        ftb(f"{d}{name}.ftb2.", mids[j], mids[j])
+    n.conv(d + "outconv.adapt_conv.0", mids[0] // 2, mids[0])
+    n.bn(d + "outconv.adapt_conv.1", mids[0] // 2)
+    n.conv(d + "outconv.adapt_conv.3", 1, mids[0] // 2)
+    return n.sd
+
+
+def synth_zoe_sd(width: int = 1024, depth: int = 24, heads: int = 16, grid: int = 24,
+                 features: int = 256, out_channels: Sequence[int] = (256, 512, 1024, 1024),
+                 n_bins: int = 64, attractors: Sequence[int] = (16, 8, 4, 1), embed: int = 128,
+                 bin_mlp: int = 256, fill: FillSpec = "random",
+                 seed: int = 46) -> Dict[str, object]:
+    """ZoeD_M12_N.pt's model (`core.core.*`: MiDaS 3.1 DPT-BEiT-L/16 at
+    384², relative position tables for a 24² window, readout "project";
+    the ZoeDepth-N metric-bins head: bins 64, attractors 16/8/4/1, bin
+    embedding 128, the conditional log-binomial on 32 + 1 channels)."""
+    n = _Net(fill, seed)
+    m = "core.core.pretrained.model."
+    n.table(m + "cls_token", 1, 1, width)
+    n.conv(m + "patch_embed.proj", width, 3, k=16)
+    rows = (2 * grid - 1) ** 2 + 3
+    for i in range(depth):
+        b = m + f"blocks.{i}."
+        n.norm(b + "norm1", width)
+        n.sd[b + "attn.qkv.weight"] = n.w(3 * width, width)
+        n.sd[b + "attn.q_bias"] = n.f.zeros(width)
+        n.sd[b + "attn.v_bias"] = n.f.zeros(width)
+        n.table(b + "attn.relative_position_bias_table", rows, heads)
+        n.linear(b + "attn.proj", width, width)
+        n.sd[b + "gamma_1"] = n.f.ones(width)
+        n.sd[b + "gamma_2"] = n.f.ones(width)
+        n.norm(b + "norm2", width)
+        n.linear(b + "mlp.fc1", 4 * width, width)
+        n.linear(b + "mlp.fc2", width, 4 * width)
+    c = "core.core."
+    oc = list(out_channels)
+    for i in range(1, 5):
+        a = f"{c}pretrained.act_postprocess{i}."
+        n.linear(a + "0.project.0", width, 2 * width)
+        n.conv(a + "3", oc[i - 1], width, k=1)
+    n.sd[c + "pretrained.act_postprocess1.4.weight"] = n.w(oc[0], oc[0], 4, 4)
+    n.sd[c + "pretrained.act_postprocess1.4.bias"] = n.f.zeros(oc[0])
+    n.sd[c + "pretrained.act_postprocess2.4.weight"] = n.w(oc[1], oc[1], 2, 2)
+    n.sd[c + "pretrained.act_postprocess2.4.bias"] = n.f.zeros(oc[1])
+    n.conv(c + "pretrained.act_postprocess4.4", oc[3], oc[3])
+    for i in range(4):
+        n.conv(c + f"scratch.layer{i + 1}_rn", features, oc[i], bias=False)
+    for i in range(1, 5):
+        r = c + f"scratch.refinenet{i}."
+        for u in (1, 2):
+            for k in (1, 2):
+                n.conv(r + f"resConfUnit{u}.conv{k}", features, features)
+        n.conv(r + "out_conv", features, features, k=1)
+    n.conv(c + "scratch.output_conv.0", features // 2, features)
+    n.conv(c + "scratch.output_conv.2", 32, features // 2)
+    n.conv(c + "scratch.output_conv.4", 1, 32, k=1)
+
+    def mlp2(key, cin, hidden, out):
+        n.conv(key + "_net.0", hidden, cin, k=1)
+        n.conv(key + "_net.2", out, hidden, k=1)
+
+    n.conv("conv2", features, features, k=1)
+    mlp2("seed_bin_regressor.", features, bin_mlp, n_bins)
+    mlp2("seed_projector.", features, embed, embed)
+    for i, na in enumerate(attractors):
+        mlp2(f"projectors.{i}.", features, embed, embed)
+        mlp2(f"attractors.{i}.", embed, embed, na)
+    last = 32 + 1 + embed
+    n.conv("conditional_log_binomial.mlp.0", last // 2, last, k=1)
+    n.conv("conditional_log_binomial.mlp.2", 4, last // 2, k=1)
+    return n.sd
+
+
+def synth_marigold_sd(fill: FillSpec = "random", seed: int = 47, text_width: int = 1024,
+                      text_layers: int = 23, vae_ch: int = 128, **unet) -> Dict[str, object]:
+    """Marigold v1.0 as one file: `unet.` (SD2's UNet in ldm keys, conv_in
+    on 8 channels: the RGB latent and the depth latent; `unet` overrides
+    core/synth.py `synth_unet_sd`'s geometry), `vae.` (SD2's 4-channel VAE)
+    and `text_encoder.` (OpenCLIP-H's text tower in HF's keys, 23 layers as
+    stable-diffusion-2's text_encoder)."""
+    from .synth import synth_clip_sd, synth_unet_sd, synth_vae_sd
+
+    sd: Dict[str, object] = {}
+    sd.update(synth_unet_sd(context_dim=text_width, in_channels=8, fill=fill, seed=seed,
+                            prefix="unet.", **unet))
+    sd.update(synth_vae_sd(ch=vae_ch, fill=fill, seed=seed + 1, prefix="vae."))
+    sd.update(synth_clip_sd(width=text_width, layers=text_layers, fill=fill, seed=seed + 2,
+                            prefix="text_encoder."))
+    return sd
+
+
+def synth_uniformer_sd(dims: Sequence[int] = (64, 128, 320, 512), layers: Sequence[int] = (3, 4, 8, 3),
+                       channels: int = 512, classes: int = 150, fill: FillSpec = "random",
+                       seed: int = 48) -> Dict[str, object]:
+    """upernet_global_small.pth's `state_dict`: UniFormer-S (patch embeds
+    4, 2, 2, 2 with LayerNorm; CBlocks in stages 1-2, SABlocks in 3-4, MLP
+    ×4, the stage norms) and UPerHead (channels 512, pyramid pooling 1, 2, 3,
+    6, 150 classes), with the auxiliary FCN head the detector leaves out."""
+    n = _Net(fill, seed)
+    cin = 3
+    for s, (dim, count) in enumerate(zip(dims, layers), start=1):
+        k = 4 if s == 1 else 2
+        n.conv(f"backbone.patch_embed{s}.proj", dim, cin, k=k)
+        n.norm(f"backbone.patch_embed{s}.norm", dim)
+        for i in range(count):
+            b = f"backbone.blocks{s}.{i}."
+            n.sd[b + "pos_embed.weight"] = n.w(dim, 1, 3, 3)
+            n.sd[b + "pos_embed.bias"] = n.f.zeros(dim)
+            if s <= 2:
+                n.bn(b + "norm1", dim)
+                n.conv(b + "conv1", dim, dim, k=1)
+                n.sd[b + "attn.weight"] = n.w(dim, 1, 5, 5)
+                n.sd[b + "attn.bias"] = n.f.zeros(dim)
+                n.conv(b + "conv2", dim, dim, k=1)
+                n.bn(b + "norm2", dim)
+                n.conv(b + "mlp.fc1", 4 * dim, dim, k=1)
+                n.conv(b + "mlp.fc2", dim, 4 * dim, k=1)
+            else:
+                n.norm(b + "norm1", dim)
+                n.linear(b + "attn.qkv", 3 * dim, dim)
+                n.linear(b + "attn.proj", dim, dim)
+                n.norm(b + "norm2", dim)
+                n.linear(b + "mlp.fc1", 4 * dim, dim)
+                n.linear(b + "mlp.fc2", dim, 4 * dim)
+        n.norm(f"backbone.norm{s}", dim)
+        cin = dim
+    h = "decode_head."
+
+    def conv_module(key, o, c, k):
+        n.conv(key + ".conv", o, c, k=k, bias=False)
+        n.bn(key + ".bn", o)
+
+    for i in range(4):
+        conv_module(f"{h}psp_modules.{i}.1", channels, dims[-1], 1)
+    conv_module(h + "bottleneck", channels, dims[-1] + 4 * channels, 3)
+    for i in range(3):
+        conv_module(f"{h}lateral_convs.{i}", channels, dims[i], 1)
+        conv_module(f"{h}fpn_convs.{i}", channels, channels, 3)
+    conv_module(h + "fpn_bottleneck", channels, 4 * channels, 3)
+    n.conv(h + "conv_seg", classes, channels, k=1)
+    conv_module("auxiliary_head.convs.0", 256, dims[2], 3)
+    n.conv("auxiliary_head.conv_seg", classes, 256, k=1)
+    return n.sd
+
+
+# torchvision MobileNetV2's features 0-16: (expand ratio, in, out); 0 is the stem
+_MOBILENET_V2 = {0: ("stem", 3, 32), 1: (1, 32, 16), 2: (6, 16, 24), 3: (6, 24, 24),
+                 4: (6, 24, 32), 5: (6, 32, 32), 6: (6, 32, 32), 7: (6, 32, 64),
+                 8: (6, 64, 64), 9: (6, 64, 64), 10: (6, 64, 64), 11: (6, 64, 96),
+                 12: (6, 96, 96), 13: (6, 96, 96), 14: (6, 96, 160), 15: (6, 160, 160),
+                 16: (6, 160, 160)}
+_ANIME_BLOCKS = {0: (0, 1), 1: (2, 3), 2: (4, 6), 3: (7, 13), 4: (14, 16)}
+
+
+def synth_anime_face_sd(fill: FillSpec = "random", seed: int = 49) -> Dict[str, object]:
+    """anime_face_segment's UNet.pth: five slices of torchvision's
+    MobileNetV2 features (`en_block0-4`) and the decoder (`de_block4-0`:
+    160→96, 192→32, 64→24, 48→16, 32→7)."""
+    n = _Net(fill, seed, gain=RELU_GAIN)
+    for blk, (lo, hi) in _ANIME_BLOCKS.items():
+        for seq_i, feat_i in enumerate(range(lo, hi + 1)):
+            base = f"en_block{blk}.{seq_i}."
+            t, cin, cout = _MOBILENET_V2[feat_i]
+            if t == "stem":
+                n.conv(base + "0", cout, cin, bias=False)
+                n.bn(base + "1", cout)
+                continue
+            hidden, i = cin * t, 0
+            if t != 1:
+                n.conv(base + "conv.0.0", hidden, cin, k=1, bias=False)
+                n.bn(base + "conv.0.1", hidden)
+                i = 1
+            n.sd[f"{base}conv.{i}.0.weight"] = n.w(hidden, 1, 3, 3)
+            n.bn(f"{base}conv.{i}.1", hidden)
+            n.conv(f"{base}conv.{i + 1}", cout, hidden, k=1, bias=False)
+            n.bn(f"{base}conv.{i + 2}", cout)
+    for name, (cin, cout) in (("de_block4", (160, 96)), ("de_block3", (192, 32)),
+                              ("de_block2", (64, 24)), ("de_block1", (48, 16)),
+                              ("de_block0", (32, 7))):
+        n.conv(name + ".1", cout, cin)
+    return n.sd
+
+
+def synth_lama_sd(ngf: int = 64, downs: int = 3, blocks: int = 18, ratio: float = 0.75,
+                  fill: FillSpec = "random", seed: int = 50) -> Dict[str, object]:
+    """big-lama's generator (ControlNetLama.pth, `model.*`): the 7×7 FFC
+    stem on 4 channels, three stride-2 FFC downsamples (the last splitting
+    into local and global channels at `ratio`), `blocks` FFC resnet blocks
+    with spectral transforms (no LFU), three transpose-conv upsamples with
+    BatchNorm, and the 7×7 head to 3 channels."""
+    n = _Net(fill, seed, gain=RELU_GAIN)
+
+    def ffc_bn_act(key, cin, cout, k, gin, gout):
+        in_g, out_g = int(cin * gin), int(cout * gout)
+        in_l, out_l = cin - in_g, cout - out_g
+        for name, o, c in (("convl2l", out_l, in_l), ("convl2g", out_g, in_l),
+                           ("convg2l", out_l, in_g)):
+            if o and c:
+                n.conv(f"{key}ffc.{name}", o, c, k=k, bias=False)
+        if out_g and in_g:
+            s = f"{key}ffc.convg2g."
+            n.conv(s + "conv1.0", out_g // 2, in_g, k=1, bias=False)
+            n.bn(s + "conv1.1", out_g // 2)
+            n.conv(s + "fu.conv_layer", out_g, out_g, k=1, bias=False)
+            n.bn(s + "fu.bn", out_g)
+            n.conv(s + "conv2", out_g, out_g // 2, k=1, bias=False)
+        if out_l:
+            n.bn(key + "bn_l", out_l)
+        if out_g:
+            n.bn(key + "bn_g", out_g)
+
+    ffc_bn_act("model.1.", 4, ngf, 7, 0.0, 0.0)
+    idx = 2
+    for i in range(downs):
+        c = ngf * 2 ** i
+        ffc_bn_act(f"model.{idx}.", c, 2 * c, 3, 0.0, ratio if i == downs - 1 else 0.0)
+        idx += 1
+    c = ngf * 2 ** downs
+    for _ in range(blocks):
+        ffc_bn_act(f"model.{idx}.conv1.", c, c, 3, ratio, ratio)
+        ffc_bn_act(f"model.{idx}.conv2.", c, c, 3, ratio, ratio)
+        idx += 1
+    idx += 1  # the ConcatTupleLayer
+    for _ in range(downs):
+        n.sd[f"model.{idx}.weight"] = n.w(c, c // 2, 3, 3)
+        n.sd[f"model.{idx}.bias"] = n.f.zeros(c // 2)
+        n.bn(f"model.{idx + 1}", c // 2)
+        idx += 3  # the ReLU
+        c //= 2
+    n.conv(f"model.{idx + 1}", 3, ngf, k=7)  # after the ReflectionPad2d
     return n.sd

@@ -20,8 +20,9 @@ the trunk, `assemble_control_lora`). A model is a file in the model
 directories, a path, or a flat state dict. A module is a name or alias of
 the preprocessor registry (preprocessors/__init__.py), which alone decides
 which modules run; its entry's tags pick the path: "none" and "canny" make
-the hint, "Inpaint" (inpaint_global_harmonious, inpaint_only:
-pipeline/cn_inpaint.py) mixes the mask into it, and two need no control
+the hint, "Inpaint" (inpaint_global_harmonious, inpaint_only,
+inpaint_only+lama: pipeline/cn_inpaint.py; the last on the LaMa pre-fill
+of preprocessors/lama.py) mixes the mask into it, and two need no control
 model: "Reference" (reference_only, reference_adain, reference_adain+attn:
 pipeline/reference_only.py, a deferred hook that VAE-encodes the unit's
 image) and "Revision" (CLIP-G (Revision) and its "ignore prompt" twin:
@@ -286,15 +287,20 @@ def build_unit_state(unit: Mapping[str, Any], width: int, height: int, device=No
         mask = _decode_unit_mask(unit, image)
         if mask is None:
             mask = np.zeros(img.shape[:2], np.float32)
+        lama = pre.name == "inpaint_only+lama"
+        if lama:  # the LaMa pre-fill stands for the image in the hint and the composites
+            from ..preprocessors.lama import lama_prefill
+
+            img = lama_prefill(img, mask)
         img_r = bilinear_resize(np.asarray(img, np.float32) / 255.0, height, width)
         mask_r = np.clip(bilinear_resize(np.repeat(mask[..., None], 3, 2), height,
                                          width)[..., 0], 0, 1)
         fmap = mix_hint(img_r, mask_r)
-        if pre.name == "inpaint_only":
-            def build_inpaint(engine, p, cond, uncond, _img=img, _mask=mask):
+        if pre.name in ("inpaint_only", "inpaint_only+lama"):
+            def build_inpaint(engine, p, cond, uncond, _img=img, _mask=mask, _lama=lama):
                 from ..pipeline.cn_inpaint import attach_inpaint_only
 
-                attach_inpaint_only(engine, p, _img, _mask)
+                attach_inpaint_only(engine, p, _img, _mask, lama_shift=_lama)
 
             extra.append(build_inpaint)
     else:

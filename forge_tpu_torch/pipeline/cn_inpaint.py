@@ -41,9 +41,12 @@ def latent_mask_from_pixels(mask_f: np.ndarray) -> np.ndarray:
     return np.round(m)[None, None]
 
 
-def attach_inpaint_only(engine, p, img_u8: np.ndarray, mask_f: np.ndarray) -> None:
+def attach_inpaint_only(engine, p, img_u8: np.ndarray, mask_f: np.ndarray,
+                        lama_shift: bool = False) -> None:
     """The deferred hook's body: the source image and mask at the
-    request's size, the source's latent, and both composites armed."""
+    request's size, the source's latent, and both composites armed;
+    `lama_shift` (inpaint_only+lama, whose source is the LaMa pre-fill)
+    also moves a txt2img pass's start toward that latent."""
     arr = bilinear_resize(np.asarray(img_u8, np.float32) / 255.0, p.height, p.width)
     mask = np.clip(bilinear_resize(np.repeat(np.asarray(mask_f, np.float32)[..., None], 3, 2),
                                    p.height, p.width)[..., 0], 0.0, 1.0)
@@ -53,6 +56,7 @@ def attach_inpaint_only(engine, p, img_u8: np.ndarray, mask_f: np.ndarray) -> No
         "latent_mask": torch.from_numpy(latent_mask_from_pixels(mask)).to(engine.device),
         "image": arr,  # [H,W,3] float in [0, 1], for the final composite
         "mask": mask,  # [H,W] float
+        "lama_shift": bool(lama_shift),
     }
     p.extra_generation_params.setdefault("ControlNet inpaint", "inpaint_only")
 

@@ -849,6 +849,11 @@ def _prep_txt2img(engine: DiffusionEngine, p: Processing, seeds, subseeds, cond,
     step_noise = _prepare_noise(p, rng, info, sigmas, seeds, engine.device)
     x = torch.from_numpy(engine.predictor.noise_scaling(
         np.float32(sigmas[0]), noise0, np.zeros_like(noise0))).to(engine.device)
+    cn = getattr(p, "_cn_inpaint", None)
+    if cn is not None and cn.get("lama_shift") and cn["latent"].shape[2:] == x.shape[2:]:
+        # inpaint_only+lama starts toward the LaMa pre-fill: (noise + z/σmax)·σmax = x + z
+        # (reference preprocessor_inpaint.py:160)
+        x = x + cn["latent"].to(x.dtype)
     _add_time(timings, "noise", t_noise)
     return Job(p, x, sigmas, step_noise, cond, uncond, unet_params)
 

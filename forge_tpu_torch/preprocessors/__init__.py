@@ -18,7 +18,12 @@ model-based annotators depth_midas (depth.py), depth_anything_v2
 (depth_anything.py), the five OpenPose entries (openpose.py), the HED
 (hed.py), PiDiNet (pidinet.py) and TEED (teed.py) soft edges, the three
 lineart nets (lineart.py), lineart_anime_denoise (manga_line.py), mlsd
-(mlsd.py) and normalbae (normalbae.py). Each model-based module is imported
+(mlsd.py), normalbae (normalbae.py), depth_leres (leres.py), depth_zoe
+(zoe.py), depth_marigold (marigold.py), seg_ufade20k (uniformer.py),
+seg_anime_face (anime_face.py), inpaint_only+lama (lama.py: the entry
+passes the image through; the unit's path runs the LaMa pre-fill) and
+mediapipe_face (mediapipe_face.py, which raises the reference's
+RuntimeError: mediapipe is not there to import). Each model-based module is imported
 on the entry's first call; its detector runs on the card unless one made
 on the CPU is installed (`get_*(device=...)`). This registry alone decides
 which ControlNet modules run: calling any other entry raises
@@ -278,7 +283,14 @@ _PORTED = {"none": _none, "invert": _invert, "canny": _canny, "blur_gaussian": _
            "mlsd": _model("mlsd", "mlsd"),
            "softedge_teed": _model("teed", "softedge_teed"),
            "lineart_anime_denoise": _model("manga_line", "manga_line"),
-           "normalbae": _model("normalbae", "normalbae")}
+           "normalbae": _model("normalbae", "normalbae"),
+           "inpaint_only+lama": _model("lama", "inpaint_only_lama"),
+           "depth_leres": _model("leres", "depth_leres"),
+           "seg_anime_face": _model("anime_face", "seg_anime_face"),
+           "mediapipe_face": _model("mediapipe_face", "mediapipe_face"),
+           "seg_ufade20k": _model("uniformer", "seg_ufade20k"),
+           "depth_zoe": _model("zoe", "depth_zoe"),
+           "depth_marigold": _model("marigold", "depth_marigold")}
 
 for _name, _aliases, _a, _b, _tags, _weights in _ENTRIES:
     register(Preprocessor(_name, _PORTED.get(_name) or _unported(_name), slider_a=_a,

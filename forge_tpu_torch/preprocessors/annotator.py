@@ -67,11 +67,9 @@ class Detector:
 
     def placement(self):
         """(device, dtype) the weights live in."""
-        from ..core.device import default_device
+        from ..core.device import placement
 
-        device = torch.device(self.device) if self.device is not None else default_device()
-        dtype = self.dtype or (self.DTYPE if device.type == "cuda" else torch.float32)
-        return device, dtype
+        return placement(self.device, self.dtype, self.DTYPE)
 
     def load(self) -> Dict[str, Any]:
         """The nested weights on the detector's device; RuntimeError where

@@ -13,7 +13,10 @@ what cv2 gives, byte for byte:
     `rgb_to_lab`): cv2.cvtColor's RGB2GRAY, BGR2HSV and BGR2LAB;
   * `threshold`: THRESH_BINARY_INV, with or without THRESH_OTSU;
   * `line` (thickness 1 and more), `circle` (filled), `ellipse2poly` and
-    `fill_convex_poly`, all at LINE_8 with no sub-pixel shift, in place.
+    `fill_convex_poly`, all at LINE_8 with no sub-pixel shift, in place;
+  * `gaussian_blur` (cv2.GaussianBlur: uint8 at ksize (5, 5) and σ 0 in
+    OpenCV's fixed point, float32 at ksize (0, 0) from σ) and `laplacian`
+    (cv2.Laplacian to CV_32F, aperture 1), both with BORDER_REFLECT_101.
 
 Float32 resizes follow the same taps and weights in float32; OpenCV's
 vector code may fuse or reorder a product and a sum, so a float32 result
@@ -645,3 +648,70 @@ def ellipse2poly(center, axes, angle: int, arc_start: int, arc_end: int, delta: 
     if len(out) == 1:
         out = [(int(cx), int(cy))] * 2
     return np.asarray(out, np.int32).reshape(-1, 2)
+
+
+# -- filters (BORDER_REFLECT_101, OpenCV's default) -----------------------------------
+
+
+def _reflect101(a: np.ndarray, r: int) -> np.ndarray:
+    """`a` [H,W(,C)] grown by r rows and columns on each side, mirrored
+    without repeating the edge (BORDER_REFLECT_101)."""
+    pad = ((r, r), (r, r)) + ((0, 0),) * (a.ndim - 2)
+    return np.pad(a, pad, mode="reflect")
+
+
+def _gaussian_taps(n: int, sigma: float) -> np.ndarray:
+    """getGaussianKernel(n, σ, CV_32F): exp(−(i − (n−1)/2)² / 2σ²) normalized
+    in double, then to float32; n ≤ 7 with σ ≤ 0 takes the fixed binomial taps."""
+    if sigma <= 0 and n % 2 == 1 and n <= 7:
+        return (np.asarray({1: [32], 3: [8, 16, 8], 5: [2, 8, 12, 8, 2],
+                            7: [1, 3.5, 7, 9, 7, 3.5, 1]}[n]) / 32.0).astype(_F32)
+    if sigma <= 0:
+        sigma = ((n - 1) * 0.5 - 1) * 0.3 + 0.8
+    x = np.arange(n, dtype=np.float64) - (n - 1) * 0.5
+    t = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    return (t / t.sum()).astype(_F32)
+
+
+def _sep_filter_f32(a: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """One symmetric kernel along rows then columns, each pass summed in
+    float64 and stored in float32 (OpenCV's float32 row buffer); scipy's
+    "mirror" border is BORDER_REFLECT_101."""
+    from scipy.ndimage import correlate1d
+
+    k = taps.astype(np.float64)
+    rows = correlate1d(np.asarray(a, np.float64), k, axis=1, mode="mirror").astype(_F32)
+    return correlate1d(rows.astype(np.float64), k, axis=0, mode="mirror").astype(_F32)
+
+
+def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma: float) -> np.ndarray:
+    """`cv2.GaussianBlur(img, ksize, sigma)` on a uint8 image at ksize (5, 5)
+    and σ 0 (OpenCV's bit-exact fixed point: taps 1 4 6 4 1 in 8 fractional
+    bits, rounded half up), or on a float32 image at ksize (0, 0), whose
+    size OpenCV takes from σ as round(8σ + 1) | 1."""
+    a = np.asarray(img)
+    if a.dtype == np.uint8:
+        if tuple(ksize) != (5, 5) or sigma > 0:
+            raise ValueError("gaussian_blur takes uint8 at ksize (5, 5) and sigma 0 only")
+        k = np.asarray([1, 4, 6, 4, 1], np.int64)
+        p = _reflect101(a.astype(np.int64), 2)
+        h, w = a.shape[:2]
+        rows = sum(k[i] * p[:, i:i + w] for i in range(5))
+        total = sum(k[i] * rows[i:i + h] for i in range(5))
+        return ((total + 128) >> 8).astype(np.uint8)
+    if a.dtype != np.float32:
+        raise ValueError(f"gaussian_blur takes uint8 or float32, not {a.dtype}")
+    n = int(ksize[0])
+    if n <= 0:
+        n = int(np.rint(sigma * 4 * 2 + 1)) | 1
+    return _sep_filter_f32(a, _gaussian_taps(n, sigma))
+
+
+def laplacian(img: np.ndarray) -> np.ndarray:
+    """`cv2.Laplacian(img, cv2.CV_32F)` (aperture 1: the 4-neighbour kernel
+    0 1 0 / 1 −4 1 / 0 1 0), exact on uint8 input."""
+    p = _reflect101(np.asarray(img).astype(np.float64), 1)
+    h, w = img.shape[:2]
+    out = (p[:h, 1:w + 1] + p[2:, 1:w + 1] + p[1:h + 1, :w] + p[1:h + 1, 2:]
+           - 4.0 * p[1:h + 1, 1:w + 1])
+    return out.astype(_F32)

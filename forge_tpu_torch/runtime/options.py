@@ -166,6 +166,18 @@ _DEFAULTS = {
     "face_restoration_model": OptionInfo("CodeFormer", "Face restoration model", "face",
                                          ["CodeFormer", "GFPGAN"]),
     "code_former_weight": OptionInfo(0.5, "CodeFormer weight (0 = max effect)", "face"),
+    # interrogation (postprocessing/interrogate.py, the /sdapi/v1/interrogate route)
+    "interrogate_return_ranks": OptionInfo(False, "Include rank of tags", "interrogate"),
+    "interrogate_clip_min_length": OptionInfo(24, "BLIP min length", "interrogate"),
+    "interrogate_clip_max_length": OptionInfo(48, "BLIP max length", "interrogate"),
+    "interrogate_clip_dict_limit": OptionInfo(1500, "CLIP dictionary limit", "interrogate"),
+    "interrogate_clip_skip_categories": OptionInfo([], "CLIP skip categories", "interrogate"),
+    "interrogate_deepbooru_score_threshold": OptionInfo(0.5, "deepbooru score threshold",
+                                                        "interrogate"),
+    "deepbooru_sort_alpha": OptionInfo(True, "deepbooru alphabetical sort", "interrogate"),
+    "deepbooru_use_spaces": OptionInfo(True, "deepbooru spaces in tags", "interrogate"),
+    "deepbooru_escape": OptionInfo(True, "deepbooru escape brackets", "interrogate"),
+    "deepbooru_filter_tags": OptionInfo("", "deepbooru filtered tags", "interrogate"),
 }
 for _k, _v in _DEFAULTS.items():
     opts.add(_k, _v)

@@ -205,12 +205,10 @@ def test_registry_ports_forty_entries():
     names = registry.preprocessor_names()
     assert names == ref_registry.preprocessor_names()
     ported = [n for n in names if registry.PREPROCESSORS[n].ported]
-    assert len(names) == 52 and len(ported) == 40
+    assert len(names) == 52 and len(ported) == 47
     assert sorted(set(names) - set(ported)) == sorted([
-        "inpaint_only+lama", "depth_leres", "dw_openpose_full", "seg_anime_face",
-        "mediapipe_face", "seg_ufade20k", "depth_zoe", "depth_marigold",
-        "densepose (pruple bg & purple torso)", "densepose_parula (black bg & blue torso)",
-        "seg_ofade20k", "seg_ofcoco"])
+        "dw_openpose_full", "densepose (pruple bg & purple torso)",
+        "densepose_parula (black bg & blue torso)", "seg_ofade20k", "seg_ofcoco"])
     for name in set(names) - set(ported):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
             registry.PREPROCESSORS[name](np.zeros((8, 8, 3), np.uint8), 8, 0, 0)

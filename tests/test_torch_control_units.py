@@ -194,8 +194,9 @@ def test_attach_units_matches_forge_tpu(module, tmp_path):
 
 REFUSED = {  # module: the ROADMAP item the port names, and what the reference does
     "ip-adapter_clip_sdxl": ("6 \\(d\\)", "raises KeyError (no such preprocessor)"),
-    "inpaint_only+lama": ("item 9", "runs LaMa"),
-    "depth_leres": ("item 9", "raises RuntimeError (no checkpoint under models/leres)"),
+    "dw_openpose_full": ("item 9", "raises RuntimeError (no ONNX pair under models/dwpose)"),
+    "densepose (pruple bg & purple torso)": (
+        "item 9", "raises RuntimeError (no checkpoint under models/densepose)"),
     "seg_ofcoco": ("item 9", "raises RuntimeError (no checkpoint under models/oneformer)"),
 }
 
@@ -220,17 +221,6 @@ def test_refused_modules_from_both_sides(module, tmp_path):
                 reference.split()[1], KeyError)
             with pytest.raises(err):
                 jcn.build_unit_state(unit, 64, 64)
-        elif module == "inpaint_only+lama":
-            from forge_tpu.preprocessors import lama
-
-            called = []
-            orig = lama.lama_prefill
-            lama.lama_prefill = lambda image, m: called.append(1) or image
-            try:
-                out = jcn.build_unit_state(unit, 64, 64)
-            finally:
-                lama.lama_prefill = orig
-            assert called and isinstance(out[0], JState) and callable(out[1])
         else:
             out = jcn.build_unit_state(unit, 64, 64)
             assert callable(out) if "deferred hook" in reference else isinstance(out, JState)

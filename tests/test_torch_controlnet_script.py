@@ -108,8 +108,8 @@ def test_controlnet_script_without_units(engines):
 
 
 @pytest.mark.parametrize("module, model, error, match", [
-    ("depth_leres", "cldm_tiny_xl", NotImplementedError, "item 9"),
-    ("depth_zoe", "cldm_tiny_xl", NotImplementedError, "item 9"),
+    ("dw_openpose_full", "cldm_tiny_xl", NotImplementedError, "item 9"),
+    ("seg_ofade20k", "cldm_tiny_xl", NotImplementedError, "item 9"),
     ("canny", "no_such_model", FileNotFoundError, "no_such_model")])
 def test_controlnet_script_refusals_reach_the_caller(engines, model_dirs, module, model, error,
                                                      match, capsys):
@@ -155,11 +155,12 @@ PORTED = ("none", "invert", "canny", "blur_gaussian", "shuffle", "lineart_standa
           "recolor_intensity", "t2ia_color_grid", "threshold_binary", "reference_only",
           "reference_adain", "reference_adain+attn", "CLIP-G (Revision)",
           "CLIP-G (Revision ignore prompt)", "inpaint_global_harmonious", "inpaint_only",
-          "depth_midas", "openpose", "openpose_hand", "openpose_face", "openpose_faceonly",
-          "openpose_full", "softedge_hed", "softedge_hedsafe", "scribble_hed",
+          "inpaint_only+lama", "depth_midas", "openpose", "openpose_hand", "openpose_face",
+          "openpose_faceonly", "openpose_full", "softedge_hed", "softedge_hedsafe", "scribble_hed",
           "lineart_realistic", "lineart_coarse", "lineart_anime", "softedge_pidinet",
           "softedge_pidisafe", "scribble_pidinet", "mlsd", "depth_anything_v2", "softedge_teed",
-          "lineart_anime_denoise", "normalbae")
+          "lineart_anime_denoise", "depth_leres", "seg_anime_face", "normalbae",
+          "mediapipe_face", "seg_ufade20k", "depth_zoe", "depth_marigold")
 PASS_THROUGH = PORTED[13:20]  # the reference, Revision and inpaint entries
 
 
@@ -191,7 +192,7 @@ def test_unported_entries_refused():
         assert np.array_equal(tpre.get_preprocessor(name)(img, 16, 0, 0),
                               tpre.get_preprocessor("none")(img, 16, 0, 0))
     p = processing("forge_tpu_torch").Processing(**SDXL_REQUEST)
-    for module in ("depth_leres", "dw_openpose_full", "seg_ofcoco"):
+    for module in ("densepose_parula (black bg & blue torso)", "dw_openpose_full", "seg_ofcoco"):
         with pytest.raises(NotImplementedError, match="item 9"):
             tcn.attach_units(p, [dict(module=module, model="x", image=img)], "cpu")
 

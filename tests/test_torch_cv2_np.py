@@ -8,8 +8,11 @@ OpenCV's code. On uint8 every resize (nearest, area down and up, integer
 area, cubic, Lanczos-4) at odd, upscaled and downscaled sizes, RGB→GRAY
 and BGR→HSV over all 2^24 colours, BGR→LAB, the threshold (Otsu and
 fixed), ellipse2Poly, fillConvexPoly, filled circles and lines of
-thickness 1 and 2 (end points inside and far outside the image) equal
-cv2's byte for byte. On float32 a resize is within 4e-6 of the largest
+thickness 1 and 2 (end points inside and far outside the image), the 5×5
+GaussianBlur and the CV_32F Laplacian (aperture 1), both at odd sizes and
+down to 1×1 where the reflected border wraps, equal cv2's byte for byte;
+GaussianBlur on float32 at ksize (0, 0) is within 1e-6 of the largest
+value. On float32 a resize is within 4e-6 of the largest
 value: OpenCV's vector code fuses or reorders some products and sums; the
 linear one (pipeline/images.py `cv2_linear_resize`) within 3e-5, as it
 takes IPP's taps in float64 where OpenCV's own code rounds them to float32. The
@@ -41,6 +44,41 @@ def no_ipp():
     cv2.ipp.setUseIPP(False)
     yield
     cv2.ipp.setUseIPP(was)
+
+
+FILTER_SIZES = [(1, 1), (1, 7), (2, 3), (5, 4), (17, 31), (64, 65), (97, 128)]
+
+
+@pytest.mark.parametrize("h,w", FILTER_SIZES)
+def test_gaussian_blur_and_laplacian_on_uint8_match_cv2(h, w):
+    rng = np.random.default_rng(h * 1000 + w)
+    for shape in ((h, w), (h, w, 3)):
+        a = rng.integers(0, 256, shape, dtype=np.uint8)
+        assert np.array_equal(cv2_np.gaussian_blur(a, (5, 5), 0), cv2.GaussianBlur(a, (5, 5), 0))
+    a = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    want = cv2.Laplacian(a, cv2.CV_32F)
+    got = cv2_np.laplacian(a)
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    edge = np.zeros((h, w), np.uint8)  # the border's reflection on a single bright row
+    edge[0] = 255
+    assert np.array_equal(cv2_np.laplacian(edge), cv2.Laplacian(edge, cv2.CV_32F))
+    assert np.array_equal(cv2_np.gaussian_blur(edge, (5, 5), 0), cv2.GaussianBlur(edge, (5, 5), 0))
+
+
+@pytest.mark.parametrize("h,w,sigma", [(2, 3, 1.0), (17, 31, 2.5), (64, 65, 4.0),
+                                       (96, 128, 6.0), (33, 20, 1.3), (5, 200, 3.2)])
+def test_gaussian_blur_float32_matches_cv2(h, w, sigma):
+    a = np.random.default_rng(h + w).random((h, w)).astype(np.float32) * 3.0
+    a[:, : w // 3] = 0.0  # a step to the border
+    want = cv2.GaussianBlur(a, (0, 0), sigma)
+    got = cv2_np.gaussian_blur(a, (0, 0), sigma)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def test_gaussian_blur_refuses_other_uint8_kernels():
+    with pytest.raises(ValueError, match="ksize"):
+        cv2_np.gaussian_blur(np.zeros((4, 4), np.uint8), (3, 3), 0)
 
 
 @pytest.mark.parametrize("method", list(INTERP))

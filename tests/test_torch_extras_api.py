@@ -11,10 +11,13 @@ blended by max(codeformer_visibility, gfpgan_visibility) with the
 restorer the option names (GFPGAN ignores codeformer_weight, as the
 reference's), resize modes 0 and 1, the centre crop on and off, and
 `upscaler_2` blended by `extras_upscaler_2_visibility` (run on the input
-as it came, as the reference's). /sdapi/v1/upscalers lists what
-forge_tpu's lists. The port answers 422 for `focal_crop_enabled` and for a
-restorer without its checkpoint (where the reference skips it), and 501
-for /sdapi/v1/interrogate, each naming its ROADMAP item.
+as it came, as the reference's), and the crop of resize mode 1 with
+`focal_crop_enabled` under several weight sets (postprocessing/focal_crop.py;
+the face term is left out on both sides, there being no Haar cascade data).
+/sdapi/v1/upscalers lists what forge_tpu's lists. The port answers 422 for a
+restorer without its checkpoint (where the reference skips it), and
+/sdapi/v1/interrogate answers 404 without an image and, without a CLIP
+checkpoint, the reference's `detail`.
 """
 
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -160,13 +163,28 @@ def test_refusals(servers, monkeypatch):
     from forge_tpu_torch.postprocessing import faces
 
     tbase = servers[1]
-    status, body, _ = _call(tbase, "/sdapi/v1/extra-single-image",
-                            dict(image=_png_b64(IMAGES[0]), resize_mode=1, focal_crop_enabled=True))
-    assert status == 422 and "focal_crop_enabled" in body["detail"] and "item 9" in body["detail"]
-    status, body, _ = _call(tbase, "/sdapi/v1/interrogate", {"image": _png_b64(IMAGES[0])})
-    assert status == 501 and "ROADMAP.md queue 1 item 9" in body["detail"]
+    for payload, want_status in (({"image": ""}, 404), ({"image": _png_b64(IMAGES[0])}, 200)):
+        answers = [_call(base, "/sdapi/v1/interrogate", payload)[:2] for base in servers[:2]]
+        assert answers[0] == answers[1] and answers[1][0] == want_status, answers
     monkeypatch.setattr(faces, "_restorer", faces.FaceRestorer(model_dir="no/such/dir",
                                                                device="cpu"))
     status, body, _ = _call(tbase, "/sdapi/v1/extra-single-image",
                             dict(image=_png_b64(IMAGES[0]), codeformer_visibility=1.0))
     assert status == 422 and "no/such/dir" in body["detail"]
+
+
+@pytest.mark.parametrize("fields", [
+    dict(upscaler_1="Lanczos", upscaling_resize_w=80, upscaling_resize_h=48),
+    dict(upscaler_1="Lanczos", upscaling_resize_w=48, upscaling_resize_h=96,
+         focal_crop_face_weight=0.0, focal_crop_entropy_weight=1.0, focal_crop_edges_weight=0.0),
+    dict(upscaler_1="swinir_tiny", upscaling_resize_w=100, upscaling_resize_h=60,
+         focal_crop_entropy_weight=0.0, focal_crop_edges_weight=1.0),
+])
+def test_focal_crop_matches_reference(servers, fields):
+    payload = dict(fields, image=_png_b64(IMAGES[1]), resize_mode=1, focal_crop_enabled=True)
+    want, got = _both(servers, "/sdapi/v1/extra-single-image", payload)
+    _close(got, want)
+    assert got[0].shape == (fields["upscaling_resize_h"], fields["upscaling_resize_w"], 3)
+    centre, _ = _both(servers, "/sdapi/v1/extra-single-image",
+                      dict(payload, focal_crop_enabled=False))
+    assert not np.array_equal(got[0], centre[0])  # the focal window is not the centre's

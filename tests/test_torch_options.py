@@ -30,7 +30,11 @@ KEYS = ("eta_ancestral", "eta_ddim", "s_churn", "s_noise", "eta_noise_seed_delta
         "enable_pnginfo", "outdir_samples", "outdir_txt2img_samples", "outdir_img2img_samples",
         "outdir_grids", "outdir_txt2img_grids", "outdir_img2img_grids", "save_to_dirs",
         "directories_filename_pattern", "directories_max_prompt_words", "localization",
-        "disabled_extensions", "disable_all_extensions")
+        "disabled_extensions", "disable_all_extensions", "interrogate_return_ranks",
+        "interrogate_clip_min_length", "interrogate_clip_max_length",
+        "interrogate_clip_dict_limit", "interrogate_clip_skip_categories",
+        "interrogate_deepbooru_score_threshold", "deepbooru_sort_alpha", "deepbooru_use_spaces",
+        "deepbooru_escape", "deepbooru_filter_tags")
 
 
 def test_registered_keys_carry_the_reference_defaults():

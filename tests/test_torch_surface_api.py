@@ -21,7 +21,7 @@ writes the request's image where the reference's does. The event log gets
 error, with the reference's fields. /sdapi/v1/server-restart without
 --api-server-stop answers 404 and latches nothing; with it, it latches
 `restart_requested` and stops the server, in both; the port's launcher then
-serves again on the same engine. The interrogate and Spaces routes still
+serves again on the same engine. The Spaces routes still
 answer 501 naming ROADMAP item 9.
 """
 
@@ -403,7 +403,7 @@ def test_event_log_api_fields(env, tmp_path):
 def test_unported_routes_name_item_9(env):
     from forge_tpu_torch.api.server import UNPORTED_ROUTES
 
-    assert set(UNPORTED_ROUTES) == {("POST", "/sdapi/v1/interrogate"), ("GET", "/sdapi/v1/spaces"),
+    assert set(UNPORTED_ROUTES) == {("GET", "/sdapi/v1/spaces"),
                                     ("POST", "/sdapi/v1/spaces/launch"),
                                     ("POST", "/sdapi/v1/spaces/terminate")}
     for method, path in UNPORTED_ROUTES:
