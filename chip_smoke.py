@@ -19,7 +19,9 @@ event log, the ControlNet, embedding, merge and web UI routes), and the ControlN
 with a depth_anything_v2 unit on SDXL, and interrogation (the CLIP interrogator with BLIP,
 DeepDanbooru, /sdapi/v1/interrogate), the remaining annotators (LeReS, ZoeDepth, Marigold,
 UniFormer, the anime face, LaMa) with a depth_marigold unit on SDXL and the extras route's focal
-crop, on one NVIDIA GPU.
+crop, and OneFormer, DensePose and the Forge Spaces (Sapiens-1B normals, U²-Net background
+removal, captions, the example) as child processes with a seg_ofade20k unit on SDXL, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -41,6 +43,8 @@ crop, on one NVIDIA GPU.
                                      # steps with (d); no result
     python3 chip_smoke.py --interrogate  # phase 1, phase 2's BLIP, Marigold and SDXL rows,
                                          # phase 23 at 20 steps; no result
+    python3 chip_smoke.py --spaces   # phase 1, phase 2's Sapiens and SDXL rows, phase 24 at 20
+                                     # steps with Sapiens-1B's 40 blocks; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -80,7 +84,7 @@ Phases:
   7. the SDXL base slice at full width (UNet 320ch, mult (1,2,4), depths
      (0,2,10), CLIP-L + OpenCLIP-bigG, 4-channel VAE) on random weights made
      on the card from a seed: load_engine, two requests (1024², DPM++ 2M,
-     "karras", 30 steps, CFG 7, seeds 1, 2) with latency, timings, peak
+     "karras", 20 steps (bench.py's 30), CFG 7, seeds 1, 2) with latency, timings, peak
      memory and exact launch counts by body, seed 1 again under
      torch.profiler (byte-identical), then one UNet forward at (2,4,128,128) through the
      kernels and through the plain versions;
@@ -99,7 +103,7 @@ Phases:
   9. config 5 on the same engine (bench.py's `config5`): CLIP-ViT-H/14 and
      an SDXL IP-Adapter made on the card, a seeded 1024² reference image
      encoded to IP tokens (weight 0.6), one warm request, then two
-     requests (1024², batch 2, DPM++ 2M Karras, 20 steps, CFG 7, seeds 2,
+     requests (1024², batch 2, DPM++ 2M Karras, 10 steps (bench.py's 20), CFG 7, seeds 2,
      3) through `serve_throughput` and the same two through
      `process_images`: exact launch counts by body, served images
      byte-identical to the sequential ones, images/s both ways and
@@ -112,7 +116,7 @@ Phases:
      kernels and the plain versions;
  10. config 2 complete on the same engine (BASELINE configs[1], the webui's
      hires and refiner defaults): (a) the hires fix in latent mode, 1024²
-     DPM++ 2M Karras 30 steps CFG 7, then "Latent" ×2 at denoising 0.7
+     DPM++ 2M Karras 20 steps CFG 7, then "Latent" ×2 at denoising 0.7
      (hires steps 0 = 30: 22 model calls on 256² latents) and the 2048²
      decode, seeds 1, 2, with exact launch counts by body, latency,
      timings and peak memory, then seed 1 again profiled (byte-identical);
@@ -155,9 +159,9 @@ Phases:
      OpenCLIP ViT-H/14's text tower; v by its marker key) at 768², DPM++ 2M
      Karras, 20 steps, CFG 7; SD3-medium (24 joint blocks, hidden 1536, a
      192² positional grid; CLIP-L, CLIP-G, T5-XXL; the 16-channel VAE) at
-     1024², Euler "simple", 28 steps, CFG 7, shift 3.0; Playground v2.5
+     1024², Euler "simple", 14 steps (the model's 28), CFG 7, shift 3.0; Playground v2.5
      (SDXL's geometry, EDM at σ_data 0.5, the channel latent format) at
-     1024², DPM++ 2M Karras, 50 steps, CFG 3. Each: the engine's widths
+     1024², DPM++ 2M Karras, 20 steps (the model's 50), CFG 3. Each: the engine's widths
      checked, seeds 1, 2 (the first the warm-up) with latency, phases, peak
      memory and exact launch counts by body, seed 1 again profiled
      (byte-identical), seed 1's whole request through the plain versions
@@ -175,7 +179,7 @@ Phases:
      127.0.0.1, port 0, on a thread, over a ModelManager holding the engine;
      GET samplers, options, sd-models and memory (its "cuda" within 1 GiB of
      torch.cuda.mem_get_info); bench.py's `config2` request (1024², DPM++ 2M
-     Karras, 30 steps, CFG 7) as txt2img over HTTP at seeds 1, 2 (/progress
+     Karras, 20 steps, CFG 7) as txt2img over HTTP at seeds 1, 2 (/progress
      polled every 0.1 s: it never falls and reaches 30 of 30, a live preview
      decodes through the port's PNG reader) and seed 1 four times in turns
      with the live previews on, off, off, on (their cost), exact launch
@@ -210,7 +214,7 @@ Phases:
      launches (no dequant), its latency beside NF4's, one profiled, one
      whole forward against plain (≥ 40 dB); (c) Chroma at full width in bf16 (hidden 3072,
      24 heads, 19 + 38 blocks, the Approximator 5120 × 5, T5-XXL, the
-     16-channel VAE): 1024², Euler "simple", 26 steps, CFG 4 with a negative
+     16-channel VAE): 1024², Euler "simple", 10 steps (the model's 26), CFG 4 with a negative
      prompt, seeds 1, 2 (the first the warm-up; 26 × 57 + 1 flash launches a
      request on the tensor-core body, 28 conv, 0 dequant), seed 1 again
      profiled (byte-identical), one forward at CFG batch 2 against plain
@@ -416,6 +420,35 @@ Phases:
      the latency against the witness's; (e) /sdapi/v1/extra-single-image
      with `focal_crop_enabled` on the image's central 256² to 350×200: the
      PNG equal to `focal_crop` of the registry's Lanczos upscale.
+ 24. OneFormer, DensePose and the Forge Spaces on the SDXL engine, after
+     phase 23 (`--spaces`: on an engine of its own, at 20 steps). OneFormer
+     Swin-L (ADE20K: 250 queries, 150 classes; COCO: 150, 133; detectron2
+     pickles with the weights under `model`), DensePose R50-FPN DeepLab,
+     U²-Net, Sapiens-1B (8 blocks in the whole run, 40 under --spaces; its
+     bf16 export), BLIP base and DeepDanbooru, made on the card from a seed
+     and written under logs/chip_smoke_spaces/ (removed at the end), on a
+     seeded 512² image: (a) seg_ofade20k and seg_ofcoco and (b) both
+     DensePose entries through the registry: uint8 levels, a rerun
+     byte-identical, the map (and DensePose's boxes and labels) equal to the
+     same code at f32, the rerun's seconds and busy share (the card alone
+     traced) and peak, no kernel launched; (c) Sapiens-1B's forward at the
+     Space's 1024×768 feed: exactly one flash launch a block, against plain
+     (≥ 40 dB), seconds; its normal map with the U²-Net mask and the mask
+     alone, each against f32 (≥ 30 dB); (d) the example, sapiens_normal,
+     birefnet and florence_2 Spaces launched through /sdapi/v1/spaces/launch
+     on the port's server (the four requests at once, four ports), each a
+     child process on the card; one POST
+     /process each (all four at once), equal to the app's own `process` in
+     this process (the PNG's pixels, the greeting, the caption and tags;
+     the f32 networks at f32 on both sides), the Sapiens Space's masked
+     answer unlike its unmasked one (its child given the U²-Net weights),
+     /sdapi/v1/spaces listing them running, then each terminated. The
+     children's flash launches are not counted here; (e) SDXL
+     1024², DPM++ 2M Karras, CFG 7, seed 1, 4 steps, with a seg_ofade20k
+     unit through ControlNetScript beside a witness: the hint equal to the
+     registry's map, launches exact (phase 21's ControlNet request: OneFormer
+     launches no kernel), UNet + ControlNet against plain (≥ 40 dB), the
+     latency against the witness's.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -577,7 +610,7 @@ DEQUANT_CASES = (  # (kind, block, (M, N, K)): every kind at every shape, and bl
 EXPECTED_PER_REQUEST = {"flash_attention": 201, "gn_silu_conv3x3": 908}
 FLUX_STEPS = 4
 FLUX_PROMPT = "a photograph of an astronaut riding a horse on the moon, (detailed:1.2)"
-SDXL_STEPS = 30
+SDXL_STEPS = 20  # bench.py's 30, cut for the whole run's time limit (PR 24)
 # a request: 70 self-attentions of L ≥ 512 a forward (level 1: 5 transformers × depth 2;
 # level 2 and the middle: 6 × depth 10) and the VAE mid-block; 17 ResBlocks × 2 convs a
 # forward and the VAE decoder's 14 resnets × 2; one forward a step (cond and uncond batched)
@@ -591,10 +624,10 @@ CONFIG3_CALLS = min(int(CONFIG3_STRENGTH * CONFIG3_STEPS), CONFIG3_STEPS - 1) + 
 CONFIG3_PER_REQUEST = {"flash_attention": CONFIG3_CALLS * (70 + 34) + 1 + 1,
                        "gn_silu_conv3x3": CONFIG3_CALLS * (34 + 16) + 20 + 28, "dequant_matmul": 0}
 CONFIG3_PROMPT = "a castle <lora:bench:0.8>"
-# config 5 (bench.py's `config5`): served requests at batch 2 (CFG batch 4), 20 steps, each
+# config 5 (bench.py's `config5`): served requests at batch 2 (CFG batch 4), CONFIG5_STEPS (10), each
 # forward the UNet's 70 flash calls and 34 convs (the IP hooks' attentions have 4 keys: no
 # kernel), then the decode of both images (1 flash, 28 conv)
-CONFIG5_STEPS, CONFIG5_BATCH, CONFIG5_IP_WEIGHT = 20, 2, 0.6
+CONFIG5_STEPS, CONFIG5_BATCH, CONFIG5_IP_WEIGHT = 10, 2, 0.6  # steps cut from 20 (PR 24)
 CONFIG5_SEEDS = (2, 3)  # two requests show the warm time
 CONFIG5_PER_REQUEST = {"flash_attention": CONFIG5_STEPS * 70 + 1,
                        "gn_silu_conv3x3": CONFIG5_STEPS * 34 + 28, "dequant_matmul": 0}
@@ -608,8 +641,8 @@ UPSCALE_PER_REQUEST = {"flash_attention": UPSCALE_CALLS * UPSCALE_TILES * 70 + 2
                        "dequant_matmul": 0}
 LORA_BLOCKS = ("input_blocks_4_1", "input_blocks_5_1", "output_blocks_3_1")
 # config 2 (tests/test_torch_refiner.py traces it on the meta device): (a) 30 base calls (70
-# flash, 34 conv each), then the hires pass at strength 0.7 of 30 steps, t_enc = int(0.7·30) =
-# 21: 22 calls on 256² latents (70, 34 each), then the 2048² decode (1, 28); (c) the pixel
+# flash, 34 conv each), then the hires pass at strength 0.7 of SDXL_STEPS (20), t_enc = int(0.7·20) =
+# 14: 15 calls on 256² latents (70, 34 each), then the 2048² decode (1, 28); (c) the pixel
 # mode adds the 1024² decode (1, 28) and the 2048² encode (1, 20); (b) the refiner takes over
 # at k = round(0.8·30) = 24: 24 base calls, 6 refiner calls (40 flash: 20 at 4096 and 20 at
 # 1024 tokens; 44 convs: 22 ResBlocks), then the refiner's 1024² decode (1, 28)
@@ -660,11 +693,12 @@ FAMILIES = {
     "sd2": dict(synth="synth_sd2_checkpoint", family="sd20", size=768, sampler="DPM++ 2M",
                 scheduler="karras", steps=20, cfg=7.0, calls=20, flash=15, conv=44,
                 request_gate=False),
+    # SD3's 28 steps and Playground's 50 cut to 14 and 20 for the whole run's time limit (PR 24)
     "sd3": dict(synth="synth_sd3_checkpoint", family="sd3", size=1024, sampler="Euler",
-                scheduler="simple", steps=28, cfg=7.0, calls=28, flash=24, conv=0,
+                scheduler="simple", steps=14, cfg=7.0, calls=14, flash=24, conv=0,
                 request_gate=True),
     "playground": dict(synth="synth_playground_checkpoint", family="playground", size=1024,
-                       sampler="DPM++ 2M", scheduler="karras", steps=50, cfg=3.0, calls=50,
+                       sampler="DPM++ 2M", scheduler="karras", steps=20, cfg=3.0, calls=20,
                        flash=70, conv=34, request_gate=True),
 }
 # `request_gate`: the whole request's image through the kernels is held ≥ PSNR_BOUND against
@@ -675,7 +709,7 @@ FAMILY_WITNESS_SUBSEED = dict(subseed=2, subseed_strength=0.001)
 # phase 14, the REST API on the SDXL engine, bench.py's `config2` request over HTTP: each
 # txt2img is SDXL's 2101 flash and 1048 conv launches; under `vae_always_tiled` the 1024²
 # decode runs 9 tiles of 64² latent pixels (3 × 3 at stride 56 over 128²), each a 512² decode
-# (1 flash, 28 conv); the img2img at strength 0.5 of 30 steps makes 16 model calls and encodes
+# (1 flash, 28 conv); the img2img at strength 0.5 of SDXL_STEPS makes int(0.5·steps) + 1 model calls and encodes
 # 9 tiles of 512² (1 flash, 20 conv each); the 2048² tiled decode runs 25 tiles; TAESD decodes
 # through cuDNN's convs, no counted kernel
 API_REQUEST = dict(prompt="a photograph of an astronaut riding a horse", negative_prompt="blurry",
@@ -697,10 +731,10 @@ FAMILY_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
 # phase 15, the Flux family as users download it: (a) Flux-dev written as a bitsandbytes NF4
 # transformer file (block 64, no double quantization: flux1-dev-bnb-nf4-v2's layout) beside a
 # VAE file and a text-encoder file, driven as phase 5; (b) fp8-e4m3 weight storage; (c) Chroma
-# (lodestones/Chroma: 1024², Euler "simple", 26 steps, CFG 4 with a negative prompt). A Chroma
+# (lodestones/Chroma: 1024², Euler "simple", CHROMA_STEPS, CFG 4 with a negative prompt). A Chroma
 # request: 26 model calls at CFG batch 2, each 19 + 38 joint attentions, then the decode
 FLUX_FILES_DIR = "logs/chip_smoke_flux_files"
-CHROMA_STEPS, CHROMA_CFG, CHROMA_NEGATIVE = 26, 4.0, "blurry, low quality"
+CHROMA_STEPS, CHROMA_CFG, CHROMA_NEGATIVE = 10, 4.0, "blurry, low quality"  # 26, cut (PR 24)
 CHROMA_PER_REQUEST = {"flash_attention": CHROMA_STEPS * (19 + 38) + 1, "gn_silu_conv3x3": 28,
                       "dequant_matmul": 0}
 FP8_PER_REQUEST = {"flash_attention": FLUX_STEPS * (19 + 38) + 1, "gn_silu_conv3x3": 28,
@@ -977,6 +1011,52 @@ FLASH_SHAPES += [s for s in INTERROGATE_FLASH_SHAPES if s not in FLASH_SHAPES]
 GN_CONV_SHAPES += INTERROGATE_CONV_SHAPES
 INTERROGATE_ROWS = (INTERROGATE_FLASH_SHAPES + EXTRAS_ROWS[0],
                     INTERROGATE_CONV_SHAPES + EXTRAS_ROWS[1])
+
+# phase 24, OneFormer, DensePose and the Forge Spaces: OneFormer Swin-L (ADE20K and COCO),
+# DensePose R50-FPN DeepLab, U²-Net, Sapiens-1B (8 blocks in the whole run, 40 under --spaces),
+# BLIP base and DeepDanbooru made on the card from a seed and written under SPACES_DIR in their
+# files' key spaces; each annotator through the registry on a seeded 512² image; Sapiens against
+# plain flash; the four port Spaces as child processes through /sdapi/v1/spaces/launch; an SDXL
+# request (1024², DPM++ 2M Karras, CFG 7, seed 1; 4 steps in the whole run, 20 under --spaces)
+# with a seg_ofade20k unit beside its witness
+SPACES_STEPS = 4  # 20 under --spaces
+SPACES_DIR = "logs/chip_smoke_spaces"
+SAPIENS_FLASH = 40  # Sapiens-1B's blocks: one flash launch a block at q(1,24,3072,64)
+SAPIENS_CUT = 8  # its blocks in the whole run, for the time limit
+SPACE_NAMES = ("forge_space_example", "forge_space_sapiens_normal", "forge_space_birefnet",
+               "forge_space_florence_2")
+# (synth function, its file under SPACES_DIR/models, its arguments, the file's dtype): OneFormer's
+# as detectron2 pickles its weights (under `model`), Sapiens-1B as its published bf16 export
+SPACES_FILES = [
+    ("synth_oneformer_sd", "oneformer/250_16_swin_l_oneformer_ade20k_160k.pth", {},
+     torch.float32),
+    ("synth_oneformer_sd", "oneformer/150_16_swin_l_oneformer_coco_100ep.pth",
+     dict(queries=150, classes=133), torch.float32),
+    ("synth_densepose_sd", "densepose/densepose_rcnn_R_50_FPN_DL_s1x.safetensors", {},
+     torch.float32),
+    ("synth_u2net_sd", "u2net/u2net.safetensors", {}, torch.float32),
+    ("synth_sapiens_sd", "sapiens/sapiens_1b_normal_render_people_bf16.safetensors", {},
+     torch.bfloat16),
+    ("synth_blip_sd", "BLIP/model_base_caption_capfilt_large.safetensors", {}, torch.float32),
+    ("synth_deepbooru_sd", "torch_deepdanbooru/model-resnet_custom_v3.pt", {}, torch.float32),
+]
+ONEFORMER_ENTRIES = {"seg_ofade20k": "ade20k", "seg_ofcoco": "coco"}
+DENSEPOSE_ENTRIES = {"densepose (pruple bg & purple torso)": "viridis",
+                     "densepose_parula (black bg & blue torso)": "parula"}
+SPACES_FLASH_SHAPES = [((1, 24, 3072, 64), 3072, True)]  # Sapiens-1B at the Space's 1024×768
+FLASH_SHAPES += [s for s in SPACES_FLASH_SHAPES if s not in FLASH_SHAPES]
+SPACES_ROWS = (SPACES_FLASH_SHAPES + EXTRAS_ROWS[0], EXTRAS_ROWS[1])
+
+
+def spaces_counts(steps: int, sapiens_blocks: int = SAPIENS_CUT):
+    """Phase 24's launches by label: a detect of OneFormer, DensePose or U²-Net (none), a
+    Sapiens forward, a BLIP caption, the witness and the seg_ofade20k unit's request (phase
+    21's ControlNet request: OneFormer launches no kernel)."""
+    counts = surface_counts(steps)
+    none = {"flash_attention": 0, "gn_silu_conv3x3": 0, "dequant_matmul": 0}
+    return {"detect": none, "sapiens": dict(none, flash_attention=sapiens_blocks),
+            "caption": dict(none, flash_attention=BLIP_FLASH), "witness": counts["witness"],
+            "ControlNetScript": counts["ControlNetScript"]}
 
 
 def marigold_counts(steps: int):
@@ -1341,7 +1421,7 @@ def phase_kernels(gen: torch.Generator, rows: str = "all"):
                        "extras": (EXTRAS_ROWS[0] + EXTRAS_HIRES_ROWS[0],
                                   EXTRAS_ROWS[1] + EXTRAS_HIRES_ROWS[1]),
                        "surface": EXTRAS_ROWS, "annotators": ANNOTATORS_ROWS,
-                       "interrogate": INTERROGATE_ROWS}[rows]
+                       "interrogate": INTERROGATE_ROWS, "spaces": SPACES_ROWS}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
@@ -2026,7 +2106,7 @@ def phase_config5(engine, gen: torch.Generator):
 
 
 def config2_request(engine, seed: int, label: str, **fields):
-    """BASELINE config 2's first pass (1024², DPM++ 2M Karras, 30 steps, CFG
+    """BASELINE config 2's first pass (1024², DPM++ 2M Karras, SDXL_STEPS, CFG
     7) with `fields` (the hires fix, the refiner) → its image."""
     from forge_tpu_torch.pipeline.processing import Processing, process_images
 
@@ -5246,6 +5326,386 @@ def phase_interrogate(engine, gen: torch.Generator, steps: int = INTERROGATE_STE
     return total
 
 
+def write_spaces_files(work: str, sapiens_blocks: int):
+    """Every network of phase 24 at its published widths (Sapiens-1B at `sapiens_blocks`
+    blocks), made on the card from a seed and written under `work`/models in its file's key
+    space, with BLIP's seeded vocab.txt and DeepDanbooru's seeded tag names → bytes."""
+    from forge_tpu_torch.core import synth_annotators
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.core.synth import DeviceFill, LazyTensor
+
+    total = 0
+    for seed, (fn, rel, kw, dtype) in enumerate(SPACES_FILES):
+        path = os.path.join(work, "models", rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if fn == "synth_sapiens_sd":
+            kw = dict(kw, depth=sapiens_blocks)
+        sd = getattr(synth_annotators, fn)(fill=DeviceFill("cuda", seed=240 + seed), **kw)
+        if fn == "synth_oneformer_sd":
+            # at the synth's scale every query attends near-uniformly and the map takes one
+            # class: the decoder's attention ×8, the class embedding ×4 and the mask embedding's
+            # last layer ×16 give it several on some seeds (CPU probes at 640²: ADE20K's 3
+            # classes, COCO's 1)
+            pred = "sem_seg_head.predictor."
+            for key in sd:
+                if key.startswith(pred) and key.endswith("in_proj_weight"):
+                    sd[key] = synth_annotators.scaled(sd[key], 8.0)
+            for key, gain in (("class_embed.weight", 4.0), ("mask_embed.layers.2.weight", 16.0)):
+                sd[pred + key] = synth_annotators.scaled(sd[pred + key], gain)
+        if rel.endswith((".pt", ".pth")):
+            def tensor(v, _dtype=dtype):
+                t = v.materialize() if isinstance(v, LazyTensor) else torch.as_tensor(v)
+                return (t.to(_dtype) if t.is_floating_point() else t).cpu()
+
+            obj = {k: tensor(v) for k, v in sd.items()}
+            if fn == "synth_oneformer_sd":  # detectron2's checkpointer: the weights under `model`
+                obj = {"model": obj, "iteration": 160000}
+            if fn == "synth_deepbooru_sd":
+                obj["tags"] = synth_annotators.synth_deepbooru_tags()
+            torch.save(obj, path)
+        else:
+            save_safetensors({k: v.to(dtype) if isinstance(v, LazyTensor) else v
+                              for k, v in sd.items()}, path)
+        total += os.path.getsize(path)
+    with open(os.path.join(work, "models", "BLIP", "vocab.txt"), "w") as f:
+        f.write("\n".join(synth_annotators.synth_wordpieces()) + "\n")
+    return total
+
+
+def install_spaces(models: str, dtype=None, base=None):
+    """Phase 24's OneFormer, DensePose, Sapiens and U²-Net objects reading `models`, in
+    `dtype` (each network's own where None), the detectors in their modules' globals →
+    {name: the object}. Where `base` (an f32 install) holds a network loaded, its weights are
+    cast on the card instead of read again, or its object taken where the dtype is f32."""
+    from forge_tpu_torch.models.sapiens import SapiensNormal
+    from forge_tpu_torch.models.u2net import U2NetMatter
+    from forge_tpu_torch.preprocessors import densepose, oneformer
+
+    kw = dict(device="cuda", dtype=dtype)
+    out = {kind: oneformer.OneformerDetector(kind, model_dir=os.path.join(models, "oneformer"),
+                                             **kw) for kind in ONEFORMER_ENTRIES.values()}
+    out["densepose"] = densepose.DensePoseDetector(model_dir=os.path.join(models, "densepose"),
+                                                   **kw)
+    out["sapiens"] = SapiensNormal(model_dir=os.path.join(models, "sapiens"),
+                                   mask_model_dir=os.path.join(models, "u2net"), **kw)
+    out["u2net"] = U2NetMatter(model_dir=os.path.join(models, "u2net"), **kw)
+    for name, obj in list(out.items()) if base is not None else ():
+        if base[name].params is None:
+            continue
+        if obj.placement()[1] == base[name].placement()[1]:
+            out[name] = base[name]
+        else:
+            obj.params = cast_tree(base[name].params, obj.placement()[1])
+    out["sapiens"]._matter = out["u2net"]
+    oneformer._DETECTORS.update({kind: out[kind] for kind in ONEFORMER_ENTRIES.values()})
+    densepose._DETECTOR = out["densepose"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spaces(engine, gen: torch.Generator, steps: int = SPACES_STEPS, full: bool = False):
+    """Phase 24: (a) seg_ofade20k and seg_ofcoco, (b) both DensePose entries, (c) Sapiens-1B
+    against plain flash and the U²-Net mask, (d) the four port Spaces as child processes on the
+    card through /sdapi/v1/spaces/launch, each /process against the same call in-process, (e)
+    an SDXL request with a seg_ofade20k unit beside its witness. `full`: Sapiens at its 40
+    blocks and every network also in bf16 against f32."""
+    import argparse
+    import base64
+    import importlib
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from forge_tpu_torch import preprocessors as registry
+    from forge_tpu_torch.api.server import create_server
+    from forge_tpu_torch.core.synth import DeviceFill, synth_controlnet_sd
+    from forge_tpu_torch.extensions.controlnet import ControlNetScript
+    from forge_tpu_torch.models import sapiens as sapiens_mod
+    from forge_tpu_torch.models.sapiens import SapiensNormal
+    from forge_tpu_torch.models.u2net import U2NetMatter
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline import images as images_mod
+    from forge_tpu_torch.pipeline import processing as proc
+    from forge_tpu_torch.preprocessors import densepose, oneformer
+    from forge_tpu_torch.preprocessors.cv import bilinear_resize
+    from forge_tpu_torch.runtime import profiling
+    from forge_tpu_torch.runtime import scripts as scripts_mod
+    from forge_tpu_torch.runtime.models import ModelManager
+
+    t_phase = time.perf_counter()
+    blocks = SAPIENS_FLASH if full else SAPIENS_CUT
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), SPACES_DIR)
+    models = os.path.join(work, "models")
+    shutil.rmtree(work, ignore_errors=True)
+    per_label, total = spaces_counts(steps, blocks), {}
+    saved = (dict(oneformer._DETECTORS), densepose._DETECTOR)
+    env_keys = ("SAPIENS_MODEL_DIR", "U2NET_MODEL_DIR", "CAPTION_MODEL_ROOT")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    server = manager = None
+    launched = []
+
+    def since():
+        return f"{time.perf_counter() - t_phase:.2f} s into the phase"
+
+    def measured(label, fn, counts, traced=False):
+        """fn() synchronised: (its output, seconds, peak memory above the held[, busy share]),
+        its launches held to per_label[counts]."""
+        zero_counts()
+        mon = profiling.MemoryMonitor(device="cuda")
+        mon.start()
+        with profiling.trace(logdir=None, enabled=traced) as tr:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        peak = mon.stop()["peak"] - mon.baseline
+        launches = read_counts()
+        add_counts(total, launches)
+        check_counts(launches, per_label[counts], 1, f"spaces {label}")
+        if traced:
+            return out, secs, peak, f"busy {100 * tr.busy:.2f} % ({tr.device_events} device events)"
+        return out, secs, peak
+
+    try:
+        nbytes, _ = timed("spaces: the networks made on the card and written",
+                          lambda: write_spaces_files(work, blocks))
+        log(f"spaces: {nbytes / 2**30:.3f} GiB of files under {SPACES_DIR} (Sapiens-1B at "
+            f"{blocks} blocks)")
+        source = np.random.default_rng(24).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+        source = np.asarray(bilinear_resize(bilinear_resize(source, 64, 64), 512, 512), np.uint8)
+
+        # (a) OneFormer and (b) DensePose through the registry: f32 first, then bf16 (full)
+        # and each network's own dtype
+        def run_all(nets):
+            maps = {e: registry.PREPROCESSORS[e](source, 512, 0, 0)
+                    for e in list(ONEFORMER_ENTRIES) + list(DENSEPOSE_ENTRIES)}
+            return maps, nets["densepose"].detections(source)
+
+        def same_detections(a, b):
+            return len(a) == len(b) and all(x[0] == y[0] and np.array_equal(x[1], y[1])
+                                            for x, y in zip(a, b))
+
+        nets32 = install_spaces(models, torch.float32)
+        maps32, dets32 = run_all(nets32)
+        log(f"spaces (a, b) at f32 {since()}; DensePose {len(dets32)} boxes: "
+            + ", ".join(str(b) for b, _ in dets32))
+        if full:
+            maps16, dets16 = run_all(install_spaces(models, torch.bfloat16, nets32))
+            for e in maps32:
+                log(f"spaces (a, b) bf16 {e}: map {'=' if np.array_equal(maps16[e], maps32[e]) else '≠'}"
+                    f" f32's, {map_psnr(maps16[e], maps32[e]):.2f} dB, "
+                    f"{100 * (maps16[e] != maps32[e]).any(-1).mean():.3f} % of the pixels differ")
+            log(f"spaces (b) bf16 DensePose: {len(dets16)} boxes, boxes and labels "
+                f"{'=' if same_detections(dets16, dets32) else '≠'} f32's")
+        nets = install_spaces(models, base=nets32)
+        del nets32
+        for entry, kind in list(ONEFORMER_ENTRIES.items()) + list(DENSEPOSE_ENTRIES.items()):
+            det = nets[kind] if kind in ONEFORMER_ENTRIES.values() else nets["densepose"]
+            first = registry.PREPROCESSORS[entry](source, 512, 0, 0)
+            again, secs, peak, share = measured(
+                entry, lambda _e=entry: registry.PREPROCESSORS[_e](source, 512, 0, 0), "detect",
+                traced=True)
+            dtype = det.placement()[1]
+            check(registry.PREPROCESSORS[entry].ported, f"spaces: {entry} is ported")
+            check(again.shape == (512, 512, 3) and np.isfinite(again).all()
+                  and np.array_equal(again * 255.0, np.rint(again * 255.0)),
+                  f"spaces: {entry}'s map is 512²×3 uint8 levels")
+            check(np.array_equal(first, again), f"spaces: {entry} reruns byte-identical")
+            check(np.array_equal(again, maps32[entry]), f"spaces: {entry} in {dtype} = f32's map")
+            colours = len(np.unique(again.reshape(-1, 3), axis=0))
+            if entry in DENSEPOSE_ENTRIES:  # the background and the parts; a random OneFormer's
+                # map may hold one class (printed)
+                check(colours >= 2, f"spaces: {entry}'s map holds two colours or more")
+            log(f"spaces ({'a' if kind in ONEFORMER_ENTRIES.values() else 'b'}) {entry:42s} "
+                f"dtype {str(dtype)[6:]:8s} {secs:.4f} s, peak +{peak / 2**20:.1f} MiB, the card "
+                f"alone traced, {share}; {colours} colours")
+        check(same_detections(nets["densepose"].detections(source), dets32) and len(dets32) > 0,
+              "spaces (b): DensePose's boxes and labels in its dtype = f32's")
+        log(f"spaces (a, b) done {since()}")
+
+        # (c) Sapiens-1B's forward against plain flash, its normals and the U²-Net mask
+        sap, matter = nets["sapiens"], nets["u2net"]
+        sap.load()
+        feed = (images_mod.cv2_linear_resize(source, sapiens_mod.INPUT_W, sapiens_mod.INPUT_H)
+                .astype(np.float32) / 255.0 - sapiens_mod.MEAN) / sapiens_mod.STD
+        x = torch.from_numpy(np.ascontiguousarray(feed.transpose(2, 0, 1)[None])).to(
+            *sap.placement())
+        with torch.no_grad():
+            sapiens_mod.sapiens_apply(sap.params, x)  # warm
+            fused, f_secs, f_peak = measured("Sapiens forward", lambda: sapiens_mod.sapiens_apply(
+                sap.params, x), "sapiens")
+            launches = read_counts()
+            with plain_versions():
+                plain = sapiens_mod.sapiens_apply(sap.params, x)
+        value = psnr(fused, plain)
+        log(f"spaces (c) Sapiens-1B ({blocks} blocks) {str(sap.placement()[1])[6:]} forward "
+            f"{tuple(fused.shape)}: {f_secs:.4f} s, peak +{f_peak / 2**30:.2f} GiB; flash "
+            f"{launches['flash_attention']} (wgmma {launches['flash_attention[wgmma]']}); kernels "
+            f"vs plain PSNR {value:.2f} dB (bound {PSNR_BOUND})")
+        check(launches["flash_attention"] == blocks,
+              f"spaces (c): exactly {blocks} flash launches a Sapiens forward")
+        check(value >= PSNR_BOUND, f"spaces (c): Sapiens kernels vs plain ≥ {PSNR_BOUND} dB")
+        del fused, plain, x
+        normals, n_secs, _ = measured("Sapiens normals", lambda: sap.normals(source), "sapiens")
+        mask, m_secs, _ = measured("U²-Net mask", lambda: matter.mask(source), "detect")
+        matter32 = U2NetMatter(os.path.join(models, "u2net"), device="cuda", dtype=torch.float32)
+        sap32 = SapiensNormal(os.path.join(models, "sapiens"), device="cuda", dtype=torch.float32)
+        sap32._matter = matter32
+        normals32, mask32 = sap32.normals(source), matter32.mask(source)
+        del sap32, matter32
+        n_db, m_db = map_psnr(normals / 255.0, normals32 / 255.0), map_psnr(mask, mask32)
+        log(f"spaces (c) the normal map (U²-Net mask on) {n_secs:.4f} s, "
+            f"{str(sap.placement()[1])[6:]} vs f32 {n_db:.2f} dB; the U²-Net mask {m_secs:.4f} s, "
+            f"{str(matter.placement()[1])[6:]} vs f32 {m_db:.2f} dB (bar {ANNOTATOR_BAR})")
+        check(normals.shape == (512, 512, 3) and normals.dtype == np.uint8 and normals.std() > 0,
+              "spaces (c): the normal map is 512²×3 uint8, not flat")
+        check(n_db >= ANNOTATOR_BAR and m_db >= ANNOTATOR_BAR,
+              f"spaces (c): Sapiens and U²-Net in their dtypes against f32 ≥ {ANNOTATOR_BAR} dB")
+        log(f"spaces (c) done {since()}")
+
+        # (d) the four port Spaces, each a child process on the card
+        os.environ.update(SAPIENS_MODEL_DIR=os.path.join(models, "sapiens"),
+                          U2NET_MODEL_DIR=os.path.join(models, "u2net"),
+                          CAPTION_MODEL_ROOT=models)
+        manager = ModelManager(checkpoint_dirs=[], device=engine.device)
+        server = create_server(manager, "127.0.0.1", 0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        png = base64.b64encode(images_mod.encode_png(source)).decode()
+        bodies = {"forge_space_example": {"name": "chip smoke", "intensity": 3},
+                  "forge_space_sapiens_normal": {"image": png, "mask": True},
+                  "forge_space_birefnet": {"image": png, "flat": True, "bg": "#20c05a"},
+                  "forge_space_florence_2": {"image": png, "tags": True}}
+        def launch(name):  # the four at once, as four users' requests would come
+            t = time.perf_counter()
+            return http(base, "/sdapi/v1/spaces/launch", {"name": name})["url"], \
+                time.perf_counter() - t
+
+        launched.extend(SPACE_NAMES)
+        with ThreadPoolExecutor(len(SPACE_NAMES)) as pool:
+            started = dict(zip(SPACE_NAMES, pool.map(launch, SPACE_NAMES)))
+        urls = {name: url for name, (url, _) in started.items()}
+        for name, (url, secs) in started.items():
+            log(f"spaces (d) {name} launched at {url} in {secs:.2f} s")
+        check(len(set(urls.values())) == len(SPACE_NAMES), "spaces (d): four Spaces, four ports")
+        listed = {s["name"]: s for s in http(base, "/sdapi/v1/spaces")["spaces"]}
+        check(all(listed[n]["running"] and listed[n]["url"] == urls[n] for n in SPACE_NAMES),
+              "spaces (d): /sdapi/v1/spaces lists the four running at their URLs")
+
+        def post(name):
+            t = time.perf_counter()
+            answer = http(urls[name], "/process", bodies[name])
+            return answer, time.perf_counter() - t
+
+        with ThreadPoolExecutor(len(SPACE_NAMES)) as pool:
+            answers = dict(zip(SPACE_NAMES, pool.map(post, SPACE_NAMES)))
+        # the same calls in-process: each app's own process() on the state its setup makes (the
+        # f32 networks at f32 on both sides: the forwards turn TF32 off in the child too)
+        for name in SPACE_NAMES:
+            app = importlib.import_module(
+                f"forge_tpu_torch.spaces.{name[len('forge_space_'):]}")
+            ns = argparse.Namespace(device=None, model_root=models, model_dir=os.path.join(
+                models, "sapiens" if "sapiens" in name else "u2net"),
+                mask_model_dir=os.environ["U2NET_MODEL_DIR"])
+            state = app._setup(ns) if hasattr(app, "_setup") else None
+            want = app.process(bodies[name], state)
+            if name == "forge_space_sapiens_normal":
+                bare = app.process(dict(bodies[name], mask=False), state)
+                check(bare["image"] != want["image"],
+                      "spaces (d): the Sapiens Space's masked answer differs from its unmasked one")
+            got, secs = answers[name]
+            if "image" in want:
+                a = images_mod.decode_png(base64.b64decode(got["image"]))[0]
+                b = images_mod.decode_png(base64.b64decode(want["image"]))[0]
+                same = a.shape == b.shape and np.array_equal(a, b)
+                diff = np.abs(a.astype(np.int32) - b) if a.shape == b.shape else np.asarray([-1])
+                what = (f"{a.shape[1]}×{a.shape[0]}×{a.shape[2]} pixels, max diff {diff.max()}, "
+                        f"{100 * (diff != 0).mean():.3f} % of the values differ")
+            else:
+                same = got == want
+                what = ", ".join(f"{k} {'=' if got.get(k) == want.get(k) else '≠'}"
+                                 for k in sorted(set(got) | set(want)))
+                what += f"; {json.dumps(got)[:120]}"
+            log(f"spaces (d) {name} POST /process {secs:.4f} s (the child's first, its load "
+                f"included): {what}, {'=' if same else '≠'} the same call in-process")
+            check(same, f"spaces (d): {name}'s /process = the same call in-process")
+            del state
+        check(set(answers["forge_space_florence_2"][0]) == {"caption", "tags"},
+              "spaces (d): the caption Space answers a caption and tags")
+        for name in SPACE_NAMES:
+            http(base, "/sdapi/v1/spaces/terminate", {"name": name})
+        launched.clear()
+        listed = http(base, "/sdapi/v1/spaces")["spaces"]
+        check(not any(s["running"] for s in listed), "spaces (d): every Space terminated")
+        log(f"spaces (d) done {since()}")
+
+        # (e) an SDXL request with a seg_ofade20k unit through ControlNetScript
+        cldm, _ = timed("spaces (e): a full-width SDXL ControlNet made on the card",
+                        lambda: synth_controlnet_sd(fill=DeviceFill("cuda", seed=24)))
+        image = np.asarray(bilinear_resize(source, 1024, 1024), np.uint8)
+        unit = {"module": "seg_ofade20k", "model": cldm, "image": image, "weight": 1.0,
+                "processor_res": 512}
+        fields = dict(prompt=EXT_PROMPT, negative_prompt="blurry", seed=1, steps=steps,
+                      cfg_scale=7.0, width=1024, height=1024, sampler_name="DPM++ 2M",
+                      scheduler="karras")
+        witness, w_secs, _ = measured("witness", lambda: proc.process_images(
+            engine, proc.Processing(**fields)), "witness")
+        runner = scripts_mod.ScriptRunner()
+        runner.register(ControlNetScript(device=engine.device, dtype=engine.compute_dtype))
+        p = proc.Processing(**fields, scripts=runner)
+        p.controlnet_units = [unit]
+        res, s_secs, _ = measured("ControlNetScript", lambda: proc.process_images(engine, p),
+                                  "ControlNetScript")
+        img = res.images[0]
+        check(img.shape == (1024, 1024, 3) and img.dtype == np.uint8 and img.std() > 0
+              and not np.array_equal(img, witness.images[0]),
+              "spaces (e): one 1024² image, moved by the unit")
+        fmap = registry.PREPROCESSORS["seg_ofade20k"](image, 512, 0, 0)
+        want = np.clip(bilinear_resize(fmap, 1024, 1024), 0.0, 1.0)
+        hint = p.controlnets[0].hint[0].float().cpu().numpy().transpose(1, 2, 0)
+        check(np.array_equal(hint, want), "spaces (e): the hint = the registry's map at the "
+                                          "request's size")
+        log(f"spaces (e) seg_ofade20k unit at {steps} steps: {s_secs:.4f} s against the "
+            f"witness's {w_secs:.4f} s ({s_secs / w_secs:.3f}x); PSNR vs the witness "
+            f"{image_psnr(img, witness.images[0]):.2f} dB")
+        cond = engine.get_learned_conditioning([EXT_PROMPT, "blurry"], 1024, 1024)
+        x = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(engine.compute_dtype)
+        ts = torch.tensor([999.0, 400.0], device="cuda")
+        apply = engine.unet_apply_fn(controlnets=p.controlnets)
+        with torch.no_grad():
+            fused = apply(engine.loaded.unet, x, ts, cond["context"], y=cond["y"], t_host=999.0)
+            with plain_versions():
+                plain = apply(engine.loaded.unet, x, ts, cond["context"], y=cond["y"],
+                              t_host=999.0)
+        value = psnr(fused, plain)
+        log(f"spaces (e) sdxl unet + controlnet (OneFormer hint) 128x128 B=2 bf16: kernels vs "
+            f"plain PSNR {value:.2f} dB (bound {PSNR_BOUND})")
+        check(value >= PSNR_BOUND, f"spaces (e): UNet + ControlNet PSNR ≥ {PSNR_BOUND} dB")
+        del cldm, unit, p, res, witness, x, fused, plain, cond
+    finally:
+        if server is not None:
+            for name in launched:
+                server.api.space_manager.terminate(name)
+            server.api.space_manager.terminate_all()
+            server.shutdown()
+            server.server_close()
+            manager.close()
+        oneformer._DETECTORS.clear()
+        oneformer._DETECTORS.update(saved[0])
+        densepose._DETECTOR = saved[1]
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"spaces phase 24 at {steps} steps: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under runtime/profiling.py `trace` (the card
     alone traced) with no file written: device time by kernel, and the busy
@@ -5352,6 +5812,11 @@ def main():
                          "(interrogation, the remaining annotators, Marigold against plain, a "
                          "depth_marigold unit on SDXL, the extras route's focal crop) at 20 "
                          "steps only, with no result")
+    ap.add_argument("--spaces", action="store_true",
+                    help="run phase 1, phase 2's Sapiens and SDXL rows and phase 24 (OneFormer, "
+                         "DensePose, Sapiens-1B at its 40 blocks against plain, the U²-Net mask, "
+                         "the four port Spaces as child processes and a seg_ofade20k unit on "
+                         "SDXL) at 20 steps only, with no result")
     ap.add_argument("--surface", action="store_true",
                     help="run phase 1, phase 2's SDXL rows and phase 21 (ControlNetScript, saving, "
                          "the event log and the management and web UI routes on SDXL) at 20 steps "
@@ -5416,7 +5881,8 @@ def main():
                             else "extras" if args.extras
                             else "surface" if args.surface
                             else "annotators" if args.annotators
-                            else "interrogate" if args.interrogate else "all")
+                            else "interrogate" if args.interrogate
+                            else "spaces" if args.spaces else "all")
     done("kernels (phase 2)", t)
     if args.kernels:
         log("kernels only: phases 1-2 passed")
@@ -5441,7 +5907,10 @@ def main():
                      "phases 1, 2 (the Depth Anything and SDXL rows) and 22"),
                  "interrogate": ("interrogate", lambda e: phase_interrogate(
                      e, gen, steps=5 * INTERROGATE_STEPS, full=True),
-                     "phases 1, 2 (the BLIP, Marigold and SDXL rows) and 23")}
+                     "phases 1, 2 (the BLIP, Marigold and SDXL rows) and 23"),
+                 "spaces": ("spaces", lambda e: phase_spaces(e, gen, steps=5 * SPACES_STEPS,
+                                                             full=True),
+                            "phases 1, 2 (the Sapiens and SDXL rows) and 24")}
     for flag, (name, run, what) in one_phase.items():
         if getattr(args, flag):
             if flag == "extensions":
@@ -5491,7 +5960,8 @@ def main():
                            ("extras", "extras", phase_extras),
                            ("surface", "surface", phase_surface),
                            ("annotators", "annotators", phase_annotators),
-                           ("interrogate", "interrogate", phase_interrogate)):
+                           ("interrogate", "interrogate", phase_interrogate),
+                           ("spaces", "spaces", phase_spaces)):
         t = time.perf_counter()
         paths[key] = run(engine, gen)
         done(name, t)

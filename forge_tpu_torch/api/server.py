@@ -43,9 +43,11 @@ the launcher's loop starts it again. `create_server` fires the `app_started` eve
 and `serve` `script_unloaded` once it stops serving. Every answered
 `/sdapi` route logs an `api_request` event and a server error an
 `api_error` event (runtime/logging.py). An image
-that is not an 8-bit PNG answers 415 with its format's name. Routes of the reference's table that
-this port does not answer yet (the Spaces) answer 501 with
-the ROADMAP item that ports them; none answers as if it had worked.
+that is not an 8-bit PNG answers 415 with its format's name. `/sdapi/v1/spaces`, `/spaces/launch` and
+`/spaces/terminate` list, start and stop the Forge Spaces of
+extensions-builtin/ and extensions/ (runtime/spaces.py), each in a child
+process on the card; a bundled Space the port does not run yet answers
+501 naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -283,14 +285,6 @@ LATENT_UPSCALE_MODES = ("Latent", "Latent (antialiased)", "Latent (bicubic)",
                         "Latent (bicubic antialiased)", "Latent (nearest)",
                         "Latent (nearest-exact)")
 
-# the reference's routes this port does not answer yet → the ROADMAP item that ports them
-_ROADMAP_SPACES = "queue 1 item 9: spaces"
-UNPORTED_ROUTES = {
-    ("GET", "/sdapi/v1/spaces"): _ROADMAP_SPACES,
-    ("POST", "/sdapi/v1/spaces/launch"): _ROADMAP_SPACES,
-    ("POST", "/sdapi/v1/spaces/terminate"): _ROADMAP_SPACES,
-}
-
 
 def _meminfo() -> Dict[str, int]:
     """The host's RAM from /proc/meminfo: free = MemAvailable, used = total − free."""
@@ -363,20 +357,40 @@ class Api:
             ("GET", "/"): self.index,
             ("GET", "/sdapi/v1/localization"): self.get_localization,
             ("GET", "/sdapi/v1/ui-tabs"): lambda q, b: self.custom_tabs,
+            ("GET", "/sdapi/v1/spaces"): self.spaces_list,
+            ("POST", "/sdapi/v1/spaces/launch"): self.spaces_launch,
+            ("POST", "/sdapi/v1/spaces/terminate"): self.spaces_terminate,
         }
-        for route, item in UNPORTED_ROUTES.items():
-            self.routes[route] = self._unported(route, item)
         self._server: Optional[ThreadingHTTPServer] = None
+        self._space_manager = None
+        self._space_lock = threading.Lock()
         self._standalone_loras = None
         self.custom_tabs = []  # what the ui_tabs callbacks gave create_server
 
-    @staticmethod
-    def _unported(route, item):
-        def answer(query, body):
-            raise ApiError(501, f"{route[0]} {route[1]} is not ported to forge_tpu_torch yet "
-                                f"(ROADMAP.md {item})")
+    # -- Forge Spaces (runtime/spaces.py) -----------------------------------
 
-        return answer
+    @property
+    def space_manager(self):
+        """One manager for every handler thread, made on the first Spaces request."""
+        with self._space_lock:
+            if self._space_manager is None:
+                from ..runtime.spaces import SpaceManager
+
+                self._space_manager = SpaceManager(["extensions-builtin", "extensions"])
+        return self._space_manager
+
+    def spaces_list(self, query, body):
+        return {"spaces": self.space_manager.list()}
+
+    def spaces_launch(self, query, body):
+        try:
+            return {"url": self.space_manager.launch((body or {}).get("name"))}
+        except NotImplementedError as e:  # a bundled Space the port does not run yet
+            raise ApiError(501, str(e)) from e
+
+    def spaces_terminate(self, query, body):
+        self.space_manager.terminate((body or {}).get("name"))
+        return {}
 
     # -- generation ---------------------------------------------------------
 

@@ -22,7 +22,11 @@ DeepDanbooru's resnet_custom_v3 (179 convs, 9176 tags, seeded names some of
 them `rating:`). And LeReS's res101 (ResNeXt101-32x8d), ZoeD_M12_N
 (BEiT-L/16), Marigold (SD2's UNet on 8 channels, its VAE, OpenCLIP-H's
 text tower), UniFormer-S with UPerHead, the anime-face MobileNetV2 UNet
-and big-lama's FFC generator.
+and big-lama's FFC generator. For OneFormer, DensePose and the Spaces:
+OneFormer Swin-L (ADE20K and COCO heads), DensePose R50-FPN DeepLab (its
+RPN head and box predictor at detectron2's initialization), the full
+U²-Net and Sapiens-1B's normal estimator. `scaled` multiplies a made weight
+(numpy or lazy) by a factor.
 """
 
 from __future__ import annotations
@@ -32,9 +36,16 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from .synth import FillSpec, _Net
+from .synth import FillSpec, LazyTensor, _Net
 
 RELU_GAIN = math.sqrt(2.0)
+
+
+def scaled(v, factor: float):
+    """A made weight (numpy or a `LazyTensor`) times `factor`."""
+    if isinstance(v, LazyTensor):
+        return LazyTensor(v.shape, lambda: v.materialize() * factor, v.dtype)
+    return v * np.float32(factor)
 
 
 def synth_depth_anything_sd(width: int = 1024, depth: int = 24, features: int = 256,
@@ -894,4 +905,235 @@ def synth_lama_sd(ngf: int = 64, downs: int = 3, blocks: int = 18, ratio: float 
         idx += 3  # the ReLU
         c //= 2
     n.conv(f"model.{idx + 1}", 3, ngf, k=7)  # after the ReflectionPad2d
+    return n.sd
+
+
+def _mha_sd(n: _Net, key: str, dim: int):
+    """torch's nn.MultiheadAttention: the fused in_proj and out_proj."""
+    n.sd[key + ".in_proj_weight"] = n.w(3 * dim, dim)
+    n.sd[key + ".in_proj_bias"] = n.f.zeros(3 * dim)
+    n.linear(key + ".out_proj", dim, dim)
+
+
+def synth_oneformer_sd(embed: int = 192, depths: Sequence[int] = (2, 2, 18, 2),
+                       heads: Sequence[int] = (6, 12, 24, 48), window: int = 12,
+                       conv_dim: int = 256, mask_dim: int = 256, enc_layers: int = 6,
+                       enc_ffn: int = 1024, points: int = 4, hidden: int = 256,
+                       dec_layers: int = 9, class_dec_layers: int = 2, ffn: int = 2048,
+                       queries: int = 250, classes: int = 150, task_len: int = 77,
+                       n_ctx: int = 16, fill: FillSpec = "random",
+                       seed: int = 51) -> Dict[str, object]:
+    """A OneFormer Swin-L detectron2 checkpoint's `model` (oneformer_swin_large
+    configs: embed 192, depths 2-2-18-2, heads 6-12-24-48, window 12; the
+    MSDeformAttn pixel decoder at conv and mask dim 256 with 6 encoder layers
+    of FFN 1024, 8 heads, 4 points on 3 levels; the decoder at hidden 256,
+    FFN 2048, 8 heads, the config's DEC_LAYERS 10 less one as Mask2Former's
+    from_config takes it, the class transformer's 2 layers, task_mlp on the
+    77 task ids). ADE20K: 250 queries, 150 classes; COCO: 150, 133. The
+    Swin blocks carry their `relative_position_index` buffers and the file a
+    `prompt_ctx` of the text branch, both of which the loaders drop."""
+    from .synth import _swin_index
+
+    n = _Net(fill, seed)
+    bb = "backbone."
+    n.conv(bb + "patch_embed.proj", embed, 3, k=4)
+    n.norm(bb + "patch_embed.norm", embed)
+    dims = [embed * 2 ** i for i in range(len(depths))]
+    for i, (dim, depth, h) in enumerate(zip(dims, depths, heads)):
+        for j in range(depth):
+            b = f"{bb}layers.{i}.blocks.{j}."
+            n.norm(b + "norm1", dim)
+            n.table(b + "attn.relative_position_bias_table", (2 * window - 1) ** 2, h)
+            n.sd[b + "attn.relative_position_index"] = _swin_index(window)
+            n.linear(b + "attn.qkv", 3 * dim, dim)
+            n.linear(b + "attn.proj", dim, dim)
+            n.norm(b + "norm2", dim)
+            n.linear(b + "mlp.fc1", 4 * dim, dim)
+            n.linear(b + "mlp.fc2", dim, 4 * dim)
+        if i < len(depths) - 1:
+            n.linear(f"{bb}layers.{i}.downsample.reduction", 2 * dim, 4 * dim, bias=False)
+            n.norm(f"{bb}layers.{i}.downsample.norm", 4 * dim)
+        n.norm(f"{bb}norm{i}", dim)
+    pd = "sem_seg_head.pixel_decoder."
+    for i, dim in enumerate(dims[:0:-1]):  # res5, res4, res3
+        n.conv(f"{pd}input_proj.{i}.0", conv_dim, dim, k=1)
+        n.norm(f"{pd}input_proj.{i}.1", conv_dim)
+    levels = len(dims) - 1
+    n.table(pd + "transformer.level_embed", levels, conv_dim, scale=1.0)
+    for i in range(enc_layers):
+        e = f"{pd}transformer.encoder.layers.{i}."
+        n.linear(e + "self_attn.sampling_offsets", 8 * levels * points * 2, conv_dim)
+        n.linear(e + "self_attn.attention_weights", 8 * levels * points, conv_dim)
+        n.linear(e + "self_attn.value_proj", conv_dim, conv_dim)
+        n.linear(e + "self_attn.output_proj", conv_dim, conv_dim)
+        n.norm(e + "norm1", conv_dim)
+        n.linear(e + "linear1", enc_ffn, conv_dim)
+        n.linear(e + "linear2", conv_dim, enc_ffn)
+        n.norm(e + "norm2", conv_dim)
+    n.conv(pd + "adapter_1", conv_dim, dims[0], k=1, bias=False)
+    n.norm(pd + "adapter_1.norm", conv_dim)
+    n.conv(pd + "layer_1", conv_dim, conv_dim, bias=False)
+    n.norm(pd + "layer_1.norm", conv_dim)
+    n.conv(pd + "mask_features", mask_dim, conv_dim, k=1)
+    pr = "sem_seg_head.predictor."
+    n.conv(pr + "class_input_proj", hidden, mask_dim, k=1)
+    for i in range(class_dec_layers):
+        c = f"{pr}class_transformer.decoder.layers.{i}."
+        _mha_sd(n, c + "self_attn", hidden)
+        _mha_sd(n, c + "multihead_attn", hidden)
+        n.linear(c + "linear1", ffn, hidden)
+        n.linear(c + "linear2", hidden, ffn)
+        for k in (1, 2, 3):
+            n.norm(f"{c}norm{k}", hidden)
+    n.norm(pr + "class_transformer.decoder.norm", hidden)
+    for i in range(dec_layers):
+        _mha_sd(n, f"{pr}transformer_self_attention_layers.{i}.self_attn", hidden)
+        n.norm(f"{pr}transformer_self_attention_layers.{i}.norm", hidden)
+        _mha_sd(n, f"{pr}transformer_cross_attention_layers.{i}.multihead_attn", hidden)
+        n.norm(f"{pr}transformer_cross_attention_layers.{i}.norm", hidden)
+        n.linear(f"{pr}transformer_ffn_layers.{i}.linear1", ffn, hidden)
+        n.linear(f"{pr}transformer_ffn_layers.{i}.linear2", hidden, ffn)
+        n.norm(f"{pr}transformer_ffn_layers.{i}.norm", hidden)
+    n.norm(pr + "decoder_norm", hidden)
+    n.table(pr + "query_embed.weight", queries, hidden, scale=1.0)
+    n.table(pr + "level_embed.weight", levels, hidden, scale=1.0)
+    n.linear(pr + "class_embed", classes + 1, hidden)
+    for i in range(3):
+        n.linear(f"{pr}mask_embed.layers.{i}", hidden if i < 2 else mask_dim, hidden)
+    n.linear("task_mlp.layers.0", hidden, task_len)
+    n.linear("task_mlp.layers.1", hidden, hidden)
+    n.table("prompt_ctx.weight", n_ctx, hidden)
+    return n.sd
+
+
+def synth_densepose_sd(layers: Sequence[int] = (3, 4, 6, 3), stem: int = 64, fpn: int = 256,
+                       box_fc: int = 1024, head: int = 512, head_convs: int = 8,
+                       aspp: int = 256, pool: int = 7, fine: int = 25, coarse: int = 2,
+                       fill: FillSpec = "random", seed: int = 52) -> Dict[str, object]:
+    """densepose_rcnn_R_50_FPN_DL_s1x in detectron2's keys: ResNet-50 with
+    frozen BatchNorm (`backbone.bottom_up.stem`, `res2`-`res5` of 3, 4, 6, 3
+    bottlenecks, widths 64→256 … 512→2048), the FPN at 256
+    (`fpn_lateral2-5`, `fpn_output2-5`), the RPN head (3 anchors), the box
+    head's two FCs of 1024 on 7×7 pools and its person/background predictor,
+    and the DeepLab head of 512 (8 stacked 3×3 convs, CONV_HEAD_DIM 512) with
+    its four 4×4 transpose-conv predictors (coarse 2, fine 25, u and v 25)
+    at 28×28 pools. The head's ASPP is written as forge_tpu reads it (its
+    branches ASPP1-ASPP4 and ASPP_pool at the input's 256, then `project`)
+    and its convs with biases: detectron2's `ASPP.convs.N` with GroupNorm is
+    a layout the reference cannot read."""
+    n = _Net(fill, seed)
+
+    def conv_bn(key, o, i, k):
+        n.conv(key, o, i, k=k, bias=False)
+        n.bn(key + ".norm", o)
+
+    bu = "backbone.bottom_up."
+    conv_bn(bu + "stem.conv1", stem, 3, 7)
+    # the stem's statistics scaled to the caffe-style input (BGR minus the mean, std 1), as a
+    # trained stem's running variance scales it
+    n.sd[bu + "stem.conv1.norm.running_var"] = scaled(n.f.ones(stem), 64.0 ** 2)
+    cin = stem
+    for s, count in enumerate(layers):
+        mid, out = stem * 2 ** s, stem * 4 * 2 ** s
+        for b in range(count):
+            key = f"{bu}res{s + 2}.{b}."
+            conv_bn(key + "conv1", mid, cin, 1)
+            conv_bn(key + "conv2", mid, mid, 3)
+            conv_bn(key + "conv3", out, mid, 1)
+            if b == 0:
+                conv_bn(key + "shortcut", out, cin, 1)
+            cin = out
+    for lvl in (2, 3, 4, 5):
+        n.conv(f"backbone.fpn_lateral{lvl}", fpn, stem * 4 * 2 ** (lvl - 2), k=1)
+        n.conv(f"backbone.fpn_output{lvl}", fpn, fpn)
+    # the RPN head and the box predictor at detectron2's initialization: N(0, 0.01²) and, the
+    # box deltas, N(0, 0.001²)
+    for key, o, k, std in (("conv", fpn, 3, 0.01), ("objectness_logits", 3, 1, 0.01),
+                           ("anchor_deltas", 12, 1, 0.01)):
+        n.sd[f"proposal_generator.rpn_head.{key}.weight"] = n.f.w(o, fpn, k, k, scale=std)
+        n.sd[f"proposal_generator.rpn_head.{key}.bias"] = n.f.zeros(o)
+    n.linear("roi_heads.box_head.fc1", box_fc, fpn * pool * pool)
+    n.linear("roi_heads.box_head.fc2", box_fc, box_fc)
+    for key, o, std in (("cls_score", 2, 0.01), ("bbox_pred", 4, 0.001)):
+        n.sd[f"roi_heads.box_predictor.{key}.weight"] = n.f.w(o, box_fc, scale=std)
+        n.sd[f"roi_heads.box_predictor.{key}.bias"] = n.f.zeros(o)
+    dh = "roi_heads.densepose_head."
+    n.conv(dh + "ASPP.ASPP1", aspp, fpn, k=1)
+    for i in (2, 3, 4):
+        n.conv(f"{dh}ASPP.ASPP{i}", aspp, fpn)
+    n.conv(dh + "ASPP.ASPP_pool", aspp, fpn, k=1)
+    n.conv(dh + "project", aspp, 5 * aspp, k=1)
+    c = aspp
+    for i in range(1, head_convs + 1):
+        n.conv(f"{dh}body_conv_fcn{i}", head, c)
+        c = head
+    for name, o in (("ann_index_lowres", coarse), ("index_uv_lowres", fine), ("u_lowres", fine),
+                    ("v_lowres", fine)):
+        n.sd[f"roi_heads.densepose_predictor.{name}.weight"] = n.w(head, o, 4, 4)
+        n.sd[f"roi_heads.densepose_predictor.{name}.bias"] = n.f.zeros(o)
+    return n.sd
+
+
+# U²-Net's RSU stages: (name, depth L, in, mid, out); L 4 on stage5/stage6/stage5d is RSU-4F
+_U2NET_FULL = (("stage1", 7, 3, 32, 64), ("stage2", 6, 64, 32, 128), ("stage3", 5, 128, 64, 256),
+               ("stage4", 4, 256, 128, 512), ("stage5", 4, 512, 256, 512),
+               ("stage6", 4, 512, 256, 512), ("stage5d", 4, 1024, 256, 512),
+               ("stage4d", 4, 1024, 128, 256), ("stage3d", 5, 512, 64, 128),
+               ("stage2d", 6, 256, 32, 64), ("stage1d", 7, 128, 16, 64))
+
+
+def synth_u2net_sd(stages=_U2NET_FULL, sides=(64, 64, 128, 256, 512, 512),
+                   fill: FillSpec = "random", seed: int = 53) -> Dict[str, object]:
+    """u2net.pth (xuebinqin/U-2-Net's full U2NET, as rembg ships it): the
+    eleven RSU stages (`rebnconvin`, `rebnconv1..L`, `rebnconv{L-1..1}d`,
+    each `conv_s1` and `bn_s1`), the six 3×3 side convs to one channel and
+    the 1×1 `outconv` over the six."""
+    n = _Net(fill, seed, gain=RELU_GAIN)
+
+    def rebn(key, o, i):
+        n.conv(key + ".conv_s1", o, i)
+        n.bn(key + ".bn_s1", o)
+
+    for name, depth, cin, mid, out in stages:
+        rebn(f"{name}.rebnconvin", out, cin)
+        rebn(f"{name}.rebnconv1", mid, out)
+        for i in range(2, depth + 1):
+            rebn(f"{name}.rebnconv{i}", mid, mid)
+        for i in range(depth - 1, 1, -1):
+            rebn(f"{name}.rebnconv{i}d", mid, 2 * mid)
+        rebn(f"{name}.rebnconv1d", out, 2 * mid)
+    for i, c in enumerate(sides, start=1):
+        n.conv(f"side{i}", 1, c)
+    n.conv("outconv", 1, len(sides), k=1)
+    return n.sd
+
+
+def synth_sapiens_sd(width: int = 1536, depth: int = 40, mlp: int = 6144, patch: int = 16,
+                     grid=(64, 48), deconvs: Sequence[int] = (768, 768), out: int = 3,
+                     final_k: int = 1, fill: FillSpec = "random",
+                     seed: int = 54) -> Dict[str, object]:
+    """Sapiens-1B normal estimation (sapiens_1b_normal_render_people: ViT
+    width 1536, 40 blocks, 24 heads of 64, MLP 6144, patch 16, no class
+    token, trained at 1024×768 so a 64×48 position grid; the VitHead's
+    deconv_out_channels (768, 768) with 4×4 kernels and the final 1×1 conv to
+    3 normals) in forge_tpu/models/sapiens.py's key layout, whose head has
+    no slot for the VitHead's two 1×1 convs between them."""
+    n = _Net(fill, seed)
+    n.conv("patch_embed.proj", width, 3, k=patch)
+    n.table("pos_embed", 1, grid[0] * grid[1], width)
+    for i in range(depth):
+        b = f"blocks.{i}."
+        n.norm(b + "norm1", width)
+        n.linear(b + "attn.qkv", 3 * width, width)
+        n.linear(b + "attn.proj", width, width)
+        n.norm(b + "norm2", width)
+        n.linear(b + "mlp.fc1", mlp, width)
+        n.linear(b + "mlp.fc2", width, mlp)
+    n.norm("norm", width)
+    c = width
+    for j, o in enumerate(deconvs):
+        n.sd[f"head.deconv.{j}.weight"] = n.w(c, o, 4, 4)
+        n.sd[f"head.deconv.{j}.bias"] = n.f.zeros(o)
+        c = o
+    n.conv("head.conv", out, c, k=final_k)
     return n.sd

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import nn
+from ..preprocessors.annotator import inference
 
 
 def _k(p, i):
@@ -158,7 +159,6 @@ class DeepDanbooru:
         self.tags = [str(t) for t in tags]
         self.params = tree_to(nest(sd), *self.placement())
 
-    @torch.no_grad()
     def probabilities(self, image: np.ndarray) -> np.ndarray:
         """image uint8/float [H,W,3] → per-tag probabilities."""
         from ..pipeline.images import lanczos_resize
@@ -171,7 +171,8 @@ class DeepDanbooru:
             img = np.clip(img * (255 if img.max() <= 1.5 else 1), 0, 255).astype(np.uint8)
         x = lanczos_resize(img[..., :3], 512, 512).astype(np.float32) / 255.0
         x = torch.from_numpy(np.ascontiguousarray(x.transpose(2, 0, 1)[None]))
-        return deepbooru_apply(self.params, x.to(*self.placement()))[0].cpu().numpy()
+        with inference():  # f32 on the card: TF32 off
+            return deepbooru_apply(self.params, x.to(*self.placement()))[0].cpu().numpy()
 
     def tag(self, image: np.ndarray, threshold: float = 0.5, alpha_sort: bool = False,
             use_spaces: bool = True, use_escape: bool = True, include_ranks: bool = False,

@@ -21,9 +21,11 @@ lineart nets (lineart.py), lineart_anime_denoise (manga_line.py), mlsd
 (mlsd.py), normalbae (normalbae.py), depth_leres (leres.py), depth_zoe
 (zoe.py), depth_marigold (marigold.py), seg_ufade20k (uniformer.py),
 seg_anime_face (anime_face.py), inpaint_only+lama (lama.py: the entry
-passes the image through; the unit's path runs the LaMa pre-fill) and
+passes the image through; the unit's path runs the LaMa pre-fill),
 mediapipe_face (mediapipe_face.py, which raises the reference's
-RuntimeError: mediapipe is not there to import). Each model-based module is imported
+RuntimeError: mediapipe is not there to import), both DensePose entries
+(densepose.py) and seg_ofade20k and seg_ofcoco (oneformer.py): all but
+dw_openpose_full. Each model-based module is imported
 on the entry's first call; its detector runs on the card unless one made
 on the CPU is installed (`get_*(device=...)`). This registry alone decides
 which ControlNet modules run: calling any other entry raises
@@ -290,7 +292,11 @@ _PORTED = {"none": _none, "invert": _invert, "canny": _canny, "blur_gaussian": _
            "mediapipe_face": _model("mediapipe_face", "mediapipe_face"),
            "seg_ufade20k": _model("uniformer", "seg_ufade20k"),
            "depth_zoe": _model("zoe", "depth_zoe"),
-           "depth_marigold": _model("marigold", "depth_marigold")}
+           "depth_marigold": _model("marigold", "depth_marigold"),
+           "densepose (pruple bg & purple torso)": _model("densepose", "densepose"),
+           "densepose_parula (black bg & blue torso)": _model("densepose", "densepose_parula"),
+           "seg_ofade20k": _model("oneformer", "seg_ofade20k"),
+           "seg_ofcoco": _model("oneformer", "seg_ofcoco")}
 
 for _name, _aliases, _a, _b, _tags, _weights in _ENTRIES:
     register(Preprocessor(_name, _PORTED.get(_name) or _unported(_name), slider_a=_a,

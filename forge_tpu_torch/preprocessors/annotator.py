@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -98,15 +99,44 @@ class Detector:
         return t.to(leaf.device, leaf.dtype)
 
 
+# the backend settings a forward found, put back after the last forward on any thread ends
+_FLAGS_LOCK = threading.Lock()
+_FLAGS = {"forwards": 0, "found": None}
+
+
+def _backend_flags():
+    c = torch.backends.cudnn
+    return c.benchmark, c.deterministic, c.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def _set_backend_flags(benchmark, deterministic, cudnn_tf32, matmul_tf32):
+    c = torch.backends.cudnn
+    c.benchmark, c.deterministic, c.allow_tf32 = benchmark, deterministic, cudnn_tf32
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
 @contextlib.contextmanager
 def inference():
-    """A detector's forward: no autograd, and cuDNN's deterministic
-    algorithms, so that a rerun gives the same bytes (some of its transpose
-    conv algorithms accumulate with atomics); cuDNN's other settings kept."""
-    c = torch.backends.cudnn
-    with torch.no_grad(), c.flags(enabled=c.enabled, benchmark=False, deterministic=True,
-                                  allow_tf32=c.allow_tf32):
-        yield
+    """A detector's forward: no autograd; cuDNN's deterministic algorithms,
+    so that a rerun gives the same bytes (some of its transpose conv
+    algorithms accumulate with atomics); and TF32 off in cuDNN and in
+    matmuls, so that a network the card runs in f32 (its discrete output
+    moves in bf16, PERF.md §4) computes in f32 wherever it is served. The
+    settings are the process's: they hold while a forward runs on any
+    thread, and the ones found are put back when the last one ends."""
+    with _FLAGS_LOCK:
+        if _FLAGS["forwards"] == 0:
+            _FLAGS["found"] = _backend_flags()
+            _set_backend_flags(False, True, False, False)
+        _FLAGS["forwards"] += 1
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        with _FLAGS_LOCK:
+            _FLAGS["forwards"] -= 1
+            if _FLAGS["forwards"] == 0:
+                _set_backend_flags(*_FLAGS["found"])
 
 
 def _first_leaf(tree: Mapping[str, Any]) -> torch.Tensor:

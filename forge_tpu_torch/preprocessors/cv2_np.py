@@ -16,7 +16,9 @@ what cv2 gives, byte for byte:
     `fill_convex_poly`, all at LINE_8 with no sub-pixel shift, in place;
   * `gaussian_blur` (cv2.GaussianBlur: uint8 at ksize (5, 5) and σ 0 in
     OpenCV's fixed point, float32 at ksize (0, 0) from σ) and `laplacian`
-    (cv2.Laplacian to CV_32F, aperture 1), both with BORDER_REFLECT_101.
+    (cv2.Laplacian to CV_32F, aperture 1), both with BORDER_REFLECT_101;
+  * `apply_color_map`: cv2.applyColorMap with COLORMAP_VIRIDIS or
+    COLORMAP_PARULA, over OpenCV's two 256-entry tables.
 
 Float32 resizes follow the same taps and weights in float32; OpenCV's
 vector code may fuse or reorder a product and a sum, so a float32 result
@@ -715,3 +717,59 @@ def laplacian(img: np.ndarray) -> np.ndarray:
     out = (p[:h, 1:w + 1] + p[2:, 1:w + 1] + p[1:h + 1, :w] + p[1:h + 1, 2:]
            - 4.0 * p[1:h + 1, 1:w + 1])
     return out.astype(_F32)
+
+
+# -- colour maps -----------------------------------------------------------------
+# OpenCV's COLORMAP_VIRIDIS and COLORMAP_PARULA (modules/imgproc/src/colormap.cpp): the
+# 256-entry lookup tables cv2.applyColorMap builds from them, BGR, a row a grey level
+_VIRIDIS_BGR = np.frombuffer(bytes.fromhex(
+    "5401445602445704455905455a07465c08465d0a465e0b46600d47610e47631047641147651347671448681648"
+    "6917486a18486c1a486d1b486e1c486f1d48701f48712048732148742348752448762548772648782848792948"
+    "7a2a477a2c477b2d477c2e477d2f477e30467e32467f3346803446813545813745823845833944833a44843b44"
+    "843d43853e43853f4286404286414287424187444188454088464088473f89483f89493e894a3e8a4c3e8a4d3d"
+    "8a4e3d8a4f3c8b503c8b513b8b523b8b533a8c543a8c55398c56398c58388c59388c5a378d5b378d5c368d5d36"
+    "8d5e358d5f358d60348d61348d62338d63338e64328e65328e66318e67318e68318e69308e6a308e6b2f8e6c2f"
+    "8e6d2e8e6e2e8e6f2e8e702d8e712d8e712c8e722c8e732c8e742b8e752b8e762a8e772a8e782a8e79298e7a29"
+    "8e7b298e7c288e7d288e7e278e7f278e80278e81268e82268e82268e83258e84258e85258e86248e87248e8823"
+    "8e89238d8a238d8b228d8c228d8d228d8e218d8f218d90218c91218c92208c92208c93208c941f8b951f8b961f"
+    "8b971f8b981f8a991f8a9a1f8a9b1e899c1e899d1e899e1f889f1f88a01f88a11f87a11f87a21f86a32086a420"
+    "85a52185a62185a72284a82283a92383aa2482ab2582ac2581ad2681ad2780ae287faf297fb02a7eb12c7db22d"
+    "7cb32e7cb42f7bb5317ab63279b63479b73578b83777b93876ba3a75bb3b74bc3d73bc3f72bd4071be4270bf44"
+    "6fc0466ec1486dc14a6cc24c6bc34e6ac45069c55268c55467c65665c75864c85a63c85c62c95e60ca605fcb63"
+    "5ecb655ccc675bcd695acd6c58ce6e57cf7056d07354d07553d17751d17a50d27c4ed37f4dd3814bd48449d586"
+    "48d58946d68b45d68e43d79041d79340d8953ed8983cd99b3bd99d39daa037daa236dba534dba832dcaa30dcad"
+    "2fddb02dddb22bdeb529deb828deba26dfbd25dfc023dfc221e0c520e0c81fe1ca1de1cd1ce1d01be2d21ae2d5"
+    "19e2d819e3da18e3dd18e3df18e4e219e4e519e4e71ae5ea1be5ec1ce5ef1de5f11ee6f420e6f621e6f823e7fb"
+    "25e7fd"
+), np.uint8).reshape(256, 3)
+_PARULA_BGR = np.frombuffer(bytes.fromhex(
+    "872a358a2c338d2e328f2f3092312f95332d98352c9b372a9e3828a03a27a33c25a63e24a93f22ac4121af431f"
+    "b1451db4471cb7481aba4a19bd4c17bf4e16c25014c55112c85311cb550fce570ed0580cd35a0bd65c09d95e08"
+    "dc6006df6104e16303e16404e06504e06605df6705df6806df6a06de6b07de6c07dd6d08dd6e08dc6f09dc7009"
+    "dc710adb720bdb730bda740cda750cda760dd9770dd9780ed87a0ed87b0fd87c0fd77d10d77e10d67f11d68011"
+    "d68112d58213d58313d48414d48514d38613d38713d38813d28a12d28b12d18c11d18d11d08e10d08f10d0900f"
+    "cf910fcf920fce930ece940ecd950dcd960dcc970ccc980ccc9a0ccb9b0bcb9c0bca9d0aca9e0ac99f09c9a009"
+    "c8a108c8a208c8a308c7a407c7a507c6a606c6a707c4a808c3a80ac2a90bc1a90dbfaa0ebeab10bdab12bbac13"
+    "baac15b9ad16b8ad18b6ae19b5af1bb4af1db3b01eb1b020b0b121afb123aeb224acb326abb328aab429a9b42b"
+    "a7b52ca6b52ea5b62fa4b631a2b733a1b834a0b8369fb9379db9399cb93c9bb93f99ba4298ba4597ba4895ba4a"
+    "94ba4d93bb5091bb5390bb568ebb588dbb5b8cbc5e8abc6189bc6488bc6786bc6985bc6c84bd6f82bd7281bd75"
+    "80bd787ebd7a7dbe7d7cbe807abe8379be8678be8876bf8b75bf8e74bf9172bf9372bf9671bf9870be9a6fbe9c"
+    "6ebe9f6dbea16cbea36bbea56abda769bdaa68bdac68bdae67bdb066bdb365bdb564bcb763bcb962bcbb61bcbe"
+    "60bcc05fbcc25ebbc45ebbc75dbbc95cbbcb5bbbcd5abbd059bbd258bad457bad656bad855bada54bbdb53bcdc"
+    "51bcdd50bdde4fbedf4ebee04cbfe24bbfe34ac0e449c1e547c1e646c2e745c3e843c3e942c4ea41c5eb40c5ec"
+    "3ec6ee3dc6ef3cc7f03bc8f139c8f238c9f337caf436caf534cbf633cbf732ccf931cdfa2fcdfb2ecefc2dcffc"
+    "2cd1fc2bd2fc2ad3fc29d5fc28d6fb27d8fb26d9fb25dbfb24dcfb23ddfb22dffb21e0fb20e2fb1fe3fb1ee4fb"
+    "1de6fa1ce7fa1be9fa1aeafa19ebfa18edfa17eefa16f0fa15f1fa14f3fa13f4f912f5f911f7f910f8f90ffaf9"
+    "0efbf9"
+), np.uint8).reshape(256, 3)
+COLORMAP_VIRIDIS, COLORMAP_PARULA = "viridis", "parula"
+_COLOR_MAPS = {COLORMAP_VIRIDIS: _VIRIDIS_BGR, COLORMAP_PARULA: _PARULA_BGR}
+
+
+def apply_color_map(gray: np.ndarray, name: str) -> np.ndarray:
+    """`cv2.applyColorMap(gray, cv2.COLORMAP_<NAME>)` on a uint8 [H,W] image →
+    uint8 [H,W,3], BGR as OpenCV gives it; `name` "viridis" or "parula"."""
+    a = np.asarray(gray)
+    if a.dtype != np.uint8:
+        raise ValueError(f"apply_color_map takes uint8, not {a.dtype}")
+    return _COLOR_MAPS[name][a]

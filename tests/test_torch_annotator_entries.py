@@ -205,10 +205,8 @@ def test_registry_ports_forty_entries():
     names = registry.preprocessor_names()
     assert names == ref_registry.preprocessor_names()
     ported = [n for n in names if registry.PREPROCESSORS[n].ported]
-    assert len(names) == 52 and len(ported) == 47
-    assert sorted(set(names) - set(ported)) == sorted([
-        "dw_openpose_full", "densepose (pruple bg & purple torso)",
-        "densepose_parula (black bg & blue torso)", "seg_ofade20k", "seg_ofcoco"])
+    assert len(names) == 52 and len(ported) == 51
+    assert sorted(set(names) - set(ported)) == ["dw_openpose_full"]
     for name in set(names) - set(ported):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
             registry.PREPROCESSORS[name](np.zeros((8, 8, 3), np.uint8), 8, 0, 0)

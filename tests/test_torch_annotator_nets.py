@@ -12,6 +12,9 @@ reference value. `ops/nn.py` `conv2d_transpose` is held to forge_tpu's on
 odd sizes, strides 2 and 4 and output padding 1; where the output padding
 passes the padding (no annotator's case) the reference drops a row and a
 column that torch's ConvTranspose2d keeps, shown from both sides.
+`annotator.inference()`, every detector's forward, turns cuDNN's and the
+matmuls' TF32 off while a forward runs on any thread, and puts back the
+settings it found after the last one.
 """
 
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -149,3 +152,40 @@ def test_pidinet_matches_reference():
     with torch.no_grad():
         got = _nhwc(pidinet_apply(port_tree(ported), _nchw(x)))
     assert got.shape == want.shape and rel_err(got, want) < TOL
+
+
+def test_inference_turns_tf32_off_across_threads():
+    import threading
+
+    from forge_tpu_torch.preprocessors.annotator import inference
+
+    def flags():
+        c = torch.backends.cudnn
+        return c.benchmark, c.deterministic, c.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    found = flags()
+    forward = (False, True, False, False)
+    entered, leave = threading.Event(), threading.Event()
+    seen = []
+
+    def other():
+        with inference():
+            entered.set()
+            leave.wait(10)
+            seen.append(flags())
+
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        t = threading.Thread(target=other)
+        t.start()
+        assert entered.wait(10)
+        with inference():
+            assert flags() == forward and not torch.is_grad_enabled()
+        assert flags() == forward  # the other thread's forward still runs
+        leave.set()
+        t.join(10)
+        assert seen == [forward] and flags() == (found[0], found[1], True, True)
+    finally:
+        c = torch.backends.cudnn
+        c.benchmark, c.deterministic, c.allow_tf32 = found[:3]
+        torch.backends.cuda.matmul.allow_tf32 = found[3]

@@ -127,6 +127,6 @@ def test_module_list_and_refusals(servers):
                  "softedge_pidinet", "softedge_teed", "lineart_anime", "lineart_anime_denoise",
                  "mlsd", "normalbae", "t2ia_color_grid", "threshold_binary"):
         assert name in lists[1]
-    unit = dict(module="seg_ofade20k", model="cldm_tiny_xl", image=image(9, 32, 32))
+    unit = dict(module="dw_openpose_full", model="cldm_tiny_xl", image=image(9, 32, 32))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
         build_unit_state(unit, 64, 64, device="cpu")

@@ -192,12 +192,17 @@ def test_attach_units_matches_forge_tpu(module, tmp_path):
         module == "inpaint_only")
 
 
-REFUSED = {  # module: the ROADMAP item the port names, and what the reference does
-    "ip-adapter_clip_sdxl": ("6 \\(d\\)", "raises KeyError (no such preprocessor)"),
-    "dw_openpose_full": ("item 9", "raises RuntimeError (no ONNX pair under models/dwpose)"),
+REFUSED = {  # module: the port's error and its text (a ROADMAP item where the port refuses the
+    # module, the missing checkpoint where it runs it), and what the reference does
+    "ip-adapter_clip_sdxl": (NotImplementedError, "6 \\(d\\)",
+                             "raises KeyError (no such preprocessor)"),
+    "dw_openpose_full": (NotImplementedError, "item 9",
+                         "raises RuntimeError (no ONNX pair under models/dwpose)"),
     "densepose (pruple bg & purple torso)": (
-        "item 9", "raises RuntimeError (no checkpoint under models/densepose)"),
-    "seg_ofcoco": ("item 9", "raises RuntimeError (no checkpoint under models/oneformer)"),
+        RuntimeError, "no DensePose checkpoint under models/densepose",
+        "raises RuntimeError (no checkpoint under models/densepose)"),
+    "seg_ofcoco": (RuntimeError, "no 150_16_swin_l_oneformer_coco_100ep.pth under models/oneformer",
+                   "raises RuntimeError (no checkpoint under models/oneformer)"),
 }
 
 
@@ -207,10 +212,10 @@ def test_refused_modules_from_both_sides(module, tmp_path):
     from forge_tpu.models.controlnet import ControlNetState as JState
     from forge_tpu_torch.extensions.controlnet import build_unit_state
 
-    item, reference = REFUSED[module]
+    error, item, reference = REFUSED[module]
     img, mask = _unit_image()
     unit = {"module": module, "model": "cldm_tiny", "image": img, "mask": mask}
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         build_unit_state(unit, 64, 64, device="cpu")
     _save(tiny_controlnet_sd(), tmp_path / "cldm_tiny.safetensors")
     jcn.set_model_dirs([str(tmp_path)])

@@ -12,10 +12,10 @@ prints a missing model's error and answers without the ControlNet.
 `preprocessor_names()`, every key of the registry in order and each entry's
 sliders, tags and resolution equal forge_tpu's; "none" and "canny" give
 forge_tpu's maps (the other ported entries: tests/test_torch_cv2_np.py and
-tests/test_torch_annotator_entries.py); every entry the port does not run
-(LeReS, DWPose, ZoeDepth, Marigold, the segmenters, DensePose, MediaPipe
-face, LaMa) raises NotImplementedError naming ROADMAP item 9, as a unit
-with such a module does. `list_controlnet_models`
+tests/test_torch_annotator_entries.py); the one entry the port does not
+run (DWPose) raises NotImplementedError naming ROADMAP item 9, as a unit
+with its module does, and a unit whose annotator has no checkpoint raises
+the annotator's RuntimeError. `list_controlnet_models`
 lists a directory as forge_tpu's does.
 """
 
@@ -109,7 +109,7 @@ def test_controlnet_script_without_units(engines):
 
 @pytest.mark.parametrize("module, model, error, match", [
     ("dw_openpose_full", "cldm_tiny_xl", NotImplementedError, "item 9"),
-    ("seg_ofade20k", "cldm_tiny_xl", NotImplementedError, "item 9"),
+    ("ip-adapter_clip_sdxl", "cldm_tiny_xl", NotImplementedError, "6 \\(d\\)"),
     ("canny", "no_such_model", FileNotFoundError, "no_such_model")])
 def test_controlnet_script_refusals_reach_the_caller(engines, model_dirs, module, model, error,
                                                      match, capsys):
@@ -160,7 +160,9 @@ PORTED = ("none", "invert", "canny", "blur_gaussian", "shuffle", "lineart_standa
           "lineart_realistic", "lineart_coarse", "lineart_anime", "softedge_pidinet",
           "softedge_pidisafe", "scribble_pidinet", "mlsd", "depth_anything_v2", "softedge_teed",
           "lineart_anime_denoise", "depth_leres", "seg_anime_face", "normalbae",
-          "mediapipe_face", "seg_ufade20k", "depth_zoe", "depth_marigold")
+          "mediapipe_face", "seg_ufade20k", "depth_zoe", "depth_marigold",
+          "densepose (pruple bg & purple torso)", "densepose_parula (black bg & blue torso)",
+          "seg_ofade20k", "seg_ofcoco")
 PASS_THROUGH = PORTED[13:20]  # the reference, Revision and inpaint entries
 
 
@@ -192,7 +194,7 @@ def test_unported_entries_refused():
         assert np.array_equal(tpre.get_preprocessor(name)(img, 16, 0, 0),
                               tpre.get_preprocessor("none")(img, 16, 0, 0))
     p = processing("forge_tpu_torch").Processing(**SDXL_REQUEST)
-    for module in ("densepose_parula (black bg & blue torso)", "dw_openpose_full", "seg_ofcoco"):
+    for module in ("dw_openpose_full",):
         with pytest.raises(NotImplementedError, match="item 9"):
             tcn.attach_units(p, [dict(module=module, model="x", image=img)], "cpu")
 

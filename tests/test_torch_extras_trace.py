@@ -138,8 +138,8 @@ def parts(recorder):
 def test_chip_smoke_counts_a_run(parts):
     """extras_counts(4) and (20), composed from the parts: the restored
     request and its witness the calls and a decode each; config 2 (c)'s
-    pixel pass 30 calls at 1024², the decode, the 2048² encode, 22 calls at
-    2048² and its decode, through either upscaler; the rest nothing."""
+    pixel pass SDXL_STEPS (20) calls at 1024², the decode, the 2048² encode,
+    CONFIG2_HIRES_CALLS (15) calls at 2048² and its decode, through either upscaler; the rest nothing."""
     import chip_smoke
 
     def n(*names_times):
@@ -159,7 +159,7 @@ def test_chip_smoke_counts_a_run(parts):
     assert chip_smoke.extras_counts(4)["restore_faces"] == {
         "flash_attention": 281, "gn_silu_conv3x3": 164, "dequant_matmul": 0}
     assert chip_smoke.extras_counts(20)["hires SwinIR"] == {
-        "flash_attention": 3643, "gn_silu_conv3x3": 1844, "dequant_matmul": 0}
+        "flash_attention": 2453, "gn_silu_conv3x3": 1266, "dequant_matmul": 0}
 
 
 def test_every_shape_is_a_phase_2_row(parts):

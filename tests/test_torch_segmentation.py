@@ -112,10 +112,11 @@ def test_registry_runs_the_slice_and_names_item_9_for_the_rest():
     from forge_tpu_torch.preprocessors import PREPROCESSORS
 
     for name in ("inpaint_only+lama", "depth_leres", "seg_anime_face", "mediapipe_face",
-                 "seg_ufade20k", "depth_zoe", "depth_marigold"):
-        assert PREPROCESSORS[name].ported, name
-    for name in ("dw_openpose_full", "densepose (pruple bg & purple torso)",
+                 "seg_ufade20k", "depth_zoe", "depth_marigold",
+                 "densepose (pruple bg & purple torso)",
                  "densepose_parula (black bg & blue torso)", "seg_ofade20k", "seg_ofcoco"):
+        assert PREPROCESSORS[name].ported, name
+    for name in ("dw_openpose_full",):
         assert not PREPROCESSORS[name].ported
         with pytest.raises(NotImplementedError, match="item 9"):
             PREPROCESSORS[name](image(0, 16, 16), 16, 0, 0)

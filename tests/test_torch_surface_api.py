@@ -21,8 +21,10 @@ writes the request's image where the reference's does. The event log gets
 error, with the reference's fields. /sdapi/v1/server-restart without
 --api-server-stop answers 404 and latches nothing; with it, it latches
 `restart_requested` and stops the server, in both; the port's launcher then
-serves again on the same engine. The Spaces routes still
-answer 501 naming ROADMAP item 9.
+serves again on the same engine. The three Spaces routes are served
+(runtime/spaces.py; tests/test_torch_spaces.py launches the port's apps):
+the list holds the working directory's Spaces, and a bundled Space the port
+does not run yet answers 501 naming ROADMAP item 9.
 """
 
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -401,14 +403,27 @@ def test_event_log_api_fields(env, tmp_path):
 
 
 def test_unported_routes_name_item_9(env):
-    from forge_tpu_torch.api.server import UNPORTED_ROUTES
-
-    assert set(UNPORTED_ROUTES) == {("GET", "/sdapi/v1/spaces"),
-                                    ("POST", "/sdapi/v1/spaces/launch"),
-                                    ("POST", "/sdapi/v1/spaces/terminate")}
-    for method, path in UNPORTED_ROUTES:
-        status, body, _ = _call(env[1], path, {} if method == "POST" else None)
-        assert status == 501 and "ROADMAP.md queue 1 item 9" in body["detail"]
+    """The Spaces routes are served over the working directory's
+    extensions-builtin/: a bundled Space built on a diffusion engine is
+    listed, its launch answers 501 naming item 9, its terminate 200."""
+    routes = {("GET", "/sdapi/v1/spaces"), ("POST", "/sdapi/v1/spaces/launch"),
+              ("POST", "/sdapi/v1/spaces/terminate")}
+    assert routes <= set(env[3][1].api.routes)
+    space = os.path.join(env[2], "extensions-builtin", "forge_space_geowizard")
+    os.makedirs(space, exist_ok=True)
+    with open(os.path.join(space, "space_meta.json"), "w") as f:
+        json.dump({"title": "GeoWizard", "tag": "depth"}, f)
+    with open(os.path.join(space, "forge_app.py"), "w") as f:
+        f.write("raise SystemExit('the reference app, written against forge_tpu')\n")
+    status, body, _ = _call(env[1], "/sdapi/v1/spaces")
+    assert status == 200 and {"name": "forge_space_geowizard", "title": "GeoWizard",
+                              "tag": "depth", "installed": True, "running": False,
+                              "url": None} in body["spaces"]
+    status, body, _ = _call(env[1], "/sdapi/v1/spaces/launch", {"name": "forge_space_geowizard"})
+    assert status == 501 and "ROADMAP.md queue 1 item 9" in body["detail"]
+    status, body, _ = _call(env[1], "/sdapi/v1/spaces/terminate",
+                            {"name": "forge_space_geowizard"})
+    assert status == 200 and body == {}
 
 
 @pytest.mark.parametrize("flag", [False, True])
