@@ -20,8 +20,9 @@ with a depth_anything_v2 unit on SDXL, and interrogation (the CLIP interrogator 
 DeepDanbooru, /sdapi/v1/interrogate), the remaining annotators (LeReS, ZoeDepth, Marigold,
 UniFormer, the anime face, LaMa) with a depth_marigold unit on SDXL and the extras route's focal
 crop, and OneFormer, DensePose and the Forge Spaces (Sapiens-1B normals, U²-Net background
-removal, captions, the example) as child processes with a seg_ofade20k unit on SDXL, on one
-NVIDIA GPU.
+removal, captions, the example) as child processes with a seg_ofade20k unit on SDXL, and the six
+Forge Spaces on diffusion engines (Animagine XL 3.1, PhotoMaker V2, Illusion Diffusion, IC-Light,
+GeoWizard, IDM-VTON) in-process and as child processes, on one NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -45,6 +46,8 @@ NVIDIA GPU.
                                          # phase 23 at 20 steps; no result
     python3 chip_smoke.py --spaces   # phase 1, phase 2's Sapiens and SDXL rows, phase 24 at 20
                                      # steps with Sapiens-1B's 40 blocks; no result
+    python3 chip_smoke.py --diffusion-spaces  # phase 1, phase 2's rows for phase 25, phase 25 at
+                                              # each app's default steps, all six children; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -449,6 +452,40 @@ Phases:
      registry's map, launches exact (phase 21's ControlNet request: OneFormer
      launches no kernel), UNet + ControlNet against plain (≥ 40 dB), the
      latency against the witness's.
+ 25. The six Forge Spaces on diffusion engines (forge_tpu_torch/spaces/), after
+     phase 24 on the SDXL engine and an SD1.5 engine made on the card
+     (`--diffusion-spaces`: at each app's default steps). At published widths,
+     made on the card from seeds: SD1.5 (320, mult (1,2,4,4), 8 heads,
+     context 768), a QR-monster cldm (ControlNet v1.1's SD1.5 layout), the
+     iclight_sd15_fc offset in diffusers' keys (the SD1.5 UNet's shapes, an
+     8-channel stem), U²-Net, GeoWizard (SD1's UNet with 8 input channels and
+     a 10-wide label_emb, the SD VAE, CLIP ViT-L/14 vision with a 768
+     projection), PhotoMaker V2 (a ViT-L/14 id encoder, the v2 qformer) and
+     IDM-VTON's 13-channel try-on UNet beside the engine's as the garment UNet
+     (the whole run: the engine's UNet with its stem widened by zeros; under
+     the flag SDXL UNets of their own, for its file). Each part prints its
+     seconds, peak memory, flash launches by shape and launches by kernel,
+     held to `diffusion_counts`: (a) Animagine XL 3.1 at 896×1152, Euler a,
+     CFG 7, with and without the 1.5× upscale; (b) PhotoMaker V2 at 1024²
+     with a face embedding; (c) Illusion 512² → 1024² (DPM++ SDE Karras, 20
+     second-pass steps at 0.5, the cldm on both passes) at strength 1 and 0,
+     the two images unlike; (d) IC-Light 512² → 768² with the U²-Net mask,
+     bg "None" and "Left Light", unlike; (e) GeoWizard at processing_res 768
+     in two domains; (f) IDM-VTON at 768×1024, byte-equal to the person photo
+     outside the mask; (g) each Space's UNet forward with its own additions
+     against plain (≥ 40 dB); (h) the Spaces as children through
+     /sdapi/v1/spaces/launch (GeoWizard alone in the whole run, all six under
+     the flag, one at a time), their files written in bf16 under
+     logs/chip_smoke_diffusion_spaces/ (and the U²-Net under the checkout's
+     models/u2net where it was absent; both removed at the end), each
+     child's launch and first /process seconds, its answer byte-equal to the
+     app's `process` in this process on the same files. Phase 2 holds flash
+     at the table's new shapes (SD1.5's head dim 160 at 1024² and 768², its
+     level 0 there, SDXL at 896×1152, IDM-VTON's joined keys, the VAE at
+     896×1152 and 1344×1728; under the flag also their levels 1, the 1.5×
+     upscale's UNet, the garment UNet, the VAE at 768×1024 and GeoWizard's
+     batch-2 decode) and, under the flag, the fused conv at every new (C, O,
+     size), summed one line a set.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -1059,6 +1096,129 @@ def spaces_counts(steps: int, sapiens_blocks: int = SAPIENS_CUT):
             "ControlNetScript": counts["ControlNetScript"]}
 
 
+# phase 25: the six Forge Spaces on diffusion engines, each app's own request (its defaults under
+# --diffusion-spaces; 4 steps each in the whole run), on the SDXL engine, an SD1.5 engine, an SD1.5
+# cldm, the IC-Light merge, GeoWizard's UNet and IDM-VTON's two UNets, all made on the card
+DIFFUSION_STEPS = 4  # the whole run; --diffusion-spaces runs each app's default steps
+DIFFUSION_APP_STEPS = {"animagine": 28, "photomaker": 30, "illusion": 15, "iclight": 25,
+                       "geowizard": 10, "idm_vton": 20}
+DIFFUSION_DIR = "logs/chip_smoke_diffusion_spaces"
+DIFFUSION_SPACE_NAMES = ("forge_space_animagine_xl_31", "forge_space_photo_maker_v2",
+                         "forge_space_illusion_diffusion", "forge_space_iclight",
+                         "forge_space_geowizard", "forge_space_idm_vton")
+DIFFUSION_WHOLE_RUN_CHILD = "forge_space_geowizard"  # the cheapest: one 2.5 GB file, 4 steps
+# SD1's geometry (SD1.5, the QR-monster cldm, IC-Light, GeoWizard): 320 wide, mult (1, 2, 4, 4),
+# 8 heads, context 768; SDXL's the engine's (Animagine XL 3.1, RealVisXL and IDM-VTON's UNets)
+SD15_CLDM = dict(model_channels=320, channel_mult=(1, 2, 4, 4), num_res_blocks=2,
+                 transformer_depth=(1, 1, 1, 0), context_dim=768, adm_in_channels=None)
+SDXL_UNET = dict(channel_mult=(1, 2, 4), transformer_depth=(0, 2, 10), context_dim=2048,
+                 adm_in_channels=2816, middle_depth=10)
+DIFFUSION_FLASH_SHAPES = [  # held in the whole run too
+    ((2, 8, 1024, 160), 1024, True),    # SD1.5 1024², level 2 (Illusion's hires pass)
+    ((2, 8, 576, 160), 576, True),      # SD1.5 768², level 2 (IC-Light's second pass, GeoWizard)
+    ((2, 8, 16384, 40), 16384, True),   # SD1.5 1024², level 0
+    ((2, 8, 9216, 40), 9216, True),     # SD1.5 768², level 0
+    ((2, 10, 4032, 64), 4032, True),    # SDXL 896×1152 (Animagine's default), levels 1 and 2
+    ((2, 20, 1008, 64), 1008, True),
+    ((1, 10, 3072, 64), 6144, True),    # IDM-VTON's try-on attn1 over its keys and the garment's
+    ((1, 20, 768, 64), 1536, True),
+    ((1, 1, 16128, 512), 16128, True),  # the VAE at 896×1152
+    ((1, 1, 36288, 512), 36288, True),  # the VAE at 1344×1728
+]
+FLASH_SHAPES += [s for s in DIFFUSION_FLASH_SHAPES if s not in FLASH_SHAPES]
+DIFFUSION_EXTRA_FLASH_SHAPES = [  # under --diffusion-spaces only
+    ((2, 8, 4096, 80), 4096, True),     # SD1.5 1024², level 1
+    ((2, 8, 2304, 80), 2304, True),     # SD1.5 768², level 1
+    ((2, 10, 9072, 64), 9072, True),    # SDXL 1344×1728 (Animagine's 1.5× upscale)
+    ((2, 20, 2268, 64), 2268, True),
+    ((1, 10, 3072, 64), 3072, True),    # IDM-VTON's garment UNet at 768×1024
+    ((1, 20, 768, 64), 768, True),
+    ((1, 1, 12288, 512), 12288, True),  # the VAE at 768×1024 (IDM-VTON)
+    ((2, 1, 9216, 512), 9216, True),    # GeoWizard's decode of its two geometry latents at 768²
+]
+
+
+def vae_conv_shapes(h8: int, w8: int, encoder: bool = False):
+    """The VAE's fused convs ((B, C, H, W), O) decoding (and encoding) an h8 × w8 latent."""
+    dec = [(512, 512, 1), (512, 512, 2), (512, 256, 4), (256, 256, 4), (256, 128, 8),
+           (128, 128, 8)]
+    enc = [(128, 128, 8), (128, 256, 4), (256, 512, 2)]
+    return [((1, c, h8 * f, w8 * f), o) for c, o, f in dec + (enc if encoder else [])]
+
+
+# the fused conv at SD1.5 768² and 1024² (96² and 128² latents, CFG batch 2: SD2's fourteen (C, O),
+# whose 96² rows the whole run holds for SD2), SDXL at 896×1152 (CFG batch 2) and 768×1024
+# (IDM-VTON's batch 1), and the VAE at both SDXL sizes (IDM-VTON's encodes too)
+DIFFUSION_CONV_SETS = {
+    "SD1.5 768² (96² latents, batch 2)": [((2, c, side, side), o) for c, o, side in SD2_CONV_SHAPES],
+    "SD1.5 1024² (128² latents, batch 2)": [((2, c, side * 4 // 3, side * 4 // 3), o)
+                                            for c, o, side in SD2_CONV_SHAPES],
+    "SDXL 896×1152 (batch 2)": [((2, c, 144 >> level, 112 >> level), o)
+                                for c, o, level in SDXL_CONV_PAIRS],
+    "SDXL 768×1024 (batch 1)": [((1, c, 128 >> level, 96 >> level), o)
+                                for c, o, level in SDXL_CONV_PAIRS],
+    "the VAE at 896×1152 and 768×1024": vae_conv_shapes(144, 112) + vae_conv_shapes(
+        128, 96, encoder=True)}
+DIFFUSION_CONV_SHAPES = list(dict.fromkeys(shape for rows in DIFFUSION_CONV_SETS.values()
+                                          for shape in rows))
+DIFFUSION_ROWS = (DIFFUSION_FLASH_SHAPES + DIFFUSION_EXTRA_FLASH_SHAPES, DIFFUSION_CONV_SHAPES)
+
+
+def sd15_flash(h8: int, w8: int, cldm: bool = False) -> int:
+    """Flash launches of one SD1-geometry UNet forward (or its cldm's encoder copy) on an
+    h8 × w8 latent: each self-attention of 512 tokens or more (levels 0-2: 2 input and 3
+    output transformer blocks each, the cldm's 2; the middle block at level 3's size)."""
+    per = 2 if cldm else 5
+    return (sum(per * ((h8 >> lv) * (w8 >> lv) >= 512) for lv in range(3))
+            + ((h8 >> 3) * (w8 >> 3) >= 512))
+
+
+def sdxl_flash(h8: int, w8: int) -> int:
+    """Flash launches of one SDXL UNet forward: level 1's 10 self-attentions, level 2's 50 and
+    the middle block's 10 (at level 2's size), each where it holds 512 tokens or more."""
+    t1, t2 = (h8 >> 1) * (w8 >> 1), (h8 >> 2) * (w8 >> 2)
+    return 10 * (t1 >= 512) + 60 * (t2 >= 512)
+
+
+def img2img_calls(strength: float, steps: int) -> int:
+    """Model calls of an img2img pass (or the hires fix's) over `steps`: the schedule's tail."""
+    return min(int(strength * steps), steps - 1) + 1
+
+
+def diffusion_counts(steps) -> dict:
+    """Phase 25's launches by part at `steps` (an int, or the app's steps by key). VAE: 20 fused
+    convs an encode, 28 a decode, one flash launch each; SD1 UNet 44 convs, its cldm 20, SDXL's
+    34; DPM++ SDE calls the model twice a step but the last."""
+    s = (lambda key: steps[key]) if isinstance(steps, dict) else (lambda key: steps)
+
+    def counts(flash, conv):
+        return {"flash_attention": flash, "gn_silu_conv3x3": conv, "dequant_matmul": 0}
+
+    a = s("animagine")
+    hr = img2img_calls(0.55, a)
+    out = {"animagine": counts(a * sdxl_flash(144, 112) + 1, 34 * a + 28),
+           "animagine upscale": counts(a * sdxl_flash(144, 112) + hr * sdxl_flash(216, 168) + 1,
+                                       34 * (a + hr) + 28)}
+    b = s("photomaker")
+    out["photomaker"] = counts(b * sdxl_flash(128, 128) + 1, 34 * b + 28)
+    c, hr = s("illusion"), 2 * img2img_calls(0.5, 20) - 1
+    out["illusion"] = counts((2 * c - 1) * (sd15_flash(64, 64) + sd15_flash(64, 64, True))
+                             + hr * (sd15_flash(128, 128) + sd15_flash(128, 128, True)) + 1,
+                             64 * (2 * c - 1 + hr) + 28)
+    d = s("iclight")
+    second = img2img_calls(0.5, max(int(round(d / 0.5)), 1))
+    for bg, low, enc in (("None", d, 0), ("Left Light", img2img_calls(0.9, int(round(d / 0.9))), 1)):
+        # the foreground encoded at 512² and 768², the init image(s), the two decodes
+        out[f"iclight {bg}"] = counts(
+            4 + enc + 1 + low * sd15_flash(64, 64) + second * sd15_flash(96, 96),
+            2 * 20 + 20 * enc + 20 + 2 * 28 + 44 * (low + second))
+    e = s("geowizard")
+    out["geowizard"] = counts(e * sd15_flash(96, 96) + 2, 44 * e + 20 + 28)
+    f = s("idm_vton")
+    out["idm_vton"] = counts(3 * f * sdxl_flash(128, 96) + 4, 3 * 34 * f + 3 * 20 + 28)
+    return out
+
+
 def marigold_counts(steps: int):
     """One Marigold detect's launches at `steps` DDIM steps."""
     return {name: MARIGOLD_UNET[name] * steps + MARIGOLD_VAE[name] for name in MARIGOLD_UNET}
@@ -1334,6 +1494,9 @@ def phase_flash(gen: torch.Generator, summary, shapes=FLASH_SHAPES):
                     + (f"{lib_ms:.4f} ms" if lib_ms is not None else "not measured"))
                 check(simt_rel <= tol, f"flash_attention simt body {(b, h, lq, d)} within {tol}")
                 check(ms < simt_ms, f"{body} body faster than the simt body at {(b, h, lq, d)}")
+                ROW_TIMES[("flash", (b, h, lq, d), lk)] = dict(
+                    ms=ms, simt_ms=simt_ms, plain_ms=plain_ms, sdpa_ms=lib_ms, bound_ms=bms,
+                    bound_by=by, plain_rows=None if rows is None else len(rows))
                 if (b, h, lq, d) == FLASH_SUMMARY_SHAPE:
                     summary["flash_attention"] = {
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -1391,6 +1554,9 @@ def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
                     f"{cudnn_ms:.4f} ms")
                 check(simt_rel <= tol, f"gn_silu_conv3x3 simt body {(b, c, hh, ww)} within {tol}")
                 check(ms < simt_ms, f"{body} body faster than the simt body at {(b, c, hh, ww)}")
+                ROW_TIMES[("conv", (b, c, hh, ww), o)] = dict(
+                    ms=ms, plain_ms=plain_ms, cudnn_ms=cudnn_ms, simt_ms=simt_ms, bound_ms=bms,
+                    bound_by=by)
                 if ((b, c, hh, ww), o) == GN_CONV_SHAPES[0]:
                     summary["gn_silu_conv3x3"] = {
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -1399,6 +1565,40 @@ def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
                 del simt, h
             del x, w, wk, got, want
     torch.cuda.empty_cache()
+
+
+ROW_TIMES = {}  # phase 2's bf16 rows by (kernel, shape, Lk or O): their times and bound
+
+
+def diffusion_rows_summary():
+    """Phase 2's rows for phase 25, one line a flash row, and for the fused conv one line a
+    set: the range of its times against plain and against cuDNN's conv alone, and every shape
+    where the kernel is slower than plain."""
+    for (b, h, lq, d), lk, _ in DIFFUSION_FLASH_SHAPES + DIFFUSION_EXTRA_FLASH_SHAPES:
+        r = ROW_TIMES.get(("flash", (b, h, lq, d), lk))
+        if r is None:
+            continue
+        log(f"phase 25 flash row q{(b, h, lq, d)}×{lk}: kernel {r['ms']:.4f} ms, SIMT "
+            f"{r['simt_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+            + ("" if r["plain_rows"] is None else f" ({r['plain_rows']} query rows)")
+            + ", SDPA " + ("not measured" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f} ms")
+            + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of it")
+    for name, shapes in DIFFUSION_CONV_SETS.items():
+        rows = [(shape, o, ROW_TIMES[("conv", shape, o)]) for shape, o in shapes
+                if ("conv", shape, o) in ROW_TIMES]
+        if not rows:
+            continue
+        vs_plain = [r["ms"] / r["plain_ms"] for _, _, r in rows]
+        vs_cudnn = [r["ms"] / r["cudnn_ms"] for _, _, r in rows]
+        share = [r["bound_ms"] / r["ms"] for _, _, r in rows]
+        slower = [f"x{shape}->{o}" for shape, o, r in rows if r["ms"] > r["plain_ms"]]
+        log(f"phase 25 conv rows, {name}: {len(rows)} shapes, kernel "
+            f"{min(r['ms'] for _, _, r in rows):.4f}–{max(r['ms'] for _, _, r in rows):.4f} ms, "
+            f"{min(vs_plain):.3f}–{max(vs_plain):.3f}× plain's time, "
+            f"{min(vs_cudnn):.3f}–{max(vs_cudnn):.3f}× cuDNN's conv alone, "
+            f"{100 * min(share):.1f}–{100 * max(share):.1f} % of the bound; slower than plain: "
+            + (", ".join(slower) if slower else "none"))
 
 
 def phase_kernels(gen: torch.Generator, rows: str = "all"):
@@ -1421,16 +1621,20 @@ def phase_kernels(gen: torch.Generator, rows: str = "all"):
                        "extras": (EXTRAS_ROWS[0] + EXTRAS_HIRES_ROWS[0],
                                   EXTRAS_ROWS[1] + EXTRAS_HIRES_ROWS[1]),
                        "surface": EXTRAS_ROWS, "annotators": ANNOTATORS_ROWS,
-                       "interrogate": INTERROGATE_ROWS, "spaces": SPACES_ROWS}[rows]
+                       "interrogate": INTERROGATE_ROWS, "spaces": SPACES_ROWS,
+                       "diffusion_spaces": DIFFUSION_ROWS}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
             phase_dequant(gen, summary, [c for c in DEQUANT_CASES
                                          if c[0] == "nf4" and c[2] in DEQUANT_SHAPES[:2]])
+        if rows == "diffusion_spaces":
+            diffusion_rows_summary()
         return summary
     phase_flash(gen, summary)
     phase_conv(gen, summary)
     phase_dequant(gen, summary)
+    diffusion_rows_summary()
     return summary
 
 
@@ -2785,12 +2989,16 @@ def phase_flux_family(gen: torch.Generator, nf4_seed1=None):
 
 def http(base: str, path: str, body=None):
     """GET (or POST `body` as JSON) → the answer's JSON; a status other than 200 raises."""
+    import urllib.error
     import urllib.request
 
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(base + path, data, {"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=600) as r:
-        return json.loads(r.read())
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        raise RuntimeError(f"{path}: HTTP {e.code} {e.read()[:2000]!r}") from e
 
 
 def add_counts(total, launches):
@@ -5706,6 +5914,543 @@ def phase_spaces(engine, gen: torch.Generator, steps: int = SPACES_STEPS, full: 
     return total
 
 
+def ldm_to_diffusers_unet(sd, levels: int = 4, num_res: int = 2):
+    """An SD UNet's ldm keys → diffusers' UNet2DConditionModel keys, the inverse of
+    core/state_dict.py `diffusers_unet_to_ldm` on SD1's layout (values untouched)."""
+    res = {"in_layers.0": "norm1", "in_layers.2": "conv1", "emb_layers.1": "time_emb_proj",
+           "out_layers.0": "norm2", "out_layers.3": "conv2", "skip_connection": "conv_shortcut"}
+    blocks = {"input_blocks.0.0": "conv_in", "time_embed.0": "time_embedding.linear_1",
+              "time_embed.2": "time_embedding.linear_2", "middle_block.0": "mid_block.resnets.0",
+              "middle_block.1": "mid_block.attentions.0", "middle_block.2": "mid_block.resnets.1",
+              "out.0": "conv_norm_out", "out.2": "conv_out"}
+    idx = 1
+    for i in range(levels):
+        for j in range(num_res):
+            blocks[f"input_blocks.{idx}.0"] = f"down_blocks.{i}.resnets.{j}"
+            blocks[f"input_blocks.{idx}.1"] = f"down_blocks.{i}.attentions.{j}"
+            idx += 1
+        if i < levels - 1:
+            blocks[f"input_blocks.{idx}.0.op"] = f"down_blocks.{i}.downsamplers.0.conv"
+            idx += 1
+    for i in range(levels):
+        for j in range(num_res + 1):
+            idx = i * (num_res + 1) + j
+            blocks[f"output_blocks.{idx}.0"] = f"up_blocks.{i}.resnets.{j}"
+            blocks[f"output_blocks.{idx}.1"] = f"up_blocks.{i}.attentions.{j}"
+            if j == num_res and i < levels - 1:
+                for pos in (1, 2):
+                    blocks[f"output_blocks.{idx}.{pos}.conv"] = f"up_blocks.{i}.upsamplers.0.conv"
+    out = {}
+    for key, value in sd.items():
+        pre = max((p for p in blocks if key.startswith(p + ".")), key=len)
+        tail = key[len(pre) + 1:]
+        for lpre, lsub in res.items():
+            if tail.startswith(lpre + "."):
+                tail = lsub + tail[len(lpre):]
+                break
+        out[blocks[pre] + "." + tail] = value
+    return out
+
+
+def diffusion_models(sdxl, files: bool):
+    """Phase 25's networks beside the SDXL engine, at published widths, made on the card →
+    {name: object}: the SD1.5 engine, the QR-monster-layout cldm (ControlNet v1.1's SD1.5
+    layout), the IC-Light offset in diffusers' keys (iclight_sd15_fc: the whole SD1.5 UNet's
+    shapes, an 8-channel stem), the U²-Net, GeoWizard's three trees (SD1's UNet with 8 input
+    channels and a 10-wide label_emb, the SD VAE, CLIP ViT-L/14 vision with a 768 projection),
+    PhotoMaker V2 (a ViT-L/14 id encoder and a fuse at 2048, the v2 qformer over a 512-wide
+    face embedding) and IDM-VTON's 13-channel try-on UNet beside the engine's own as the
+    garment UNet. With `files`, IDM-VTON's two UNets are SDXL's at seeds of their own (for its
+    file); without, the try-on UNet is the engine's with its stem widened by zeros."""
+    from forge_tpu_torch.core import synth_annotators
+    from forge_tpu_torch.core.loader import to_device_tree
+    from forge_tpu_torch.core.synth import (DeviceFill, synth_clip_vision_sd,
+                                            synth_controlnet_sd, synth_photomaker_sd,
+                                            synth_sd15_checkpoint, synth_unet_sd, synth_vae_sd)
+    from forge_tpu_torch.pipeline.engine import load_engine
+    from forge_tpu_torch.pipeline.photomaker import load_photomaker
+
+    bf16 = torch.bfloat16
+    m = {"sd15_sd": synth_sd15_checkpoint(fill=DeviceFill("cuda", seed=0))}
+    m["sd15"] = load_engine(m["sd15_sd"], device="cuda")
+    m["cldm_sd"] = synth_controlnet_sd(**SD15_CLDM, fill=DeviceFill("cuda", seed=251))
+    ldm = synth_unet_sd(in_channels=8, fill=DeviceFill("cuda", seed=252, scale=0.002), prefix="")
+    m["offset_sd"], m["offset_ldm_keys"] = ldm_to_diffusers_unet(ldm), set(ldm)
+    m["u2net_sd"] = synth_annotators.synth_u2net_sd(fill=DeviceFill("cuda", seed=253))
+    geo = {"unet.": synth_unet_sd(in_channels=8, adm_in_channels=10, prefix="",
+                                  fill=DeviceFill("cuda", seed=254)),
+           "vae.": synth_vae_sd(prefix="", fill=DeviceFill("cuda", seed=255)),
+           "image_encoder.": synth_clip_vision_sd(width=1024, layers=24, mlp=4096, patch=14,
+                                                  projection=768,
+                                                  fill=DeviceFill("cuda", seed=256))}
+    m["geowizard_sd"] = {p + k: v for p, part in geo.items() for k, v in part.items()}
+    m["geowizard"] = [to_device_tree(part, bf16, "cuda") for part in geo.values()]
+    m["photomaker_sd"] = synth_photomaker_sd(qformer_dim=1024, fill=DeviceFill("cuda", seed=257))
+    m["photomaker"] = load_photomaker(m["photomaker_sd"], "cuda")
+    unet = sdxl.loaded.unet
+    if files:
+        m["idm_sd"] = {f"{prefix}{k}": v for prefix, seed, ch in (
+            ("model.diffusion_model.", 258, 13), ("garment_model.diffusion_model.", 259, 4))
+            for k, v in synth_unet_sd(**SDXL_UNET, in_channels=ch, prefix="",
+                                      fill=DeviceFill("cuda", seed=seed)).items()}
+    stem = unet["input_blocks"]["0"]["0"]
+    widened = torch.cat([stem["weight"], stem["weight"].new_zeros(
+        (stem["weight"].shape[0], 9) + tuple(stem["weight"].shape[2:]))], dim=1)
+    m["tryon_unet"] = dict(unet, input_blocks=dict(unet["input_blocks"], **{
+        "0": {"0": dict(stem, weight=widened)}}))
+    torch.cuda.synchronize()
+    return m
+
+
+def engine_view(engine, unet):
+    """The engine over another UNet tree, the rest shared."""
+    import copy
+
+    view = copy.copy(engine)
+    view.loaded = copy.copy(engine.loaded)
+    view.loaded.unet = unet
+    return view
+
+
+def write_diffusion_files(work: str, models, sdxl_sd, children) -> dict:
+    """The files `children` read, in each model's upstream key space at bf16, under `work`/models
+    → {file kind: path}."""
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.core.synth import LazyTensor
+
+    def bf16(sd):
+        return {k: v.to(torch.bfloat16) if isinstance(v, LazyTensor) else v for k, v in sd.items()}
+
+    needs = {"forge_space_animagine_xl_31": ("sdxl",),
+             "forge_space_photo_maker_v2": ("sdxl", "photomaker"),
+             "forge_space_illusion_diffusion": ("sd15", "cldm"),
+             "forge_space_iclight": ("sd15", "offset"),
+             "forge_space_geowizard": ("geowizard",), "forge_space_idm_vton": ("idm_vton",)}
+    sources = {"sdxl": ("checkpoints/animagine-xl-3.1.safetensors", lambda: sdxl_sd),
+               "photomaker": ("photomaker/photomaker-v2.safetensors",
+                              lambda: models["photomaker_sd"]),
+               "sd15": ("checkpoints/sd15.safetensors", lambda: models["sd15_sd"]),
+               "cldm": ("ControlNet/control_v1p_sd15_qrcode_monster.safetensors",
+                        lambda: models["cldm_sd"]),
+               "offset": ("iclight/iclight_sd15_fc.safetensors", lambda: models["offset_sd"]),
+               "geowizard": ("geowizard/geowizard.safetensors", lambda: models["geowizard_sd"]),
+               "idm_vton": ("idm_vton/idm_vton.safetensors",
+                            lambda: dict({k: v for k, v in sdxl_sd.items()
+                                          if not k.startswith("model.diffusion_model.")},
+                                         **models["idm_sd"]))}
+    paths = {}
+    for kind in dict.fromkeys(k for name in children for k in needs[name]):
+        rel, make = sources[kind]
+        paths[kind] = os.path.join(work, "models", rel)
+        os.makedirs(os.path.dirname(paths[kind]), exist_ok=True)
+        save_safetensors(bf16(make()), paths[kind])
+    return paths
+
+
+def phase_diffusion_spaces(sdxl, gen: torch.Generator, full: bool = False):
+    """Phase 25: (a) Animagine XL 3.1, (b) PhotoMaker V2, (c) Illusion Diffusion, (d) IC-Light,
+    (e) GeoWizard and (f) IDM-VTON, each app's own request in-process with its launches exact;
+    (g) each Space's UNet forward against plain; (h) the Spaces as child processes through
+    /sdapi/v1/spaces/launch, each /process byte-equal to the same call in-process (the
+    cheapest alone in the whole run). `full`: each app's default steps and all six children."""
+    import argparse
+    import base64
+    import importlib
+    import threading
+
+    from forge_tpu_torch.api.server import create_server
+    from forge_tpu_torch.core.state_dict import diffusers_unet_to_ldm
+    from forge_tpu_torch.core.synth import DeviceFill, synth_sdxl_checkpoint
+    from forge_tpu_torch.extensions.controlnet import load_control_model
+    from forge_tpu_torch.models.controlnet import ControlNetState
+    from forge_tpu_torch.models.u2net import U2NetMatter
+    from forge_tpu_torch.models.unet import UNetConfig, unet_apply
+    from forge_tpu_torch.ops import attention as attention_mod
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline import images as images_mod
+    from forge_tpu_torch.runtime import profiling
+    from forge_tpu_torch.runtime.models import ModelManager
+    from forge_tpu_torch.spaces import (animagine_xl_31, geowizard, iclight, idm_vton,
+                                        illusion_diffusion, photo_maker_v2)
+
+    t_phase = time.perf_counter()
+    steps = DIFFUSION_APP_STEPS if full else dict.fromkeys(DIFFUSION_APP_STEPS, DIFFUSION_STEPS)
+    per_part, total = diffusion_counts(steps), {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, DIFFUSION_DIR)
+    u2net_dir = os.path.join(root, "models", "u2net")
+    made = [d for d in (os.path.join(root, "models"), u2net_dir) if not os.path.exists(d)]
+    shutil.rmtree(work, ignore_errors=True)
+    env_keys = ("ANIMAGINE_CKPT", "PHOTOMAKER_SDXL_CKPT", "PHOTOMAKER_CKPT", "ILLUSION_CKPT",
+                "ILLUSION_CONTROLNET", "ICLIGHT_CKPT", "ICLIGHT_OFFSET", "GEOWIZARD_CKPT",
+                "IDM_VTON_CKPT")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    cwd = os.getcwd()
+    server = manager = None
+    launched = []
+    started, early = {}, {}  # the children's files and server; the whole run's early launch
+    shapes = {}  # flash launches by (q shape, Lk) within a part
+    flash = attention_mod.flash_attention
+
+    def tallying(q, k, v, *a, **kw):
+        key = (tuple(q.shape), k.shape[2])
+        shapes[key] = shapes.get(key, 0) + 1
+        return flash(q, k, v, *a, **kw)
+
+    def since():
+        return f"{time.perf_counter() - t_phase:.2f} s into the phase"
+
+    def measured(label, part, fn):
+        """fn() synchronised → its output; its seconds, peak memory above the held, launches
+        by kernel (held to the part's count) and flash launches by shape printed."""
+        zero_counts()
+        shapes.clear()
+        mon = profiling.MemoryMonitor(device="cuda")
+        mon.start()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        peak = mon.stop()["peak"] - mon.baseline
+        launches = read_counts()
+        add_counts(total, launches)
+        log(f"diffusion spaces ({label}): {secs:.4f} s, peak +{peak / 2**30:.2f} GiB; flash by "
+            "shape " + ", ".join(f"q{q}×{lk} {n}" for (q, lk), n in sorted(shapes.items())))
+        check_counts(launches, per_part[part], 1, f"diffusion spaces ({label})")
+        return out
+
+    def forward_vs_plain(label, fn):
+        with torch.no_grad():
+            fused = fn()
+            with plain_versions():
+                plain = fn()
+        value = psnr(fused, plain)
+        log(f"diffusion spaces (g) {label}: kernels vs plain PSNR {value:.2f} dB "
+            f"(bound {PSNR_BOUND})")
+        check(value >= PSNR_BOUND, f"diffusion spaces (g): {label} PSNR ≥ {PSNR_BOUND} dB")
+
+    def smooth(h, w, seed):  # an h × w photo, Pillow's BILINEAR over an 8 × 8 grid
+        grid = np.random.default_rng(seed).integers(0, 256, (8, 8, 3), dtype=np.uint8)
+        return images_mod.bilinear_resize(grid, w, h)
+
+    rng = np.random.default_rng(25)
+    photo, person, garment = smooth(512, 512, 1), smooth(1024, 768, 2), smooth(1024, 768, 3)
+    pattern = np.kron(rng.integers(0, 2, (21, 21, 1)) * 255, np.ones((16, 16, 3))).astype(np.uint8)
+    face = rng.standard_normal(512).astype(np.float32)
+    attention_mod.flash_attention = tallying
+    try:
+        models, _ = timed("diffusion spaces: the networks made on the card",
+                          lambda: diffusion_models(sdxl, files=full))
+        children = DIFFUSION_SPACE_NAMES if full else (DIFFUSION_WHOLE_RUN_CHILD,)
+
+        def prepare(sdxl_sd):
+            """The children's files, their environment and folders (copies: a diffusion Space
+            writes params.txt and logs/ where it runs), and the server whose routes launch them."""
+            nonlocal server, manager
+            paths, _ = timed("diffusion spaces (h): the files written", lambda:
+                             write_diffusion_files(work, models, sdxl_sd, children))
+            log(f"diffusion spaces (h): "
+                f"{sum(os.path.getsize(p) for p in paths.values()) / 2**30:.3f} GiB of files "
+                f"under {DIFFUSION_DIR}")
+            if "forge_space_iclight" in children:
+                if made:
+                    from forge_tpu_torch.core.save import save_safetensors
+
+                    os.makedirs(u2net_dir)
+                    save_safetensors({k: v.materialize() for k, v in models["u2net_sd"].items()},
+                                     os.path.join(u2net_dir, "u2net.safetensors"))
+                else:
+                    log("diffusion spaces (h): the checkout holds models/u2net; IC-Light's "
+                        "child reads it")
+            env = {"ANIMAGINE_CKPT": "sdxl", "PHOTOMAKER_SDXL_CKPT": "sdxl",
+                   "PHOTOMAKER_CKPT": "photomaker", "ILLUSION_CKPT": "sd15",
+                   "ILLUSION_CONTROLNET": "cldm", "ICLIGHT_CKPT": "sd15",
+                   "ICLIGHT_OFFSET": "offset", "GEOWIZARD_CKPT": "geowizard",
+                   "IDM_VTON_CKPT": "idm_vton"}
+            os.environ.update({k: paths[v] for k, v in env.items() if v in paths})
+            for name in children:
+                shutil.copytree(os.path.join(root, "extensions-builtin", name),
+                                os.path.join(work, "extensions-builtin", name))
+            manager = ModelManager(checkpoint_dirs=[], device=sdxl.device)
+            server = create_server(manager, "127.0.0.1", 0)
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            started.update(paths=paths, base=f"http://127.0.0.1:{server.server_address[1]}")
+
+        def launch(name):
+            """POST /sdapi/v1/spaces/launch → (its URL, its seconds)."""
+            t = time.perf_counter()
+            launched.append(name)
+            url = http(started["base"], "/sdapi/v1/spaces/launch", {"name": name})["url"]
+            return url, time.perf_counter() - t
+
+        def launch_early(name):
+            try:
+                started["url"], started["launch_secs"] = launch(name)
+            except Exception as e:  # noqa: BLE001 — checked when (h) joins
+                started["error"] = repr(e)
+
+        os.makedirs(work)
+        os.chdir(work)  # where the API's manager finds the children's folders
+        if not full:  # the whole run's one child starts now and loads while (a)-(g) run
+            prepare(None)
+            early[DIFFUSION_WHOLE_RUN_CHILD] = threading.Thread(
+                target=launch_early, args=(DIFFUSION_WHOLE_RUN_CHILD,))
+            early[DIFFUSION_WHOLE_RUN_CHILD].start()
+        sd15 = models["sd15"]
+        check(sd15.family == "sd15" and sd15.compute_dtype == torch.bfloat16, "SD1.5 engine, bf16")
+        images = {}
+
+        # (a) Animagine XL 3.1 at its default 896×1152, Euler a, CFG 7, with and without its
+        # 1.5× upscale
+        pipe = animagine_xl_31.AnimaginePipeline(sdxl)
+        for label, up in (("animagine", False), ("animagine upscale", True)):
+            images[label] = measured(f"a) {label}", label, lambda _u=up: pipe.run(
+                "1girl, souryuu asuka langley, neon genesis evangelion", seed=1,
+                steps=steps["animagine"], use_upscaler=_u))
+        check(images["animagine"].shape == (1152, 896, 3)
+              and images["animagine upscale"].shape == (1728, 1344, 3),
+              "diffusion spaces (a): 896×1152, and 1344×1728 upscaled")
+        cond = sdxl.get_learned_conditioning(["1girl", "lowres"], 896, 1152)
+        x = torch.randn((2, 4, 144, 112), generator=gen, device="cuda").to(sdxl.compute_dtype)
+        ts = torch.tensor([999.0, 400.0], device="cuda")
+        forward_vs_plain("Animagine SDXL UNet (2,4,144,112)", lambda: sdxl.unet_apply_fn()(
+            sdxl.loaded.unet, x, ts, cond["context"], y=cond["y"]))
+
+        # (b) PhotoMaker V2 at 1024², Euler, with a face embedding for the v2 qformer
+        pm = photo_maker_v2.PhotoMakerPipeline(sdxl, models["photomaker"])
+        images["photomaker"] = measured("b) photomaker", "photomaker", lambda: pm.run(
+            [photo], "a photo of a man img riding a horse", seed=1,
+            steps=steps["photomaker"], face_embeds=face))
+        from forge_tpu_torch.pipeline.photomaker import build_cond_transform
+
+        styled, _ = photo_maker_v2.apply_style("Photographic (Default)", "a photo of a man img", "")
+        transform = build_cond_transform(sdxl, models["photomaker"], styled, id_images=[photo],
+                                         face_embeds=face, start_merge_ratio=0.2)
+        pm_cond = transform(sdxl.get_learned_conditioning([styled, "blurry"], 1024, 1024))
+        x = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(sdxl.compute_dtype)
+        forward_vs_plain("PhotoMaker SDXL UNet, the ID-fused context (2,4,128,128)",
+                         lambda: sdxl.unet_apply_fn()(sdxl.loaded.unet, x, ts,
+                                                      pm_cond["context"], y=pm_cond["y"]))
+        del pm, transform, pm_cond
+        log(f"diffusion spaces (a, b) done {since()}")
+
+        # (c) Illusion: 512², DPM++ SDE Karras, the cldm on both passes, 2× latent hires (20
+        # second-pass steps at 0.5) to 1024², at illusion strength 1 and 0
+        kind, cn, cn_cfg, _ = load_control_model(models["cldm_sd"], device="cuda")
+        check(kind == "controlnet", "diffusion spaces (c): the cldm loads as a ControlNet")
+        ill = illusion_diffusion.IllusionPipeline(sd15, cn, cn_cfg)
+        for label, strength in (("illusion", 1.0), ("illusion strength 0", 0.0)):
+            images[label] = measured(f"c) {label}", "illusion", lambda _s=strength: ill.run(
+                pattern, "a medieval village, winding roads", "low quality, blurry",
+                strength=_s, seed=1, steps=steps["illusion"]))
+        check(images["illusion"].shape == (1024, 1024, 3)
+              and not np.array_equal(images["illusion"], images["illusion strength 0"]),
+              "diffusion spaces (c): 1024², strength 1 ≠ strength 0")
+        hint = torch.from_numpy(np.ascontiguousarray(illusion_diffusion.center_crop(
+            pattern, 1024).transpose(2, 0, 1)[None]).astype(np.float32) / 255.0).cuda()
+        state = ControlNetState(params=cn, hint=hint, cfg=cn_cfg)
+        cond = sd15.get_learned_conditioning(["a village", "blurry"], 1024, 1024)
+        x = torch.randn((2, 4, 128, 128), generator=gen, device="cuda").to(sd15.compute_dtype)
+        apply = sd15.unet_apply_fn(controlnets=[state])
+        forward_vs_plain("Illusion SD1.5 UNet + cldm (2,4,128,128)", lambda: apply(
+            sd15.loaded.unet, x, ts, cond["context"], t_host=999.0))
+        del ill, state, cn, apply
+        log(f"diffusion spaces (c) done {since()}")
+
+        # (d) IC-Light: the merged UNet (the offset through diffusers_unet_to_ldm), the U²-Net
+        # grey composite, x_concat; 512² → 768², DPM++ 2M SDE Karras, CFG 2
+        offset = {k: v.materialize() for k, v in models["offset_sd"].items()}
+        check(not any(k.startswith("input_blocks.") for k in offset)
+              and set(diffusers_unet_to_ldm(offset)) == models["offset_ldm_keys"],
+              "diffusion spaces (d): the offset's diffusers keys map back to ldm's")
+        merged, _ = timed("diffusion spaces (d): the IC-Light merge",
+                          lambda: iclight.merge_iclight_unet(sd15.loaded.unet, offset))
+        check(merged["input_blocks"]["0"]["0"]["weight"].shape[1] == 8,
+              "diffusion spaces (d): the stem widened to 8 input channels")
+        matter = U2NetMatter(device="cuda")
+        from forge_tpu_torch.core.loader import to_device_tree
+
+        matter.params = to_device_tree(models["u2net_sd"], matter.placement()[1], "cuda")
+        icl = iclight.ICLightPipeline(engine_view(sd15, merged), matter)
+        for bg in ("None", "Left Light"):
+            images[f"iclight {bg}"] = measured(f"d) iclight {bg}", f"iclight {bg}", lambda _b=bg:
+                                               icl.run(photo, "beautiful woman, cinematic "
+                                                       "lighting", seed=1, steps=steps["iclight"],
+                                                       bg_source=_b))
+        check(images["iclight None"].shape == (768, 768, 3)
+              and not np.array_equal(images["iclight None"], images["iclight Left Light"]),
+              "diffusion spaces (d): 768², None ≠ Left Light")
+        mask = matter.mask(photo)
+        log(f"diffusion spaces (d) the U²-Net mask {mask.min():.4f}–{mask.max():.4f}, mean "
+            f"{mask.mean():.4f}")
+        check(mask.shape == (512, 512) and 0.0 <= mask.min() and mask.max() <= 1.0
+              and mask.max() - mask.min() > 0.5, "diffusion spaces (d): the U²-Net mask is on")
+        fg_latent = icl._fg_latent(photo, 768, 768)
+        cond = sd15.get_learned_conditioning(["a lamp", "lowres"], 768, 768)
+        x = torch.randn((2, 4, 96, 96), generator=gen, device="cuda").to(sd15.compute_dtype)
+        apply = sd15.unet_apply_fn(hooks=icl._hooks(fg_latent))
+        forward_vs_plain("IC-Light merged UNet + x_concat (2,4,96,96)", lambda: apply(
+            merged, x, ts, cond["context"]))
+        del icl, merged, offset, apply, fg_latent
+        log(f"diffusion spaces (d) done {since()}")
+
+        # (e) GeoWizard at processing_res 768, DDIM, in two domains
+        geo = geowizard.GeoWizardPipeline(*models["geowizard"])
+        for domain in ("indoor", "outdoor"):
+            images[f"geowizard {domain}"] = measured(
+                f"e) geowizard {domain}", "geowizard", lambda _d=domain: geo.run(
+                    photo, domain=_d, denoise_steps=steps["geowizard"], seed=1))
+        depth, normal = images["geowizard indoor"]
+        check(depth.shape == (512, 512) and normal.shape == (512, 512, 3)
+              and images["geowizard indoor"][1].tobytes() != images["geowizard outdoor"][1].tobytes(),
+              "diffusion spaces (e): depth and normals at the photo's size; the domains differ")
+        unit = np.linalg.norm(normal.astype(np.float32) / 127.5 - 1.0, axis=-1)
+        log(f"diffusion spaces (e) the normals' norms {unit.min():.3f}–{unit.max():.3f}")
+        x = torch.randn((2, 8, 96, 96), generator=gen, device="cuda").to(torch.bfloat16)
+        ctx = torch.randn((2, 1, 768), generator=gen, device="cuda").to(torch.bfloat16)
+        y = geo._class_embedding("indoor").cuda().to(torch.bfloat16)
+        forward_vs_plain("GeoWizard UNet, 8-channel stem and 10-wide y (2,8,96,96)", lambda:
+                         unet_apply(geo.unet, x, ts, ctx, y=y, cfg=UNetConfig()))
+        del geo
+        log(f"diffusion spaces (e) done {since()}")
+
+        # (f) IDM-VTON at 768×1024, Euler over "normal" σ, the garment UNet's features
+        vton = idm_vton.IdmVtonPipeline(engine_view(sdxl, models["tryon_unet"]), sdxl.loaded.unet)
+        images["idm_vton"] = measured("f) idm_vton", "idm_vton", lambda: vton.run(
+            person, garment, "short sleeve round neck t-shirt", steps=steps["idm_vton"], seed=1))
+        outside = vton.default_mask(1024, 768) == 0
+        log(f"diffusion spaces (f) person {person.shape}, answer {images['idm_vton'].shape}")
+        check(images["idm_vton"].shape == person.shape
+              and np.array_equal(images["idm_vton"][outside], person[outside])
+              and not np.array_equal(images["idm_vton"], person),
+              "diffusion spaces (f): byte-equal to the person photo outside the mask")
+        cond = sdxl.get_learned_conditioning(["model is wearing a shirt"], 768, 1024)
+        cloth = torch.randn((1, 4, 128, 96), generator=gen, device="cuda")
+        x = torch.randn((1, 13, 128, 96), generator=gen, device="cuda").to(sdxl.compute_dtype)
+        t1 = torch.tensor([500.0], device="cuda")
+
+        def tryon():
+            feats = []
+
+            def capture(k, v, extra):
+                feats.append(k)
+                return k, v
+
+            def join(k, v, extra):
+                f = feats.pop(0)
+                return torch.cat([k, f], 1), torch.cat([v, f], 1)
+
+            unet_apply(sdxl.loaded.unet, cloth.to(sdxl.compute_dtype), t1, cond["context"],
+                       y=cond["y"], cfg=sdxl.unet_cfg, hooks={"attn1_context_patch": (capture,)})
+            return unet_apply(models["tryon_unet"], x, t1, cond["context"], y=cond["y"],
+                              cfg=sdxl.unet_cfg, hooks={"attn1_context_patch": (join,)})
+
+        forward_vs_plain("IDM-VTON try-on UNet over the garment's features (1,13,128,96)", tryon)
+        del vton
+        for name, img in images.items():
+            if isinstance(img, tuple):
+                continue
+            check(img.dtype == np.uint8 and img.std() > 0, f"diffusion spaces: {name} not flat")
+        log(f"diffusion spaces (a-f) launches: {json.dumps(total)}; (g) done {since()}")
+
+        # (h) the Spaces as children on the card through /sdapi/v1/spaces/launch
+        if full:
+            prepare(synth_sdxl_checkpoint(fill=DeviceFill("cuda", seed=0)))
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+        b64 = lambda img: base64.b64encode(images_mod.encode_png(img)).decode()  # noqa: E731
+        s = steps
+        bodies = {
+            "forge_space_animagine_xl_31": {"prompt": "1girl, solo", "negative": "lowres",
+                                            "seed": 1, "aspect": "896 x 1152"},
+            "forge_space_photo_maker_v2": {"images": [b64(photo)], "seed": 1,
+                                           "prompt": "a photo of a man img riding a horse",
+                                           "steps": s["photomaker"], "face_embeds": face.tolist()},
+            "forge_space_illusion_diffusion": {"image": b64(pattern), "seed": 1,
+                                               "prompt": "a medieval village, winding roads"},
+            "forge_space_iclight": {"image": b64(photo), "prompt": "beautiful woman", "seed": 1,
+                                    "bg_source": "Left Light"},
+            "forge_space_geowizard": {"image": b64(photo), "domain": "indoor",
+                                      "steps": s["geowizard"], "seed": 1},
+            "forge_space_idm_vton": {"person": b64(person), "garment": b64(garment),
+                                     "desc": "a red shirt", "steps": s["idm_vton"], "seed": 1}}
+        paths = started["paths"]
+        args = {"forge_space_animagine_xl_31": dict(ckpt=paths.get("sdxl")),
+                "forge_space_photo_maker_v2": dict(ckpt=paths.get("sdxl"),
+                                                   photomaker=paths.get("photomaker")),
+                "forge_space_illusion_diffusion": dict(ckpt=paths.get("sd15"),
+                                                       controlnet=paths.get("cldm")),
+                "forge_space_iclight": dict(ckpt=paths.get("sd15"), iclight=paths.get("offset"),
+                                            u2net_dir=u2net_dir),
+                "forge_space_geowizard": dict(ckpt=paths.get("geowizard")),
+                "forge_space_idm_vton": dict(ckpt=paths.get("idm_vton"))}
+        for name in children:  # one at a time: a child and the same call in-process on the card
+            if name in early:  # the whole run's child, launched while (a)-(g) ran
+                early[name].join()
+                check("url" in started, f"diffusion spaces (h): {name} launched: "
+                      f"{started.get('error')}")
+                url, launch_secs = started["url"], started["launch_secs"]
+            else:
+                url, launch_secs = launch(name)
+            t = time.perf_counter()
+            got = http(url, "/process", bodies[name])
+            process_secs = time.perf_counter() - t
+            http(started["base"], "/sdapi/v1/spaces/terminate", {"name": name})
+            launched.remove(name)
+            app = importlib.import_module(f"forge_tpu_torch.spaces.{name[len('forge_space_'):]}")
+            t = time.perf_counter()
+            state = app._setup(argparse.Namespace(device=None, **args[name]))
+            want = app.process(bodies[name], state)
+            own_secs = time.perf_counter() - t
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            check(got.keys() == want.keys(), f"diffusion spaces (h): {name} answers its keys")
+            same = True
+            for key in want:
+                a = images_mod.decode_png(base64.b64decode(got[key]))[0]
+                b = images_mod.decode_png(base64.b64decode(want[key]))[0]
+                same = same and a.shape == b.shape and np.array_equal(a, b)
+                log(f"diffusion spaces (h) {name} {key}: {a.shape}, "
+                    f"{'=' if same else '≠'} the same call in-process"
+                    + ("" if same or a.shape != b.shape else
+                       f" ({image_psnr(a, b):.2f} dB)"))
+            log(f"diffusion spaces (h) {name}: launched in {launch_secs:.2f} s (its checkpoint "
+                f"read before its port opens; the manager waits 60 s), its first /process "
+                f"{process_secs:.4f} s; the same call in-process {own_secs:.4f} s with its load")
+            check(same, f"diffusion spaces (h): {name}'s /process = the same call in-process")
+        listed = http(started["base"], "/sdapi/v1/spaces")["spaces"]
+        check(not any(sp["running"] for sp in listed), "diffusion spaces (h): every Space ended")
+        log(f"diffusion spaces (h) done {since()}")
+    finally:
+        attention_mod.flash_attention = flash
+        for thread in early.values():  # a launch in flight ends within the manager's 60 s
+            thread.join()
+        os.chdir(cwd)
+        if server is not None:
+            for name in launched:
+                server.api.space_manager.terminate(name)
+            server.api.space_manager.terminate_all()
+            server.shutdown()
+            server.server_close()
+            manager.close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+        for d in reversed(made):
+            shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"diffusion spaces phase 25 at {'the apps default' if full else DIFFUSION_STEPS} steps: "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def profile_request(label: str, run):
     """One request, run(), under runtime/profiling.py `trace` (the card
     alone traced) with no file written: device time by kernel, and the busy
@@ -5817,6 +6562,11 @@ def main():
                          "DensePose, Sapiens-1B at its 40 blocks against plain, the U²-Net mask, "
                          "the four port Spaces as child processes and a seg_ofade20k unit on "
                          "SDXL) at 20 steps only, with no result")
+    ap.add_argument("--diffusion-spaces", action="store_true",
+                    help="run phase 1, phase 2's rows for phase 25 (SD1.5 at 768² and 1024², SDXL "
+                         "at 896×1152 and 768×1024, the VAE at both) and phase 25 (the six Spaces "
+                         "on diffusion engines at their default steps, all six as child "
+                         "processes) only, with no result")
     ap.add_argument("--surface", action="store_true",
                     help="run phase 1, phase 2's SDXL rows and phase 21 (ControlNetScript, saving, "
                          "the event log and the management and web UI routes on SDXL) at 20 steps "
@@ -5882,7 +6632,8 @@ def main():
                             else "surface" if args.surface
                             else "annotators" if args.annotators
                             else "interrogate" if args.interrogate
-                            else "spaces" if args.spaces else "all")
+                            else "spaces" if args.spaces
+                            else "diffusion_spaces" if args.diffusion_spaces else "all")
     done("kernels (phase 2)", t)
     if args.kernels:
         log("kernels only: phases 1-2 passed")
@@ -5910,7 +6661,9 @@ def main():
                      "phases 1, 2 (the BLIP, Marigold and SDXL rows) and 23"),
                  "spaces": ("spaces", lambda e: phase_spaces(e, gen, steps=5 * SPACES_STEPS,
                                                              full=True),
-                            "phases 1, 2 (the Sapiens and SDXL rows) and 24")}
+                            "phases 1, 2 (the Sapiens and SDXL rows) and 24"),
+                 "diffusion_spaces": ("diffusion spaces", lambda e: phase_diffusion_spaces(
+                     e, gen, full=True), "phases 1, 2 (the diffusion Spaces' rows) and 25")}
     for flag, (name, run, what) in one_phase.items():
         if getattr(args, flag):
             if flag == "extensions":
@@ -5961,7 +6714,8 @@ def main():
                            ("surface", "surface", phase_surface),
                            ("annotators", "annotators", phase_annotators),
                            ("interrogate", "interrogate", phase_interrogate),
-                           ("spaces", "spaces", phase_spaces)):
+                           ("spaces", "spaces", phase_spaces),
+                           ("diffusion spaces", "diffusion_spaces", phase_diffusion_spaces)):
         t = time.perf_counter()
         paths[key] = run(engine, gen)
         done(name, t)

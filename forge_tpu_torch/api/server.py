@@ -46,8 +46,9 @@ and `serve` `script_unloaded` once it stops serving. Every answered
 that is not an 8-bit PNG answers 415 with its format's name. `/sdapi/v1/spaces`, `/spaces/launch` and
 `/spaces/terminate` list, start and stop the Forge Spaces of
 extensions-builtin/ and extensions/ (runtime/spaces.py), each in a child
-process on the card; a bundled Space the port does not run yet answers
-501 naming its ROADMAP item.
+process on the card; a Space whose child exits before it opens its port
+(a missing checkpoint) answers the reference's 500 with the manager's
+RuntimeError.
 """
 
 from __future__ import annotations
@@ -385,8 +386,8 @@ class Api:
     def spaces_launch(self, query, body):
         try:
             return {"url": self.space_manager.launch((body or {}).get("name"))}
-        except NotImplementedError as e:  # a bundled Space the port does not run yet
-            raise ApiError(501, str(e)) from e
+        except (RuntimeError, TimeoutError) as e:  # the child did not open its port
+            raise ApiError(500, str(e)) from e
 
     def spaces_terminate(self, query, body):
         self.space_manager.terminate((body or {}).get("name"))

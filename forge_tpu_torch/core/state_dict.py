@@ -1,4 +1,4 @@
-# Copied from forge_tpu/core/state_dict.py (the safetensors reader, collapse_bnb_quant, the .gguf route, load_torch_ckpt and load_torch_object, here through torch.load).
+# Copied from forge_tpu/core/state_dict.py (the safetensors reader, collapse_bnb_quant, the .gguf route, load_torch_ckpt and load_torch_object, here through torch.load; filter_prefix, diffusers_unet_to_ldm).
 """Checkpoint files → {key: numpy array}.
 
 The safetensors reader, the GGUF route (core/gguf.py) and torch's zip
@@ -25,8 +25,9 @@ it to safetensors files and torch checkpoints.
 from __future__ import annotations
 
 import json
+import re
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 
@@ -206,4 +207,79 @@ def collapse_bnb_quant(sd: Dict[str, Any]) -> Dict[str, Any]:
             vals = quant_map[idx.astype(np.int64)].reshape(-1, blocksize) * absmax[:, None]
             n = int(np.prod(shape))
             out[base] = vals.reshape(-1)[:n].reshape(shape).astype(np.float32)
+    return out
+
+
+def filter_prefix(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    """The entries under `prefix`, the prefix stripped."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def diffusers_unet_to_ldm(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """diffusers' UNet2DConditionModel keys → ldm's (input_blocks/...): the
+    published mapping, the geometry read from the keys; values untouched."""
+    res_map = {"norm1": "in_layers.0", "conv1": "in_layers.2",
+               "time_emb_proj": "emb_layers.1", "norm2": "out_layers.0",
+               "conv2": "out_layers.3", "conv_shortcut": "skip_connection"}
+
+    def n_of(prefix: str, part: str) -> int:
+        seen = set()
+        pat = re.compile(re.escape(prefix) + r"\.(\d+)\." + part + r"\.(\d+)\.")
+        for k in sd:
+            m = pat.match(k)
+            if m:
+                seen.add((int(m.group(1)), int(m.group(2))))
+        return max((j for _, j in seen), default=-1) + 1
+
+    n_down = max((int(k.split(".")[1]) for k in sd if k.startswith("down_blocks.")),
+                 default=-1) + 1
+    lpb = n_of("down_blocks", "resnets")
+    out: Dict[str, Any] = {}
+
+    def put(dst: str, src: str):
+        for k, v in sd.items():
+            if k.startswith(src + "."):
+                tail = k[len(src) + 1:]
+                head, _, rest = tail.partition(".")
+                tail = res_map.get(head, head) + ("." + rest if rest else "")
+                out[dst + "." + tail] = v
+
+    put("input_blocks.0.0", "conv_in")
+    out.update({f"time_embed.0.{t}": sd[f"time_embedding.linear_1.{t}"]
+                for t in ("weight", "bias") if f"time_embedding.linear_1.{t}" in sd})
+    out.update({f"time_embed.2.{t}": sd[f"time_embedding.linear_2.{t}"]
+                for t in ("weight", "bias") if f"time_embedding.linear_2.{t}" in sd})
+    for t in ("weight", "bias"):
+        for src, dst in (("add_embedding.linear_1", "label_emb.0.0"),
+                         ("add_embedding.linear_2", "label_emb.0.2")):
+            if f"{src}.{t}" in sd:
+                out[f"{dst}.{t}"] = sd[f"{src}.{t}"]
+    idx = 1
+    for i in range(n_down):
+        for j in range(lpb):
+            put(f"input_blocks.{idx}.0", f"down_blocks.{i}.resnets.{j}")
+            if any(k.startswith(f"down_blocks.{i}.attentions.{j}.") for k in sd):
+                put(f"input_blocks.{idx}.1", f"down_blocks.{i}.attentions.{j}")
+            idx += 1
+        if any(k.startswith(f"down_blocks.{i}.downsamplers.") for k in sd):
+            put(f"input_blocks.{idx}.0.op", f"down_blocks.{i}.downsamplers.0.conv")
+            idx += 1
+    put("middle_block.0", "mid_block.resnets.0")
+    put("middle_block.1", "mid_block.attentions.0")
+    put("middle_block.2", "mid_block.resnets.1")
+    n_up = max((int(k.split(".")[1]) for k in sd if k.startswith("up_blocks.")), default=-1) + 1
+    idx = 0
+    for i in range(n_up):
+        n_res = len({k.split(".")[3] for k in sd if k.startswith(f"up_blocks.{i}.resnets.")})
+        for j in range(n_res):
+            put(f"output_blocks.{idx}.0", f"up_blocks.{i}.resnets.{j}")
+            has_attn = any(k.startswith(f"up_blocks.{i}.attentions.{j}.") for k in sd)
+            if has_attn:
+                put(f"output_blocks.{idx}.1", f"up_blocks.{i}.attentions.{j}")
+            if j == n_res - 1 and any(k.startswith(f"up_blocks.{i}.upsamplers.") for k in sd):
+                put(f"output_blocks.{idx}.{2 if has_attn else 1}.conv",
+                    f"up_blocks.{i}.upsamplers.0.conv")
+            idx += 1
+    put("out.0", "conv_norm_out")
+    put("out.2", "conv_out")
     return out

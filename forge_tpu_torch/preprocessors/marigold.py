@@ -33,13 +33,13 @@ reference's reader drops the metadata and always takes epsilon).
 from __future__ import annotations
 
 import json
-import re
 import struct
-from typing import Any, Dict, Mapping, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..core.state_dict import diffusers_unet_to_ldm, filter_prefix
 from . import cv2_np
 from .annotator import Detector, inference, to_numpy
 from .cv import resize_image
@@ -48,86 +48,11 @@ LATENT_SCALE = 0.18215
 _BOS, _EOS = 49406, 49407
 
 
-# Copied from forge_tpu/core/state_dict.py (diffusers_unet_to_ldm).
-def diffusers_unet_to_ldm(sd: Mapping[str, Any]) -> Dict[str, Any]:
-    """diffusers' UNet2DConditionModel keys → ldm's (input_blocks/...): the
-    published mapping, the geometry read from the keys; values untouched."""
-    res_map = {"norm1": "in_layers.0", "conv1": "in_layers.2",
-               "time_emb_proj": "emb_layers.1", "norm2": "out_layers.0",
-               "conv2": "out_layers.3", "conv_shortcut": "skip_connection"}
-
-    def n_of(prefix: str, part: str) -> int:
-        seen = set()
-        pat = re.compile(re.escape(prefix) + r"\.(\d+)\." + part + r"\.(\d+)\.")
-        for k in sd:
-            m = pat.match(k)
-            if m:
-                seen.add((int(m.group(1)), int(m.group(2))))
-        return max((j for _, j in seen), default=-1) + 1
-
-    n_down = max((int(k.split(".")[1]) for k in sd if k.startswith("down_blocks.")),
-                 default=-1) + 1
-    lpb = n_of("down_blocks", "resnets")
-    out: Dict[str, Any] = {}
-
-    def put(dst: str, src: str):
-        for k, v in sd.items():
-            if k.startswith(src + "."):
-                tail = k[len(src) + 1:]
-                head, _, rest = tail.partition(".")
-                tail = res_map.get(head, head) + ("." + rest if rest else "")
-                out[dst + "." + tail] = v
-
-    put("input_blocks.0.0", "conv_in")
-    out.update({f"time_embed.0.{t}": sd[f"time_embedding.linear_1.{t}"]
-                for t in ("weight", "bias") if f"time_embedding.linear_1.{t}" in sd})
-    out.update({f"time_embed.2.{t}": sd[f"time_embedding.linear_2.{t}"]
-                for t in ("weight", "bias") if f"time_embedding.linear_2.{t}" in sd})
-    for t in ("weight", "bias"):
-        for src, dst in (("add_embedding.linear_1", "label_emb.0.0"),
-                         ("add_embedding.linear_2", "label_emb.0.2")):
-            if f"{src}.{t}" in sd:
-                out[f"{dst}.{t}"] = sd[f"{src}.{t}"]
-    idx = 1
-    for i in range(n_down):
-        for j in range(lpb):
-            put(f"input_blocks.{idx}.0", f"down_blocks.{i}.resnets.{j}")
-            if any(k.startswith(f"down_blocks.{i}.attentions.{j}.") for k in sd):
-                put(f"input_blocks.{idx}.1", f"down_blocks.{i}.attentions.{j}")
-            idx += 1
-        if any(k.startswith(f"down_blocks.{i}.downsamplers.") for k in sd):
-            put(f"input_blocks.{idx}.0.op", f"down_blocks.{i}.downsamplers.0.conv")
-            idx += 1
-    put("middle_block.0", "mid_block.resnets.0")
-    put("middle_block.1", "mid_block.attentions.0")
-    put("middle_block.2", "mid_block.resnets.1")
-    n_up = max((int(k.split(".")[1]) for k in sd if k.startswith("up_blocks.")), default=-1) + 1
-    idx = 0
-    for i in range(n_up):
-        n_res = len({k.split(".")[3] for k in sd if k.startswith(f"up_blocks.{i}.resnets.")})
-        for j in range(n_res):
-            put(f"output_blocks.{idx}.0", f"up_blocks.{i}.resnets.{j}")
-            has_attn = any(k.startswith(f"up_blocks.{i}.attentions.{j}.") for k in sd)
-            if has_attn:
-                put(f"output_blocks.{idx}.1", f"up_blocks.{i}.attentions.{j}")
-            if j == n_res - 1 and any(k.startswith(f"up_blocks.{i}.upsamplers.") for k in sd):
-                put(f"output_blocks.{idx}.{2 if has_attn else 1}.conv",
-                    f"up_blocks.{i}.upsamplers.0.conv")
-            idx += 1
-    put("out.0", "conv_norm_out")
-    put("out.2", "conv_out")
-    return out
-
-
 def safetensors_metadata(path: str) -> Dict[str, str]:
     """A .safetensors file's `__metadata__` ({} where it has none)."""
     with open(path, "rb") as f:
         n = struct.unpack("<Q", f.read(8))[0]
         return dict(json.loads(f.read(n)).get("__metadata__") or {})
-
-
-def _prefixed(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
-    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
 class MarigoldPipeline:
@@ -155,12 +80,12 @@ class MarigoldPipeline:
 
         sd = load_state_dict(path)
         meta = safetensors_metadata(path) if path.endswith((".safetensors", ".sft")) else {}
-        unet_sd = _prefixed(sd, "unet.")
+        unet_sd = filter_prefix(sd, "unet.")
         if any(k.startswith("down_blocks.") for k in unet_sd):
             unet_sd = diffusers_unet_to_ldm(unet_sd)
-        text_sd = _prefixed(sd, "text_encoder.")
+        text_sd = filter_prefix(sd, "text_encoder.")
         return cls(to_device_tree(unet_sd, dtype, device),
-                   to_device_tree(_prefixed(sd, "vae."), dtype, device),
+                   to_device_tree(filter_prefix(sd, "vae."), dtype, device),
                    to_device_tree(text_sd, dtype, device) if text_sd else None,
                    prediction_type=str(meta.get("prediction_type", "epsilon")))
 

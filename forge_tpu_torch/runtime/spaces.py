@@ -12,13 +12,13 @@ present). A Space's folder holds
                     HTTP on (H, P) until terminated.
 
 The bundled folders' forge_app.py files are written against the JAX
-package, so the port runs its own app for each of them:
+package, so the port runs its own app for each of the ten:
 `python -m forge_tpu_torch.spaces.<name> --host H --port P` (PORT_APPS),
-the package's root put on the child's PYTHONPATH. A bundled Space with no
-port app yet (UNPORTED_SPACES, the diffusion Spaces) raises
-NotImplementedError naming its ROADMAP item; any other folder runs its
-own forge_app.py, as the reference does, and a folder without one raises
-the reference's RuntimeError. Each launch takes a port the OS picks (the
+the package's root put on the child's PYTHONPATH. Any other folder runs
+its own forge_app.py, as the reference does, and a folder without one
+raises the reference's RuntimeError. A Space built on a diffusion engine
+reads its checkpoint before it opens its port; a child that exits first
+(a missing checkpoint) raises the reference's RuntimeError. Each launch takes a port the OS picks (the
 reference scans from 7870), so Spaces launched at once (the API's handler
 threads) take different ports; a Space launched twice at once starts one
 child, and both calls answer its URL.
@@ -37,12 +37,12 @@ from typing import Dict, List, Optional, Sequence
 
 # the bundled Spaces the port runs, by folder → forge_tpu_torch/spaces/<module>.py
 PORT_APPS = {"forge_space_example": "example", "forge_space_sapiens_normal": "sapiens_normal",
-             "forge_space_birefnet": "birefnet", "forge_space_florence_2": "florence_2"}
-# the bundled Spaces built on diffusion engines, not ported yet
-UNPORTED_SPACES = ("forge_space_animagine_xl_31", "forge_space_geowizard", "forge_space_iclight",
-                   "forge_space_idm_vton", "forge_space_illusion_diffusion",
-                   "forge_space_photo_maker_v2")
-_ROADMAP_SPACES = "ROADMAP.md queue 1 item 9: the Spaces on diffusion engines"
+             "forge_space_birefnet": "birefnet", "forge_space_florence_2": "florence_2",
+             "forge_space_animagine_xl_31": "animagine_xl_31",
+             "forge_space_photo_maker_v2": "photo_maker_v2",
+             "forge_space_illusion_diffusion": "illusion_diffusion",
+             "forge_space_iclight": "iclight", "forge_space_geowizard": "geowizard",
+             "forge_space_idm_vton": "idm_vton"}
 _PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -74,9 +74,6 @@ class ForgeSpace:
 
     def command(self, host: str, port: int) -> List[str]:
         """The child's command line: the port's app for a bundled Space, else the folder's own."""
-        if self.name in UNPORTED_SPACES:
-            raise NotImplementedError(f"the Space {self.name!r} is not ported to forge_tpu_torch "
-                                      f"yet ({_ROADMAP_SPACES})")
         if not self.installed:
             raise RuntimeError(f"space {self.name!r} has no forge_app.py")
         if self.name in PORT_APPS:

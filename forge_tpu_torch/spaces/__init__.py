@@ -18,8 +18,10 @@ import numpy as np
 _ROADMAP_CODECS = "ROADMAP.md queue 1 item 7: the image encoders"
 
 
-def decode_upload(b64: str) -> np.ndarray:
-    """A base64 PNG → uint8 RGB [H, W, 3] (Pillow's convert("RGB"))."""
+def decode_upload(b64: str, mode: str = "RGB") -> np.ndarray:
+    """A base64 PNG → uint8 RGB [H, W, 3] (Pillow's convert("RGB")), or with
+    mode "L" uint8 [H, W] (Pillow's convert("L"): grey kept, colour weighted
+    (19595·R + 38470·G + 7471·B + 2^15) >> 16)."""
     from ..pipeline.images import UnsupportedImage, decode_png, to_rgb
 
     try:
@@ -27,7 +29,15 @@ def decode_upload(b64: str) -> np.ndarray:
     except UnsupportedImage as e:
         raise NotImplementedError(f"{e}: other formats are not ported to forge_tpu_torch yet "
                                   f"({_ROADMAP_CODECS})") from e
-    return to_rgb(pixels)
+    if mode == "RGB":
+        return to_rgb(pixels)
+    if mode != "L":
+        raise ValueError(f"decode_upload: mode {mode!r} (RGB or L)")
+    if pixels.ndim == 2 or pixels.shape[-1] <= 2:
+        return np.ascontiguousarray(pixels if pixels.ndim == 2 else pixels[..., 0])
+    rgb = pixels[..., :3].astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
 
 
 def encode_answer(image: np.ndarray) -> str:

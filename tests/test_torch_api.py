@@ -188,13 +188,13 @@ def test_listings_match_forge_tpu(servers, route):
     assert want[0] == got[0] == 200 and got[1] == want[1] and len(got[1]) > 5
 
 
-def test_refusals(servers):
+def test_refusals(servers, monkeypatch):
     """An unported field 422 with Processing's text; a field of the reference
     the port lacks passes at the port's behaviour (tiling off); an
     unknown script 422 (a known one and soft inpainting are answered,
     tests/test_torch_scripts_api.py; `save_images` is answered,
-    tests/test_torch_surface_api.py); a bundled Space the port does not run yet 501
-    naming its ROADMAP item; a JPEG 415, a
+    tests/test_torch_surface_api.py); a bundled diffusion Space without its
+    checkpoint the reference's 500 naming the child's exit; a JPEG 415, a
     PNG past the reader's pixel limit 413 and a truncated one 422; an
     unknown route 404; an unported option 422."""
     _, tbase = servers
@@ -209,8 +209,17 @@ def test_refusals(servers):
         assert status == 422 and detail in body["detail"], (key, body)
     status, body, _ = _call(tbase, "/sdapi/v1/interrogate", {"image": ""})
     assert status == 404 and body["detail"] == "Image not found"
-    status, body, _ = _call(tbase, "/sdapi/v1/spaces/launch", {"name": "forge_space_iclight"})
-    assert status == 501 and "ROADMAP.md queue 1 item 9" in body["detail"]
+    # a bundled diffusion Space without its checkpoint: the child exits in setup, and the
+    # route answers the reference's 500 (forge_tpu's manager given an OS-picked port: its scan
+    # from 7870 can take a port another test's Space is about to open, and connect to that)
+    from forge_tpu.runtime import spaces as jspaces
+    from forge_tpu_torch.runtime.spaces import find_free_port
+
+    monkeypatch.setattr(jspaces, "find_free_port", lambda host="127.0.0.1": find_free_port(host))
+    launched = [_call(base, "/sdapi/v1/spaces/launch", {"name": "forge_space_iclight"})[:2]
+                for base in servers]
+    assert launched[1] == launched[0] == (500, {"detail": "space 'forge_space_iclight' "
+                                                          "exited with 1"})
     buf = io.BytesIO()
     Image.new("RGB", (8, 8)).save(buf, "JPEG")
     status, body, _ = _call(tbase, "/sdapi/v1/img2img", dict(

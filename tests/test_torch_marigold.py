@@ -184,7 +184,7 @@ def test_detector_resizes_match_reference(files, monkeypatch):
 
 def test_diffusers_keys_map_as_the_reference():
     from forge_tpu.core.state_dict import diffusers_unet_to_ldm as ref
-    from forge_tpu_torch.preprocessors.marigold import diffusers_unet_to_ldm
+    from forge_tpu_torch.core.state_dict import diffusers_unet_to_ldm
 
     keys = ["conv_in.weight", "conv_in.bias", "time_embedding.linear_1.weight",
             "time_embedding.linear_2.bias", "conv_norm_out.weight", "conv_out.bias",

@@ -169,4 +169,7 @@ def test_phase_24_counts():
         "densepose_parula (black bg & blue torso)"}
     from forge_tpu_torch.runtime.spaces import PORT_APPS
 
-    assert set(chip_smoke.SPACE_NAMES) == set(PORT_APPS)
+    # phase 24 launches the four Spaces on networks of their own, phase 25 the six on
+    # diffusion engines
+    assert set(chip_smoke.SPACE_NAMES) | set(chip_smoke.DIFFUSION_SPACE_NAMES) == set(PORT_APPS)
+    assert not set(chip_smoke.SPACE_NAMES) & set(chip_smoke.DIFFUSION_SPACE_NAMES)

@@ -3,8 +3,10 @@ runtime/space_harness.py, forge_tpu_torch/spaces/) on the CPU.
 
 The manager's lifecycle on a stdlib-only Space a test writes (discovery,
 launch on a free port, the URL tracked, terminate), the reference's
-RuntimeError for a folder without forge_app.py, and NotImplementedError
-naming ROADMAP item 9 for each bundled Space built on a diffusion engine.
+RuntimeError for a folder without forge_app.py, and the port's own app for
+each of the ten bundled Spaces (the six on diffusion engines are held
+against their reference apps in tests/test_torch_space_apps_sd15.py and
+tests/test_torch_space_apps_sdxl.py).
 The harness answers GET with the page, POST with `process`'s JSON and any
 exception with 500 and {"error": …}. Each of the four port Spaces
 (example, sapiens_normal, birefnet, florence_2) is launched as a child
@@ -135,7 +137,7 @@ def test_discovery_and_lifecycle(tmp_path):
 
 def test_uninstalled_unported_and_free_port(tmp_path):
     from forge_tpu.runtime import spaces as ref
-    from forge_tpu_torch.runtime.spaces import PORT_APPS, UNPORTED_SPACES, SpaceManager
+    from forge_tpu_torch.runtime.spaces import PORT_APPS, SpaceManager
 
     d = tmp_path / "forge_space_empty"
     d.mkdir()
@@ -147,10 +149,12 @@ def test_uninstalled_unported_and_free_port(tmp_path):
             manager.launch("forge_space_empty")
     bundled = SpaceManager(["extensions-builtin"])
     assert sorted(bundled.spaces) == sorted(ref.SpaceManager(["extensions-builtin"]).spaces)
-    assert sorted(bundled.spaces) == sorted(list(PORT_APPS) + list(UNPORTED_SPACES))
-    for name in UNPORTED_SPACES:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-            bundled.launch(name)
+    assert sorted(bundled.spaces) == sorted(PORT_APPS) and len(PORT_APPS) == 10
+    for name, module in PORT_APPS.items():
+        cmd = bundled.spaces[name].command("127.0.0.1", 7870)
+        assert cmd[1:] == ["-m", f"forge_tpu_torch.spaces.{module}", "--host", "127.0.0.1",
+                           "--port", "7870"]
+        assert importlib.util.find_spec(f"forge_tpu_torch.spaces.{module}") is not None
         assert not bundled.spaces[name].running
     import socket
 
