@@ -22,7 +22,9 @@ UniFormer, the anime face, LaMa) with a depth_marigold unit on SDXL and the extr
 crop, and OneFormer, DensePose and the Forge Spaces (Sapiens-1B normals, U²-Net background
 removal, captions, the example) as child processes with a seg_ofade20k unit on SDXL, and the six
 Forge Spaces on diffusion engines (Animagine XL 3.1, PhotoMaker V2, Illusion Diffusion, IC-Light,
-GeoWizard, IDM-VTON) in-process and as child processes, on one NVIDIA GPU.
+GeoWizard, IDM-VTON) in-process and as child processes, and LoRA, the hires fix and inpainting
+on SD2, SD3, Playground v2.5 and Chroma, Playground's img2img and SD3 on q8_0 weights, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py              # all phases; needs one CUDA device
     python3 chip_smoke.py --kernels    # phases 1-2 only (build + kernel checks), no result
@@ -48,6 +50,8 @@ GeoWizard, IDM-VTON) in-process and as child processes, on one NVIDIA GPU.
                                      # steps with Sapiens-1B's 40 blocks; no result
     python3 chip_smoke.py --diffusion-spaces  # phase 1, phase 2's rows for phase 25, phase 25 at
                                               # each app's default steps, all six children; no result
+    python3 chip_smoke.py --family-features  # phase 1, phase 2's rows for phase 26, phase 26 at
+                                             # the families' phase-13 steps; no result
 
 Phases:
   1. device and build: `nvidia-smi` name and power limit, then the kernels
@@ -87,7 +91,7 @@ Phases:
   7. the SDXL base slice at full width (UNet 320ch, mult (1,2,4), depths
      (0,2,10), CLIP-L + OpenCLIP-bigG, 4-channel VAE) on random weights made
      on the card from a seed: load_engine, two requests (1024², DPM++ 2M,
-     "karras", 20 steps (bench.py's 30), CFG 7, seeds 1, 2) with latency, timings, peak
+     "karras", 14 steps (bench.py's 30), CFG 7, seeds 1, 2) with latency, timings, peak
      memory and exact launch counts by body, seed 1 again under
      torch.profiler (byte-identical), then one UNet forward at (2,4,128,128) through the
      kernels and through the plain versions;
@@ -119,8 +123,8 @@ Phases:
      kernels and the plain versions;
  10. config 2 complete on the same engine (BASELINE configs[1], the webui's
      hires and refiner defaults): (a) the hires fix in latent mode, 1024²
-     DPM++ 2M Karras 20 steps CFG 7, then "Latent" ×2 at denoising 0.7
-     (hires steps 0 = 30: 22 model calls on 256² latents) and the 2048²
+     DPM++ 2M Karras 14 steps CFG 7, then "Latent" ×2 at denoising 0.7
+     (hires steps 0 = 14: 10 model calls on 256² latents) and the 2048²
      decode, seeds 1, 2, with exact launch counts by body, latency,
      timings and peak memory, then seed 1 again profiled (byte-identical);
      (b) a full-width
@@ -160,11 +164,11 @@ Phases:
      widths and driven with its model card's request: SD2.1-768-v (UNet
      320·(1,2,4,4), 64-wide heads, linear projections, context 1024;
      OpenCLIP ViT-H/14's text tower; v by its marker key) at 768², DPM++ 2M
-     Karras, 20 steps, CFG 7; SD3-medium (24 joint blocks, hidden 1536, a
+     Karras, 12 steps (the model's 20), CFG 7; SD3-medium (24 joint blocks, hidden 1536, a
      192² positional grid; CLIP-L, CLIP-G, T5-XXL; the 16-channel VAE) at
      1024², Euler "simple", 14 steps (the model's 28), CFG 7, shift 3.0; Playground v2.5
      (SDXL's geometry, EDM at σ_data 0.5, the channel latent format) at
-     1024², DPM++ 2M Karras, 20 steps (the model's 50), CFG 3. Each: the engine's widths
+     1024², DPM++ 2M Karras, 12 steps (the model's 50), CFG 3. Each: the engine's widths
      checked, seeds 1, 2 (the first the warm-up) with latency, phases, peak
      memory and exact launch counts by body, seed 1 again profiled
      (byte-identical), seed 1's whole request through the plain versions
@@ -182,8 +186,8 @@ Phases:
      127.0.0.1, port 0, on a thread, over a ModelManager holding the engine;
      GET samplers, options, sd-models and memory (its "cuda" within 1 GiB of
      torch.cuda.mem_get_info); bench.py's `config2` request (1024², DPM++ 2M
-     Karras, 20 steps, CFG 7) as txt2img over HTTP at seeds 1, 2 (/progress
-     polled every 0.1 s: it never falls and reaches 30 of 30, a live preview
+     Karras, 14 steps, CFG 7) as txt2img over HTTP at seeds 1, 2 (/progress
+     polled every 0.1 s: it never falls and reaches 14 of 14, a live preview
      decodes through the port's PNG reader) and seed 1 four times in turns
      with the live previews on, off, off, on (their cost), exact launch
      counts, every seed-1 response identical and its PNG's pixels and
@@ -191,7 +195,7 @@ Phases:
      times, the PNG encode's ms; the host decode of that image as the
      port's filter-None PNG and as a client's upload filtered Average and
      Paeth); an interrupt posted once /progress shows
-     step 10 (the response carries an image; the UNet's launches are the
+     step 5 (the response carries an image; the UNet's launches are the
      steps the state counted, plus one whole decode); under
      `vae_always_tiled` a txt2img (9 decode tiles) and an img2img at strength
      0.5 from the first image sent as that Average/Paeth upload (9 encode and
@@ -217,7 +221,7 @@ Phases:
      launches (no dequant), its latency beside NF4's, one profiled, one
      whole forward against plain (≥ 40 dB); (c) Chroma at full width in bf16 (hidden 3072,
      24 heads, 19 + 38 blocks, the Approximator 5120 × 5, T5-XXL, the
-     16-channel VAE): 1024², Euler "simple", 10 steps (the model's 26), CFG 4 with a negative
+     16-channel VAE): 1024², Euler "simple", 6 steps (the model's 26), CFG 4 with a negative
      prompt, seeds 1, 2 (the first the warm-up; 26 × 57 + 1 flash launches a
      request on the tensor-core body, 28 conv, 0 dequant), seed 1 again
      profiled (byte-identical), one forward at CFG batch 2 against plain
@@ -486,6 +490,30 @@ Phases:
      upscale's UNet, the garment UNet, the VAE at 768×1024 and GeoWizard's
      batch-2 decode) and, under the flag, the fused conv at every new (C, O,
      size), summed one line a set.
+ 26. The families' request features (`--family-features`: each family loaded
+     alone at its phase-13 steps; in the whole run at 2 steps, hires 2 + 2, on
+     the engines phases 13 and 15 (c) load, before each is freed), on SD2.1-768-v,
+     SD3-medium, Playground v2.5 and Chroma: (a) a LoRA made on the card (rank
+     16, alpha 16, kohya names over every linear of the diffusion model and
+     the CLIP towers' attention linears), written with core/save.py under
+     logs/chip_smoke_family_features/ (removed at the end) and read through
+     `<lora:...:0.8>`: every name matched, each text prefix on its tower; the
+     request twice byte-identical and unlike the plain one; one patched
+     forward against plain (≥ 40 dB); (b) the hires fix, "Latent" at 1.5×
+     (SD2 768² → 1152², the rest 1024² → 1536²), strength 0.6: its phases,
+     the hires decode's peak beside runtime/memory.py's estimate, SD3's and
+     Chroma's profiled, one forward at the hires size against plain; (c)
+     inpainting of the family's seed-1 image (a centred square, blur 4,
+     strength 0.75): every pixel 17 px past the mask the init's; (d)
+     Playground's img2img at 0.5; (e) SD3-medium loaded with
+     `unet_quant="q8_0"`: seeds 1 and 2, the dequant-matmul's 239 leaves a
+     model call on the tensor-core body, the request against plain (≥ 40 dB)
+     and against the bf16 engine's image, and the LoRA online on the
+     quantized leaves. Launches exact in every request (`feature_counts`).
+     Phase 2 holds flash at SD3's and Chroma's 1536² joint attentions, SD2's
+     1152² and Playground's 1536² levels and the VAE at 1152² and 1536², the
+     fused conv at every new (C, O, size), and the q8_0 dequant-matmul at
+     SD3-medium's linears.
 
 Each path's launch counts are set to 0 just before it is driven and read just
 after. Any failed check raises, so the exit code is not 0 and no result line
@@ -647,7 +675,7 @@ DEQUANT_CASES = (  # (kind, block, (M, N, K)): every kind at every shape, and bl
 EXPECTED_PER_REQUEST = {"flash_attention": 201, "gn_silu_conv3x3": 908}
 FLUX_STEPS = 4
 FLUX_PROMPT = "a photograph of an astronaut riding a horse on the moon, (detailed:1.2)"
-SDXL_STEPS = 20  # bench.py's 30, cut for the whole run's time limit (PR 24)
+SDXL_STEPS = 14  # bench.py's 30, cut for the whole run's time limit
 # a request: 70 self-attentions of L ≥ 512 a forward (level 1: 5 transformers × depth 2;
 # level 2 and the middle: 6 × depth 10) and the VAE mid-block; 17 ResBlocks × 2 convs a
 # forward and the VAE decoder's 14 resnets × 2; one forward a step (cond and uncond batched)
@@ -677,12 +705,12 @@ UPSCALE_PER_REQUEST = {"flash_attention": UPSCALE_CALLS * UPSCALE_TILES * 70 + 2
                        "gn_silu_conv3x3": UPSCALE_CALLS * UPSCALE_TILES * 34 + 20 + 28,
                        "dequant_matmul": 0}
 LORA_BLOCKS = ("input_blocks_4_1", "input_blocks_5_1", "output_blocks_3_1")
-# config 2 (tests/test_torch_refiner.py traces it on the meta device): (a) 30 base calls (70
-# flash, 34 conv each), then the hires pass at strength 0.7 of SDXL_STEPS (20), t_enc = int(0.7·20) =
-# 14: 15 calls on 256² latents (70, 34 each), then the 2048² decode (1, 28); (c) the pixel
-# mode adds the 1024² decode (1, 28) and the 2048² encode (1, 20); (b) the refiner takes over
-# at k = round(0.8·30) = 24: 24 base calls, 6 refiner calls (40 flash: 20 at 4096 and 20 at
-# 1024 tokens; 44 convs: 22 ResBlocks), then the refiner's 1024² decode (1, 28)
+# config 2 (tests/test_torch_refiner.py traces it on the meta device at bench.py's 30 steps): (a)
+# SDXL_STEPS base calls (70 flash, 34 conv each), then the hires pass at strength 0.7 of
+# SDXL_STEPS, int(0.7·steps) + 1 calls on 256² latents (70, 34 each), then the 2048² decode (1,
+# 28); (c) the pixel mode adds the 1024² decode (1, 28) and the 2048² encode (1, 20); (b) the
+# refiner takes over at k = round(0.8·steps): k base calls, the rest refiner calls (40 flash: 20
+# at 4096 and 20 at 1024 tokens; 44 convs: 22 ResBlocks), then the refiner's 1024² decode (1, 28)
 CONFIG2_HR_STRENGTH, CONFIG2_SWITCH_AT = 0.7, 0.8
 CONFIG2_HIRES_CALLS = min(int(CONFIG2_HR_STRENGTH * SDXL_STEPS), SDXL_STEPS - 1) + 1
 CONFIG2_K = max(1, min(SDXL_STEPS - 1, round(CONFIG2_SWITCH_AT * SDXL_STEPS)))
@@ -728,14 +756,14 @@ PROMPTS_NGMS = 1.0  # s_min_uncond: the 20 Karras σ fall below it from step 11 
 # 24 joint attentions and no ResBlock; Playground: SDXL's 70 and 34
 FAMILIES = {
     "sd2": dict(synth="synth_sd2_checkpoint", family="sd20", size=768, sampler="DPM++ 2M",
-                scheduler="karras", steps=20, cfg=7.0, calls=20, flash=15, conv=44,
+                scheduler="karras", steps=12, cfg=7.0, calls=12, flash=15, conv=44,
                 request_gate=False),
-    # SD3's 28 steps and Playground's 50 cut to 14 and 20 for the whole run's time limit (PR 24)
+    # SD2's 20 steps, SD3's 28 and Playground's 50 cut to 12, 14 and 12 for the whole run's limit
     "sd3": dict(synth="synth_sd3_checkpoint", family="sd3", size=1024, sampler="Euler",
                 scheduler="simple", steps=14, cfg=7.0, calls=14, flash=24, conv=0,
                 request_gate=True),
     "playground": dict(synth="synth_playground_checkpoint", family="playground", size=1024,
-                       sampler="DPM++ 2M", scheduler="karras", steps=20, cfg=3.0, calls=20,
+                       sampler="DPM++ 2M", scheduler="karras", steps=12, cfg=3.0, calls=12,
                        flash=70, conv=34, request_gate=True),
 }
 # `request_gate`: the whole request's image through the kernels is held ≥ PSNR_BOUND against
@@ -763,7 +791,7 @@ API_IMG2IMG_PER_REQUEST = {"flash_attention": API_IMG2IMG_CALLS * 70 + 2 * API_T
                            "dequant_matmul": 0}
 API_TAESD_PER_REQUEST = {"flash_attention": SDXL_STEPS * 70, "gn_silu_conv3x3": SDXL_STEPS * 34,
                          "dequant_matmul": 0}
-API_INTERRUPT_AT = 10  # POST /interrupt once /progress shows this step
+API_INTERRUPT_AT = 5  # POST /interrupt once /progress shows this step
 FAMILY_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
 # phase 15, the Flux family as users download it: (a) Flux-dev written as a bitsandbytes NF4
 # transformer file (block 64, no double quantization: flux1-dev-bnb-nf4-v2's layout) beside a
@@ -771,7 +799,7 @@ FAMILY_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
 # (lodestones/Chroma: 1024², Euler "simple", CHROMA_STEPS, CFG 4 with a negative prompt). A Chroma
 # request: 26 model calls at CFG batch 2, each 19 + 38 joint attentions, then the decode
 FLUX_FILES_DIR = "logs/chip_smoke_flux_files"
-CHROMA_STEPS, CHROMA_CFG, CHROMA_NEGATIVE = 10, 4.0, "blurry, low quality"  # 26, cut (PR 24)
+CHROMA_STEPS, CHROMA_CFG, CHROMA_NEGATIVE = 6, 4.0, "blurry, low quality"  # 26, cut
 CHROMA_PER_REQUEST = {"flash_attention": CHROMA_STEPS * (19 + 38) + 1, "gn_silu_conv3x3": 28,
                       "dequant_matmul": 0}
 FP8_PER_REQUEST = {"flash_attention": FLUX_STEPS * (19 + 38) + 1, "gn_silu_conv3x3": 28,
@@ -1219,6 +1247,89 @@ def diffusion_counts(steps) -> dict:
     return out
 
 
+# phase 26, the families' request features (tests/test_torch_family_features_dit.py and
+# test_torch_family_features_unet.py hold them against the reference on the CPU and pin these
+# counts on the meta device): a LoRA (rank 16, alpha 16, kohya names over every linear of the
+# diffusion model and the CLIP towers' attention linears, made on the card, read through
+# `<lora:...:0.8>`), the hires fix ("Latent" at 1.5×, strength 0.6 over the base's steps) and
+# inpainting of the family's seed-1 image (a centred mask, blur 4, strength 0.75) on SD2, SD3,
+# Playground v2.5 and Chroma at their published widths; Playground's img2img at 0.5; SD3 on q8_0
+# weights, with and without the LoRA (online on the quantized leaves). A model call takes the
+# same `flash` and `conv` launches at the base and the hires size; the VAE one flash and 28
+# fused convs a decode, 20 an encode. The whole run takes FEATURES_STEPS (hires 2 + 2) on the
+# engines phases 13 and 15 (c) load; --family-features loads each family alone and takes its
+# phase-13 steps
+FEATURES_STEPS = 2
+FEATURES = {**{name: dict(spec) for name, spec in FAMILIES.items()},
+            "chroma": dict(synth="synth_chroma_checkpoint", family="chroma", size=1024,
+                           sampler="Euler", scheduler="simple", steps=CHROMA_STEPS,
+                           cfg=CHROMA_CFG, calls=CHROMA_STEPS, flash=19 + 38, conv=0,
+                           request_gate=True)}
+FEATURES_HIRES = dict(enable_hr=True, hr_scale=1.5, hr_upscaler="Latent",
+                      hr_denoising_strength=0.6)
+FEATURES_INPAINT = dict(mask_blur=4, denoising_strength=0.75, inpainting_fill="original")
+FEATURES_IMG2IMG_STRENGTH = 0.5
+FEATURES_LORA = dict(name="chip-smoke-features", rank=16, alpha=16.0, strength=0.8)
+FEATURES_DIR = "logs/chip_smoke_family_features"
+# SD3-medium on q8_0: the weights core/loader.py quantizes (23 joint blocks × 10, the pre-only
+# block's 2 + 5, the final layer's 2), each one dequant-matmul a model call, at these (M, N, K):
+# the x stream at M = 2·4096 (1024²) and 2·9216 (1536²), the context stream at 2·154, adaLN at 2
+SD3_Q8_LEAVES = 239
+SD3_Q8_SHAPES = ([(2 * tokens, n, k) for tokens in (4096, 9216)
+                  for n, k in ((4608, 1536), (1536, 1536), (6144, 1536), (1536, 6144), (64, 1536))]
+                 + [(2 * 154, n, k) for n, k in ((4608, 1536), (1536, 1536), (6144, 1536),
+                                                 (1536, 6144))]
+                 + [(2, 9216, 1536), (2, 3072, 1536)])
+FEATURES_FLASH_SHAPES = [
+    ((2, 24, 9370, 64), 9370, True),    # SD3 at 1536²: 154 text + 9216 image tokens
+    ((2, 24, 9728, 128), 9728, True),   # Chroma at 1536²: 512 text + 9216 image tokens
+    ((2, 5, 20736, 64), 20736, True),   # SD2 at 1152²: levels 0, 1, 2 (the middle block's 324
+    ((2, 10, 5184, 64), 5184, True),    # tokens plain)
+    ((2, 20, 1296, 64), 1296, True),
+    ((2, 10, 9216, 64), 9216, True),    # Playground at 1536²: levels 1 and 2
+    ((2, 20, 2304, 64), 2304, True),
+    ((1, 1, 20736, 512), 20736, True),  # the VAE at 1152² and 1536²
+    ((1, 1, 36864, 512), 36864, True),
+]
+FLASH_SHAPES += [s for s in FEATURES_FLASH_SHAPES if s not in FLASH_SHAPES]
+# the fused conv at SD2's 1152² UNet (144²–18², CFG batch 2), Playground's 1536² UNet (192²–48²),
+# the VAE decoding 1152² and 1536², and its encoder at 768² (the inpaint and img2img encodes at
+# 1024² are config 3's rows)
+FEATURES_CONV_SETS = {
+    "SD2 1152² (144² latents, batch 2)": [((2, c, side * 3 // 2, side * 3 // 2), o)
+                                          for c, o, side in SD2_CONV_SHAPES],
+    "Playground 1536² (192² latents, batch 2)": [((2, c, 192 >> level, 192 >> level), o)
+                                                 for c, o, level in SDXL_CONV_PAIRS],
+    "the VAE at 1152² and 1536², its encoder at 768²": (
+        vae_conv_shapes(144, 144) + vae_conv_shapes(192, 192)
+        + vae_conv_shapes(96, 96, encoder=True)[6:])}
+FEATURES_CONV_SHAPES = list(dict.fromkeys(shape for rows in FEATURES_CONV_SETS.values()
+                                          for shape in rows))
+GN_CONV_SHAPES += [shape for shape in FEATURES_CONV_SHAPES if shape not in GN_CONV_SHAPES]
+FEATURES_DEQUANT_CASES = [("q8_0", 32, shape) for shape in SD3_Q8_SHAPES]
+DEQUANT_CASES += FEATURES_DEQUANT_CASES
+
+
+def feature_counts(name: str, steps: int) -> dict:
+    """Phase 26's launches a request by part, for the family `name` at `steps`."""
+    spec = FEATURES[name]
+    flash, conv = spec["flash"], spec["conv"]
+
+    def counts(calls, encodes=0, dequant=0):
+        return {"flash_attention": calls * flash + encodes + 1,
+                "gn_silu_conv3x3": calls * conv + 20 * encodes + 28, "dequant_matmul": dequant}
+
+    hires = img2img_calls(FEATURES_HIRES["hr_denoising_strength"], steps)
+    inpaint = img2img_calls(FEATURES_INPAINT["denoising_strength"], steps)
+    out = {"txt2img": counts(steps), "lora": counts(steps), "hires": counts(steps + hires),
+           "inpaint": counts(inpaint, encodes=1)}
+    if name == "playground":
+        out["img2img"] = counts(img2img_calls(FEATURES_IMG2IMG_STRENGTH, steps), encodes=1)
+    if name == "sd3":
+        out["q8_0"] = counts(steps, dequant=steps * SD3_Q8_LEAVES)
+    return out
+
+
 def marigold_counts(steps: int):
     """One Marigold detect's launches at `steps` DDIM steps."""
     return {name: MARIGOLD_UNET[name] * steps + MARIGOLD_VAE[name] for name in MARIGOLD_UNET}
@@ -1570,21 +1681,21 @@ def phase_conv(gen: torch.Generator, summary, shapes=GN_CONV_SHAPES):
 ROW_TIMES = {}  # phase 2's bf16 rows by (kernel, shape, Lk or O): their times and bound
 
 
-def diffusion_rows_summary():
-    """Phase 2's rows for phase 25, one line a flash row, and for the fused conv one line a
-    set: the range of its times against plain and against cuDNN's conv alone, and every shape
-    where the kernel is slower than plain."""
-    for (b, h, lq, d), lk, _ in DIFFUSION_FLASH_SHAPES + DIFFUSION_EXTRA_FLASH_SHAPES:
+def rows_summary(phase: int, flash_shapes, conv_sets):
+    """Phase 2's rows for a later phase, one line a flash row, and for the fused conv one line
+    a set: the range of its times against plain and against cuDNN's conv alone, and every
+    shape where the kernel is slower than plain."""
+    for (b, h, lq, d), lk, _ in flash_shapes:
         r = ROW_TIMES.get(("flash", (b, h, lq, d), lk))
         if r is None:
             continue
-        log(f"phase 25 flash row q{(b, h, lq, d)}×{lk}: kernel {r['ms']:.4f} ms, SIMT "
+        log(f"phase {phase} flash row q{(b, h, lq, d)}×{lk}: kernel {r['ms']:.4f} ms, SIMT "
             f"{r['simt_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
             + ("" if r["plain_rows"] is None else f" ({r['plain_rows']} query rows)")
             + ", SDPA " + ("not measured" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f} ms")
             + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{100 * r['bound_ms'] / r['ms']:.1f} % of it")
-    for name, shapes in DIFFUSION_CONV_SETS.items():
+    for name, shapes in conv_sets.items():
         rows = [(shape, o, ROW_TIMES[("conv", shape, o)]) for shape, o in shapes
                 if ("conv", shape, o) in ROW_TIMES]
         if not rows:
@@ -1593,12 +1704,18 @@ def diffusion_rows_summary():
         vs_cudnn = [r["ms"] / r["cudnn_ms"] for _, _, r in rows]
         share = [r["bound_ms"] / r["ms"] for _, _, r in rows]
         slower = [f"x{shape}->{o}" for shape, o, r in rows if r["ms"] > r["plain_ms"]]
-        log(f"phase 25 conv rows, {name}: {len(rows)} shapes, kernel "
+        log(f"phase {phase} conv rows, {name}: {len(rows)} shapes, kernel "
             f"{min(r['ms'] for _, _, r in rows):.4f}–{max(r['ms'] for _, _, r in rows):.4f} ms, "
             f"{min(vs_plain):.3f}–{max(vs_plain):.3f}× plain's time, "
             f"{min(vs_cudnn):.3f}–{max(vs_cudnn):.3f}× cuDNN's conv alone, "
             f"{100 * min(share):.1f}–{100 * max(share):.1f} % of the bound; slower than plain: "
             + (", ".join(slower) if slower else "none"))
+
+
+def later_rows_summary():
+    """`rows_summary` for phases 25 and 26."""
+    rows_summary(25, DIFFUSION_FLASH_SHAPES + DIFFUSION_EXTRA_FLASH_SHAPES, DIFFUSION_CONV_SETS)
+    rows_summary(26, FEATURES_FLASH_SHAPES, FEATURES_CONV_SETS)
 
 
 def phase_kernels(gen: torch.Generator, rows: str = "all"):
@@ -1622,19 +1739,22 @@ def phase_kernels(gen: torch.Generator, rows: str = "all"):
                                   EXTRAS_ROWS[1] + EXTRAS_HIRES_ROWS[1]),
                        "surface": EXTRAS_ROWS, "annotators": ANNOTATORS_ROWS,
                        "interrogate": INTERROGATE_ROWS, "spaces": SPACES_ROWS,
-                       "diffusion_spaces": DIFFUSION_ROWS}[rows]
+                       "diffusion_spaces": DIFFUSION_ROWS,
+                       "family_features": (FEATURES_FLASH_SHAPES, FEATURES_CONV_SHAPES)}[rows]
         phase_flash(gen, summary, flash)
         phase_conv(gen, summary, conv)
         if rows == "flux_family":  # the NF4 rows at Flux-dev's largest products
             phase_dequant(gen, summary, [c for c in DEQUANT_CASES
                                          if c[0] == "nf4" and c[2] in DEQUANT_SHAPES[:2]])
-        if rows == "diffusion_spaces":
-            diffusion_rows_summary()
+        if rows == "family_features":  # SD3-medium's q8_0 linears
+            phase_dequant(gen, summary, FEATURES_DEQUANT_CASES)
+        if rows in ("diffusion_spaces", "family_features"):
+            later_rows_summary()
         return summary
     phase_flash(gen, summary)
     phase_conv(gen, summary)
     phase_dequant(gen, summary)
-    diffusion_rows_summary()
+    later_rows_summary()
     return summary
 
 
@@ -1910,7 +2030,7 @@ def check_counts(launches, per_request, requests: int, what: str):
         want = requests * per
         log(f"launches during {what}: {name} {launches[name]} (expected {want})")
         check(launches[name] == want, f"{name} launched exactly {want} times during {what}")
-        if name in ("flash_attention", "gn_silu_conv3x3"):
+        if name in BY_BODY and want:
             log(f"  {name}[wgmma] {launches[name + '[wgmma]']}, [simt] {launches[name + '[simt]']}")
             check(launches[name + "[wgmma]"] == want and launches[name + "[simt]"] == 0,
                   f"all {want} {name} launches during {what} on the tensor-core body")
@@ -2658,27 +2778,30 @@ def phase_prompts(engine, gen: torch.Generator):
     return total
 
 
-def family_request(engine, spec, seed: int, label: str, **fields):
-    """One request of the family's model card with `fields` → its image; logs
-    the latency, the phases and peak memory."""
+def family_request(engine, spec, seed: int, label: str, side: int = 0, **fields):
+    """One request of the family's model card with `fields` (a `prompt` in
+    place of FAMILY_PROMPT; a `side`² image where a hires pass changes the
+    size) → (its image, its timings); logs the latency, the phases and peak
+    memory."""
     from forge_tpu_torch.pipeline.processing import Processing, process_images
 
-    size = spec["size"]
-    p = Processing(prompt=FAMILY_PROMPT, negative_prompt="blurry", seed=seed,
-                   steps=spec["steps"], cfg_scale=spec["cfg"], width=size, height=size,
-                   sampler_name=spec["sampler"], scheduler=spec["scheduler"], **fields)
+    size, side = spec["size"], side or spec["size"]
+    p = Processing(prompt=fields.pop("prompt", FAMILY_PROMPT), negative_prompt="blurry",
+                   seed=seed, steps=spec["steps"], cfg_scale=spec["cfg"], width=size,
+                   height=size, sampler_name=spec["sampler"], scheduler=spec["scheduler"],
+                   **fields)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     res = process_images(engine, p)
     latency = time.perf_counter() - t
     img = res.images[0]
-    check(img.shape == (size, size, 3) and img.dtype == np.uint8, f"{size}²×3 uint8 image")
+    check(img.shape == (side, side, 3) and img.dtype == np.uint8, f"{side}²×3 uint8 image")
     log(f"{spec['family']} request {label} seed={seed}: latency {latency:.4f} s, "
         f"{spec['steps'] / latency:.4f} steps/s, timings "
         + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
         + f", peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"image mean {img.mean():.3f} std {img.std():.3f}")
-    return img
+    return img, res.timings
 
 
 def check_family_engine(name: str, engine):
@@ -2724,12 +2847,12 @@ def check_family_engine(name: str, engine):
               "Playground v2.5 at full width, EDM")
 
 
-def phase_family(name: str, gen: torch.Generator):
+def phase_family(name: str, gen: torch.Generator, after=None):
     """One diffusion family at its published widths (see the docstring's
     phase 13): seeds 1 and 2 with exact launch counts (the first the warm-up), seed 1
     again profiled (byte-identical), seed 1's request through the plain versions, and the
     network's forward and the VAE decode through the kernels and the plain
-    versions."""
+    versions; then `after(engine)` (phase 26) before the engine is freed."""
     from forge_tpu_torch.core import synth
     from forge_tpu_torch.core.synth import DeviceFill
     from forge_tpu_torch.ops import plain_versions
@@ -2743,18 +2866,18 @@ def phase_family(name: str, gen: torch.Generator):
           f"{name} engine, bf16")
     check_family_engine(name, engine)
     zero_counts()  # the seed-1 request is the warm-up, seed 2's shows the warm time
-    images = [family_request(engine, spec, seed, "") for seed in (1, 2)]
+    images = [family_request(engine, spec, seed, "")[0] for seed in (1, 2)]
     launches = read_counts()
     check(not np.array_equal(images[0], images[1]), f"{name} seeds 1 and 2 differ")
     per_request = {"flash_attention": spec["calls"] * spec["flash"] + 1,
                    "gn_silu_conv3x3": spec["calls"] * spec["conv"] + 28, "dequant_matmul": 0}
     check_counts(launches, per_request, 2, f"the 2 {name} requests")
     again = profile_request(f"{name} {spec['size']}²",
-                            lambda: family_request(engine, spec, 1, "profiled"))
+                            lambda: family_request(engine, spec, 1, "profiled")[0])
     check(np.array_equal(images[0], again), f"{name} seed 1 twice (the second profiled) gives "
           "identical bytes")
     with plain_versions():
-        plain_img = family_request(engine, spec, 1, "plain versions")
+        plain_img, _ = family_request(engine, spec, 1, "plain versions")
     value = image_psnr(plain_img, images[0])
     diff = np.abs(plain_img.astype(np.float64) - images[0].astype(np.float64))
     log(f"{name} image, kernels vs plain versions after {spec['steps']} steps: PSNR {value:.2f} dB, "
@@ -2765,7 +2888,7 @@ def phase_family(name: str, gen: torch.Generator):
         check(value >= PSNR_BOUND, f"{name} whole request kernels vs plain PSNR ≥ {PSNR_BOUND} dB")
     else:  # the witness: the plain versions against themselves from a perturbed start
         with plain_versions():
-            moved = family_request(engine, spec, 1, "plain versions, witness",
+            moved, _ = family_request(engine, spec, 1, "plain versions, witness",
                                    **FAMILY_WITNESS_SUBSEED)
         log(f"{name} witness: plain versions, seed 1 against seed 1 with subseed "
             f"{FAMILY_WITNESS_SUBSEED['subseed']} at strength "
@@ -2783,7 +2906,227 @@ def phase_family(name: str, gen: torch.Generator):
                      lambda: net(engine.loaded.unet, x, ts, **cond))
     z = torch.randn((1, channels, size // 8, size // 8), generator=gen, device="cuda")
     kernels_vs_plain(f"{name} vae decode {size}²", lambda: engine.decode_first_stage(z))
-    del engine, x, z
+    del x, z
+    if after is not None:
+        after(engine)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def features_lora(name: str, engine, directory: str):
+    """Phase 26 (a)'s LoRA made on the card from a seeded generator and saved
+    with core/save.py under `directory` → its kohya targets by prefix."""
+    from forge_tpu_torch.core.convert import flatten
+    from forge_tpu_torch.core.save import save_safetensors
+    from forge_tpu_torch.core.synth import (KOHYA_TE_PREFIX, DeviceFill, kohya_lora_targets,
+                                            synth_kohya_lora)
+
+    targets = {"lora_unet_": kohya_lora_targets(
+        {k: tuple(v.shape) for k, v in flatten(engine.loaded.unet).items()}, "lora_unet_")}
+    for te in clip_towers(engine):
+        shapes = {k: tuple(v.shape) for k, v in flatten(engine.text_engines[te].params).items()}
+        targets[KOHYA_TE_PREFIX[te]] = kohya_lora_targets(shapes, KOHYA_TE_PREFIX[te],
+                                                          lambda key: "self_attn" in key)
+    sd = synth_kohya_lora({k: v for part in targets.values() for k, v in part.items()},
+                          rank=FEATURES_LORA["rank"], alpha=FEATURES_LORA["alpha"],
+                          fill=DeviceFill("cuda", seed=26), scale=0.02)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, FEATURES_LORA["name"] + ".safetensors")
+    save_safetensors(sd, path)
+    log(f"  {name} LoRA: {sum(len(t) for t in targets.values())} modules ("
+        + ", ".join(f"{p}{len(t)}" for p, t in targets.items()) + f"), rank "
+        f"{FEATURES_LORA['rank']}, {os.path.getsize(path) / 2**20:.1f} MiB")
+    return targets
+
+
+def clip_towers(engine):
+    """The engine's CLIP text towers (T5 takes no kohya LoRA here)."""
+    return [te for te in engine.text_engines if te.startswith("clip_")]
+
+
+def check_lora_matches(name: str, engine, targets):
+    """Every diffusion-model name matched; each text-encoder prefix on the
+    tower the reference's matcher picks (`lora_te1_` CLIP-L, `lora_te2_`
+    CLIP-G, `lora_te_` SD2's OpenCLIP-H); none unmatched."""
+    from forge_tpu_torch.core.convert import flatten
+    from forge_tpu_torch.core.patches import match_lora
+    from forge_tpu_torch.core.synth import KOHYA_TE_PREFIX
+
+    te_keys = {n: flatten(te.params).keys() for n, te in engine.text_engines.items()}
+    matched, unmatched = match_lora(engine.lora_registry.load(FEATURES_LORA["name"]),
+                                    flatten(engine.loaded.unet).keys(), te_keys_by_name=te_keys)
+    sizes = {part: len(patches) for part, patches in matched.items()}
+    want = {"unet": len(targets["lora_unet_"]),
+            **{f"te:{te}": len(targets[KOHYA_TE_PREFIX[te]]) for te in clip_towers(engine)}}
+    log(f"  {name} LoRA matched: {sizes}, unmatched {len(unmatched)}")
+    check(not unmatched and all(sizes.get(k, 0) == v for k, v in want.items())
+          and all(v == 0 for k, v in sizes.items() if k not in want),
+          f"{name} LoRA: every name matched, each prefix on its tower")
+
+
+def counted(what: str, per_request, total, run):
+    """run() with the counts set to 0 just before and read just after: exactly
+    `per_request` launches, each added to `total` → run()'s result."""
+    zero_counts()
+    out = run()
+    launches = read_counts()
+    check_counts(launches, per_request, 1, what)
+    for key in total:
+        total[key] += launches[key]
+    return out
+
+
+def features_forward(label: str, engine, unet, side: int, gen: torch.Generator):
+    """One batch-2 forward of the network at `side`² with `unet`'s weights,
+    kernels vs plain (≥ PSNR_BOUND)."""
+    channels = engine.latent_format.latent_channels
+    cond = engine.get_learned_conditioning([FAMILY_PROMPT, "blurry"], side, side)
+    ts = torch.tensor([float(engine.predictor.timestep(np.float32(s)))
+                       for s in (engine.predictor.sigma_max * 0.9, 1.0)], device="cuda")
+    x = torch.randn((2, channels, side // 8, side // 8), generator=gen,
+                    device="cuda").to(engine.compute_dtype)
+    net = engine.unet_apply_fn()
+    kernels_vs_plain(f"{label} {side // 8}² B=2", lambda: net(unet, x, ts, **cond))
+
+
+def phase_family_features(name: str, engine, gen: torch.Generator, steps: int):
+    """Phase 26 on one family's engine at `steps`: (a) the LoRA, (b) the hires
+    fix, (c) inpainting, (d) Playground's img2img, (e) SD3 on q8_0 → the
+    launches of its requests."""
+    from forge_tpu_torch.pipeline.extra_networks import LoraRegistry, activate
+    from forge_tpu_torch.runtime.memory import vae_decode_bytes
+
+    spec = dict(FEATURES[name], steps=steps)
+    size, hr_side = spec["size"], spec["size"] * 3 // 2
+    per = feature_counts(name, steps)
+    total = dict.fromkeys(counters(), 0)
+
+    def run(part: str, label: str, side: int, **fields):
+        return counted(f"the {name} {label} request", per[part], total, lambda: family_request(
+            engine, spec, 1, f"features: {label}", side, **fields))
+
+    base, _ = run("txt2img", "txt2img", size)
+
+    # (a) the LoRA
+    directory = os.path.join(FEATURES_DIR, name)
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        targets, _ = timed(f"{name} features: the LoRA made on the card and written",
+                           lambda: features_lora(name, engine, directory))
+        engine.lora_registry = LoraRegistry([directory])
+        check_lora_matches(name, engine, targets)
+        prompt = FAMILY_PROMPT + f" <lora:{FEATURES_LORA['name']}:{FEATURES_LORA['strength']}>"
+        lora = [run("lora", "LoRA", size, prompt=prompt) for _ in range(2)]
+        check(np.array_equal(lora[0][0], lora[1][0]), f"{name} LoRA request twice: identical bytes")
+        check(not np.array_equal(lora[0][0], base), f"{name} LoRA image unlike the plain one")
+        log(f"{name} features (a): lora phase {lora[1][1]['lora']:.4f} s (the first "
+            f"{lora[0][1]['lora']:.4f} s, the file read); PSNR against the plain request "
+            f"{image_psnr(lora[0][0], base):.2f} dB")
+        _, patched, _ = activate(engine, [prompt], registry=engine.lora_registry)
+        features_forward(f"{name} features (a): the LoRA-patched network", engine, patched, size,
+                         gen)
+        del patched
+        if name == "sd3":
+            for key, value in phase_sd3_q8(gen, steps, base, lora[0][0], directory).items():
+                total[key] += value
+    finally:
+        engine.lora_registry = None
+        shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (b) the hires fix
+    def hires(label: str):
+        return run("hires", label, hr_side, **FEATURES_HIRES)
+
+    _, timings = hires("hires")
+    log(f"{name} features (b): hires {size}² → {hr_side}²: hires_upscale "
+        f"{timings['hires_upscale']:.4f} s, hires_sample {timings['hires_sample']:.4f} s, "
+        f"decode {timings['decode']:.4f} s")
+    if name in ("sd3", "chroma"):
+        profile_request(f"{name} hires {size}² → {hr_side}²", lambda: hires("hires, profiled"))
+    h8 = hr_side // 8
+    z = torch.randn((1, engine.latent_format.latent_channels, h8, h8), generator=gen,
+                    device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine.decode_first_stage(z)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    plan = vae_decode_bytes(h8, h8)
+    log(f"{name} features (b): the {hr_side}² decode's peak above its start {peak / 2**30:.3f} "
+        f"GiB; runtime/memory.py vae_decode_bytes {plan / 2**30:.3f} GiB "
+        f"({peak / plan:.3f}× the estimate)")
+    del z
+    features_forward(f"{name} features (b): the network at the hires size", engine,
+                     engine.loaded.unet, hr_side, gen)
+
+    # (c) inpainting of the seed-1 image
+    mask = np.zeros((size, size), np.float32)
+    mask[size // 4:3 * size // 4, size // 4:3 * size // 4] = 1.0
+    img, _ = run("inpaint", "inpaint", size, init_images=[base], inpaint_mask=mask,
+                 **FEATURES_INPAINT)
+    far = np.ones((size, size), bool)  # the blur's support ends 4σ = 16 px past the square
+    far[size // 4 - 17:3 * size // 4 + 17, size // 4 - 17:3 * size // 4 + 17] = False
+    check(np.array_equal(img[far], base[far]), f"{name} inpaint: every pixel 17 px past the "
+          "mask is the init's")
+    check(not np.array_equal(img[~far], base[~far]), f"{name} inpaint: the square repainted")
+
+    # (d) Playground's img2img
+    if name == "playground":
+        img, _ = run("img2img", "img2img", size, init_images=[base],
+                     denoising_strength=FEATURES_IMG2IMG_STRENGTH)
+        log(f"playground features (d): img2img at {FEATURES_IMG2IMG_STRENGTH} against its init: "
+            f"PSNR {image_psnr(img, base):.2f} dB")
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_sd3_q8(gen: torch.Generator, steps: int, bf16_image, bf16_lora_image, lora_dir):
+    """Phase 26 (e): SD3-medium loaded with `unet_quant="q8_0"`: seeds 1 and 2
+    with exact launches (dequant-matmul by body), seed 1 through the plain
+    versions (≥ PSNR_BOUND), the image against the bf16 engine's, and the LoRA
+    online on the quantized leaves → the launches of its requests."""
+    from forge_tpu_torch.core.synth import DeviceFill, synth_sd3_checkpoint
+    from forge_tpu_torch.ops import plain_versions
+    from forge_tpu_torch.pipeline.engine import load_engine
+    from forge_tpu_torch.pipeline.extra_networks import LoraRegistry
+
+    before = torch.cuda.memory_allocated()
+    engine, seconds = timed("sd3 features (e): SD3-medium made on the card, load_engine("
+                            "unet_quant=\"q8_0\")", lambda: load_engine(
+                                synth_sd3_checkpoint(fill=DeviceFill("cuda", seed=0)),
+                                device="cuda", unet_quant="q8_0"))
+    n = quant_leaves(engine.loaded.unet)
+    log(f"  {n} q8_0 leaves; the engine {(torch.cuda.memory_allocated() - before) / 2**30:.2f} "
+        f"GiB, loaded in {seconds:.2f} s")
+    check(n == SD3_Q8_LEAVES, f"SD3's {SD3_Q8_LEAVES} q8_0 leaves")
+    spec = dict(FEATURES["sd3"], steps=steps)
+    per = feature_counts("sd3", steps)["q8_0"]
+    size = spec["size"]
+    launches = dict.fromkeys(counters(), 0)
+
+    def run(label: str, seed: int = 1, **fields):
+        return counted(f"the sd3 q8_0 {label} request", per, launches, lambda: family_request(
+            engine, spec, seed, f"features: q8_0 {label}", **fields))[0]
+
+    images = [run("", seed) for seed in (1, 2)]
+    check(not np.array_equal(images[0], images[1]), "sd3 q8_0 seeds 1 and 2 differ")
+    with plain_versions():
+        plain, _ = family_request(engine, spec, 1, "features: q8_0, plain versions")
+    value = image_psnr(plain, images[0])
+    log(f"sd3 features (e): q8_0 request kernels vs plain PSNR {value:.2f} dB (bound "
+        f"{PSNR_BOUND}); against the bf16 engine's image {image_psnr(images[0], bf16_image):.2f} "
+        "dB (not a gate)")
+    check(value >= PSNR_BOUND, f"sd3 q8_0 whole request kernels vs plain PSNR ≥ {PSNR_BOUND} dB")
+    engine.lora_registry = LoraRegistry([lora_dir])
+    prompt = FAMILY_PROMPT + f" <lora:{FEATURES_LORA['name']}:{FEATURES_LORA['strength']}>"
+    img = run("LoRA online", prompt=prompt)
+    check(not np.array_equal(img, images[0]), "sd3 q8_0 LoRA image unlike the plain one")
+    log(f"sd3 features (e): q8_0 with the LoRA online against the bf16 engine's merged LoRA "
+        f"image: PSNR {image_psnr(img, bf16_lora_image):.2f} dB (not a gate)")
+    del engine
     torch.cuda.empty_cache()
     return launches
 
@@ -2928,10 +3271,8 @@ def chroma_request(engine, seed: int, label: str, size: int = 1024):
     return img
 
 
-def phase_chroma(gen: torch.Generator):
-    """Phase 15 (c): Chroma at full width in bf16: seeds 1 and 2 with exact
-    launches (the first the warm-up), seed 1 again profiled (byte-identical),
-    one batch-2 forward against plain."""
+def load_chroma():
+    """Chroma at full width in bf16, from weights made on the card, its widths checked."""
     from forge_tpu_torch.core.synth import DeviceFill, synth_chroma_checkpoint
     from forge_tpu_torch.pipeline.engine import load_engine
 
@@ -2949,6 +3290,15 @@ def phase_chroma(gen: torch.Generator):
     log(f"  chroma: {widths}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     check(widths == ("chroma", 3072, 24, 19, 38, (5120, 64), 5, (32128, 4096), 24, ["t5xxl"], 16,
                      False, torch.bfloat16), "Chroma at full width, bf16")
+    return engine
+
+
+def phase_chroma(gen: torch.Generator, after=None):
+    """Phase 15 (c): Chroma at full width in bf16: seeds 1 and 2 with exact
+    launches (the first the warm-up), seed 1 again profiled (byte-identical),
+    one batch-2 forward against plain; then `after(engine)` (phase 26)."""
+    engine = load_chroma()
+    unet = engine.loaded.unet
     zero_counts()  # the seed-1 request is the warm-up
     images = [chroma_request(engine, seed, "") for seed in (1, 2)]
     launches = read_counts()
@@ -2962,14 +3312,18 @@ def phase_chroma(gen: torch.Generator):
     t = torch.tensor([1000.0 * 0.9, 1000.0 * 0.4], device="cuda")
     net = engine.unet_apply_fn()
     kernels_vs_plain("chroma forward 128² B=2", lambda: net(unet, x, t, **cond))
-    del engine, x
+    del x
+    if after is not None:
+        after(engine)
+    del engine, unet
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_flux_family(gen: torch.Generator, nf4_seed1=None):
-    """Phase 15: (a) the bnb NF4 files, (b) fp8-e4m3 storage, (c) Chroma. Without
-    phase 5's seed-1 NF4 image (`--flux-family`), one NF4 request makes it."""
+def phase_flux_family(gen: torch.Generator, nf4_seed1=None, after=None):
+    """Phase 15: (a) the bnb NF4 files, (b) fp8-e4m3 storage, (c) Chroma, then
+    `after(engine)` on Chroma's. Without phase 5's seed-1 NF4 image
+    (`--flux-family`), one NF4 request makes it."""
     if nf4_seed1 is None:
         engine, _ = load_flux("nf4")
         flux_request(engine, 2, "nf4, warm")
@@ -2979,7 +3333,7 @@ def phase_flux_family(gen: torch.Generator, nf4_seed1=None):
     paths = {}
     for name, run in (("flux_bnb", lambda: phase_flux_bnb(nf4_seed1)),
                       ("flux_fp8", lambda: phase_flux_fp8(nf4_seed1)),
-                      ("chroma", lambda: phase_chroma(gen))):
+                      ("chroma", lambda: phase_chroma(gen, after))):
         t = time.perf_counter()
         paths[name] = run()
         log(f"{name} phase: {time.perf_counter() - t:.2f} s")
@@ -6567,6 +6921,11 @@ def main():
                          "at 896×1152 and 768×1024, the VAE at both) and phase 25 (the six Spaces "
                          "on diffusion engines at their default steps, all six as child "
                          "processes) only, with no result")
+    ap.add_argument("--family-features", action="store_true",
+                    help="run phase 1, phase 2's rows for phase 26 and phase 26 (LoRA, the hires "
+                         "fix and inpainting on SD2, SD3, Playground v2.5 and Chroma, Playground's "
+                         "img2img, SD3 on q8_0) at the families' phase-13 steps, each family "
+                         "loaded alone, with no result")
     ap.add_argument("--surface", action="store_true",
                     help="run phase 1, phase 2's SDXL rows and phase 21 (ControlNetScript, saving, "
                          "the event log and the management and web UI routes on SDXL) at 20 steps "
@@ -6633,7 +6992,8 @@ def main():
                             else "annotators" if args.annotators
                             else "interrogate" if args.interrogate
                             else "spaces" if args.spaces
-                            else "diffusion_spaces" if args.diffusion_spaces else "all")
+                            else "diffusion_spaces" if args.diffusion_spaces
+                            else "family_features" if args.family_features else "all")
     done("kernels (phase 2)", t)
     if args.kernels:
         log("kernels only: phases 1-2 passed")
@@ -6680,6 +7040,26 @@ def main():
         done("flux family", t)
         log("flux family only: phases 1, 2 (their rows) and 15 passed")
         return
+    if args.family_features:
+        for name, spec in FEATURES.items():
+            t = time.perf_counter()
+            if name == "chroma":
+                engine = load_chroma()
+            else:
+                from forge_tpu_torch.core import synth
+                from forge_tpu_torch.core.synth import DeviceFill
+                from forge_tpu_torch.pipeline.engine import load_engine
+
+                engine, _ = timed(f"{name}: weights made on the card and loaded", lambda: load_engine(
+                    getattr(synth, spec["synth"])(fill=DeviceFill("cuda", seed=0)), device="cuda"))
+                check_family_engine(name, engine)
+            phase_family_features(name, engine, gen, spec["steps"])
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            done(f"family features {name}", t)
+        log("family features only: phases 1, 2 (their rows) and 26 passed")
+        return
     if args.families:
         for name in FAMILIES:
             t = time.perf_counter()
@@ -6722,13 +7102,24 @@ def main():
     del engine
     gc.collect()  # phase 14 leaves reference cycles that hold the engine until the collector runs
     torch.cuda.empty_cache()
+    features_seconds = []  # phase 26 rides on the engines of phases 13 and 15 (c)
+
+    def features(name):
+        def after(engine):
+            t0 = time.perf_counter()
+            paths[f"{name} features"] = phase_family_features(name, engine, gen, FEATURES_STEPS)
+            features_seconds.append(time.perf_counter() - t0)
+            log(f"family features {name}: {features_seconds[-1]:.2f} s")
+        return after
+
     for name in FAMILIES:
         t = time.perf_counter()
-        paths[name] = phase_family(name, gen)
+        paths[name] = phase_family(name, gen, after=features(name))
         done(name, t)
     t = time.perf_counter()
-    paths.update(phase_flux_family(gen, nf4_seed1))
+    paths.update(phase_flux_family(gen, nf4_seed1, after=features("chroma")))
     done("flux family", t)
+    seconds["family-features"] = sum(features_seconds)
 
     sources = {
         "flash_attention": ("forge_tpu_torch/csrc/flash_attention.cu",

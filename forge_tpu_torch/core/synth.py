@@ -660,6 +660,44 @@ def synth_chroma_checkpoint(fill: FillSpec = "zeros", seed: int = 0) -> Dict[str
     return sd
 
 
+# -- kohya LoRA files -------------------------------------------------------------
+
+# the trainers' prefix for each text engine of SD2, SDXL, Playground, SD3, Flux and Chroma (SD1.5
+# names its one CLIP-L `lora_te_`)
+KOHYA_TE_PREFIX = {"clip_h": "lora_te_", "clip_l": "lora_te1_", "clip_g": "lora_te2_",
+                   "t5xxl": "lora_te3_"}
+
+
+def kohya_lora_targets(shapes: Dict[str, Tuple[int, ...]], prefix: str,
+                       select: Optional[Callable[[str], bool]] = None
+                       ) -> Dict[str, Tuple[int, int]]:
+    """{kohya module name: (out, in)} for every 2-D `.weight` of a flat
+    {dotted key: shape} map (a linear's): the key without `.weight`, its dots
+    made underscores, after `prefix` ("lora_unet_", "lora_te1_", ...);
+    `select(key)` narrows the keys."""
+    out = {}
+    for key, shape in shapes.items():
+        if key.endswith(".weight") and len(shape) == 2 and (select is None or select(key)):
+            out[prefix + key[:-len(".weight")].replace(".", "_")] = (shape[0], shape[1])
+    return out
+
+
+def synth_kohya_lora(targets: Dict[str, Tuple[int, int]], rank: int = 4,
+                     alpha: Optional[float] = None, fill: FillSpec = "random", seed: int = 0,
+                     scale: float = 0.05) -> Dict[str, object]:
+    """A LoRA in kohya's layout over `targets` ({module name: (out, in)}):
+    `lora_up` [out, rank], `lora_down` [rank, in], N(0, scale²), and `alpha`
+    where given (ΔW = up·down·alpha/rank)."""
+    f = _fill(fill, seed)
+    sd: Dict[str, object] = {}
+    for base, (o, i) in targets.items():
+        sd[base + ".lora_up.weight"] = f.w(o, rank, scale=scale)
+        sd[base + ".lora_down.weight"] = f.w(rank, i, scale=scale)
+        if alpha is not None:
+            sd[base + ".alpha"] = np.full((), alpha, np.float32)
+    return sd
+
+
 # -- the bitsandbytes serialized layout ---------------------------------------
 
 # bitsandbytes' FP4 (e2m1) code table, by code

@@ -181,11 +181,13 @@ the refiner or on Flux and Chroma, regional masks or the base prompt's AND
 branches under a hires pass that changes the latent size's masks or
 re-encodes the prompt, and `AND` or `[from:to:when]` in a prompt the refiner
 or a hires pass encodes itself. On SD2, Playground v2.5, SD3 and Chroma the
-features `UNPORTED_BY_FAMILY` lists raise as well: LoRA, ControlNets, UNet
-hooks (the IP-Adapter, the extensions), the CFG hooks, hook phases,
-deferred hooks, tiling, the hires fix, the refiner, regional prompts and
-inpainting, and img2img on Playground; on Flux the CFG hooks and hook
-phases (and, in the engine, UNet hooks and ControlNets).
+features `UNPORTED_BY_FAMILY` lists raise as well: ControlNets, UNet hooks
+(the IP-Adapter, the extensions), the CFG hooks, hook phases, deferred
+hooks, tiling, the refiner, regional prompts and the image prompts; they
+take LoRA (SD3's `lora_te1_`/`lora_te2_` on CLIP-L/CLIP-G, online on a
+q8_0 MMDiT's quantized leaves), the hires fix, img2img and inpainting as
+every family does. On Flux the CFG hooks and hook phases raise (and, in
+the engine, UNet hooks and ControlNets).
 """
 
 from __future__ import annotations
@@ -225,16 +227,15 @@ from .taesd import preview_decode, taesd_decoder, taesd_for_family
 
 TILED_DIFFUSION_KEYS = ("tile", "overlap")  # the reference's defaults: 96 and 32
 # the request features that no test holds against the reference on a family: each raises
-# NotImplementedError there (SD2, Playground v2.5, SD3 and Chroma take txt2img, SD2, SD3 and
-# Chroma img2img)
+# NotImplementedError there (SD2, Playground v2.5, SD3 and Chroma take txt2img, img2img,
+# inpainting, LoRA and the hires fix)
 CFG_HOOK_FIELDS = ("pre_cfg_hooks", "post_cfg_hooks", "cfg_combine_hook")
 IMAGE_PROMPT_FIELDS = ("reference_state", "cond_transform")
-_COMMON_UNPORTED = ("lora", "controlnets", "unet_hooks", "tiled_diffusion", "enable_hr",
-                    "refiner", "regional_prompts", "inpaint_mask", "hook_phases",
+_COMMON_UNPORTED = ("controlnets", "unet_hooks", "tiled_diffusion", "refiner",
+                    "regional_prompts", "hook_phases",
                     "deferred_hooks") + CFG_HOOK_FIELDS + IMAGE_PROMPT_FIELDS
 UNPORTED_BY_FAMILY = {"sd20": _COMMON_UNPORTED, "sd3": _COMMON_UNPORTED,
-                      "chroma": _COMMON_UNPORTED,
-                      "playground": _COMMON_UNPORTED + ("init_images",),
+                      "chroma": _COMMON_UNPORTED, "playground": _COMMON_UNPORTED,
                       # the reference's Flux apply drops UNet hooks without a word, so PAG's
                       # identity pass would be a plain one
                       "flux": CFG_HOOK_FIELDS + ("hook_phases",) + IMAGE_PROMPT_FIELDS}
@@ -480,15 +481,12 @@ def _record_generation_params(engine: DiffusionEngine, p: Processing) -> None:
 def _refuse_for_family(engine: DiffusionEngine, p: Processing) -> None:
     """Raise for a request feature `UNPORTED_BY_FAMILY` lists for the engine's family."""
     asked = {
-        "lora": bool(parse_prompt(p.prompt)[1] or parse_prompt(p.negative_prompt)[1]),
         "refiner": bool(p.refiner_checkpoint or getattr(p, "_refiner_engine", None) is not None)
         and 0.0 < p.refiner_switch_at < 1.0,
         **{name: bool(getattr(p, name)) for name in
-           ("controlnets", "unet_hooks", "tiled_diffusion", "enable_hr", "regional_prompts",
+           ("controlnets", "unet_hooks", "tiled_diffusion", "regional_prompts",
             "hook_phases", "deferred_hooks", *CFG_HOOK_FIELDS)},
         **{name: getattr(p, name) is not None for name in IMAGE_PROMPT_FIELDS},
-        "inpaint_mask": p.inpaint_mask is not None,
-        "init_images": p.init_images is not None,
     }
     refused = [name for name in UNPORTED_BY_FAMILY.get(engine.family, ()) if asked[name]]
     if refused:

@@ -223,10 +223,11 @@ def test_playground_txt2img_matches_forge_tpu(engines):
     assert np.array_equal(got, process_images(teng, Processing(**REQUEST)).images[0])
 
 
-@pytest.mark.parametrize("fields", [dict(init_images=[np.zeros((64, 64, 3), np.uint8)]),
-                                    dict(enable_hr=True), dict(unet_hooks={"attn2_patch": []}),
+@pytest.mark.parametrize("fields", [dict(unet_hooks={"attn2_patch": []}),
                                     dict(refiner_checkpoint="r", refiner_switch_at=0.8)])
 def test_playground_refuses_unported_request_features(engines, fields):
+    """img2img, LoRA, the hires fix and inpainting are held in
+    tests/test_torch_family_features_unet.py; hooks and the refiner still raise."""
     from forge_tpu_torch.pipeline.processing import Processing, process_images
 
     with pytest.raises(NotImplementedError, match="playground"):

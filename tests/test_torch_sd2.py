@@ -264,9 +264,10 @@ def test_sd2_img2img_matches_forge_tpu(engines):
     assert _psnr(got, want) >= 70.0, _psnr(got, want)
 
 
-@pytest.mark.parametrize("fields", [dict(enable_hr=True), dict(controlnets=[object()]),
-                                    dict(prompt="a fox <lora:tiny:1>")])
+@pytest.mark.parametrize("fields", [dict(controlnets=[object()])])
 def test_sd2_refuses_unported_request_features(engines, fields):
+    """LoRA, the hires fix and inpainting are held in
+    tests/test_torch_family_features_unet.py; a ControlNet still raises."""
     from forge_tpu_torch.pipeline.processing import Processing, process_images
 
     with pytest.raises(NotImplementedError, match="sd20"):

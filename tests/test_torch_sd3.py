@@ -9,7 +9,8 @@ reference's guess (`forge_tpu/core/guess.py:84`), so both packages' engines
 get the tiny T5's width, 128, as `loaded.context_dim`: CLIP-L ‖ CLIP-G (96)
 is zero-padded to it. Conditioning agrees to 1e-4 of its scale; the
 3-step Euler "simple" txt2img and a tiny img2img to PSNR ≥ 80 dB (measured:
-bit-equal). The last tests trace SD3-medium at full width on the meta
+bit-equal). LoRA, the hires fix, inpainting and q8_0 weights are held in
+tests/test_torch_family_features_dit.py. The last tests trace SD3-medium at full width on the meta
 device (no memory): the kernels' launches a request.
 """
 
@@ -228,25 +229,22 @@ def test_sd3_img2img_matches_forge_tpu(engines):
     assert _psnr(got, want) >= 80.0, _psnr(got, want)
 
 
-@pytest.mark.parametrize("field", ["lora", "controlnets", "ip_adapter", "tiled_diffusion",
-                                   "enable_hr", "refiner", "regional_prompts", "inpaint_mask"])
+@pytest.mark.parametrize("field", ["controlnets", "ip_adapter", "tiled_diffusion", "refiner",
+                                   "regional_prompts"])
 def test_sd3_refuses_unported_request_features(engines, field):
-    """LoRA, ControlNets, the IP-Adapter (UNet hooks) and the request
-    features no test holds on SD3 raise before any work is done."""
+    """ControlNets, the IP-Adapter (UNet hooks) and the request features no
+    test holds on SD3 raise before any work is done (LoRA, the hires fix and
+    inpainting are held in tests/test_torch_family_features_dit.py)."""
     from forge_tpu_torch.pipeline.processing import Processing, process_images
 
     teng = engines[1]
     fields = {
-        "lora": dict(prompt="a fox <lora:tiny:0.8>"),
         "controlnets": dict(controlnets=[object()]),
         "ip_adapter": dict(unet_hooks={"attn2_patch": [lambda q, k, v, extra: (q, k, v)]}),
         "tiled_diffusion": dict(tiled_diffusion={"tile": 8, "overlap": 2}),
-        "enable_hr": dict(enable_hr=True),
         "refiner": dict(refiner_checkpoint="refiner", refiner_switch_at=0.8),
         "regional_prompts": dict(regional_prompts=[dict(prompt="an owl",
                                                         area=(0, 0, 0.5, 1))]),
-        "inpaint_mask": dict(init_images=[np.zeros((32, 32, 3), np.uint8)],
-                             inpaint_mask=np.ones((32, 32), np.float32)),
     }[field]
     with pytest.raises(NotImplementedError, match="sd3"):
         process_images(teng, Processing(**dict(REQUEST, **fields)))
